@@ -1,0 +1,81 @@
+"""Built-in brute scenes as scene-DSL text.
+
+Three scenes in the style of the reference's brute-force benchmarks
+(SURVEY §6: 1000×1000, 10 bounces), written out here so that the port's
+smoke run and tests need no scene files:
+
+- ``CORNELL``: a box of five diffuse walls (red left, green right), a quad
+  area light with emit 30 and two boxes built from quads — 16 quads, 32
+  triangles.
+- ``CORNELL_PLUS``: the same box plus a glass sphere (ior 1.5) and a mirror
+  sphere (metallicity 1).
+- ``SPHERES``: a radius-10000 ground, an emissive radius-40000 sun with
+  emit 40, a blue sky, one metal ball and one glass ball.
+
+Each ``image`` line is the full-size configuration: 1000×1000, 100 rays per
+pixel, 10 bounces, exposure 1. Callers shrink it with config overrides.
+"""
+
+from __future__ import annotations
+
+
+def _box(material: str, x0: float, x1: float, z0: float, z1: float, h: float) -> str:
+    """Four side quads and a top quad of an axis-aligned box on the floor."""
+    quads = [
+        (x0, 0, z0, x1, 0, z0, x1, h, z0, x0, h, z0),
+        (x1, 0, z0, x1, 0, z1, x1, h, z1, x1, h, z0),
+        (x1, 0, z1, x0, 0, z1, x0, h, z1, x1, h, z1),
+        (x0, 0, z1, x0, 0, z0, x0, h, z0, x0, h, z1),
+        (x0, h, z0, x1, h, z0, x1, h, z1, x0, h, z1),
+    ]
+    return "".join(
+        f"quad {material} " + " ".join(f"{v:g}" for v in q) + "\n" for q in quads
+    )
+
+
+_CORNELL_BOX = (
+    "material light diffuse 0 0 0 specular 0 0 0 emit 30 30 30\n"
+    "material white diffuse 0.73 0.73 0.73\n"
+    "material red diffuse 0.65 0.05 0.05\n"
+    "material green diffuse 0.12 0.45 0.15\n"
+    "quad white -1 0 -1 1 0 -1 1 0 1 -1 0 1\n"
+    "quad white -1 2 -1 -1 2 1 1 2 1 1 2 -1\n"
+    "quad white -1 0 1 1 0 1 1 2 1 -1 2 1\n"
+    "quad red -1 0 -1 -1 0 1 -1 2 1 -1 2 -1\n"
+    "quad green 1 0 -1 1 2 -1 1 2 1 1 0 1\n"
+    "quad light -0.25 1.999 -0.25 0.25 1.999 -0.25 0.25 1.999 0.25 -0.25 1.999 0.25\n"
+    + _box("white", -0.6, -0.1, 0.1, 0.6, 1.2)
+    + _box("white", 0.1, 0.6, -0.5, 0.0, 0.6)
+)
+
+_CORNELL_VIEW = (
+    "camera position 0 1 -3.5 forward 0 0 1 up 0 1 0 fov 40\n"
+    "image 1000 1000 100 10 1\n"
+)
+
+CORNELL = _CORNELL_BOX + _CORNELL_VIEW
+
+CORNELL_PLUS = (
+    _CORNELL_BOX
+    + "material glass ior 1.5\n"
+    "material mirror specular 0.9 0.9 0.9 metallicity 1\n"
+    "sphere glass 0.35 0.8 -0.25 0.2\n"
+    "sphere mirror -0.55 0.25 -0.45 0.25\n"
+    + _CORNELL_VIEW
+)
+
+SPHERES = (
+    "material ground diffuse 0.8 0.8 0.6\n"
+    "material sun diffuse 0 0 0 specular 0 0 0 emit 40 40 40\n"
+    "material metal specular 0.9 0.9 0.9 metallicity 1 roughness 0.05\n"
+    "material glass ior 1.5\n"
+    "sphere ground 0 -10000 0 10000\n"
+    "sphere sun 0 150000 200000 40000\n"
+    "sphere metal 1.2 1 0 1\n"
+    "sphere glass -1.2 1 0 1\n"
+    "sky 0.2 0.4 0.9\n"
+    "camera position 0 1.5 -6 forward 0 -0.1 1 up 0 1 0 fov 50\n"
+    "image 1000 1000 100 10 1\n"
+)
+
+SCENES = {"cornell": CORNELL, "cornell_plus": CORNELL_PLUS, "spheres": SPHERES}

@@ -1,0 +1,89 @@
+"""Build and load the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
+shared library with a plain C interface and loaded with ``ctypes``. The
+build runs at first use, from the sources in the package only, into
+``cuda_raytracer_tpu_torch/_build/`` (listed in ``.gitignore``); the library
+name carries a hash of the source and flags, so an edited source rebuilds
+and an unchanged one loads at once.
+
+Numerics flags: no ``--use_fast_math`` (IEEE division and square root,
+accurate sin/cos) and ``-fmad=false`` (no multiply-add contraction), so the
+kernels round like the plain PyTorch versions they are held against.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR / "_build"
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+
+@dataclasses.dataclass
+class Built:
+    """A loaded kernel library and how it was obtained."""
+
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float  # compile time, 0.0 when an existing build was loaded
+    log: str  # nvcc / ptxas output of the compile ("" when loaded)
+
+
+_LOADED: Dict[str, Built] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError(
+        "nvcc not found (PATH or /usr/local/cuda/bin); the CUDA kernels are "
+        "built from source at first use and need the CUDA toolkit"
+    )
+
+
+def load(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` if needed and load it (cached per process)."""
+    if name in _LOADED:
+        return _LOADED[name]
+    source = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(
+        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    target = BUILD_DIR / f"lib{name}-{digest}.so"
+    seconds, log = 0.0, ""
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        partial = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(partial), str(source)]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - start
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            partial.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+        os.replace(partial, target)
+    built = Built(ctypes.CDLL(str(target)), target, seconds, log)
+    _LOADED[name] = built
+    return built

@@ -1,0 +1,144 @@
+"""End-to-end render orchestration (counterpart of ``cuda_raytracer_tpu/render/pipeline.py``).
+
+The pass loop mirrors the reference (raytracing.cu:222-254): samples are
+traced in passes of at most ``max_rays_per_pixel_per_pass`` (20) rays per
+pixel, pass seed = samples remaining after the pass, each pass adding raw
+radiance sums into one framebuffer. Rays are pixel-major (ray i → pixel
+i // rpp), so a block's per-pixel sums are a reshape-sum.
+
+Brute scenes on a CUDA device trace each pass in one launch of the shade
+kernel (``ops/kernels/shade.py``); everything else runs the plain wavefront
+path in blocks of at most ``RAY_BLOCK`` rays. Checkpoint / resume, metrics
+and the packet-cap auto-retry belong to later slices.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from cuda_raytracer_tpu_torch.models.scene import Scene
+from cuda_raytracer_tpu_torch.ops import bloom as bloom_ops
+from cuda_raytracer_tpu_torch.ops import tonemap as tonemap_ops
+from cuda_raytracer_tpu_torch.ops.kernels import shade
+from cuda_raytracer_tpu_torch.render import wavefront
+
+# Rays per traced block on the wavefront path: bounds the (rays × prims)
+# intermediates of the brute intersector.
+RAY_BLOCK = 1 << 18
+
+
+def _render_block(
+    scene: Scene,
+    framebuffer: torch.Tensor,  # (pixels, 3) — updated in place
+    pass_seed: int,
+    block_lo: int,  # first ray id of the block
+    rays_per_pixel: int,
+    block_rays: int,
+    bounces: int,
+    sort_rays: bool,
+    reparam: bool = False,
+) -> Tuple[torch.Tensor, int]:
+    """Trace rays [block_lo, block_lo + block_rays) and add their radiance
+    into the framebuffer rows they cover (blocks are whole-pixel runs)."""
+    ray_id = block_lo + torch.arange(block_rays, dtype=torch.int32, device=scene.device)
+    block_pixels = block_rays // rays_per_pixel
+    suspect = 0
+    if shade.megakernel_eligible(scene, reparam):
+        collected = shade.shade_trace(scene, ray_id, rays_per_pixel, pass_seed, bounces)
+        contribution = collected.reshape(block_pixels, rays_per_pixel, 3).sum(dim=1)
+    else:
+        state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
+        state, suspect = wavefront.trace_wavefront(
+            scene, state, pass_seed, bounces, sort_rays, reparam=reparam
+        )
+        contribution = wavefront.accumulate_radiance(
+            state, rays_per_pixel, block_pixels,
+            ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces),
+        )
+    px_lo = block_lo // rays_per_pixel
+    # In place: where the JAX version donates the framebuffer buffer to XLA
+    # between blocks, the port adds into the block's rows directly.
+    framebuffer[px_lo:px_lo + block_pixels] += contribution
+    return framebuffer, suspect
+
+
+def render_pass(
+    scene: Scene,
+    framebuffer: torch.Tensor,  # (pixels, 3) raw accumulated sums — in place
+    pass_seed: int,  # the reference's `remaining_rays`
+    rays_per_pixel: int,
+    bounces: int,
+    sort_rays: bool,
+    reparam: bool = False,
+) -> Tuple[torch.Tensor, int]:
+    """Trace one pass of ``rays_per_pixel`` samples for every pixel into the
+    framebuffer: one block for the shade kernel, ≤ RAY_BLOCK-ray blocks of
+    whole pixels otherwise. Returns (framebuffer, suspect)."""
+    pixels = framebuffer.shape[0]
+    total = pixels * rays_per_pixel
+    if total >= 1 << 31:
+        raise ValueError(f"{total} rays in one pass exceed the int32 ray ids")
+    if shade.megakernel_eligible(scene, reparam):
+        block = total
+    else:
+        block = max(rays_per_pixel, (RAY_BLOCK // rays_per_pixel) * rays_per_pixel)
+    suspect = 0
+    for lo in range(0, total, block):
+        framebuffer, s = _render_block(
+            scene, framebuffer, pass_seed, lo, rays_per_pixel,
+            min(block, total - lo), bounces, sort_rays, reparam,
+        )
+        suspect += s
+    return framebuffer, suspect
+
+
+def render_framebuffer(scene: Scene) -> torch.Tensor:
+    """Full multi-pass render → raw accumulated (pixels, 3) framebuffer on
+    the scene's device."""
+    cfg = scene.config
+    framebuffer = torch.zeros((scene.num_pixels, 3), dtype=torch.float32, device=scene.device)
+    remaining = cfg.rays_per_pixel
+    suspects = 0
+    while remaining:
+        chunk = min(remaining, cfg.max_rays_per_pixel_per_pass)
+        remaining -= chunk
+        framebuffer, suspect = render_pass(
+            scene, framebuffer, remaining,
+            rays_per_pixel=chunk, bounces=cfg.bounces, sort_rays=cfg.sort_rays,
+        )
+        suspects += suspect
+    if suspects:
+        raise RuntimeError(
+            f"closest-hit exactness certificate failed: {suspects} suspect ray-bounces"
+        )
+    return framebuffer
+
+
+def render_image(
+    scene: Scene, apply_bloom: bool = True, framebuffer: torch.Tensor = None
+) -> np.ndarray:
+    """Render to an (H, W, 3) uint8 image: pass loop → optional bloom on the
+    raw sums → exposure/tonemap/sRGB."""
+    cfg = scene.config
+    if framebuffer is None:
+        framebuffer = render_framebuffer(scene)
+    image = framebuffer.reshape(cfg.height, cfg.width, 3)
+    if apply_bloom:
+        image = bloom_ops.apply_bloom(image, cfg.rays_per_pixel)
+    display = tonemap_ops.tonemap(image, cfg.exposure, cfg.rays_per_pixel)
+    return tonemap_ops.to_bytes(display).cpu().numpy()
+
+
+def render_timed(scene: Scene) -> tuple:
+    """Render with the reference's timing scope (the trace phase only,
+    ending when the device has finished). Returns (uint8 image, seconds)."""
+    start = time.perf_counter()
+    framebuffer = render_framebuffer(scene)
+    if framebuffer.device.type == "cuda":
+        torch.cuda.synchronize(framebuffer.device)
+    elapsed = time.perf_counter() - start
+    return render_image(scene, framebuffer=framebuffer), elapsed
