@@ -3,13 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, a forward render of a brute scene at the
-reference benchmark shape (1000×1000, 100 rays per pixel in five passes of
-20, 10 bounces), through the shade kernel, and checks it. Phases, one line
-each:
+Drives the port's two main paths at the reference benchmark shape
+(1000×1000, 100 rays per pixel in five passes of 20, 10 bounces): a
+forward render of a brute scene through the shade kernel, and of a
+126,000-triangle mesh through the packet kernels (fused1 for passes of
+>= 10 rays per pixel, cull + fused below), and checks both. Phases, one
+line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compile ``csrc/shade.cu`` with nvcc, print seconds and registers;
+2. build: compile ``csrc/shade.cu``, ``cull.cu``, ``fused.cu`` and
+   ``fused1.cu`` with nvcc, all four at once; print seconds and registers;
 3. kernel vs plain: each built-in scene at 64×64, 4 rays per pixel and 10
    bounces, plus an unaligned block (ray ids 100..359): per-ray agreement
    with the plain PyTorch version (max |Δ| < 1e-3 on ≥ 99.9 % of rays, none
@@ -22,7 +25,30 @@ each:
    events), the plain version over the same pass in 2^18-ray blocks and at
    one 2^18 block, the live ray-bounces it holds, the FP32 bound they imply,
    and the kernel held against the plain version at that full shape; then
-   the kernel alone on a cornell_plus and a spheres pass.
+   the kernel alone on a cornell_plus and a spheres pass;
+6. packet kernels vs plain: the torus and glass torus (126,000 triangles)
+   at 64×64, 4 rays per pixel, the wavefront entering bounces 0-3 (coherent
+   primary rays, then Morton-sorted bounced ones), cut to an unaligned ray
+   count: cull (with and without hit words), fused (with and without the
+   skip test, one and two shards) and fused1 (flat and gated, one and two
+   shards) must equal their plain versions bit for bit;
+7. mesh main path: ``render_timed`` of the torus at 1000×1000 and 10
+   bounces, each after one untimed warm-up render: 100 rays per pixel
+   (fused1 regime) and 8 rays per pixel in one pass (cull + fused regime);
+   launch counts per kernel (> 0 for the regime's kernels, 0 for the
+   others), finite framebuffer, sane mean display value, identical rerender;
+   then the 100-ray-per-pixel render once more through cull + fused
+   (``packet_backend="fused"``), which must give the same image: the two
+   regimes compared end to end;
+8. packet timing: the 2^18-ray block of the 20-rays-per-pixel pass that
+   holds the image centre,
+   entering bounce 0 and bounce 1 (sorted): each kernel and its plain
+   version (CUDA events, median), the slab tests of live rays and the
+   Möller–Trumbore tests of live rays against real (unpadded) triangles
+   that the kernel did, the bound they imply, and bit-equality at that full
+   shape; then that block's whole trace (10 bounces) under torch.profiler,
+   through fused1 and through cull + fused: device time by kernel, the
+   packet kernels' time per bounce and the device's idle share.
 
 Then one JSON line per the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without a
@@ -65,6 +91,35 @@ SPHERE_OPS = 21
 TRI_OPS = 46
 SHADE_OPS = 98
 CAMERA_OPS = 29
+
+# Mesh path. FP32 operations per test, counted from csrc/packet.cuh:
+#   slab test (rt::slab) per (live ray, box): 3 axes × (2 sub, 2 mul,
+#                 4 min/max)                                         = 24
+#                 (the safe inverse, 3 per ray, is amortised over K)
+#   Möller–Trumbore (rt::mt_t) per (live ray, real triangle of a swept
+#                 cluster; padding slots excluded): h 6 mul + 3 sub,
+#                 det 3 mul + 2 add, f 3 sub, ud 5, q 9, vd 5, td 5,
+#                 |det| 1, us vs ts 3 mul, us+vs 1, eps·|det| 1      = 47
+#                 (+1 division per accepted hit, not counted)
+SLAB_OPS = 24
+MT_OPS = 47
+MESH_FULL_SPP = 100
+MESH_FEW_SPP = 8  # one pass below the fused1 threshold: cull + fused
+MESH_SMALL_RPP = 4
+MESH_SMALL_BOUNCES = 4
+BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
+BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
+
+KERNEL_SOURCES = ("shade", "cull", "fused", "fused1")
+# (name, source, the TPU kernel it replaces) of the mesh path's kernels.
+PACKET_KERNELS = (
+    ("cull_tiles", "cuda_raytracer_tpu_torch/csrc/cull.cu",
+     "cuda_raytracer_tpu/ops/pallas/cull.py:76"),
+    ("fused_closest_hit", "cuda_raytracer_tpu_torch/csrc/fused.cu",
+     "cuda_raytracer_tpu/ops/pallas/fused.py:527"),
+    ("fused1_closest_hit", "cuda_raytracer_tpu_torch/csrc/fused1.cu",
+     "cuda_raytracer_tpu/ops/pallas/fused1.py:148"),
+)
 
 
 def _smi() -> str:
@@ -219,6 +274,333 @@ def phase_timing(device) -> dict:
                 max_abs_err=worst, agreement=agree)
 
 
+def _mesh_scene(name: str, device):
+    """A full-size mesh scene (1000×1000, 100 spp, 10 bounces) on the card.
+    Parsing and the NumPy BVH build are set-up, outside every timed scope."""
+    from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+
+    start = time.perf_counter()
+    scene = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene(name), device=device)
+    table = scene.cluster_blocks
+    print(f"phase 6 setup: {name} triangles={scene.triangle_count} "
+          f"clusters={scene.num_clusters} cluster_tris={scene.cluster_tris} "
+          f"table_MB={table.numel() * table.element_size() / 1e6:.2f} "
+          f"setup_seconds={time.perf_counter() - start:.1f}")
+    return scene
+
+
+def _resized(scene, width: int, height: int):
+    """The scene seen at another resolution (camera basis rebuilt)."""
+    from cuda_raytracer_tpu_torch.models.scene import precompute_camera
+
+    cam = scene.camera
+    camera = precompute_camera(
+        cam.position.cpu().numpy(), cam.forward.cpu().numpy(), cam.up.cpu().numpy(),
+        cam.vertical_fov, width, height, device=scene.device,
+    )
+    return scene.replace(camera=camera).with_config(width=width, height=height)
+
+
+def _packet_rays(scene, state, tile: int):
+    """od8 of a wavefront as closest_hit builds it: the sphere hit (or 1e30)
+    as window, -1 for dead rays, padded to whole tiles."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import intersect, packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import cull
+
+    alive = torch.any(state.transmitted != 0.0, dim=-1)
+    t, _ = intersect.intersect_spheres(state.origin, state.direction,
+                                       scene.sphere_center, scene.sphere_radius)
+    window = torch.where(alive, t, -1.0)
+    padded = packet_intersect._pad_rays(state.origin, state.direction, window, tile)
+    return cull.make_od8(*padded, tile)
+
+
+def _sharded(fn, K: int, shards: int):
+    """Run ``fn(lo, hi)`` over ``shards`` cluster ranges and merge."""
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+
+    out = None
+    for s in range(shards):
+        lo, hi = K * s // shards, K * (s + 1) // shards
+        out = packet_intersect._merge(out, *fn(lo, hi))
+    return out
+
+
+def _packet_cases(scene, od8):
+    """Every kernel variant of the mesh path on one ray batch, each against
+    its plain version → {kernel: (cases, mismatched elements, max |Δ|)}."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1
+
+    K = scene.num_clusters
+    cmin, cmax = scene.cluster_min, scene.cluster_max
+    aabb = cull.box_table(cmin, cmax)
+    blocks = scene.cluster_blocks[:K].contiguous()
+    entry, mask = cull.cull_tiles(od8, aabb, with_mask=True)
+    entry_only = cull.cull_tiles(od8, aabb)
+    e_ref, m_ref = cull.plain_cull(od8, aabb, with_mask=True)
+    select = e_ref < cull.MISS_ENTRY * 0.5
+    ref = fused.plain_fused(od8, blocks, fused.pack_words(select))
+    ref1 = fused1.plain_fused1(od8, aabb, blocks)
+
+    def err(got, want):
+        bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+        worst = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+        return bad, worst
+
+    out = {"cull_tiles": [err((entry, mask), (e_ref, m_ref)), err((entry_only,), (e_ref,))],
+           "fused_closest_hit": [], "fused1_closest_hit": [
+               err(ref1, ref)]}  # the two plain versions agree too
+    for skip in (False, True):
+        for shards in (1, 2):
+            got = _sharded(lambda lo, hi: fused.fused_closest_hit(
+                od8, blocks[lo:hi].contiguous(), fused.pack_words(select[:, lo:hi]),
+                entry[:, lo:hi].contiguous() if skip else None,
+                mask[:, :, lo:hi].contiguous() if skip else None), K, shards)
+            out["fused_closest_hit"].append(err(got, ref))
+    for gate in (0, 16):
+        for shards in (1, 2):
+            got = _sharded(lambda lo, hi: fused1.fused1_closest_hit(
+                od8, cull.box_table(cmin[lo:hi], cmax[lo:hi]), blocks[lo:hi].contiguous(),
+                fused1.shard_supers(cmin[lo:hi], cmax[lo:hi], gate) if gate else None,
+                gate), K, shards)
+            out["fused1_closest_hit"].append(err(got, ref1))
+    torch.cuda.synchronize()
+    return {k: (len(v), sum(b for b, _ in v), max(w for _, w in v)) for k, v in out.items()}
+
+
+def phase_packet_vs_plain(scenes) -> dict:
+    import torch
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    worst = {}
+    for name, full in scenes.items():
+        scene = _resized(full, 64, 64)
+        rays = 64 * 64 * MESH_SMALL_RPP
+        ray_id = torch.arange(rays, dtype=torch.int32, device=scene.device)
+        state = wavefront.make_initial_state(scene, ray_id, MESH_SMALL_RPP, 3)
+        for bounce in range(MESH_SMALL_BOUNCES):
+            cut = wavefront.RayState(*(leaf[:rays - 37] for leaf in state))  # unaligned
+            results = _packet_cases(scene, _packet_rays(scene, cut, scene.config.packet_tile))
+            for kernel, (cases, bad, err) in results.items():
+                print(f"phase 6 kernel vs plain: {name} bounce={bounce} rays={rays - 37} "
+                      f"{kernel} cases={cases} mismatched={bad} max_abs_err={err:.3g}")
+                if bad:
+                    raise SystemExit(f"phase 6 failed: {kernel} differs from its plain "
+                                     f"version ({name}, bounce {bounce})")
+                worst[kernel] = max(worst.get(kernel, 0.0), err)
+            state, _ = wavefront.process_rays(scene, state, 3, bounce)
+            state = wavefront.reorder_rays(scene, state)
+    return worst
+
+
+def phase_mesh_main_path(full) -> dict:
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    modules = {"shade_trace": shade, "cull_tiles": cull, "fused_closest_hit": fused,
+               "fused1_closest_hit": fused1}
+    launches, images = {}, {}
+    for spp, backend, regime in (
+        (MESH_FULL_SPP, "auto", ("fused1_closest_hit",)),
+        (MESH_FEW_SPP, "auto", ("cull_tiles", "fused_closest_hit")),
+        # The 100-spp render forced through cull + fused: the regimes compared
+        # end to end. No warm-up (every kernel is built and warm by now); it
+        # must give the fused1 regime's image bit for bit.
+        (MESH_FULL_SPP, "fused", ("cull_tiles", "fused_closest_hit")),
+    ):
+        scene = full.with_config(rays_per_pixel=spp, packet_backend=backend)
+        main = backend == "auto"
+        if main:
+            framebuffer = pipeline.render_framebuffer(scene)  # warm-up, checked below
+        torch.cuda.synchronize()
+        for module in modules.values():
+            module.LAUNCHES = 0
+        image, seconds = pipeline.render_timed(scene)
+        counts = {name: module.LAUNCHES for name, module in modules.items()}
+        if main:
+            finite = bool(torch.isfinite(framebuffer).all())
+            same = bool((pipeline.render_image(scene, framebuffer=framebuffer) == image).all())
+            images[spp] = image
+        else:
+            finite, same = True, bool((image == images[spp]).all())
+        mean = float(image.mean())
+        rays = scene.num_pixels * spp
+        print(f"phase 7 mesh main path: torus {scene.config.width}x{scene.config.height} "
+              f"spp={spp} bounces={scene.config.bounces} packet_backend={backend} "
+              f"regime={'+'.join(regime)} seconds={seconds:.4f} "
+              f"Mrays/s={rays / seconds / 1e6:.2f} launches={json.dumps(counts)} "
+              f"finite={finite} mean_display={mean:.2f} "
+              f"{'rerender_identical' if main else 'identical_to_fused1_regime'}={same}")
+        ok = all(counts[k] > 0 for k in regime) and all(
+            counts[k] == 0 for k in counts if k not in regime)
+        if not (ok and finite and same and 20.0 <= mean <= 235.0):
+            raise SystemExit(f"phase 7 failed: torus at {spp} spp, packet_backend={backend}")
+        if main:
+            launches.update({k: counts[k] for k in regime})
+    return launches
+
+
+def _centre_block(scene, rpp: int):
+    """(first ray id, rays) of the pass block that holds the image centre:
+    the pipeline's own blocking, at a block that sees the mesh."""
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    block = (pipeline.RAY_BLOCK // rpp) * rpp
+    centre = (scene.config.height // 2 * scene.config.width + scene.config.width // 2) * rpp
+    return centre // block * block, block
+
+
+def phase_mesh_profile(full) -> None:
+    """Where one pass block's time goes: the centre block of a 20-spp pass,
+    10 bounces, under torch.profiler, through the fused1 regime and through
+    cull + fused (device time by kernel, the packet kernels' time per
+    bounce, device busy share of the wall time)."""
+    for backend, kernels in (("fused1", ("fused1_kernel",)),
+                             ("fused", ("cull_kernel", "fused_kernel"))):
+        _profile_block(full.with_config(rays_per_pixel=20, packet_backend=backend),
+                       backend, kernels)
+
+
+def _profile_block(scene, backend: str, kernels) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+
+    rpp, seed = scene.config.rays_per_pixel, 80
+    block_lo, block = _centre_block(scene, rpp)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    bounds = wavefront.trace_live_bounds(
+        scene, wavefront.make_initial_state(scene, ids, rpp, seed), seed,
+        scene.config.bounces, True)
+    framebuffer = torch.zeros((scene.num_pixels, 3), device=scene.device)
+
+    def run():
+        pipeline._render_block(scene, framebuffer, seed, block_lo, rpp, block,
+                               scene.config.bounces, True)
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    kernel_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
+    print(f"phase 8 profile: torus centre block packet_backend={backend} rays={block} "
+          f"bounces={scene.config.bounces} live_bounds={bounds} wall_ms={wall_ms:.2f} "
+          f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
+          f"packet_kernels_ms={kernel_ms:.3f} device_ops={sum(r[1] for r in rows)}")
+    for dev_ms, count, key in rows[:8]:
+        print(f"phase 8 profile: {backend} top device time {dev_ms:.3f} ms x{count} "
+              f"{key[:90]}")
+    for name in kernels:
+        per_launch = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
+        print(f"phase 8 profile: {backend} {name} ms per bounce "
+              + " ".join(f"{us / 1e3:.3f}" for us in per_launch))
+
+
+def phase_packet_timing(full) -> dict:
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1
+    from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+
+    rpp, seed = 20, 80
+    scene = full.with_config(rays_per_pixel=rpp)
+    block_lo, block = _centre_block(scene, rpp)
+    ray_id = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    state0 = wavefront.make_initial_state(scene, ray_id, rpp, seed)
+    state1 = wavefront.reorder_rays(scene, wavefront.process_rays(scene, state0, seed, 0)[0])
+    K, C, tile = scene.num_clusters, scene.cluster_tris, scene.config.packet_tile
+    cmin, cmax = scene.cluster_min, scene.cluster_max
+    aabb = cull.box_table(cmin, cmax)
+    blocks = scene.cluster_blocks[:K].contiguous()
+    sup = fused1.shard_supers(cmin, cmax, 16)
+    real = (blocks[:, 9, :] >= 0).sum(dim=1)  # real (unpadded) triangles per cluster
+    f4 = 4  # bytes per float32 / int32 word
+    results = {}
+    for bounce, state in ((0, state0), (1, state1)):
+        od8 = _packet_rays(scene, state, tile)
+        T = od8.shape[0]
+        entry, mask = cull.cull_tiles(od8, aabb, with_mask=True)
+        select = entry < cull.MISS_ENTRY * 0.5
+        words = fused.pack_words(select)
+        stats = torch.zeros(3, dtype=torch.int64, device=scene.device)
+        stats1 = torch.zeros(3, dtype=torch.int64, device=scene.device)
+        runs = {
+            "cull_tiles": (lambda: cull.cull_tiles(od8, aabb, with_mask=True),
+                           lambda: cull.plain_cull(od8, aabb, with_mask=True)),
+            "fused_closest_hit": (
+                lambda: fused.fused_closest_hit(od8, blocks, words, entry, mask),
+                lambda: fused.plain_fused(od8, blocks, words)),
+            "fused1_closest_hit": (
+                lambda: fused1.fused1_closest_hit(od8, aabb, blocks, sup, 16),
+                lambda: fused1.plain_fused1(od8, aabb, blocks)),
+        }
+        fused.fused_closest_hit(od8, blocks, words, entry, mask, stats=stats)
+        fused1.fused1_closest_hit(od8, aabb, blocks, sup, 16, stats=stats1)
+        live = int(torch.any(state.transmitted != 0.0, dim=-1).sum())
+        live_tile = (od8[:, 6, :] >= 0).sum(dim=1)  # live rays per tile
+        pairs = int(select.sum())
+        # The Möller–Trumbore tests every culled pair needs (what the plain
+        # version's sweep does, less dead rays and padding slots).
+        pair_mts = int((select * live_tile[:, None] * real).sum())
+        od8_bytes = od8.numel() * f4
+        out_bytes = T * tile * 2 * f4
+        box_bytes = BOX_ROWS * K * f4
+        # The rows the sweep reads, once, of every cluster some tile selects.
+        table_bytes = int(select.any(dim=0).sum()) * BLOCK_ROWS * C * f4
+        work = {  # (slab tests, MT tests, bytes) the data needs and the kernel did
+            "cull_tiles": (int(live_tile.sum()) * K, 0,
+                           od8_bytes + box_bytes + (entry.numel() + mask.numel()) * f4),
+            "fused_closest_hit": (0, int(stats[2]),
+                                  od8_bytes + table_bytes + words.numel() * f4
+                                  + (entry.numel() + mask.numel()) * f4 + out_bytes),
+            "fused1_closest_hit": (int(stats1[0]), int(stats1[2]),
+                                   od8_bytes + box_bytes + sup.numel() * f4
+                                   + table_bytes + out_bytes),
+        }
+        swept = {"cull_tiles": 0, "fused_closest_hit": int(stats[1]),
+                 "fused1_closest_hit": int(stats1[1])}
+        for name, (kernel, plain) in runs.items():
+            ms = _cuda_ms(kernel, 5)
+            plain_ms = _cuda_ms(plain, 3)
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            slabs, mts, nbytes = work[name]
+            ops_ms = (slabs * SLAB_OPS + mts * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            print(f"phase 8 timing: torus block lo={block_lo} rays={block} bounce={bounce} "
+                  f"live={live} {name} ms={ms:.3f} plain_ms={plain_ms:.1f} slab_tests={slabs} "
+                  f"mt_tests={mts} swept_pairs={swept[name]} culled_pairs={pairs} "
+                  f"culled_pair_mt_tests={pair_mts} "
+                  f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
+                  f"bound_share={bound_ms / ms:.3f} full_shape_mismatched={bad} "
+                  f"max_abs_err={err:.3g}")
+            if bad:
+                raise SystemExit(f"phase 8 failed: {name} differs from its plain version")
+            results[(name, bounce)] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    # The kernel table reports the sorted bounced block (bounce 1): bounces
+    # 1-9 of every pass are sorted bounced wavefronts.
+    return {name: results[(name, 1)] for name in runs}
+
+
 def main() -> int:
     import torch
 
@@ -226,7 +608,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
         return 1
-    from cuda_raytracer_tpu_torch.ops.kernels import shade
+    from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1, shade
 
     device = torch.device("cuda")
     smi = _smi()
@@ -235,16 +617,24 @@ def main() -> int:
           f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     start = time.perf_counter()
-    built = shade.library()
-    regs = [ln.strip() for ln in built.log.splitlines() if "registers" in ln]
-    print(f"phase 2 build: shade.cu seconds={time.perf_counter() - start:.2f} "
-          f"nvcc_seconds={built.seconds:.2f} {' | '.join(regs)}")
+    built = build.load_all(KERNEL_SOURCES)
+    for module in (shade, cull, fused, fused1):
+        module.library()  # bind the argument types
+    for name, b in built.items():
+        regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
+        print(f"phase 2 build: {name}.cu nvcc_seconds={b.seconds:.2f} {' | '.join(regs)}")
+    print(f"phase 2 build: all seconds={time.perf_counter() - start:.2f}")
 
     phase_kernel_vs_plain(device)
     main_path = phase_main_path(device)
     timing = phase_timing(device)
+    scenes = {name: _mesh_scene(name, device) for name in ("torus", "glass_torus")}
+    worst = phase_packet_vs_plain(scenes)
+    mesh_launches = phase_mesh_main_path(scenes["torus"])
+    mesh_timing = phase_packet_timing(scenes["torus"])
+    phase_mesh_profile(scenes["torus"])
 
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "shade_trace",
         "route": "cuda",
         "source": "cuda_raytracer_tpu_torch/csrc/shade.cu",
@@ -258,7 +648,24 @@ def main() -> int:
         "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": None,
-    }]}))
+    }]
+    for name, source, replaces in PACKET_KERNELS:
+        t = mesh_timing[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": mesh_launches[name],
+            "max_abs_err": max(worst[name], t["max_abs_err"]),
+            "tolerance": "bit-equal",
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

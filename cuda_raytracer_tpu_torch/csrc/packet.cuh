@@ -1,0 +1,494 @@
+// Shared bodies of the packet closest-hit kernels (cull.cu, fused.cu,
+// fused1.cu), compiled twice: by nvcc for the card and by the host C++
+// compiler for the CPU tests (packet_host.cpp).
+//
+// Everything the kernels compute is written here once: the windowed Tavian
+// slab test, the Moller-Trumbore t-plane, the (t, tri) fold, and each
+// kernel's whole per-block driver. A driver is a template over an executor
+// that says which ray rows the calling thread owns and how the block
+// synchronises:
+//
+//   - on the card (DeviceExec) a thread owns rows threadIdx.x,
+//     threadIdx.x + blockDim.x, ...; any() is __syncthreads_or and sync() is
+//     __syncthreads();
+//   - on the host (HostExec) the single caller owns every row, any() is the
+//     identity and sync() does nothing, so one call runs the whole block.
+//
+// Per-ray state that must survive a synchronisation lives in arrays in
+// shared memory (on the host: a plain buffer), indexed by ray row, so the
+// same driver code is correct under both executors.
+//
+// Numerics follow the plain PyTorch versions (ops/kernels/cull.py,
+// fused.py, fused1.py) expression for expression: left-to-right sums,
+// NaN-propagating min/max with torch.minimum / torch.maximum's tie rule (the
+// first operand wins), the safe inverse direction of ops/traverse.py, and
+// t = td / det. Both builds disable multiply-add contraction (nvcc
+// -fmad=false, g++ -ffp-contract=off).
+
+#pragma once
+
+#include <stddef.h>
+#include <stdint.h>
+
+#ifdef __CUDACC__
+#define RT_HD __host__ __device__ __forceinline__
+#else
+#define RT_HD inline
+#endif
+
+namespace rt {
+
+constexpr float kHitEps = 0.005f;
+constexpr float kMiss = 1e30f;        // "no hit" distance of the sweep
+constexpr float kMissEntry = 1e30f;   // cull entry of a box no ray of a tile hits
+constexpr float kTiny = 1e-30f;
+constexpr float kHuge = 1e30f;
+// 1 - 2^-14: conservative relative slack on the slab-entry skip threshold
+// (ops/pallas/fused.py SKIP_SLACK); a pair is skipped only when its slightly
+// shrunk entry lies beyond every demanding ray's current bound.
+constexpr float kSkipSlack = 0.99993896484375f;
+constexpr int kChunk = 128;  // boxes per fused1 cull chunk
+constexpr int kBlockRows = 10;  // block rows read by the sweep: p1 e1 e2, tri id
+
+RT_HD bool is_nan(float x) { return x != x; }
+
+// torch.minimum / torch.maximum: NaN wins, otherwise the first operand wins
+// ties (so -0 / +0 come out as the plain version's do).
+RT_HD float min_nan(float a, float b) {
+  return is_nan(a) ? a : (is_nan(b) ? b : (b < a ? b : a));
+}
+RT_HD float max_nan(float a, float b) {
+  return is_nan(a) ? a : (is_nan(b) ? b : (a < b ? b : a));
+}
+
+// ops/traverse._safe_inv_dir: 1/d, with |d| < 1e-30 mapped to +-1e30.
+RT_HD float safe_inv(float d) {
+  const bool small = (d < 0.0f ? -d : d) < kTiny;
+  return small ? (d < 0.0f ? -kHuge : kHuge) : 1.0f / d;
+}
+
+// Windowed slab test of one ray against one box: the running [tmin, tmax]
+// window starts at [0, win] and is narrowed axis by axis in the order of
+// ops/pallas/cull.py. Returns hit (tmin <= tmax) and the entry tmin.
+RT_HD bool slab(const float o[3], const float inv[3], float win,
+                const float lo[3], const float hi[3], float& entry) {
+  float tmin = 0.0f;
+  float tmax = win;
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = (lo[a] - o[a]) * inv[a];
+    const float t2 = (hi[a] - o[a]) * inv[a];
+    tmin = min_nan(max_nan(t1, tmin), max_nan(t2, tmin));
+    tmax = max_nan(min_nan(t1, tmax), min_nan(t2, tmax));
+  }
+  entry = tmin;
+  return tmin <= tmax;
+}
+
+// The Moller-Trumbore t-plane of ops/pallas/sweep._mt_t_plane: the accepted
+// hit distance, or kMiss. Division-free sign-folded acceptance, then one
+// IEEE division for the reported t.
+RT_HD float mt_t(float ox, float oy, float oz, float dx, float dy, float dz,
+                 float p1x, float p1y, float p1z, float e1x, float e1y,
+                 float e1z, float e2x, float e2y, float e2z) {
+  const float hx = dy * e2z - dz * e2y;
+  const float hy = dz * e2x - dx * e2z;
+  const float hz = dx * e2y - dy * e2x;
+  const float det = hx * e1x + hy * e1y + hz * e1z;
+  const float fx = ox - p1x;
+  const float fy = oy - p1y;
+  const float fz = oz - p1z;
+  const float ud = fx * hx + fy * hy + fz * hz;
+  const float qx = fy * e1z - fz * e1y;
+  const float qy = fz * e1x - fx * e1z;
+  const float qz = fx * e1y - fy * e1x;
+  const float vd = dx * qx + dy * qy + dz * qz;
+  const float td = e2x * qx + e2y * qy + e2z * qz;
+  const float s = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
+  const float ad = det < 0.0f ? -det : det;
+  const float us = ud * s;
+  const float vs = vd * s;
+  const float ts = td * s;
+  const bool ok = (det != 0.0f) && (us >= 0.0f) && (us <= ad) && (vs >= 0.0f) &&
+                  (us + vs <= ad) && (ts >= kHitEps * ad);
+  return ok ? td / det : kMiss;
+}
+
+// The closest-hit fold: smaller t wins, equal t goes to the larger triangle
+// id. Order-independent, so pairs may be swept in any order.
+RT_HD void fold(float t, int tri, float& best, int& best_tri) {
+  if (t < kMiss && (t < best || (t == best && tri > best_tri))) {
+    best = t;
+    best_tri = tri;
+  }
+}
+
+RT_HD float inf_f() {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(0x7f800000);
+#else
+  return __builtin_huge_valf();
+#endif
+}
+
+RT_HD int ctz32(uint32_t w) {
+#ifdef __CUDA_ARCH__
+  return __ffs((int)w) - 1;
+#else
+  return __builtin_ctz(w);
+#endif
+}
+
+// Sweep one ray against a staged (kBlockRows, C) block and fold.
+RT_HD void sweep_ray(const float* blk, int C, float ox, float oy, float oz,
+                     float dx, float dy, float dz, float& best, int& best_tri) {
+  for (int j = 0; j < C; ++j) {
+    const float t = mt_t(ox, oy, oz, dx, dy, dz, blk[0 * C + j], blk[1 * C + j],
+                         blk[2 * C + j], blk[3 * C + j], blk[4 * C + j],
+                         blk[5 * C + j], blk[6 * C + j], blk[7 * C + j],
+                         blk[8 * C + j]);
+    fold(t, (int)blk[9 * C + j], best, best_tri);
+  }
+}
+
+// Real triangles of a staged block (padding slots carry triangle id -1):
+// the Moller-Trumbore tests a sweep of it needs per ray, for the stats.
+RT_HD int real_tris(const float* blk, int C) {
+  int n = 0;
+  for (int j = 0; j < C; ++j) n += blk[9 * C + j] >= 0.0f ? 1 : 0;
+  return n;
+}
+
+// Live rays (window >= 0) of a loaded tile, for the stats.
+RT_HD int live_rows(const float* win, int tile) {
+  int n = 0;
+  for (int r = 0; r < tile; ++r) n += win[r] >= 0.0f ? 1 : 0;
+  return n;
+}
+
+// ---- executors -------------------------------------------------------------
+
+#ifdef __CUDACC__
+// Every method is __host__ __device__ so the drivers' host-side template
+// instantiations compile; only the device side is ever run.
+struct DeviceExec {
+  RT_HD int first() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x;
+#else
+    return 0;
+#endif
+  }
+  RT_HD int step() const {
+#ifdef __CUDA_ARCH__
+    return blockDim.x;
+#else
+    return 1;
+#endif
+  }
+  RT_HD bool leader() const {
+#ifdef __CUDA_ARCH__
+    return threadIdx.x == 0;
+#else
+    return true;
+#endif
+  }
+  RT_HD bool any(bool v) const {
+#ifdef __CUDA_ARCH__
+    return __syncthreads_or(v) != 0;
+#else
+    return v;
+#endif
+  }
+  RT_HD void sync() const {
+#ifdef __CUDA_ARCH__
+    __syncthreads();
+#endif
+  }
+  RT_HD void or_bits(uint32_t* dst, uint32_t v) const {
+#ifdef __CUDA_ARCH__
+    if (v) atomicOr(dst, v);
+#else
+    *dst |= v;
+#endif
+  }
+  RT_HD void add(unsigned long long* dst, unsigned long long v) const {
+#ifdef __CUDA_ARCH__
+    atomicAdd(dst, v);
+#else
+    *dst += v;
+#endif
+  }
+};
+#endif
+
+struct HostExec {
+  int first() const { return 0; }
+  int step() const { return 1; }
+  bool leader() const { return true; }
+  bool any(bool v) const { return v; }
+  void sync() const {}
+  void or_bits(uint32_t* dst, uint32_t v) const { *dst |= v; }
+  void add(unsigned long long* dst, unsigned long long v) const { *dst += v; }
+};
+
+// ---- shared per-block state --------------------------------------------------
+
+// Ray rows of one tile: od8 layout (T, 8, tile), rows [ox oy oz dx dy dz win
+// pad]. `inv` is filled only where a driver needs it.
+struct RayTile {
+  float* o;    // [3 * tile]
+  float* d;    // [3 * tile]
+  float* inv;  // [3 * tile]
+  float* win;  // [tile]
+  float* acc;  // [tile]
+  int* acc_tri;  // [tile]
+};
+
+// Carve a RayTile from `mem` (12 * tile words); returns the next free word.
+RT_HD float* carve_rays(float* mem, int tile, RayTile& rt) {
+  rt.o = mem;
+  rt.d = mem + 3 * tile;
+  rt.inv = mem + 6 * tile;
+  rt.win = mem + 9 * tile;
+  rt.acc = mem + 10 * tile;
+  rt.acc_tri = reinterpret_cast<int*>(mem + 11 * tile);
+  return mem + 12 * tile;
+}
+
+template <class Exec>
+RT_HD void load_rays(const Exec& ex, const float* od8, int t, int tile,
+                     bool with_inv, RayTile& rt) {
+  const float* src = od8 + (size_t)t * 8 * tile;
+  for (int r = ex.first(); r < tile; r += ex.step()) {
+    for (int a = 0; a < 3; ++a) {
+      rt.o[a * tile + r] = src[a * tile + r];
+      rt.d[a * tile + r] = src[(3 + a) * tile + r];
+      if (with_inv) rt.inv[a * tile + r] = safe_inv(src[(3 + a) * tile + r]);
+    }
+    rt.win[r] = src[6 * tile + r];
+    rt.acc[r] = kMiss;
+    rt.acc_tri[r] = -1;
+  }
+}
+
+template <class Exec>
+RT_HD void stage_block(const Exec& ex, const float* blocks, int k, int C,
+                       float* blk) {
+  const float* src = blocks + (size_t)k * 16 * C;
+  for (int i = ex.first(); i < kBlockRows * C; i += ex.step()) blk[i] = src[i];
+}
+
+template <class Exec>
+RT_HD void sweep_tile(const Exec& ex, const float* blk, int C, int tile,
+                      RayTile& rt) {
+  for (int r = ex.first(); r < tile; r += ex.step()) {
+    float best = rt.acc[r];
+    int best_tri = rt.acc_tri[r];
+    sweep_ray(blk, C, rt.o[r], rt.o[tile + r], rt.o[2 * tile + r], rt.d[r],
+              rt.d[tile + r], rt.d[2 * tile + r], best, best_tri);
+    rt.acc[r] = best;
+    rt.acc_tri[r] = best_tri;
+  }
+}
+
+// Write the tile's (t, tri), keeping only hits inside the ray's window
+// (t < win); anything else reports (kMiss, -1). Dead and padded rays carry a
+// negative window, so they always report a miss.
+template <class Exec>
+RT_HD void store_tile(const Exec& ex, const RayTile& rt, int t, int tile,
+                      float* t_out, int* tri_out) {
+  for (int r = ex.first(); r < tile; r += ex.step()) {
+    const bool in = rt.acc[r] < rt.win[r];
+    t_out[(size_t)t * tile + r] = in ? rt.acc[r] : kMiss;
+    tri_out[(size_t)t * tile + r] = in ? rt.acc_tri[r] : -1;
+  }
+}
+
+// ---- cull: one (tile, 128-box chunk) per block ----------------------------------
+//
+// entry[t, k] = min over the tile's rays of the slab entry (kMissEntry where
+// none hits); with mask, bit r % 32 of mask[t, r / 32, k] is set iff ray r
+// hits box k. aabb is (8, K): rows min xyz, max xyz. Shared: 12 * tile words.
+template <class Exec>
+RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
+                      const float* aabb, int K, int tile, int t, int chunk,
+                      float* entry, int* mask) {
+  RayTile rt;
+  carve_rays(smem, tile, rt);
+  load_rays(ex, od8, t, tile, true, rt);
+  ex.sync();
+  const int words = (tile + 31) / 32;
+  for (int j = ex.first(); j < kChunk; j += ex.step()) {
+    const int k = chunk * kChunk + j;
+    if (k >= K) continue;
+    const float lo[3] = {aabb[0 * K + k], aabb[1 * K + k], aabb[2 * K + k]};
+    const float hi[3] = {aabb[3 * K + k], aabb[4 * K + k], aabb[5 * K + k]};
+    float e_min = kMissEntry;
+    for (int w = 0; w < words; ++w) {
+      uint32_t bits = 0;
+      const int r_hi = (w + 1) * 32 < tile ? (w + 1) * 32 : tile;
+      for (int r = w * 32; r < r_hi; ++r) {
+        const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
+        const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
+        float e;
+        const bool hit = slab(o, inv, rt.win[r], lo, hi, e);
+        e_min = min_nan(e_min, hit ? e : kMissEntry);
+        if (hit) bits |= 1u << (r - w * 32);
+      }
+      if (mask) mask[((size_t)t * words + w) * K + k] = (int)bits;
+    }
+    entry[(size_t)t * K + k] = e_min;
+  }
+}
+
+// ---- fused: walk one tile's selected clusters, sweep, fold ----------------------
+//
+// words (T, Kw): bit b of words[t, g] selects cluster 32 g + b. With skip
+// (entry and mask non-null, the cull's (T, K) entries and (T, W, K) per-ray
+// hit bits) a cluster is swept only when some ray that slab-hits its box has
+// a bound min(acc, win) reaching the entry scaled by kSkipSlack.
+// stats (null, or 3 counters): [1] += swept pairs, [2] += the Moller-Trumbore
+// tests they need (live rays of the tile x real triangles of the cluster).
+// Shared: 12 * tile + kBlockRows * C words.
+template <class Exec>
+RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
+                       const float* blocks, const int* words, int Kw,
+                       const float* entry, const int* mask, int K, int C,
+                       int tile, int t, float* t_out, int* tri_out,
+                       unsigned long long* stats) {
+  RayTile rt;
+  float* blk = carve_rays(smem, tile, rt);
+  load_rays(ex, od8, t, tile, false, rt);
+  ex.sync();
+  const int live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
+  const bool skip = entry != nullptr && mask != nullptr;
+  const int mwords = (tile + 31) / 32;
+  for (int g = 0; g < Kw; ++g) {
+    uint32_t w = (uint32_t)words[(size_t)t * Kw + g];
+    while (w) {
+      const int k = g * 32 + ctz32(w);
+      w &= w - 1;
+      if (skip) {
+        const float e = entry[(size_t)t * K + k] * kSkipSlack;
+        bool need = false;
+        for (int r = ex.first(); r < tile; r += ex.step()) {
+          const uint32_t bits =
+              (uint32_t)mask[((size_t)t * mwords + r / 32) * K + k];
+          need = need || (((bits >> (r % 32)) & 1u) &&
+                          min_nan(rt.acc[r], rt.win[r]) >= e);
+        }
+        if (!ex.any(need)) continue;
+      }
+      stage_block(ex, blocks, k, C, blk);
+      ex.sync();
+      if (stats && ex.leader()) {
+        ex.add(&stats[1], 1ull);
+        ex.add(&stats[2], (unsigned long long)live * real_tris(blk, C));
+      }
+      sweep_tile(ex, blk, C, tile, rt);
+      ex.sync();
+    }
+  }
+  store_tile(ex, rt, t, tile, t_out, tri_out);
+}
+
+// ---- fused1: cull + walk + sweep of one tile ------------------------------------
+//
+// The tile's rays are culled against the K boxes 128 at a time; each ray's
+// entry for the chunk stays in shared memory (+inf where it misses), the
+// chunk's any-hit bits are ORed together, and then each hit box whose entry
+// some ray's bound reaches (the per-ray early-out) has its block swept.
+// With gate_g > 0, sup holds the super boxes (n_sup, 6): min xyz, max xyz
+// over gate_g consecutive boxes, and a chunk is culled only when some ray
+// hits one of its supers (conservative, so the output is unchanged).
+// A tile whose rays are all dead skips everything. stats (null, or 3
+// counters): [0] += slab tests of live rays, [1] and [2] as fused_block's.
+// Shared: 12 * tile + kChunk * tile + 6 * kChunk + 4 + kBlockRows * C words.
+template <class Exec>
+RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
+                        const float* aabb, int K, const float* sup, int n_sup,
+                        int gate_g, const float* blocks, int C, int tile,
+                        int t, float* t_out, int* tri_out,
+                        unsigned long long* stats) {
+  RayTile rt;
+  float* ent = carve_rays(smem, tile, rt);
+  float* box = ent + kChunk * tile;
+  uint32_t* hitw = reinterpret_cast<uint32_t*>(box + 6 * kChunk);
+  float* blk = box + 6 * kChunk + 4;
+  const float inf = inf_f();
+
+  load_rays(ex, od8, t, tile, true, rt);
+  ex.sync();
+  const int n_live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
+  bool live = false;
+  for (int r = ex.first(); r < tile; r += ex.step()) live = live || rt.win[r] >= 0.0f;
+  if (ex.any(live)) {
+    const int spc = gate_g > 0 ? kChunk / gate_g : 0;
+    for (int lo = 0; lo < K; lo += kChunk) {
+      const int nb = K - lo < kChunk ? K - lo : kChunk;
+      if (spc > 0) {
+        const int s_lo = lo / gate_g;
+        const int s_hi = s_lo + spc < n_sup ? s_lo + spc : n_sup;
+        bool hit_sup = false;
+        for (int r = ex.first(); r < tile; r += ex.step()) {
+          const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
+          const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
+          for (int s = s_lo; s < s_hi && !hit_sup; ++s) {
+            float e;
+            hit_sup = slab(o, inv, rt.win[r], sup + 6 * s, sup + 6 * s + 3, e);
+          }
+        }
+        if (!ex.any(hit_sup)) continue;
+      }
+      for (int i = ex.first(); i < 6 * kChunk; i += ex.step()) {
+        const int a = i / kChunk;
+        const int j = i % kChunk;
+        box[i] = j < nb ? aabb[(size_t)a * K + lo + j] : 0.0f;
+      }
+      for (int i = ex.first(); i < 4; i += ex.step()) hitw[i] = 0u;
+      ex.sync();
+      for (int r = ex.first(); r < tile; r += ex.step()) {
+        const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
+        const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
+        uint32_t bits[4] = {0u, 0u, 0u, 0u};
+        for (int j = 0; j < nb; ++j) {
+          const float lo3[3] = {box[j], box[kChunk + j], box[2 * kChunk + j]};
+          const float hi3[3] = {box[3 * kChunk + j], box[4 * kChunk + j],
+                                box[5 * kChunk + j]};
+          float e;
+          const bool hit = slab(o, inv, rt.win[r], lo3, hi3, e);
+          ent[j * tile + r] = hit ? e : inf;
+          if (hit) bits[j / 32] |= 1u << (j % 32);
+        }
+        for (int q = 0; q < 4; ++q) ex.or_bits(&hitw[q], bits[q]);
+      }
+      if (stats && ex.leader()) ex.add(&stats[0], (unsigned long long)nb * n_live);
+      ex.sync();
+      for (int q = 0; q < 4; ++q) {
+        uint32_t w = hitw[q];
+        while (w) {
+          const int j = q * 32 + ctz32(w);
+          w &= w - 1;
+          bool need = false;
+          for (int r = ex.first(); r < tile; r += ex.step()) {
+            need = need ||
+                   min_nan(rt.acc[r], rt.win[r]) >= ent[j * tile + r] * kSkipSlack;
+          }
+          if (!ex.any(need)) continue;
+          stage_block(ex, blocks, lo + j, C, blk);
+          ex.sync();
+          if (stats && ex.leader()) {
+            ex.add(&stats[1], 1ull);
+            ex.add(&stats[2], (unsigned long long)n_live * real_tris(blk, C));
+          }
+          sweep_tile(ex, blk, C, tile, rt);
+          ex.sync();
+        }
+      }
+      ex.sync();
+    }
+  }
+  store_tile(ex, rt, t, tile, t_out, tri_out);
+}
+
+}  // namespace rt

@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``) into a
 shared library with a plain C interface and loaded with ``ctypes``. The
 build runs at first use, from the sources in the package only, into
 ``cuda_raytracer_tpu_torch/_build/`` (listed in ``.gitignore``); the library
-name carries a hash of the source and flags, so an edited source rebuilds
-and an unchanged one loads at once.
+name carries a hash of the source, every header it includes from ``csrc/``
+(``#include "x.cuh"``, followed recursively) and the flags, so an edited
+source or shared header rebuilds and an unchanged one loads at once.
 
 Numerics flags: no ``--use_fast_math`` (IEEE division and square root,
 accurate sin/cos) and ``-fmad=false`` (no multiply-add contraction), so the
@@ -18,11 +19,13 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -48,6 +51,25 @@ class Built:
 
 _LOADED: Dict[str, Built] = {}
 
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_digest(source: Path) -> str:
+    """Hash of ``source``, the local headers it includes (recursively, each
+    once, resolved beside the including file) and the nvcc flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    seen, todo = set(), [source.resolve()]
+    while todo:
+        path = todo.pop(0)
+        if path in seen:
+            continue
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(path.name.encode() + b"\0" + text)
+        for name in _LOCAL_INCLUDE.findall(text.decode()):
+            todo.append((path.parent / name).resolve())
+    return h.hexdigest()[:16]
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc")
@@ -67,9 +89,7 @@ def load(name: str) -> Built:
     if name in _LOADED:
         return _LOADED[name]
     source = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = source_digest(source)
     target = BUILD_DIR / f"lib{name}-{digest}.so"
     seconds, log = 0.0, ""
     if not target.exists():
@@ -87,3 +107,10 @@ def load(name: str) -> Built:
     built = Built(ctypes.CDLL(str(target)), target, seconds, log)
     _LOADED[name] = built
     return built
+
+
+def load_all(names: Sequence[str]) -> Dict[str, Built]:
+    """``load`` every name at once: one nvcc per source, all started
+    together (each waits in its own thread), so the builds overlap."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))

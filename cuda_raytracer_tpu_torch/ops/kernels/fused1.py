@@ -1,0 +1,139 @@
+"""Single-kernel packet closest hit (cull + walk + sweep): wrapper of ``csrc/fused1.cu``.
+
+Counterpart of ``cuda_raytracer_tpu/ops/pallas/fused1.py``
+(``fused1_closest_hit``, ``pack=1``). For every ray tile it culls the rays
+against the K cluster boxes (the windowed slab test of ``cull.py``), and
+sweeps every box some ray of the tile hits, exactly as ``fused.py`` sweeps,
+with a per-ray early-out: a box is swept only when some ray's bound
+min(best so far, window) reaches that ray's own slab entry for it (scaled by
+``SKIP_SLACK``). With ``gate_g`` > 0 the super boxes ``sup`` (one per
+``gate_g`` consecutive boxes, see ``shard_supers``) gate whole 128-box
+chunks; a tile whose rays are all dead does nothing. The gate, the dead-tile
+skip and the early-out are conservative, so the output is the one
+``fused.py`` documents: per ray, the closest hit strictly inside its window,
+else (``MISS``, -1).
+
+- On a CUDA tensor it launches the hand-written kernel and counts the launch
+  in ``LAUNCHES``. It never falls back.
+- On a CPU tensor it runs ``plain_fused1``: the plain cull's per-ray hit
+  bits ORed over each tile select the pairs, and every pair is swept.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuda_raytracer_tpu_torch.ops.kernels import build
+from cuda_raytracer_tpu_torch.ops.kernels.cull import (
+    check_boxes,
+    check_rays,
+    device_kind,
+    plain_cull,
+    raise_on_error,
+)
+from cuda_raytracer_tpu_torch.ops.kernels.fused import sweep_selected
+
+CHUNK = 128  # boxes per cull chunk; gate_g must divide it
+
+# Kernel launches made by fused1_closest_hit in this process (CUDA tensors only).
+LAUNCHES = 0
+
+
+def shard_supers(box_min: torch.Tensor, box_max: torch.Tensor, G: int) -> torch.Tensor:
+    """Tight super boxes over G consecutive boxes → (ceil(K / G), 6) float32
+    ``[min xyz, max xyz]``. Padding boxes (far points at 1e17) are left out
+    of the union; an all-padding group keeps the far point box."""
+    K = box_min.shape[0]
+    n_sup = -(-K // G)
+    pad = n_sup * G - K
+    inf = float("inf")
+    smin = torch.nn.functional.pad(box_min, (0, 0, 0, pad), value=inf).reshape(n_sup, G, 3)
+    smax = torch.nn.functional.pad(box_max, (0, 0, 0, pad), value=-inf).reshape(n_sup, G, 3)
+    is_pad = smin[:, :, 0] >= 1e16
+    gmin = torch.where(is_pad[:, :, None], inf, smin).amin(dim=1)
+    gmax = torch.where(is_pad[:, :, None], -inf, smax).amax(dim=1)
+    empty = is_pad.all(dim=1)[:, None]
+    gmin = torch.where(empty, 1e17, gmin)
+    gmax = torch.where(empty, 1e17, gmax)
+    return torch.cat([gmin, gmax], dim=1).contiguous()
+
+
+def plain_fused1(od8, aabb, blocks, sup=None, gate_g: int = 0):
+    """The kernel's plain PyTorch version: cull, OR the per-ray hit bits over
+    each tile, sweep every selected pair. The gate and the early-out do not
+    change the output, so the plain version has neither."""
+    _, mask = plain_cull(od8, aabb, with_mask=True)
+    return sweep_selected(od8, blocks, (mask != 0).any(dim=1))
+
+
+def _check(od8, aabb, blocks, sup, gate_g, stats):
+    check_rays(od8)
+    check_boxes(aabb, od8)
+    K = aabb.shape[1]
+    if blocks.dtype != torch.float32 or blocks.dim() != 3 or blocks.shape[1] != 16:
+        raise ValueError(f"blocks must be (K, 16, C) float32, got {blocks.dtype} "
+                         f"{tuple(blocks.shape)}")
+    if blocks.shape[0] < K:
+        raise ValueError(f"{blocks.shape[0]} blocks for {K} boxes")
+    if gate_g < 0 or (gate_g and CHUNK % gate_g):
+        raise ValueError(f"gate_g={gate_g} must divide {CHUNK}")
+    if gate_g and (sup is None or sup.shape != (-(-K // gate_g), 6)
+                   or sup.dtype != torch.float32):
+        raise ValueError(f"gate_g={gate_g} needs sup as (ceil(K/gate_g), 6) float32")
+    if stats is not None and (stats.dtype != torch.int64 or stats.shape != (3,)):
+        raise ValueError("stats must be a (3,) int64 tensor")
+    for x in (blocks, sup, stats):
+        if x is None:
+            continue
+        if x.device != od8.device:
+            raise ValueError(f"an input lies on {x.device}, rays on {od8.device}")
+        if not x.is_contiguous():
+            raise ValueError("fused1_closest_hit inputs must be contiguous")
+
+
+def library() -> build.Built:
+    """Build (at first use) and bind ``csrc/fused1.cu``."""
+    built = build.load("fused1")
+    fn = built.lib.rt_fused1_closest_hit
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    )
+    fn.restype = ctypes.c_int
+    built.lib.rt_error_string.argtypes = [ctypes.c_int]
+    built.lib.rt_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def fused1_closest_hit(
+    od8: torch.Tensor,  # (T, 8, tile) f32 — rays and windows
+    aabb: torch.Tensor,  # (8, K) f32 — box table
+    blocks: torch.Tensor,  # (>= K, 16, C) f32 — block k holds box k's triangles
+    sup: torch.Tensor = None,  # (ceil(K / gate_g), 6) f32 super boxes
+    gate_g: int = 0,  # boxes per super box; 0 culls every chunk
+    stats: torch.Tensor = None,  # (3,) int64 on the card: [0] slab, [1] pairs, [2] MT tests
+):
+    """→ (t (T, tile) float32, tri (T, tile) int32): the closest in-window
+    hit of every ray over the boxes its tile hits."""
+    global LAUNCHES
+    _check(od8, aabb, blocks, sup, gate_g, stats)
+    if device_kind(od8, "fused1_closest_hit") == "cpu":
+        return plain_fused1(od8, aabb, blocks, sup, gate_g)
+    T, _, tile = od8.shape
+    K = aabb.shape[1]
+    t_out = torch.empty((T, tile), dtype=torch.float32, device=od8.device)
+    tri_out = torch.empty((T, tile), dtype=torch.int32, device=od8.device)
+    lib = library().lib
+    with torch.cuda.device(od8.device):
+        err = lib.rt_fused1_closest_hit(
+            od8.data_ptr(), aabb.data_ptr(), sup.data_ptr() if gate_g else None,
+            sup.shape[0] if gate_g else 0, gate_g, blocks.data_ptr(), T, K,
+            blocks.shape[2], tile, t_out.data_ptr(), tri_out.data_ptr(),
+            stats.data_ptr() if stats is not None else None,
+            torch.cuda.current_stream(od8.device).cuda_stream,
+        )
+    raise_on_error(lib, err, "fused1")
+    LAUNCHES += 1
+    return t_out, tri_out

@@ -1,0 +1,237 @@
+"""Packet (ray-tile) clustered closest hit (counterpart of ``cuda_raytracer_tpu/ops/packet_intersect.py``).
+
+Rays are grouped into tiles of ``tile`` consecutive rays; each tile is
+slab-tested against the K cluster boxes, and only the (tile, cluster) pairs
+some ray of the tile hits are swept with Möller–Trumbore over the cluster's
+(16, C) block (closest hit, eps 0.005, shared sphere/triangle hit-index
+space: scene.cu:134-241). Three engines, picked by ``backend``:
+
+- ``"xla"``, the plain reference (phases A-D): tile cull, each tile's
+  ``cap`` nearest hit clusters ranked by slab entry, a sweep of the kept
+  pairs, a dense reduce. A tile that hits more than ``cap`` clusters drops
+  the farthest; the per-tile ``cutoff`` certificate counts every ray whose
+  result the drop could have changed (``suspect``).
+- ``"fused"``: the cull kernel, then the fused walk + sweep kernel
+  (``ops/kernels/cull.py``, ``ops/kernels/fused.py``), exact by
+  construction (suspect ≡ 0). ``skip`` enables the slab-entry early-out.
+- ``"fused1"``: the single cull + walk + sweep kernel
+  (``ops/kernels/fused1.py``), exact by construction.
+
+``"auto"`` is ``"fused"`` on a CUDA device and ``"xla"`` on the CPU. The
+kernel engines run their plain versions on CPU tensors. Each kernel takes
+the whole cluster table in one launch (the TPU package's shards are a VMEM
+budget); ``_merge`` folds results over cluster ranges exactly, should a
+caller cut the table.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from cuda_raytracer_tpu_torch.models.scene import Scene
+from cuda_raytracer_tpu_torch.ops.intersect import MISS
+from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1
+from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
+
+DEFAULT_TILE = 128
+DEFAULT_CAP = 16
+DEFAULT_SWEEP_CHUNK = 64
+# Ray rows per cull step: bounds the transient (rows, K) slab matrix.
+CULL_ROWS = 1 << 13
+BACKENDS = ("auto", "xla", "fused", "fused1")
+_LATER = "is not ported yet (see ROADMAP.md queue B)"
+
+
+def resolve_backend(backend: str, device: torch.device) -> str:
+    """``"auto"`` → ``"fused"`` on CUDA, ``"xla"`` elsewhere; unported TPU
+    engines raise NotImplementedError, unknown names ValueError."""
+    if backend in ("pallas", "pallas_interpret"):
+        raise NotImplementedError(
+            f"packet_backend={backend!r} (the sweep_pairs kernel) {_LATER}"
+        )
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown packet backend {backend!r}; expected one of {BACKENDS}")
+    if backend == "auto":
+        return "fused" if device.type == "cuda" else "xla"
+    return backend
+
+
+def _cull_tile_mask(origin, inv_dir, tmax, cmin, cmax, tile: int):
+    """Slab-test a ray chunk against every box, reduced per ``tile``-ray
+    tile → ((r // tile, K) bool any-hit, (r // tile, K) float32 min entry,
+    +inf where unhit). Dead rays carry tmax < 0 and hit nothing."""
+    K = cmin.shape[0]
+    hit, tmin = cull.slab_window(origin[:, None], inv_dir[:, None], tmax,
+                                 cmin[None], cmax[None])
+    entry = torch.where(hit, tmin, float("inf")).reshape(-1, tile, K).amin(dim=1)
+    return hit.reshape(-1, tile, K).any(dim=1), entry
+
+
+def _mt_tile_blocks(po, pd, blocks) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dense Möller–Trumbore of each tile's rays (g, tile, 3) against its
+    cluster block (g, 16, C) → per-ray (best t, first slot reaching it)."""
+    o = tuple(po[..., a:a + 1] for a in range(3))
+    d = tuple(pd[..., a:a + 1] for a in range(3))
+    tri9 = tuple(blocks[:, i, None, :] for i in range(9))
+    t = fused.mt_t_plane(o, d, tri9)
+    best, slot = torch.min(t, dim=-1)
+    return best, slot.to(torch.int32)
+
+
+def _pad_rays(origin, direction, closest, tile):
+    pad = (-origin.shape[0]) % tile
+    if not pad:
+        return origin, direction, closest
+    return (
+        torch.nn.functional.pad(origin, (0, 0, 0, pad)),
+        torch.nn.functional.pad(direction, (0, 0, 0, pad), value=1.0),
+        torch.nn.functional.pad(closest, (0, pad), value=-1.0),
+    )
+
+
+def _merge(out, t_s, tri_s):
+    """Fold one shard's (t, tri) into the running result: smaller t wins,
+    equal t goes to the larger triangle id (the kernels' own fold)."""
+    if out is None:
+        return t_s, tri_s
+    t_p, tri_p = out
+    upd = (t_s < t_p) | ((t_s == t_p) & (tri_s > tri_p))
+    return torch.where(upd, t_s, t_p), torch.where(upd, tri_s, tri_p)
+
+
+def closest_hit_packet(
+    scene: Scene,
+    origin: torch.Tensor,  # (R, 3)
+    direction: torch.Tensor,  # (R, 3)
+    closest: torch.Tensor,  # (R,) incoming best (spheres); negative for dead rays
+    hit_index: torch.Tensor,  # (R,) int32
+    tile: int = DEFAULT_TILE,
+    cap: int = DEFAULT_CAP,
+    sweep_chunk: int = DEFAULT_SWEEP_CHUNK,
+    backend: str = "xla",
+    skip: bool = False,
+):
+    """Update (closest, hit_index) with the nearest triangle hit. Returns
+    (closest, hit_index, suspect): ``suspect`` counts rays whose result the
+    xla engine's per-tile cap could have changed (0 for the kernels)."""
+    backend = resolve_backend(backend, origin.device)
+    if scene.config.cluster_pack > 1:
+        raise NotImplementedError(f"cluster_pack > 1 (paired cluster blocks) {_LATER}")
+    R = origin.shape[0]
+    K = scene.num_clusters
+    S = scene.cluster_min.shape[0] // max(K, 1)  # cull_split sub-boxes per cluster
+    origin_p, direction_p, closest_p = _pad_rays(origin, direction, closest, tile)
+    T = origin_p.shape[0] // tile
+
+    if backend in ("fused", "fused1"):
+        od8 = cull.make_od8(origin_p, direction_p, closest_p, tile)
+        if backend == "fused1":
+            if S != 1:
+                raise ValueError("fused1 backend requires cull_split == 1")
+            # cull_hier == 0 means G = 16 here; negative forces the flat cull.
+            G = scene.config.cull_hier or 16
+            G = max(G, 0)
+            if G and fused1.CHUNK % G:
+                raise ValueError(f"cull_hier={G} must divide {fused1.CHUNK}")
+            box_min, box_max = scene.cluster_min, scene.cluster_max
+            gate = G if (G and K > fused1.CHUNK) else 0
+            t_tile, tri_tile = fused1.fused1_closest_hit(
+                od8, cull.box_table(box_min, box_max),
+                scene.cluster_blocks[:K].contiguous(),
+                sup=fused1.shard_supers(box_min, box_max, gate) if gate else None,
+                gate_g=gate,
+            )
+        else:
+            if scene.config.cull_hier > 0:
+                raise NotImplementedError(
+                    f"cull_hier > 0 on the fused path (the gated cull kernel) {_LATER}"
+                )
+            aabb = cull.box_table(scene.cluster_min, scene.cluster_max)  # (8, K * S)
+            if skip:
+                entry, maskw = cull.cull_tiles(od8, aabb, with_mask=True)
+            else:
+                entry, maskw = cull.cull_tiles(od8, aabb), None
+            if S > 1:
+                # Sub-boxes → cluster granularity: min entry, OR of the bits.
+                entry = entry.reshape(T, K, S).amin(dim=2)
+                if maskw is not None:
+                    m = maskw.reshape(T, maskw.shape[1], K, S)
+                    maskw = m[..., 0]
+                    for s in range(1, S):
+                        maskw = maskw | m[..., s]
+            t_tile, tri_tile = fused.fused_closest_hit(
+                od8, scene.cluster_blocks[:K].contiguous(),
+                fused.pack_words(entry < cull.MISS_ENTRY * 0.5),
+                entry=entry.contiguous() if skip else None,
+                hitmask=maskw.contiguous() if skip else None,
+            )
+        return _finalize(scene, t_tile, tri_tile, None, closest, hit_index, R, tile)
+
+    inv_dir = _safe_inv_dir(direction_p)
+
+    # ---- Phase A: tile-level cull mask + entry distances (T, K) -----------
+    rows = max(min(CULL_ROWS, origin_p.shape[0]) // tile * tile, tile)
+    masks, entries = [], []
+    for lo in range(0, origin_p.shape[0], rows):
+        m, e = _cull_tile_mask(origin_p[lo:lo + rows], inv_dir[lo:lo + rows],
+                               closest_p[lo:lo + rows], scene.cluster_min,
+                               scene.cluster_max, tile)
+        if S > 1:
+            m = m.reshape(-1, K, S).any(dim=2)
+            e = e.reshape(-1, K, S).amin(dim=2)
+        masks.append(m)
+        entries.append(e)
+    tile_mask, tile_entry = torch.cat(masks), torch.cat(entries)
+
+    # ---- Phase B: each tile's `cap` nearest hit clusters ------------------
+    # Clusters ranked by entry (stable: ties by id). If a tile drops
+    # clusters, `cutoff` (its nearest dropped entry) certifies the result
+    # per ray: a final hit at t < cutoff cannot live in a dropped cluster.
+    counts = tile_mask.sum(dim=1)
+    order = torch.argsort(tile_entry, dim=1, stable=True)
+    rank = torch.argsort(order, dim=1, stable=True)
+    entry_sorted = torch.gather(tile_entry, 1, order)
+    if cap < K:
+        cutoff = torch.where(counts > cap, entry_sorted[:, cap], float("inf"))
+    else:
+        cutoff = torch.full((T,), float("inf"), device=origin.device)
+    keep = tile_mask & (rank < cap)
+
+    # ---- Phase C: sweep the kept pairs, sweep_chunk at a time -------------
+    pair_tile, pair_k = torch.nonzero(keep, as_tuple=True)
+    o_tiles = origin_p.reshape(T, tile, 3)
+    d_tiles = direction_p.reshape(T, tile, 3)
+    C = scene.cluster_tris
+    bests, tris = [], []
+    for lo in range(0, pair_tile.shape[0], sweep_chunk):
+        pt = pair_tile[lo:lo + sweep_chunk]
+        pc = pair_k[lo:lo + sweep_chunk]
+        best, slot = _mt_tile_blocks(o_tiles[pt], d_tiles[pt], scene.cluster_blocks[pc])
+        bests.append(best)
+        tris.append(scene.cluster_slot_tri[pc[:, None] * C + slot])
+
+    # ---- Phase D: per-tile reduction: min t, larger id among equal t ------
+    if bests:
+        t_tile, tri_tile = fused.fold_pairs(T, tile, pair_tile, torch.cat(bests),
+                                            torch.cat(tris), origin.device)
+    else:
+        t_tile = torch.full((T, tile), MISS, dtype=torch.float32, device=origin.device)
+        tri_tile = torch.full((T, tile), -1, dtype=torch.int32, device=origin.device)
+    return _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile)
+
+
+def _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile):
+    t_ray = t_tile.reshape(-1)[:R]
+    tri_ray = tri_tile.reshape(-1)[:R]
+    better = (t_ray < closest) & (tri_ray >= 0)
+    new_closest = torch.where(better, t_ray, closest)
+    new_index = torch.where(better, scene.sphere_count + tri_ray, hit_index)
+    if cutoff is None:  # the kernels sweep every culled pair: exact
+        return new_closest, new_index, 0
+    # Exactness certificate: a ray is suspect if its final closest hit is at
+    # or beyond its tile's nearest dropped cluster (`>=`: an equal-t hit
+    # there could win the tie).
+    cutoff_ray = cutoff.repeat_interleave(tile)[:R]
+    return new_closest, new_index, (new_closest >= cutoff_ray).sum()

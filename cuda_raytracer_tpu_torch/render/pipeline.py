@@ -7,14 +7,16 @@ radiance sums into one framebuffer. Rays are pixel-major (ray i → pixel
 i // rpp), so a block's per-pixel sums are a reshape-sum.
 
 Brute scenes on a CUDA device trace each pass in one launch of the shade
-kernel (``ops/kernels/shade.py``); everything else runs the plain wavefront
-path in blocks of at most ``RAY_BLOCK`` rays. Checkpoint / resume, metrics
-and the packet-cap auto-retry belong to later slices.
+kernel (``ops/kernels/shade.py``); everything else, mesh scenes included,
+runs the wavefront path in blocks of at most ``RAY_BLOCK`` rays, where the
+packet intersector's kernels run on a CUDA device. Checkpoint / resume,
+metrics and progress callbacks belong to a later slice.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Tuple
 
 import numpy as np
@@ -26,9 +28,33 @@ from cuda_raytracer_tpu_torch.ops import tonemap as tonemap_ops
 from cuda_raytracer_tpu_torch.ops.kernels import shade
 from cuda_raytracer_tpu_torch.render import wavefront
 
-# Rays per traced block on the wavefront path: bounds the (rays × prims)
-# intermediates of the brute intersector.
+# Rays per traced block on the wavefront path. Matching wavefront.SORT_CHUNK
+# keeps every block in the whole-wavefront sort regime, where dead-ray
+# compaction (wavefront.bounce_on_live_prefix) is active; it also bounds the
+# (rays × prims) intermediates of the brute intersector.
 RAY_BLOCK = 1 << 18
+# Largest cluster-block table the fused1 regime takes (16 MB).
+FUSED1_TABLE_BYTES = 16 << 20
+
+
+def _regime_scene(scene: Scene, rays_per_pixel: int) -> Scene:
+    """Resolve packet_backend "auto" per pass regime, on a CUDA device:
+    passes of >= 10 rays per pixel (strong per-pixel primary coherence, long
+    dead tails in each ray block) with a table of at most 16 MB go to the
+    single fused1 kernel; sparse-sample passes and larger tables keep the
+    cull + fused kernels. Explicit packet_backend values are never
+    overridden."""
+    cfg = scene.config
+    table_bytes = scene.cluster_blocks.numel() * scene.cluster_blocks.element_size()
+    if (
+        cfg.packet_backend == "auto"
+        and rays_per_pixel >= 10
+        and cfg.cull_split == 1
+        and table_bytes <= FUSED1_TABLE_BYTES
+        and scene.device.type == "cuda"
+    ):
+        return scene.with_config(packet_backend="fused1")
+    return scene
 
 
 def _render_block(
@@ -82,6 +108,7 @@ def render_pass(
     total = pixels * rays_per_pixel
     if total >= 1 << 31:
         raise ValueError(f"{total} rays in one pass exceed the int32 ray ids")
+    scene = _regime_scene(scene, rays_per_pixel)
     if shade.megakernel_eligible(scene, reparam):
         block = total
     else:
@@ -96,9 +123,16 @@ def render_pass(
     return framebuffer, suspect
 
 
-def render_framebuffer(scene: Scene) -> torch.Tensor:
+def render_framebuffer(scene: Scene, auto_retry: bool = True) -> torch.Tensor:
     """Full multi-pass render → raw accumulated (pixels, 3) framebuffer on
-    the scene's device."""
+    the scene's device.
+
+    If the closest-hit exactness certificate fires, the render is redone
+    rather than shipping a possibly wrong image: first without a static
+    ``live_schedule`` (a stale schedule reports unprocessed live rays
+    through the certificate), then with a doubled ``packet_cap`` up to the
+    cluster count (the xla engine's per-tile budget; the kernels are exact
+    by construction). ``auto_retry=False`` raises instead."""
     cfg = scene.config
     framebuffer = torch.zeros((scene.num_pixels, 3), dtype=torch.float32, device=scene.device)
     remaining = cfg.rays_per_pixel
@@ -110,12 +144,27 @@ def render_framebuffer(scene: Scene) -> torch.Tensor:
             scene, framebuffer, remaining,
             rays_per_pixel=chunk, bounces=cfg.bounces, sort_rays=cfg.sort_rays,
         )
-        suspects += suspect
-    if suspects:
-        raise RuntimeError(
-            f"closest-hit exactness certificate failed: {suspects} suspect ray-bounces"
+        suspects = suspects + suspect
+    suspects = int(suspects)  # one device sync, after the pass loop
+    if not suspects:
+        return framebuffer
+    if auto_retry and cfg.live_schedule:
+        warnings.warn(
+            f"closest-hit certificate flagged {suspects} suspect ray-bounces with a "
+            "static live_schedule set; re-rendering with the dynamic live prefix"
         )
-    return framebuffer
+        return render_framebuffer(scene.with_config(live_schedule=()), auto_retry)
+    if auto_retry and cfg.packet_cap < scene.num_clusters:
+        new_cap = min(max(cfg.packet_cap * 2, 8), scene.num_clusters)
+        warnings.warn(
+            f"closest-hit certificate flagged {suspects} suspect ray-bounces; "
+            f"re-rendering with packet_cap {cfg.packet_cap} → {new_cap}"
+        )
+        return render_framebuffer(scene.with_config(packet_cap=new_cap), auto_retry)
+    raise RuntimeError(
+        f"closest-hit exactness certificate failed: {suspects} suspect ray-bounces "
+        "(packet pair-budget overflow); raise RenderConfig.packet_cap"
+    )
 
 
 def render_image(

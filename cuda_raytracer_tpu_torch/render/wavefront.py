@@ -8,10 +8,14 @@ metallicity-probability specular/diffuse split for opaque materials, Schlick
 counter-based PCG stream seeded per (stable ray id, bounce), so results do
 not depend on execution order.
 
-This is the port's plain PyTorch path: it renders brute scenes on any
-device, and it is the plain version that the CUDA shade kernel
-(``ops/kernels/shade.py``) is held against. The mesh path (packet and BVH
-intersectors), the Morton reorder with live-prefix compaction and
+This is the port's PyTorch wavefront: it renders brute scenes on any
+device (and is the plain version the CUDA shade kernel,
+``ops/kernels/shade.py``, is held against), and mesh scenes through the
+packet intersector (``ops/packet_intersect.py``), whose kernels run on a
+CUDA device. Between bounces the wavefront is reordered by Morton key
+(chunk-local, see ``SORT_CHUNK``), and each bounce runs on the smallest
+static prefix that holds every live ray (dead-ray compaction); a final
+by-ray-id unsort restores pixel order. The BVH intersector and
 reparameterised (differentiable) shading belong to later slices; asking for
 them raises ``NotImplementedError`` rather than falling back.
 """
@@ -24,7 +28,7 @@ import torch
 
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops import camera as camera_ops
-from cuda_raytracer_tpu_torch.ops import envmap, intersect, rng, vecmath
+from cuda_raytracer_tpu_torch.ops import envmap, intersect, morton, packet_intersect, rng, vecmath
 
 # Per-(ray, bounce) seeding constants (raytracing.cu:89). The scalar seed is
 # `pass_seed * 20 + bounce`.
@@ -54,27 +58,6 @@ def bounce_seeds(ray_id: torch.Tensor, pass_seed, bounce: int) -> torch.Tensor:
     return (rng.mul32(rng.as_u32(ray_id), BOUNCE_RAY_MULT) + term) & rng.MASK32
 
 
-def resolved_intersector(scene: Scene) -> str:
-    """The triangle intersector closest_hit would use: auto → brute up to
-    512 triangles, packet above; a single-leaf tree or no triangles →
-    brute."""
-    mode = scene.config.intersector
-    if mode not in ("auto", "brute", "packet", "bvh"):
-        raise ValueError(
-            f"unknown intersector {mode!r}; expected auto | brute | packet | bvh"
-        )
-    if mode == "auto":
-        mode = "brute" if scene.triangle_count <= 512 else "packet"
-    if scene.bvh_node_count <= 1 or scene.triangle_count == 0:
-        mode = "brute"
-    return mode
-
-
-def reorder_is_useful(scene: Scene) -> bool:
-    """Morton reordering pays only for the packet / BVH intersectors."""
-    return resolved_intersector(scene) != "brute"
-
-
 def wavefront_ordered(scene: Scene, sort_rays: bool, bounces: int) -> bool:
     """True when trace_wavefront never reorders the rays."""
     return not (
@@ -91,11 +74,13 @@ def closest_hit(
     direction: torch.Tensor,
     alive: torch.Tensor = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Nearest hit over spheres then triangles (brute (rays x tris) tile).
-    Dead rays get ``t = -1`` so no triangle can beat it.
+    """Nearest hit over spheres, then triangles: a brute (rays x tris) tile
+    for small scenes, the packet intersector above 512 triangles. Dead rays
+    enter with a negative window (``t = -1``), so nothing can beat it.
 
     Returns (t, index, suspect); ``suspect`` counts rays whose result could
-    not be certified exact, and is always 0 on the brute path."""
+    not be certified exact (the packet xla engine's per-tile cap); 0 means
+    exact, and render_framebuffer retries or raises on nonzero."""
     t, index = intersect.intersect_spheres(
         origin, direction, scene.sphere_center, scene.sphere_radius
     )
@@ -104,6 +89,15 @@ def closest_hit(
     if scene.triangle_count == 0:
         return t, index, 0
     mode = resolved_intersector(scene)
+    if mode == "packet":
+        cfg = scene.config
+        return packet_intersect.closest_hit_packet(
+            scene, origin, direction, t, index,
+            tile=cfg.packet_tile,
+            cap=min(cfg.packet_cap, scene.num_clusters),
+            backend=cfg.packet_backend,
+            skip=cfg.packet_skip,
+        )
     if mode != "brute":
         raise NotImplementedError(f"the {mode!r} intersector {_LATER}")
     t_tri, i_tri = intersect.intersect_triangles_brute(
@@ -256,6 +250,217 @@ def make_initial_state(
     )
 
 
+def process_rays_tiled(
+    scene: Scene,
+    state: RayState,
+    pass_seed,
+    bounce: int,
+    reparam: bool = False,
+    tile_size: int = 1 << 18,
+) -> Tuple[RayState, int]:
+    """process_rays over ``tile_size``-ray tiles: bounds the per-step
+    working set (intersection tiles, cull matrices) whatever the wavefront
+    size. Within a bounce every ray is independent, so cutting the
+    wavefront and concatenating is exact."""
+    rays = state.origin.shape[0]
+    if rays <= tile_size:
+        return process_rays(scene, state, pass_seed, bounce, reparam=reparam)
+    parts, suspect = [], 0
+    for lo in range(0, rays, tile_size):
+        part, s = process_rays(
+            scene, RayState(*(leaf[lo:lo + tile_size] for leaf in state)),
+            pass_seed, bounce, reparam=reparam,
+        )
+        parts.append(part)
+        suspect = suspect + s
+    return RayState(*(torch.cat(leaves) for leaves in zip(*parts))), suspect
+
+
+# Static prefix sizes for live-prefix processing (dead-ray compaction), as
+# divisors of the wavefront. After a Morton sort of the whole wavefront,
+# dead rays (key 0xFFFFFFFF) sit at the tail, so a bounce only needs the
+# smallest static prefix covering the live bound.
+LIVE_PREFIX_DIVISORS = (1, 4, 16, 64)
+
+
+def prefix_quantum(scene: Scene, rays: int) -> int:
+    """Prefix granularity: whole intersection tiles when the Morton sort is
+    global; whole sort chunks otherwise (a prefix sort must keep the chunk
+    boundaries of the full-wavefront sort, or the chunk-local unsort would
+    break)."""
+    cs = sort_chunk_size(rays)
+    return scene.config.packet_tile if cs == rays else cs
+
+
+def prefix_for_divisor(scene: Scene, rays: int, divisor) -> int:
+    """ceil(rays / divisor) rounded up to the prefix quantum; ``divisor``
+    may be fractional."""
+    quantum = prefix_quantum(scene, rays)
+    n = int(-(-rays // max(1, divisor)))
+    return min(rays, -(-n // quantum) * quantum)
+
+
+def live_prefix_sizes(scene: Scene, rays: int) -> list:
+    """Static prefix sizes (descending) for dead-ray compaction."""
+    sizes = []
+    for div in LIVE_PREFIX_DIVISORS:
+        n = prefix_for_divisor(scene, rays, div)
+        if n not in sizes:
+            sizes.append(n)
+    return sizes
+
+
+def _live_count(state: RayState) -> torch.Tensor:
+    return torch.any(state.transmitted != 0.0, dim=-1).sum()
+
+
+def bounce_on_live_prefix(
+    scene: Scene,
+    state: RayState,
+    pass_seed,
+    bounce: int,
+    live_bound: int,  # all live rays sit below this row
+    do_sort: bool,
+    reparam: bool = False,
+    static_divisor=None,
+):
+    """One bounce (process + optional Morton reorder + live recount) on the
+    smallest static prefix covering the live rays → (state, live_bound',
+    suspect). ``live_bound`` over-approximates the highest live row + 1.
+
+    Exact: dead rays are no-ops in process_rays, so the all-dead suffix can
+    be left untouched; sorting a prefix keeps its rays inside it, and a
+    prefix sorted in one piece puts its dead rays last, so the recount is a
+    valid bound. With ``static_divisor`` (config.live_schedule) the prefix
+    is fixed, and live rays beyond it are reported as suspect: the
+    certificate that makes render_framebuffer drop a stale schedule."""
+    rays = state.origin.shape[0]
+    cs = sort_chunk_size(rays)
+    if static_divisor is not None:
+        n = prefix_for_divisor(scene, rays, static_divisor)
+    else:
+        # Smallest static prefix >= live_bound (sizes are descending).
+        n = next(size for size in reversed(live_prefix_sizes(scene, rays))
+                 if size >= live_bound)
+    prefix = RayState(*(leaf[:n] for leaf in state))
+    out, suspect = process_rays_tiled(scene, prefix, pass_seed, bounce, reparam=reparam)
+    bound = min(live_bound, n)
+    if do_sort:
+        out = reorder_rays(scene, out, chunk_size=min(cs, n))
+        if n <= cs:
+            # Single-piece sort → live-first prefix → exact recount.
+            bound = int(_live_count(out))
+    if n < rays:
+        out = RayState(*(torch.cat([o, leaf[n:]]) for o, leaf in zip(out, state)))
+    if static_divisor is not None:
+        suspect = suspect + max(live_bound - n, 0)
+    return out, bound, suspect
+
+
+def resolved_intersector(scene: Scene) -> str:
+    """The triangle intersector closest_hit uses: auto → brute up to 512
+    triangles, packet above; a single-leaf tree or no triangles → brute."""
+    mode = scene.config.intersector
+    if mode not in ("auto", "brute", "packet", "bvh"):
+        raise ValueError(
+            f"unknown intersector {mode!r}; expected auto | brute | packet | bvh"
+        )
+    if mode == "auto":
+        mode = "brute" if scene.triangle_count <= 512 else "packet"
+    if scene.bvh_node_count <= 1 or scene.triangle_count == 0:
+        mode = "brute"
+    return mode
+
+
+def reorder_is_useful(scene: Scene) -> bool:
+    """Morton reordering pays only through tile coherence in the packet /
+    BVH intersectors; for brute scenes it is pure cost."""
+    return resolved_intersector(scene) != "brute"
+
+
+# Rays are reordered within fixed-size chunks rather than globally, so a ray
+# never leaves its chunk and the final unsort is chunk-local too.
+SORT_CHUNK = 1 << 18
+SORT_ENGINES = ("auto", "count", "argsort")
+
+
+def sort_chunk_size(rays: int) -> int:
+    """Largest divisor of ``rays`` at most SORT_CHUNK (floor 4096; a global
+    sort when none divides evenly)."""
+    if rays <= SORT_CHUNK:
+        return rays
+    for cs in range(SORT_CHUNK, 4095, -1):
+        if rays % cs == 0:
+            return cs
+    return rays
+
+
+def _pack_state(state: RayState) -> torch.Tensor:
+    """The SoA wavefront as one (R, 16) float32 block (ray_id bitcast into
+    column 12), so a permutation moves one wide array."""
+    rid = state.ray_id.contiguous().view(torch.float32)[:, None]
+    pad = torch.zeros((state.origin.shape[0], 3), dtype=torch.float32,
+                      device=state.origin.device)
+    return torch.cat([state.origin, state.direction, state.transmitted,
+                      state.collected, rid, pad], dim=1)
+
+
+def _unpack_state(packed: torch.Tensor) -> RayState:
+    return RayState(
+        origin=packed[:, 0:3],
+        direction=packed[:, 3:6],
+        transmitted=packed[:, 6:9],
+        collected=packed[:, 9:12],
+        ray_id=packed[:, 12].contiguous().view(torch.int32),
+    )
+
+
+# The "count" engine's buckets: a stable sort on the key's top 8 bits (the
+# high bits of the origin Morton code), clamped to 254, with bucket 255
+# reserved for dead rays (the JAX package's ops/sort.py).
+COUNT_BUCKET_SHIFT = 23
+COUNT_BUCKETS = 256
+
+
+def reorder_rays(scene: Scene, state: RayState, chunk_size: int = None) -> RayState:
+    """Morton-key sort of the wavefront (the reference's radix-sort step,
+    raytracing.cu:238-247), chunk-local. Both of the JAX package's engines
+    are stable sorts, so the port gives each one's permutation with one
+    stable torch sort: ``"argsort"`` on the whole key, ``"count"`` on the
+    key's bucket (its matmul counting sort is a TPU device); ``"auto"``
+    picks count up to 2^17-ray chunks, argsort above, as the JAX package
+    does. Dead rays land last in every chunk either way."""
+    engine = scene.config.sort_engine
+    if engine not in SORT_ENGINES:
+        raise ValueError(f"unknown sort_engine {engine!r}; expected one of {SORT_ENGINES}")
+    key_mode = scene.config.sort_key
+    if key_mode == "auto":
+        key_mode = "cullhit" if resolved_intersector(scene) == "packet" else "morton"
+    if key_mode == "cullhit" and resolved_intersector(scene) == "packet":
+        raise NotImplementedError(f"the 'cullhit' sort key {_LATER}")
+    alive = torch.any(state.transmitted != 0.0, dim=-1)
+    keys = morton.ray_sort_keys(state.origin, state.direction, alive,
+                                scene.min_coord, scene.inv_extent)
+    R = keys.shape[0]
+    cs = chunk_size if chunk_size is not None else sort_chunk_size(R)
+    if engine == "auto":
+        engine = "count" if cs <= 1 << 17 else "argsort"
+    if engine == "count":
+        keys = torch.where(alive, torch.clamp(keys >> COUNT_BUCKET_SHIFT,
+                                              max=COUNT_BUCKETS - 2), COUNT_BUCKETS - 1)
+    order = torch.argsort(keys.reshape(R // cs, cs), dim=1, stable=True)
+    order = (order + torch.arange(0, R, cs, device=keys.device)[:, None]).reshape(R)
+    return _unpack_state(_pack_state(state)[order])
+
+
+def _sort_schedule(scene: Scene, sort_rays: bool, bounces: int) -> list:
+    """Per bounce, whether the wavefront is reordered after it: while young
+    (``sort_depth``), never after the last bounce."""
+    sort_depth = scene.config.sort_depth or bounces
+    return [sort_rays and bounce + 1 != bounces and bounce < sort_depth
+            for bounce in range(bounces)]
+
+
 def trace_wavefront(
     scene: Scene,
     state: RayState,
@@ -264,15 +469,66 @@ def trace_wavefront(
     sort_rays: bool,
     reparam: bool = False,
 ) -> Tuple[RayState, int]:
-    """March the wavefront through ``bounces`` scatter events, in ray order.
-    Returns (state, suspect), ``suspect`` summed over bounces."""
-    if sort_rays and reorder_is_useful(scene):
-        raise NotImplementedError(f"the Morton ray reorder {_LATER}")
+    """March the wavefront through ``bounces`` scatter events: reordered by
+    Morton key after each of the first ``sort_depth`` bounces (but the
+    last), and on the smallest live prefix once the whole wavefront is one
+    sort chunk. Returns (state, suspect), ``suspect`` summed over bounces."""
+    sort_rays = sort_rays and reorder_is_useful(scene)
+    sorted_bounces = _sort_schedule(scene, sort_rays, bounces)
+    R = state.origin.shape[0]
+    compact = sort_rays and sort_chunk_size(R) == R
+    sched = scene.config.live_schedule
+    live_bound = R
     suspect_total = 0
-    for bounce in range(bounces):
-        state, suspect = process_rays(scene, state, pass_seed, bounce, reparam=reparam)
-        suspect_total += suspect
+    for bounce, do_sort in enumerate(sorted_bounces):
+        if not compact:
+            # Without a whole-wavefront sort the live bound never tightens,
+            # so every bounce runs the full wavefront.
+            state, suspect = process_rays_tiled(scene, state, pass_seed, bounce,
+                                                reparam=reparam)
+            if do_sort:
+                state = reorder_rays(scene, state)
+        else:
+            divisor = sched[min(bounce, len(sched) - 1)] if sched else None
+            state, live_bound, suspect = bounce_on_live_prefix(
+                scene, state, pass_seed, bounce, live_bound, do_sort,
+                reparam=reparam, static_divisor=divisor,
+            )
+        suspect_total = suspect_total + suspect
     return state, suspect_total
+
+
+def trace_live_bounds(
+    scene: Scene, state: RayState, pass_seed, bounces: int, sort_rays: bool
+) -> list:
+    """Per-bounce entering live bounds of a full (uncompacted) trace: the
+    calibration input for config.live_schedule. The bound tightens to the
+    exact live count after each sorted bounce of a one-chunk wavefront and
+    carries over otherwise."""
+    sorted_bounces = _sort_schedule(scene, sort_rays and reorder_is_useful(scene), bounces)
+    R = state.origin.shape[0]
+    bound = R
+    bounds = []
+    for bounce, do_sort in enumerate(sorted_bounces):
+        bounds.append(int(bound))
+        state, _ = process_rays_tiled(scene, state, pass_seed, bounce)
+        if do_sort:
+            state = reorder_rays(scene, state)
+            if sort_chunk_size(R) == R:
+                bound = _live_count(state)
+    return bounds
+
+
+def _unsort_by_ray_id(collected: torch.Tensor, ray_id: torch.Tensor) -> torch.Tensor:
+    """``collected`` rows restored to ray-id order. Reordering is
+    chunk-local, so chunk c holds exactly ids [base + c cs, base + (c+1) cs)
+    and the unsort is a per-chunk argsort + gather (forward only; the
+    differentiable slice adds its custom backward)."""
+    R = ray_id.shape[0]
+    cs = sort_chunk_size(R)
+    order = torch.argsort(ray_id.reshape(R // cs, cs), dim=1)
+    order = (order + torch.arange(0, R, cs, device=ray_id.device)[:, None]).reshape(R)
+    return collected[order]
 
 
 def accumulate_radiance(
@@ -281,8 +537,10 @@ def accumulate_radiance(
     num_pixels: int,
     ordered: bool = False,
 ) -> torch.Tensor:
-    """Per-pixel radiance sums of a wavefront in ray-id order (rays are
-    pixel-major, so this is a reshape-sum)."""
+    """Per-pixel radiance sums of a (possibly reordered) wavefront: unsort
+    by ray id (skipped when ``ordered``), then a reshape-sum (rays are
+    pixel-major)."""
+    collected = state.collected
     if not ordered:
-        raise NotImplementedError(f"the by-ray-id unsort of a reordered wavefront {_LATER}")
-    return state.collected.reshape(num_pixels, rays_per_pixel, 3).sum(dim=1)
+        collected = _unsort_by_ray_id(collected, state.ray_id)
+    return collected.reshape(num_pixels, rays_per_pixel, 3).sum(dim=1)

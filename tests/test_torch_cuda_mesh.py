@@ -1,0 +1,111 @@
+"""The packet kernels (cull, fused, fused1) on the GPU, against their plain PyTorch versions.
+
+Marked ``cuda``: skipped on a machine without a GPU. On the GPU machine,
+which has no JAX, run them without the suite's JAX conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_mesh.py -q
+
+Each kernel is held BIT-EQUAL to its plain version on real wavefront states
+of the small torus at 32×32 (coherent primary rays and Morton-sorted
+bounced ones); a two-pass render through both regimes (fused1 for the
+10-rays-per-pixel pass, cull + fused for the 2-rays-per-pixel one) is held
+to the agreement gate against the same render with the xla engine.
+"""
+
+import pytest
+import torch
+
+from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+from cuda_raytracer_tpu_torch.ops import packet_intersect
+from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def _scene(device, name="torus", **overrides):
+    parsed = builtin_scenes.parse_mesh_scene(name, builtin_scenes.SMALL)
+    return scene_dsl.assemble_scene(
+        parsed, config_overrides=dict(width=32, height=32, **overrides), device=device
+    )
+
+
+def _states(scene, rpp=4, bounces=2):
+    """The wavefront entering bounces 0..bounces-1, sorted after each."""
+    ids = torch.arange(32 * 32 * rpp, dtype=torch.int32, device=scene.device)
+    state = wavefront.make_initial_state(scene, ids, rpp, 3)
+    states = [state]
+    for b in range(bounces - 1):
+        state, _ = wavefront.process_rays(scene, state, 3, b)
+        state = wavefront.reorder_rays(scene, state)
+        states.append(state)
+    return states
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+def test_kernels_bit_equal_plain(cuda, name):
+    scene = _scene(cuda, name)
+    K = scene.num_clusters
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    blocks = scene.cluster_blocks[:K].contiguous()
+    for state in _states(scene):
+        alive = torch.any(state.transmitted != 0, dim=-1)
+        window = torch.where(alive, 1e30, -1.0)
+        rays = packet_intersect._pad_rays(state.origin[:-7], state.direction[:-7],
+                                          window[:-7], 64)  # unaligned count
+        od8 = cull.make_od8(*rays, 64)
+        before = (cull.LAUNCHES, fused.LAUNCHES, fused1.LAUNCHES)
+        entry, mask = cull.cull_tiles(od8, aabb, with_mask=True)
+        entry_ref, mask_ref = cull.plain_cull(od8, aabb, with_mask=True)
+        assert torch.equal(entry, entry_ref) and torch.equal(mask, mask_ref)
+        assert torch.equal(cull.cull_tiles(od8, aabb), entry_ref)
+        words = fused.pack_words(entry_ref < cull.MISS_ENTRY * 0.5)
+        ref = fused.plain_fused(od8, blocks, words)
+        for skip in (False, True):
+            got = fused.fused_closest_hit(od8, blocks, words,
+                                          entry if skip else None, mask if skip else None)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        for gate in (0, 16):
+            sup = fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate) if gate else None
+            got = fused1.fused1_closest_hit(od8, aabb, blocks, sup, gate)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        torch.cuda.synchronize()
+        assert (cull.LAUNCHES, fused.LAUNCHES, fused1.LAUNCHES) == (
+            before[0] + 2, before[1] + 2, before[2] + 2)
+        assert (ref[1] >= 0).any()
+
+
+def test_engines_bit_equal_xla(cuda):
+    scene = _scene(cuda)
+    state = _states(scene)[1]
+    alive = torch.any(state.transmitted != 0, dim=-1)
+    t = torch.where(alive, 1e30, -1.0)
+    index = torch.full_like(alive, -1, dtype=torch.int32)
+    args = (scene, state.origin, state.direction, t, index)
+    ref = packet_intersect.closest_hit_packet(*args, tile=64, cap=scene.num_clusters,
+                                              backend="xla")
+    for backend, kw in (("fused", {}), ("fused", dict(skip=True)), ("fused1", {})):
+        got = packet_intersect.closest_hit_packet(*args, tile=64, backend=backend, **kw)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (backend, kw)
+
+
+def test_render_goes_through_kernels_and_matches_xla(cuda):
+    scene = _scene(cuda, rays_per_pixel=12, bounces=4, max_rays_per_pixel_per_pass=10)
+    counts = lambda: (cull.LAUNCHES, fused.LAUNCHES, fused1.LAUNCHES, shade.LAUNCHES)
+    before = counts()
+    fb = pipeline.render_framebuffer(scene)  # passes of 10 (fused1) and 2 (cull + fused)
+    after = counts()
+    assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3] == before[3]
+    plain = pipeline.render_framebuffer(scene.with_config(packet_backend="xla"))
+    assert counts() == after  # the xla engine launches no kernel
+    torch.cuda.synchronize()
+    assert torch.isfinite(fb).all()
+    diff = (fb - plain).abs().amax(dim=1)
+    assert float((diff < 1e-3).float().mean()) >= 0.999

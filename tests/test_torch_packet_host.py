@@ -1,0 +1,122 @@
+"""The packet kernels' shared bodies, compiled for the host, against their plain versions.
+
+``cuda_raytracer_tpu_torch/csrc/cull.cu``, ``fused.cu`` and ``fused1.cu``
+run only on the GPU, where ``chip_smoke.py`` holds them against the plain
+PyTorch versions. Everything they compute, though, is in ``csrc/packet.cuh``
+as per-block drivers templated over an executor; ``csrc/packet_host.cpp``
+runs the same drivers over the grid as a loop on the host. This test builds
+that file with the host C++ compiler (``-ffp-contract=off``, like the GPU
+build's ``-fmad=false``) and holds every output BIT-EQUAL to the plain
+version: the cull's entries and hit words, and the (t, tri) of fused (with
+and without the skip test) and fused1 (flat and gated), on a torus cut into
+more than one 128-box chunk, with finite windows, dead rays and ray counts
+that do not fill the last tile.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+from cuda_raytracer_tpu_torch.ops import packet_intersect
+from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib_path = tmp_path_factory.mktemp("packet_host") / "libpacket_host.so"
+    subprocess.run(
+        [cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(lib_path), str(build.CSRC_DIR / "packet_host.cpp")],
+        check=True, capture_output=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
+    lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p] * 3
+    lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 4 + [p] * 3
+    return lib
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """A torus cut into ~290 clusters of <= 32 triangles: three cull chunks."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    s = scene_dsl.assemble_scene(parsed, config_overrides=dict(width=8, height=8),
+                                 prefer_native_bvh=False, cluster_tris=32, device="cpu")
+    assert s.num_clusters > 2 * fused1.CHUNK
+    return s
+
+
+def _od8(n, tile, seed):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-2.5, 2.5, (n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(0.1, 2.0, n)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    w = np.full(n, 1e30, np.float32)
+    w[: n // 4] = rng.uniform(0.3, 3.0, n // 4)
+    w[n // 4: n // 4 + 9] = -1.0
+    rays = packet_intersect._pad_rays(*(torch.from_numpy(a) for a in (o, d, w)), tile)
+    return cull.make_od8(*rays, tile)
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+@pytest.mark.parametrize("n,tile", [(700, 64), (333, 32), (250, 100)])
+def test_host_kernels_bit_equal_plain(host_lib, scene, n, tile):
+    od8 = _od8(n, tile, seed=n)
+    T = od8.shape[0]
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    K = aabb.shape[1]
+    blocks = scene.cluster_blocks[:K].contiguous()
+    C = blocks.shape[2]
+
+    entry_ref, mask_ref = cull.plain_cull(od8, aabb, with_mask=True)
+    entry, mask = torch.empty_like(entry_ref), torch.empty_like(mask_ref)
+    host_lib.rt_host_cull_tiles(_ptr(od8), _ptr(aabb), _ptr(entry), _ptr(mask), T, K, tile)
+    assert torch.equal(entry, entry_ref) and torch.equal(mask, mask_ref)
+
+    select = entry_ref < cull.MISS_ENTRY * 0.5
+    words = fused.pack_words(select)
+    t_ref, tri_ref = fused.plain_fused(od8, blocks, words)
+    assert (tri_ref >= 0).sum() > n // 10  # the case has hits to compare
+    # The stats count only the work the data needs: live rays, real triangles.
+    live = (od8[:, 6, :] >= 0).sum(dim=1)
+    real = (blocks[:, 9, :] >= 0).sum(dim=1)
+    assert int(real.min()) < C  # some clusters are padded
+    pairs, mt_tests = int(select.sum()), int((select * live[:, None] * real).sum())
+    for skip in (False, True):
+        t, tri = torch.empty_like(t_ref), torch.empty_like(tri_ref)
+        stats = torch.zeros(3, dtype=torch.int64)
+        host_lib.rt_host_fused_closest_hit(
+            _ptr(od8), _ptr(blocks), _ptr(words), words.shape[1],
+            _ptr(entry_ref) if skip else None, _ptr(mask_ref) if skip else None,
+            T, K, C, tile, _ptr(t), _ptr(tri), _ptr(stats))
+        assert torch.equal(t, t_ref) and torch.equal(tri, tri_ref), skip
+        if skip:
+            assert 0 < stats[1] <= pairs and 0 < stats[2] <= mt_tests
+        else:
+            assert (stats[1], stats[2]) == (pairs, mt_tests)
+
+    t1_ref, tri1_ref = fused1.plain_fused1(od8, aabb, blocks)
+    assert torch.equal(t1_ref, t_ref) and torch.equal(tri1_ref, tri_ref)
+    for gate in (0, 16):
+        sup = fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate) if gate else None
+        t, tri = torch.empty_like(t_ref), torch.empty_like(tri_ref)
+        stats = torch.zeros(3, dtype=torch.int64)
+        host_lib.rt_host_fused1_closest_hit(
+            _ptr(od8), _ptr(aabb), _ptr(sup), 0 if sup is None else sup.shape[0], gate,
+            _ptr(blocks), T, K, C, tile, _ptr(t), _ptr(tri), _ptr(stats))
+        assert torch.equal(t, t1_ref) and torch.equal(tri, tri1_ref), gate
+        assert 0 < stats[0] <= int(live.sum()) * K
+        assert 0 < stats[1] <= pairs and 0 < stats[2] <= mt_tests
