@@ -11,8 +11,9 @@ forward render of a brute scene through the shade kernel, and of a
 line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
-2. build: compile ``csrc/shade.cu``, ``cull.cu``, ``fused.cu`` and
-   ``fused1.cu`` with nvcc, all four at once; print seconds and registers;
+2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
+   ``fused.cu`` and ``fused1.cu`` with nvcc, all four at once, and the
+   native BVH builder with g++; print seconds and registers;
 3. kernel vs plain: each built-in scene at 64×64, 4 rays per pixel and 10
    bounces, plus an unaligned block (ray ids 100..359): per-ray agreement
    with the plain PyTorch version (max |Δ| < 1e-3 on ≥ 99.9 % of rays, none
@@ -48,7 +49,23 @@ line each:
    that the kernel did, the bound they imply, and bit-equality at that full
    shape; then that block's whole trace (10 bounces) under torch.profiler,
    through fused1 and through cull + fused: device time by kernel, the
-   packet kernels' time per bounce and the device's idle share.
+   packet kernels' time per bounce and the device's idle share;
+9. the command-line renderer: the full-size torus and the Cornell scene
+   written as ``.scene`` files; (a) ``python -m cuda_raytracer_tpu_torch
+   torus.scene --spp 8 --cull-hier 16 --metrics`` as a subprocess (exit 0,
+   the PNG, paths/s; its load_scene seconds with the native BVH, render
+   seconds and metrics line); (b) ``cli.main`` in process on the same
+   render with ``--cull-hier 16`` and with the flat cull, in turns (gated,
+   flat, flat, gated): the gated cull kernel launches in every gated run
+   and in no flat one, every PNG is byte-identical, and each run's render
+   seconds are printed; (c) the gated cull against its plain version on the
+   torus centre block at bounces 0-3, with and without hit words, at an
+   unaligned ray count and at the full block (0 mismatched elements), and
+   its time with its super pre-pass against the flat cull on bounces 0 and
+   1; (d) a 128×128 render stopped after two passes and resumed from its
+   checkpoint, bit-identical to an uninterrupted one; (e) ``cli.main`` with
+   the ``cpu`` flag on the Cornell scene at 64×64: the GPU and CPU images
+   agree within 1 per channel on >= 99.9 % of the bytes.
 
 Then one JSON line per the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without a
@@ -58,10 +75,13 @@ CUDA device it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 AGREE_TOL = 1e-3  # per-ray max |Δ| counted as agreeing
 AGREE_MIN = 0.999  # fraction of rays that must agree
@@ -107,6 +127,9 @@ MESH_FULL_SPP = 100
 MESH_FEW_SPP = 8  # one pass below the fused1 threshold: cull + fused
 MESH_SMALL_RPP = 4
 MESH_SMALL_BOUNCES = 4
+CLI_SPP = 8  # phase 9: one pass in the cull + fused regime, where the gated cull runs
+CLI_GATE = 16  # --cull-hier: clusters per super box
+CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
 BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
 BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
 
@@ -276,7 +299,7 @@ def phase_timing(device) -> dict:
 
 def _mesh_scene(name: str, device):
     """A full-size mesh scene (1000×1000, 100 spp, 10 bounces) on the card.
-    Parsing and the NumPy BVH build are set-up, outside every timed scope."""
+    Parsing and the native BVH build are set-up, outside every timed scope."""
     from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 
     start = time.perf_counter()
@@ -601,6 +624,274 @@ def phase_packet_timing(full) -> dict:
     return {name: results[(name, 1)] for name in runs}
 
 
+def _launch_counts() -> dict:
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+
+    return {"shade_trace": shade.LAUNCHES, "cull_tiles": cull.LAUNCHES,
+            "cull_gated": cull.LAUNCHES_GATED, "fused_closest_hit": fused.LAUNCHES,
+            "fused1_closest_hit": fused1.LAUNCHES}
+
+
+def _zero_launch_counts() -> None:
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+
+    for module in (shade, cull, fused, fused1):
+        module.LAUNCHES = 0
+    cull.LAUNCHES_GATED = 0
+
+
+def _write_scenes(workdir: Path) -> dict:
+    """The full-size torus and the Cornell scene as ``.scene`` files. The
+    torus names a sky map that is not there, which gives it the substitute
+    sky the mesh scenes get everywhere in this repository."""
+    from cuda_raytracer_tpu_torch.models import builtin_scenes
+
+    paths = {"torus": workdir / "torus.scene", "cornell": workdir / "cornell.scene"}
+    paths["torus"].write_text(builtin_scenes.torus() + "sky_map envmap.pfm\n")
+    paths["cornell"].write_text(builtin_scenes.CORNELL)
+    return paths
+
+
+def phase_cli_subprocess(scenes: dict, workdir: Path) -> bytes:
+    """9a: the real entry point, as a user runs it."""
+    out = workdir / "gated.png"
+    cmd = [sys.executable, "-m", "cuda_raytracer_tpu_torch", str(scenes["torus"]),
+           "--spp", str(CLI_SPP), "--cull-hier", str(CLI_GATE), "--metrics",
+           "--out", str(out)]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+    start = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=workdir, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - start
+    metrics = [ln for ln in proc.stderr.splitlines() if ln.startswith("{")]
+    print(f"phase 9a cli: python -m cuda_raytracer_tpu_torch torus.scene --spp {CLI_SPP} "
+          f"--cull-hier {CLI_GATE} --metrics rc={proc.returncode} wall_seconds={wall:.2f}")
+    if proc.returncode != 0 or not out.exists() or "paths/s" not in proc.stderr or not metrics:
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise SystemExit("phase 9a failed: the CLI did not render the torus")
+    m = json.loads(metrics[-1])
+    phases = m["phases"]
+    print(f"phase 9a cli: load_scene_seconds={phases['load_scene']:.3f} (native BVH) "
+          f"render_seconds={phases['render_accelerator']:.4f} "
+          f"paths_per_s={m['counters']['paths_per_s_accelerator']:.6g} "
+          f"post_seconds={phases['post_accelerator']:.4f}")
+    print(f"phase 9a cli metrics: {metrics[-1]}")
+    return out.read_bytes()
+
+
+def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> int:
+    """9b: ``cli.main`` with the hierarchical cull and with the flat one, in
+    turns (gated, flat, flat, gated), each run's launch counts set to 0
+    just before it and read just after."""
+    import contextlib
+    import io
+
+    from cuda_raytracer_tpu_torch import cli
+
+    pngs, gated_launches, flat_launches, seconds = [], [], [], {"gated": [], "flat": []}
+    for turn, label in enumerate(("gated", "flat", "flat", "gated")):
+        extra = ["--cull-hier", str(CLI_GATE)] if label == "gated" else []
+        out = workdir / f"inproc_{turn}_{label}.png"
+        argv = [str(scenes["torus"]), "--spp", str(CLI_SPP), *extra, "--metrics",
+                "--out", str(out)]
+        err = io.StringIO()
+        _zero_launch_counts()
+        with contextlib.redirect_stderr(err):
+            rc = cli.main(argv)
+        counts = _launch_counts()
+        if rc != 0:
+            print(err.getvalue()[-4000:], file=sys.stderr)
+            raise SystemExit(f"phase 9b failed: cli.main returned {rc} ({label})")
+        m = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
+        render = m["phases"]["render_accelerator"]
+        seconds[label].append(render)
+        (gated_launches if label == "gated" else flat_launches).append(counts["cull_gated"])
+        pngs.append(out.read_bytes())
+        print(f"phase 9b cli.main: torus spp={CLI_SPP} turn={turn} {label} rc={rc} "
+              f"load_scene_seconds={m['phases']['load_scene']:.3f} "
+              f"render_seconds={render:.4f} launches={json.dumps(counts)}")
+    same = all(png == pngs[0] for png in pngs)
+    same_sub = pngs[0] == subprocess_png
+    print(f"phase 9b cli.main: render_seconds gated={seconds['gated']} "
+          f"flat={seconds['flat']} gated_launches={gated_launches} "
+          f"flat_launches={flat_launches} png_byte_identical={same} "
+          f"identical_to_subprocess={same_sub}")
+    if not (all(n > 0 for n in gated_launches) and not any(flat_launches)
+            and same and same_sub):
+        raise SystemExit("phase 9b failed: gated launches, flat launches or PNG bytes")
+    return gated_launches[0]
+
+
+def phase_gated_cull(full) -> dict:
+    """9c: the gated cull kernel against its plain version, and its time."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import cull
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    rpp, seed = 20, 80
+    scene = full.with_config(rays_per_pixel=rpp)
+    block_lo, block = _centre_block(scene, rpp)
+    ray_id = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    tile = scene.config.packet_tile
+    aabb_p, sup_aabb = packet_intersect.hier_tables(scene.cluster_min, scene.cluster_max,
+                                                    CLI_GATE)
+    Kp, n_sup = aabb_p.shape[1], sup_aabb.shape[1]
+    n_chunks = Kp // cull.GATE_CHUNK
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    f4 = 4
+    state = wavefront.make_initial_state(scene, ray_id, rpp, seed)
+    worst, result = 0.0, None
+    for bounce in range(4):
+        for n in (block - 37, block):
+            cut = wavefront.RayState(*(leaf[:n] for leaf in state))
+            od8 = _packet_rays(scene, cut, tile)
+            gates = packet_intersect.hier_gates(od8, sup_aabb, n_chunks)
+            bad, err = 0, 0.0
+            for with_mask in (False, True):
+                got = cull.cull_tiles_gated(od8, aabb_p, gates, with_mask=with_mask)
+                want = cull.plain_cull_gated(od8, aabb_p, gates, with_mask=with_mask)
+                got, want = (got, want) if with_mask else ((got,), (want,))
+                torch.cuda.synchronize()
+                bad += sum(int((g != w).sum()) for g, w in zip(got, want))
+                err = max([err] + [float((g.double() - w.double()).abs().max())
+                                   for g, w in zip(got, want)])
+            live_chunks = int(cull.unpack_gates(gates, od8.shape[0], n_chunks).sum())
+            print(f"phase 9c gated vs plain: torus block lo={block_lo} bounce={bounce} "
+                  f"rays={n} tiles={od8.shape[0]} gated_on_chunks={live_chunks} of "
+                  f"{od8.shape[0] * n_chunks} mismatched={bad} max_abs_err={err:.3g}")
+            if bad:
+                raise SystemExit(f"phase 9c failed: gated cull differs from its plain "
+                                 f"version (bounce {bounce}, {n} rays)")
+            worst = max(worst, err)
+        if bounce <= 1:
+            od8 = _packet_rays(scene, state, tile)
+            T = od8.shape[0]
+            gates = packet_intersect.hier_gates(od8, sup_aabb, n_chunks)
+            on = cull.unpack_gates(gates, T, n_chunks)
+            live_tile = (od8[:, 6, :] >= 0).sum(dim=1)
+            gated_slabs = int((on.sum(dim=1) * live_tile).sum()) * cull.GATE_CHUNK
+            super_slabs = int(live_tile.sum()) * n_sup
+            flat_slabs = int(live_tile.sum()) * aabb.shape[1]
+            W = -(-tile // 32)
+
+            def hier():
+                return cull.cull_tiles_gated(
+                    od8, aabb_p, packet_intersect.hier_gates(od8, sup_aabb, n_chunks),
+                    with_mask=True)
+
+            def plain_hier():
+                sup_hit = cull.plain_cull(od8, sup_aabb) < cull.MISS_ENTRY * 0.5
+                words = cull.pack_bits(sup_hit.reshape(T, n_chunks, -1).any(dim=2)[:, :, None])
+                return cull.plain_cull_gated(od8, aabb_p, words.reshape(-1), with_mask=True)
+
+            ms = _cuda_ms(hier, 5)
+            kernel_ms = _cuda_ms(lambda: cull.cull_tiles_gated(od8, aabb_p, gates, True), 5)
+            prepass_ms = _cuda_ms(lambda: packet_intersect.hier_gates(od8, sup_aabb, n_chunks), 5)
+            flat_ms = _cuda_ms(lambda: cull.cull_tiles(od8, aabb, with_mask=True), 5)
+            plain_ms = _cuda_ms(plain_hier, 3)
+            ops_ms = (gated_slabs + super_slabs) * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
+            nbytes = (od8.numel() + BOX_ROWS * (Kp + n_sup) + T * n_sup + gates.numel()
+                      + T * Kp * (1 + W)) * f4
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            flat_bound_ms = flat_slabs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
+            kernel_bound_ms = gated_slabs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
+            prepass_bound_ms = super_slabs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
+            print(f"phase 9c timing: torus block lo={block_lo} rays={block} bounce={bounce} "
+                  f"hier_cull_ms={ms:.3f} (gated_kernel_ms={kernel_ms:.3f} "
+                  f"bound_ms={kernel_bound_ms:.4f} share={kernel_bound_ms / kernel_ms:.3f}; "
+                  f"prepass_ms={prepass_ms:.3f} bound_ms={prepass_bound_ms:.4f} "
+                  f"share={prepass_bound_ms / prepass_ms:.3f}) flat_cull_ms={flat_ms:.3f} "
+                  f"plain_hier_ms={plain_ms:.1f} gated_on_chunks={int(on.sum())} of "
+                  f"{T * n_chunks} slab_tests gated={gated_slabs} super={super_slabs} "
+                  f"flat={flat_slabs} ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
+                  f"bound_share={bound_ms / ms:.3f} flat_bound_ms={flat_bound_ms:.4f} "
+                  f"flat_bound_share={flat_bound_ms / flat_ms:.3f}")
+            if bounce == 1:  # the kernel table reports the sorted bounced block
+                result = dict(ms=ms, kernel_ms=kernel_ms, prepass_ms=prepass_ms,
+                              flat_ms=flat_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                              bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        state, _ = wavefront.process_rays(scene, state, seed, bounce)
+        state = wavefront.reorder_rays(scene, state)
+    result["max_abs_err"] = worst
+    return result
+
+
+class _Interrupt(Exception):
+    pass
+
+
+def phase_resume(full, workdir: Path) -> None:
+    """9d: a render stopped after two passes and resumed from its
+    checkpoint equals an uninterrupted one bit for bit."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import pipeline
+    from cuda_raytracer_tpu_torch.utils import checkpoint
+
+    scene = _resized(full, 128, 128).with_config(
+        rays_per_pixel=6, max_rays_per_pixel_per_pass=2, cull_hier=CLI_GATE)
+    path = str(workdir / "resume.npz")
+    straight = pipeline.render_framebuffer(scene)
+
+    def stop_after_two(done, total):
+        if done == 4:
+            raise _Interrupt
+
+    try:
+        pipeline.render_framebuffer(scene, checkpoint_path=path, progress=stop_after_two)
+        raise SystemExit("phase 9d failed: the render was not interrupted")
+    except _Interrupt:
+        pass
+    saved = checkpoint.load_checkpoint(path, checkpoint.scene_fingerprint(scene))
+    resumed = pipeline.render_framebuffer(scene, checkpoint_path=path)
+    torch.cuda.synchronize()
+    same = bool(torch.equal(resumed, straight))
+    print(f"phase 9d resume: torus 128x128 spp=6 passes_of=2 checkpoint_samples={saved[1]} "
+          f"resumed_bit_identical={same} max_abs_diff="
+          f"{float((resumed - straight).abs().max()):.3g}")
+    if saved[1] != 4 or not same:
+        raise SystemExit("phase 9d failed: the resumed render differs")
+
+
+def phase_cpu_flag(scenes: dict, workdir: Path) -> None:
+    """9e: the ``cpu`` flag renders the scene on the GPU and on the CPU."""
+    import numpy as np
+    from cuda_raytracer_tpu_torch import cli
+    from cuda_raytracer_tpu_torch.utils.png import read_png
+
+    out = workdir / "out.png"
+    rc = cli.main([str(scenes["cornell"]), "cpu", "--width", "64", "--height", "64",
+                   "--spp", "4", "--out", str(out)])
+    cpu_out = Path(str(out) + ".cpu.png")
+    if rc != 0 or not out.exists() or not cpu_out.exists():
+        raise SystemExit("phase 9e failed: the cpu flag did not write both images")
+    gpu, cpu = (read_png(str(p)).astype(np.int32) for p in (out, cpu_out))
+    diff = np.abs(gpu - cpu)
+    within = float((diff <= 1).mean())
+    print(f"phase 9e cpu flag: cornell 64x64 spp=4 rc={rc} bytes_within_1={within:.6f} "
+          f"identical_bytes={float((diff == 0).mean()):.6f} max_byte_diff={int(diff.max())} "
+          f"mean_gpu={gpu.mean():.2f} mean_cpu={cpu.mean():.2f}")
+    if within < CPU_GATE:
+        raise SystemExit("phase 9e failed: GPU and CPU images disagree")
+
+
+def phase_cli(full) -> dict:
+    """Phase 9: the command-line renderer on the card."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        workdir = Path(tmp)
+        scenes = _write_scenes(workdir)
+        png = phase_cli_subprocess(scenes, workdir)
+        launches = phase_cli_in_process(scenes, workdir, png)
+        result = phase_gated_cull(full)
+        phase_resume(full, workdir)
+        phase_cpu_flag(scenes, workdir)
+    result["launches"] = launches
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -624,6 +915,11 @@ def main() -> int:
         regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
         print(f"phase 2 build: {name}.cu nvcc_seconds={b.seconds:.2f} {' | '.join(regs)}")
     print(f"phase 2 build: all seconds={time.perf_counter() - start:.2f}")
+    from cuda_raytracer_tpu_torch.native import bvh_native
+
+    start = time.perf_counter()
+    bvh_native.library()
+    print(f"phase 2 build: native BVH builder (g++) seconds={time.perf_counter() - start:.2f}")
 
     phase_kernel_vs_plain(device)
     main_path = phase_main_path(device)
@@ -633,6 +929,7 @@ def main() -> int:
     mesh_launches = phase_mesh_main_path(scenes["torus"])
     mesh_timing = phase_packet_timing(scenes["torus"])
     phase_mesh_profile(scenes["torus"])
+    gated = phase_cli(scenes["torus"])
 
     kernels = [{
         "name": "shade_trace",
@@ -665,6 +962,25 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,
         })
+    kernels.append({
+        "name": "cull_gated",
+        "route": "cuda",
+        "source": "cuda_raytracer_tpu_torch/csrc/cull.cu",
+        "replaces": "cuda_raytracer_tpu/ops/pallas/cull.py:104",
+        "launches": gated["launches"],
+        "max_abs_err": gated["max_abs_err"],
+        "tolerance": "bit-equal",
+        # The hierarchical cull as the path runs it: the super-box pre-pass
+        # (a flat cull of the super boxes, gate words) and the gated kernel.
+        "ms": gated["ms"],
+        "kernel_ms": gated["kernel_ms"],
+        "prepass_ms": gated["prepass_ms"],
+        "flat_cull_ms": gated["flat_ms"],
+        "plain_ms": gated["plain_ms"],
+        "bound_ms": gated["bound_ms"],
+        "bound_by": gated["bound_by"],
+        "library_ms": None,
+    })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

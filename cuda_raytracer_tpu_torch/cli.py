@@ -1,0 +1,168 @@
+"""Command-line driver (counterpart of ``cuda_raytracer_tpu/cli.py``; reference: main, raytracing.cu:305-398).
+
+Usage mirrors the reference::
+
+    python -m cuda_raytracer_tpu_torch <scene.scene> [no_sort] [cpu] [no_gpu] [no_bvh]
+
+with the same order-insensitive positional flags and exit codes (usage → 1,
+unknown flag → 1, no backend → 2). The accelerator render runs on the CUDA
+device through the hand-written kernels, and raises when there is none;
+``cpu`` is the caller asking for the CPU: the same scene rendered with
+``device="cpu"`` through the kernels' plain PyTorch versions, the
+dual-backend cross-check the reference used for validation. When both run,
+the images go to ``<out>`` and ``<out>.cpu.png`` (and the CPU run's
+checkpoint to ``<checkpoint>.cpu.npz``); both get the same post chain
+(``--no-bloom`` skips bloom on both). The GNU options expose what the
+reference configured by editing the scene file: resolution, samples,
+bounces, checkpointing, metrics and the packet intersector's knobs.
+``--mesh`` (sharding over several GPUs) is not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import torch
+
+FLAGS = ("no_sort", "cpu", "no_gpu", "no_bvh")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        prog="cuda_raytracer_tpu_torch",
+        description="Monte-Carlo path tracer on a CUDA GPU (PyTorch port)",
+    )
+    parser.add_argument("scene", help="scene description file (.scene DSL)")
+    parser.add_argument("flags", nargs="*",
+                        help="reference-compatible flags: " + " ".join(FLAGS))
+    parser.add_argument("--out", default="raytracing.png", help="output PNG path")
+    parser.add_argument("--width", type=int, help="override image width")
+    parser.add_argument("--height", type=int, help="override image height")
+    parser.add_argument("--spp", type=int, help="override rays per pixel")
+    parser.add_argument("--bounces", type=int, help="override bounce limit")
+    parser.add_argument("--no-bloom", action="store_true", help="skip bloom post-pass")
+    parser.add_argument("--checkpoint", help="checkpoint file for resumable accumulation")
+    parser.add_argument("--checkpoint-every", type=int, default=1,
+                        help="passes between checkpoints")
+    parser.add_argument("--mesh", type=int, default=0,
+                        help="shard rays over N devices (0 = single-device render; "
+                        "not ported yet)")
+    parser.add_argument("--metrics", action="store_true",
+                        help="emit a JSON metrics line to stderr")
+    parser.add_argument("--packet-skip", action="store_true",
+                        help="enable the fused kernel's per-ray slab-entry early-out (exact)")
+    parser.add_argument("--packet-tile", type=int,
+                        help="rays per packet tile in the cluster intersector (default 64)")
+    parser.add_argument("--cluster-tris", type=int,
+                        help="triangles per cluster block (multiple of 128; default 256)")
+    parser.add_argument("--cull-split", type=int,
+                        help="tight sub-AABBs per cluster block in the cull "
+                        "(must divide cluster-tris; default 1)")
+    parser.add_argument("--cull-hier", type=int,
+                        help="hierarchical cull: clusters per super-AABB gating 128-box "
+                        "chunks of the main cull (cull-hier * cull-split must divide "
+                        "128; 0 = flat cull, the default)")
+    return parser
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        print("Usage: cuda_raytracer_tpu_torch <scene>", file=sys.stderr)
+        return 1
+    args = build_parser().parse_args(argv)
+
+    unknown = set(args.flags) - set(FLAGS)
+    if unknown:
+        print(f"Unknown flags: {sorted(unknown)}", file=sys.stderr)
+        return 1
+    sort_rays = "no_sort" not in args.flags
+    run_cpu = "cpu" in args.flags
+    run_accel = "no_gpu" not in args.flags
+    use_bvh = "no_bvh" not in args.flags
+    if not run_cpu and not run_accel:
+        print("No raytracing hardware specified", file=sys.stderr)
+        return 2
+    if args.mesh:
+        raise NotImplementedError(
+            "--mesh (sharded rendering over several GPUs) is not ported yet "
+            "(see ROADMAP.md queue A)")
+
+    from cuda_raytracer_tpu_torch.models import cluster as cluster_mod
+    from cuda_raytracer_tpu_torch.models.scene_dsl import load_scene
+    from cuda_raytracer_tpu_torch.render import pipeline
+    from cuda_raytracer_tpu_torch.utils.backend import default_device
+    from cuda_raytracer_tpu_torch.utils.metrics import Metrics
+    from cuda_raytracer_tpu_torch.utils.png import write_png
+
+    metrics = Metrics()
+    overrides = dict(sort_rays=sort_rays)
+    if args.packet_skip:
+        overrides["packet_skip"] = True
+    for key, value in (
+        ("packet_tile", args.packet_tile),
+        ("cull_split", args.cull_split),
+        ("cull_hier", args.cull_hier),
+        ("width", args.width),
+        ("height", args.height),
+        ("rays_per_pixel", args.spp),
+        ("bounces", args.bounces),
+    ):
+        if value is not None:
+            overrides[key] = value
+
+    # The accelerator run needs the GPU (and raises without one); a CPU-only
+    # run never touches CUDA.
+    device = default_device() if run_accel else torch.device("cpu")
+    with metrics.phase("load_scene"):
+        scene = load_scene(
+            args.scene, use_bvh=use_bvh, config_overrides=overrides,
+            cluster_tris=args.cluster_tris or cluster_mod.DEFAULT_CLUSTER_TRIS,
+            device=device,
+        )
+    print(
+        f"Scene: {scene.sphere_count} spheres, {scene.triangle_count} triangles, "
+        f"{scene.bvh_node_count} BVH nodes",
+        file=sys.stderr,
+    )
+
+    def run_backend(scene, label: str, checkpoint_path):
+        with metrics.phase(f"render_{label}"):
+            framebuffer = pipeline.render_framebuffer(
+                scene, checkpoint_path=checkpoint_path,
+                checkpoint_every=args.checkpoint_every, metrics=metrics,
+            )
+            if framebuffer.device.type == "cuda":
+                torch.cuda.synchronize(framebuffer.device)
+        with metrics.phase(f"post_{label}"):
+            image = pipeline.render_image(scene, apply_bloom=not args.no_bloom,
+                                          framebuffer=framebuffer)
+        rate = metrics.throughput(
+            f"paths_per_s_{label}", scene.num_pixels * scene.config.rays_per_pixel,
+            f"render_{label}",
+        )
+        print(f"{label} took {metrics.phases[f'render_{label}']:.2f}s"
+              + (f" ({rate:.3e} paths/s)" if rate else ""), file=sys.stderr)
+        return image
+
+    if run_accel:
+        write_png(args.out, run_backend(scene, "accelerator", args.checkpoint))
+    if run_cpu:
+        # Beside an accelerator run the CPU run keeps its own checkpoint: the
+        # two scenes share a fingerprint, and resuming from the other run's
+        # finished file would skip the cross-check.
+        checkpoint = args.checkpoint
+        if run_accel and checkpoint is not None:
+            checkpoint += ".cpu.npz"
+        image = run_backend(scene.to("cpu"), "cpu", checkpoint)
+        write_png(args.out + ".cpu.png" if run_accel else args.out, image)
+
+    if args.metrics:
+        metrics.emit(stream=sys.stderr, scene=args.scene)
+    print(f"Wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -341,6 +341,34 @@ RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
   }
 }
 
+// ---- gated cull: cull_block behind a per-(tile, chunk) gate bit -----------------
+//
+// gates (T * Wg) int32, Wg = ceil(ceil(K / kChunk) / 32): bit chunk % 32 of
+// gates[t * Wg + chunk / 32] is set when some ray of tile t may hit a box of
+// the chunk (the caller's super-box pre-pass). A set bit runs cull_block
+// unchanged, so live chunks are bit-equal to the flat cull; a clear bit
+// writes kMissEntry and zero words, which is what the flat cull computes
+// for a chunk no ray hits. The bit is the same for every thread of the
+// block, so the block returns as one. Shared: 12 * tile words.
+template <class Exec>
+RT_HD void cull_block_gated(const Exec& ex, float* smem, const float* od8,
+                            const float* aabb, const int* gates, int Wg, int K,
+                            int tile, int t, int chunk, float* entry, int* mask) {
+  const uint32_t word = (uint32_t)gates[(size_t)t * Wg + chunk / 32];
+  if ((word >> (chunk % 32)) & 1u) {
+    cull_block(ex, smem, od8, aabb, K, tile, t, chunk, entry, mask);
+    return;
+  }
+  const int words = (tile + 31) / 32;
+  for (int j = ex.first(); j < kChunk; j += ex.step()) {
+    const int k = chunk * kChunk + j;
+    if (k >= K) continue;
+    if (mask)
+      for (int w = 0; w < words; ++w) mask[((size_t)t * words + w) * K + k] = 0;
+    entry[(size_t)t * K + k] = kMissEntry;
+  }
+}
+
 // ---- fused: walk one tile's selected clusters, sweep, fold ----------------------
 //
 // words (T, Kw): bit b of words[t, g] selects cluster 32 g + b. With skip

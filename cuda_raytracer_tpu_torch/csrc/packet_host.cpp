@@ -1,6 +1,7 @@
 // Host build of the packet kernels, for the CPU tests: the grids of
-// cull.cu, fused.cu and fused1.cu as loops over blocks, each block run by
-// rt::HostExec through the same drivers in packet.cuh the card runs.
+// cull.cu (flat and gated), fused.cu and fused1.cu as loops over blocks,
+// each block run by rt::HostExec through the same drivers in packet.cuh the
+// card runs.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libpacket_host.so packet_host.cpp
 
@@ -17,6 +18,18 @@ int rt_host_cull_tiles(const float* od8, const float* aabb, float* entry, int* m
   for (int t = 0; t < T; ++t)
     for (int c = 0; c < (K + rt::kChunk - 1) / rt::kChunk; ++c)
       rt::cull_block(ex, smem.data(), od8, aabb, K, tile, t, c, entry, mask);
+  return 0;
+}
+
+int rt_host_cull_tiles_gated(const float* od8, const float* aabb, const int* gates,
+                             float* entry, int* mask, int T, int K, int tile) {
+  std::vector<float> smem(12 * tile);
+  rt::HostExec ex;
+  const int chunks = (K + rt::kChunk - 1) / rt::kChunk;
+  for (int t = 0; t < T; ++t)
+    for (int c = 0; c < chunks; ++c)
+      rt::cull_block_gated(ex, smem.data(), od8, aabb, gates, (chunks + 31) / 32, K, tile,
+                           t, c, entry, mask);
   return 0;
 }
 

@@ -1,1 +1,1 @@
-"""Scene data model, asset loaders, and the NumPy BVH builder."""
+"""Scene data model, asset loaders, the BVH builder and the cluster cut."""

@@ -14,8 +14,9 @@ Host-side top-down build with the reference's exact semantics:
 
 Rather than swapping triangle structs in place, the builder partitions an
 index permutation; callers apply it once to all per-triangle arrays. Two
-implementations exist in the JAX package: this NumPy one (the oracle) and a
-C++ one loaded via ctypes. The port carries only the NumPy builder so far.
+implementations exist, as in the JAX package: this NumPy one (the oracle) and
+the C++ one of ``native/bvh_builder.cpp`` (``native/bvh_native.py``), which
+gives the same arrays and is the default.
 """
 
 from __future__ import annotations
@@ -187,9 +188,13 @@ def build_bvh(
     max_depth: int = MAX_BVH_DEPTH,
     prefer_native: bool = True,
 ) -> BvhArrays:
-    """Build a BVH. The port has no native builder yet, so ``prefer_native``
-    is accepted for call-site parity and every build takes the NumPy path."""
-    del prefer_native
+    """Build a BVH with the C++ builder, or with NumPy when ``prefer_native``
+    is False or there are no triangles. Unlike the JAX package, a native
+    build or load that fails raises instead of falling back."""
+    if prefer_native and p1.shape[0] > 0:
+        from cuda_raytracer_tpu_torch.native import bvh_native
+
+        return bvh_native.build_bvh_native(p1, p2, p3, max_depth)
     return build_bvh_numpy(p1, p2, p3, max_depth)
 
 

@@ -7,6 +7,8 @@ build runs at first use, from the sources in the package only, into
 name carries a hash of the source, every header it includes from ``csrc/``
 (``#include "x.cuh"``, followed recursively) and the flags, so an edited
 source or shared header rebuilds and an unchanged one loads at once.
+``compile_library`` builds the host BVH builder (``native/``, g++) the same
+way.
 
 Numerics flags: no ``--use_fast_math`` (IEEE division and square root,
 accurate sin/cos) and ``-fmad=false`` (no multiply-add contraction), so the
@@ -25,7 +27,7 @@ import subprocess
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Callable, Dict, Sequence
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -54,10 +56,10 @@ _LOADED: Dict[str, Built] = {}
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
-def source_digest(source: Path) -> str:
+def source_digest(source: Path, flags: Sequence[str] = NVCC_FLAGS) -> str:
     """Hash of ``source``, the local headers it includes (recursively, each
-    once, resolved beside the including file) and the nvcc flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    once, resolved beside the including file) and the compiler flags."""
+    h = hashlib.sha256(" ".join(flags).encode())
     seen, todo = set(), [source.resolve()]
     while todo:
         path = todo.pop(0)
@@ -84,29 +86,38 @@ def nvcc_path() -> str:
     )
 
 
-def load(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` if needed and load it (cached per process)."""
-    if name in _LOADED:
-        return _LOADED[name]
-    source = CSRC_DIR / f"{name}.cu"
-    digest = source_digest(source)
-    target = BUILD_DIR / f"lib{name}-{digest}.so"
+def compile_library(
+    source: Path, stem: str, flags: Sequence[str], compiler: Callable[[], str]
+) -> Built:
+    """Load ``_build/lib<stem>-<digest>.so``, compiling ``source`` with
+    ``compiler()`` (called only when a build is needed) and ``flags`` first
+    if it is not there. The library is written under a temporary name and
+    renamed, so concurrent builds never load a partial file. A failed
+    compile raises."""
+    digest = source_digest(source, flags)
+    target = BUILD_DIR / f"lib{stem}-{digest}.so"
     seconds, log = 0.0, ""
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         partial = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(partial), str(source)]
+        cmd = [compiler(), *flags, "-o", str(partial), str(source)]
         start = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - start
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             partial.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {source}:\n{log}")
+            raise RuntimeError(f"{cmd[0]} failed for {source}:\n{log}")
         os.replace(partial, target)
-    built = Built(ctypes.CDLL(str(target)), target, seconds, log)
-    _LOADED[name] = built
-    return built
+    return Built(ctypes.CDLL(str(target)), target, seconds, log)
+
+
+def load(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` with nvcc if needed and load it (cached per
+    process)."""
+    if name not in _LOADED:
+        _LOADED[name] = compile_library(CSRC_DIR / f"{name}.cu", name, NVCC_FLAGS, nvcc_path)
+    return _LOADED[name]
 
 
 def load_all(names: Sequence[str]) -> Dict[str, Built]:

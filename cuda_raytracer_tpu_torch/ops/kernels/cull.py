@@ -1,19 +1,24 @@
 """Packet-intersector tile cull: wrapper of ``csrc/cull.cu``.
 
-Counterpart of ``cuda_raytracer_tpu/ops/pallas/cull.py`` (``cull_tiles``).
-``cull_tiles`` slab-tests every ray tile against every cluster box with the
-windowed Tavian test and returns the (T, K) tile-min entry distance
-(``MISS_ENTRY`` where no ray of the tile hits) and, with ``with_mask``, the
-(T, W, K) per-ray hit bits (bit r of word w: ray 32 w + r hits).
+Counterpart of ``cuda_raytracer_tpu/ops/pallas/cull.py`` (``cull_tiles``,
+``cull_tiles_gated``). ``cull_tiles`` slab-tests every ray tile against every
+cluster box with the windowed Tavian test and returns the (T, K) tile-min
+entry distance (``MISS_ENTRY`` where no ray of the tile hits) and, with
+``with_mask``, the (T, W, K) per-ray hit bits (bit r of word w: ray 32 w + r
+hits). ``cull_tiles_gated`` does the same over a table padded to whole
+``GATE_CHUNK``-box chunks, but tests chunk i of tile t only when its gate bit
+is set (bit i % 32 of word ``t * Wg + i // 32``); a gated-off chunk reads
+``MISS_ENTRY`` and zero words, which is what the flat cull gives for a chunk
+no ray hits, so a conservative gate leaves the output bit-equal.
 
 Ray layout (``make_od8``): (T, 8, tile) float32 component rows
 ``[ox oy oz dx dy dz window 0]``, the per-ray search window in row 6. Dead
 and padded rays carry a negative window and hit no box.
 
-- On a CUDA tensor it launches the hand-written kernel and counts the launch
-  in ``LAUNCHES``. It never falls back.
-- On a CPU tensor it runs ``plain_cull``, the same expression tree in
-  PyTorch.
+- On a CUDA tensor each launches its hand-written kernel and counts the
+  launch (``LAUNCHES``, ``LAUNCHES_GATED``). Neither falls back.
+- On a CPU tensor they run ``plain_cull`` and ``plain_cull_gated``, the same
+  expression tree in PyTorch.
 """
 
 from __future__ import annotations
@@ -26,11 +31,15 @@ from cuda_raytracer_tpu_torch.ops.kernels import build
 from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
 
 MISS_ENTRY = 1e30
+# Boxes per gated chunk of cull_tiles_gated: the kernel's chunk (rt::kChunk).
+GATE_CHUNK = 128
 # Rays per step of the plain version: bounds its (rays, K) slab matrices.
 PLAIN_ROWS = 1 << 13
 
-# Kernel launches made by cull_tiles in this process (CUDA tensors only).
+# Kernel launches made by cull_tiles and cull_tiles_gated in this process
+# (CUDA tensors only).
 LAUNCHES = 0
+LAUNCHES_GATED = 0
 
 
 def make_od8(
@@ -112,6 +121,41 @@ def plain_cull(od8: torch.Tensor, aabb: torch.Tensor, with_mask: bool = False):
     return entry, mask
 
 
+def gate_words(n_chunks: int) -> int:
+    """Gate words per tile (Wg) for a table of ``n_chunks`` chunks."""
+    return -(-n_chunks // 32)
+
+
+def unpack_gates(gates: torch.Tensor, T: int, n_chunks: int) -> torch.Tensor:
+    """(T * Wg,) int32 gate words → (T, n_chunks) bool, read as unsigned so
+    a set bit 31 is just bit 31."""
+    words = (gates.reshape(T, gate_words(n_chunks)).to(torch.int64) & 0xFFFFFFFF)[:, :, None]
+    shifts = torch.arange(32, dtype=torch.int64, device=gates.device)
+    return ((words >> shifts) & 1).reshape(T, -1)[:, :n_chunks] != 0
+
+
+def plain_cull_gated(od8: torch.Tensor, aabb: torch.Tensor, gates: torch.Tensor,
+                     with_mask: bool = False):
+    """The gated kernel's plain PyTorch version: the plain cull of each
+    chunk over the tiles whose gate bit is set, ``MISS_ENTRY`` and zero
+    words elsewhere."""
+    T, _, tile = od8.shape
+    Kp = aabb.shape[1]
+    n_chunks = Kp // GATE_CHUNK
+    live = unpack_gates(gates, T, n_chunks)
+    entry = torch.full((T, Kp), MISS_ENTRY, dtype=torch.float32, device=od8.device)
+    mask = torch.zeros((T, -(-tile // 32), Kp), dtype=torch.int32, device=od8.device)
+    for i in range(n_chunks):
+        tiles = torch.nonzero(live[:, i]).reshape(-1)
+        if tiles.numel() == 0:
+            continue
+        cols = slice(i * GATE_CHUNK, (i + 1) * GATE_CHUNK)
+        e, m = plain_cull(od8[tiles], aabb[:, cols].contiguous(), with_mask=True)
+        entry[tiles, cols] = e
+        mask[tiles, :, cols] = m
+    return (entry, mask) if with_mask else entry
+
+
 def check_rays(od8: torch.Tensor) -> None:
     if od8.dtype != torch.float32 or od8.dim() != 3 or od8.shape[1] != 8:
         raise ValueError(f"od8 must be (T, 8, tile) float32, got {od8.dtype} "
@@ -150,6 +194,9 @@ def library() -> build.Built:
     fn = built.lib.rt_cull_tiles
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = built.lib.rt_cull_tiles_gated
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
     return built
@@ -178,4 +225,41 @@ def cull_tiles(od8: torch.Tensor, aabb: torch.Tensor, with_mask: bool = False):
         )
     raise_on_error(lib, err, "cull")
     LAUNCHES += 1
+    return (entry, mask) if with_mask else entry
+
+
+def cull_tiles_gated(od8: torch.Tensor, aabb: torch.Tensor, gates: torch.Tensor,
+                     with_mask: bool = False):
+    """The cull over a (8, Kp) table, Kp a multiple of ``GATE_CHUNK``, with
+    chunk i of tile t tested only when bit i % 32 of ``gates[t * Wg + i //
+    32]`` is set (gates (T * Wg,) int32, Wg = ceil(Kp / GATE_CHUNK / 32)) →
+    (T, Kp) entry, and with ``with_mask`` (entry, (T, ceil(tile / 32), Kp)
+    words); gated-off chunks read ``MISS_ENTRY`` and zero words."""
+    global LAUNCHES_GATED
+    check_rays(od8)
+    check_boxes(aabb, od8)
+    T, _, tile = od8.shape
+    Kp = aabb.shape[1]
+    if Kp % GATE_CHUNK:
+        raise ValueError(f"gated cull table width {Kp} % {GATE_CHUNK} != 0")
+    Wg = gate_words(Kp // GATE_CHUNK)
+    if gates.dtype != torch.int32 or gates.shape != (T * Wg,):
+        raise ValueError(f"gates must be flat (T * Wg,) = ({T} * {Wg},) int32 words, got "
+                         f"{gates.dtype} {tuple(gates.shape)}")
+    if gates.device != od8.device or not gates.is_contiguous():
+        raise ValueError(f"gates must be contiguous on {od8.device}")
+    if device_kind(od8, "cull_tiles_gated") == "cpu":
+        return plain_cull_gated(od8, aabb, gates, with_mask)
+    entry = torch.empty((T, Kp), dtype=torch.float32, device=od8.device)
+    mask = (torch.empty((T, -(-tile // 32), Kp), dtype=torch.int32, device=od8.device)
+            if with_mask else None)
+    lib = library().lib
+    with torch.cuda.device(od8.device):
+        err = lib.rt_cull_tiles_gated(
+            od8.data_ptr(), aabb.data_ptr(), gates.data_ptr(), entry.data_ptr(),
+            mask.data_ptr() if with_mask else None, T, Kp, tile,
+            torch.cuda.current_stream(od8.device).cuda_stream,
+        )
+    raise_on_error(lib, err, "cull_gated")
+    LAUNCHES_GATED += 1
     return (entry, mask) if with_mask else entry

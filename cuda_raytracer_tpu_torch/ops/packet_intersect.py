@@ -13,7 +13,9 @@ space: scene.cu:134-241). Three engines, picked by ``backend``:
   result the drop could have changed (``suspect``).
 - ``"fused"``: the cull kernel, then the fused walk + sweep kernel
   (``ops/kernels/cull.py``, ``ops/kernels/fused.py``), exact by
-  construction (suspect ≡ 0). ``skip`` enables the slab-entry early-out.
+  construction (suspect ≡ 0). ``skip`` enables the slab-entry early-out;
+  ``config.cull_hier`` > 0 makes the cull hierarchical (``_cull``: super
+  boxes gate the chunks of the gated cull kernel).
 - ``"fused1"``: the single cull + walk + sweep kernel
   (``ops/kernels/fused1.py``), exact by construction.
 
@@ -144,15 +146,7 @@ def closest_hit_packet(
                 gate_g=gate,
             )
         else:
-            if scene.config.cull_hier > 0:
-                raise NotImplementedError(
-                    f"cull_hier > 0 on the fused path (the gated cull kernel) {_LATER}"
-                )
-            aabb = cull.box_table(scene.cluster_min, scene.cluster_max)  # (8, K * S)
-            if skip:
-                entry, maskw = cull.cull_tiles(od8, aabb, with_mask=True)
-            else:
-                entry, maskw = cull.cull_tiles(od8, aabb), None
+            entry, maskw = _cull(scene, od8, S, skip)
             if S > 1:
                 # Sub-boxes → cluster granularity: min entry, OR of the bits.
                 entry = entry.reshape(T, K, S).amin(dim=2)
@@ -220,6 +214,58 @@ def closest_hit_packet(
         t_tile = torch.full((T, tile), MISS, dtype=torch.float32, device=origin.device)
         tri_tile = torch.full((T, tile), -1, dtype=torch.int32, device=origin.device)
     return _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile)
+
+
+def _cull(scene: Scene, od8: torch.Tensor, S: int, with_mask: bool):
+    """The fused engine's cull over the (K * S) sub-boxes → (T, K * S) entry
+    and, with ``with_mask``, (T, W, K * S) per-ray hit words (else None).
+
+    With ``config.cull_hier`` = G > 0 and at least two gate chunks of boxes,
+    the cull is hierarchical: a flat cull of tight super boxes, one per G * S
+    consecutive sub-boxes (the cluster cut's order keeps BVH siblings
+    adjacent), gates the 128-box chunks of the main cull, which then tests a
+    tile against only the chunks one of its super boxes is hit in. A
+    sub-box hit implies its super box's, so the result is bit-equal to the
+    flat cull's."""
+    box_min, box_max = scene.cluster_min, scene.cluster_max
+    KS = box_min.shape[0]
+    G = scene.config.cull_hier
+    if not (G > 0 and KS >= 2 * cull.GATE_CHUNK):
+        aabb = cull.box_table(box_min, box_max)
+        if with_mask:
+            return cull.cull_tiles(od8, aabb, with_mask=True)
+        return cull.cull_tiles(od8, aabb), None
+    aabb_p, sup_aabb = hier_tables(box_min, box_max, G * S)
+    gates = hier_gates(od8, sup_aabb, aabb_p.shape[1] // cull.GATE_CHUNK)
+    out = cull.cull_tiles_gated(od8, aabb_p, gates, with_mask=with_mask)
+    if with_mask:
+        return out[0][:, :KS], out[1][:, :, :KS]
+    return out[:, :KS], None
+
+
+def hier_tables(box_min: torch.Tensor, box_max: torch.Tensor, group: int):
+    """(KS, 3) boxes → the (8, Kp) box table padded to whole gate chunks
+    with far point boxes at 1e17 (which no ray hits), and the (8, Kp /
+    group) table of tight super boxes over ``group`` consecutive boxes
+    (padding left out; an all-padding group keeps the far point box)."""
+    if group <= 0 or cull.GATE_CHUNK % group:
+        raise ValueError(f"cull_hier*cull_split = {group} must divide {cull.GATE_CHUNK}")
+    KS = box_min.shape[0]
+    Kp = -(-KS // cull.GATE_CHUNK) * cull.GATE_CHUNK
+    far = torch.full((Kp - KS, 3), 1e17, dtype=torch.float32, device=box_min.device)
+    box_min, box_max = torch.cat([box_min, far]), torch.cat([box_max, far])
+    sup = fused1.shard_supers(box_min, box_max, group)
+    return cull.box_table(box_min, box_max), cull.box_table(sup[:, :3], sup[:, 3:])
+
+
+def hier_gates(od8: torch.Tensor, sup_aabb: torch.Tensor, n_chunks: int) -> torch.Tensor:
+    """The super-box pre-pass: a flat cull of the super boxes → the (T * Wg,)
+    int32 gate words of ``cull.cull_tiles_gated``, bit i of tile t's words
+    set when some ray of the tile hits a super box of chunk i."""
+    T = od8.shape[0]
+    hit_sup = cull.cull_tiles(od8, sup_aabb) < cull.MISS_ENTRY * 0.5
+    live = hit_sup.reshape(T, n_chunks, -1).any(dim=2)
+    return cull.pack_bits(live[:, :, None]).reshape(-1)
 
 
 def _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile):

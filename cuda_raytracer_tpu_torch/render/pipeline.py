@@ -9,15 +9,16 @@ i // rpp), so a block's per-pixel sums are a reshape-sum.
 Brute scenes on a CUDA device trace each pass in one launch of the shade
 kernel (``ops/kernels/shade.py``); everything else, mesh scenes included,
 runs the wavefront path in blocks of at most ``RAY_BLOCK`` rays, where the
-packet intersector's kernels run on a CUDA device. Checkpoint / resume,
-metrics and progress callbacks belong to a later slice.
+packet intersector's kernels run on a CUDA device. Every pass boundary can
+be checkpointed (``utils/checkpoint.py``) and reported to a progress
+callback and a ``utils/metrics.Metrics`` registry.
 """
 
 from __future__ import annotations
 
 import time
 import warnings
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ from cuda_raytracer_tpu_torch.ops import bloom as bloom_ops
 from cuda_raytracer_tpu_torch.ops import tonemap as tonemap_ops
 from cuda_raytracer_tpu_torch.ops.kernels import shade
 from cuda_raytracer_tpu_torch.render import wavefront
+from cuda_raytracer_tpu_torch.utils import checkpoint as ckpt
 
 # Rays per traced block on the wavefront path. Matching wavefront.SORT_CHUNK
 # keeps every block in the whole-wavefront sort regime, where dead-ray
@@ -123,9 +125,24 @@ def render_pass(
     return framebuffer, suspect
 
 
-def render_framebuffer(scene: Scene, auto_retry: bool = True) -> torch.Tensor:
+def render_framebuffer(
+    scene: Scene,
+    progress: Optional[Callable[[int, int], None]] = None,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 1,
+    metrics=None,
+    auto_retry: bool = True,
+) -> torch.Tensor:
     """Full multi-pass render → raw accumulated (pixels, 3) framebuffer on
     the scene's device.
+
+    With ``checkpoint_path``, resumes from a checkpoint of the same scene and
+    persists at every ``checkpoint_every``-th pass boundary and after the
+    last pass; pass seeds derive from the remaining-sample count, so a
+    resumed render is bit-identical to an uninterrupted one. ``metrics``
+    (``utils.metrics.Metrics``) records ``samples_done`` after every pass
+    and ``suspect_rays`` at the end; ``progress(done, total)`` is called
+    after every pass, once the device has finished it.
 
     If the closest-hit exactness certificate fires, the render is redone
     rather than shipping a possibly wrong image: first without a static
@@ -137,6 +154,19 @@ def render_framebuffer(scene: Scene, auto_retry: bool = True) -> torch.Tensor:
     framebuffer = torch.zeros((scene.num_pixels, 3), dtype=torch.float32, device=scene.device)
     remaining = cfg.rays_per_pixel
     suspects = 0
+    fingerprint = None
+    if checkpoint_path is not None:
+        fingerprint = ckpt.scene_fingerprint(scene)
+        restored = ckpt.load_checkpoint(checkpoint_path, fingerprint)
+        if restored is not None:
+            fb_np, samples_done, suspects_done = restored
+            framebuffer = torch.from_numpy(fb_np).to(scene.device)
+            remaining = cfg.rays_per_pixel - samples_done
+            # Re-enforce the certificate over the passes not re-run: resuming
+            # a render whose earlier passes overflowed must not launder the
+            # suspect count to zero.
+            suspects = suspects_done
+    passes_done = 0
     while remaining:
         chunk = min(remaining, cfg.max_rays_per_pixel_per_pass)
         remaining -= chunk
@@ -145,22 +175,38 @@ def render_framebuffer(scene: Scene, auto_retry: bool = True) -> torch.Tensor:
             rays_per_pixel=chunk, bounces=cfg.bounces, sort_rays=cfg.sort_rays,
         )
         suspects = suspects + suspect
+        passes_done += 1
+        done = cfg.rays_per_pixel - remaining
+        if checkpoint_path is not None and (passes_done % checkpoint_every == 0
+                                            or not remaining):
+            ckpt.save_checkpoint(checkpoint_path, framebuffer.cpu().numpy(), done,
+                                 fingerprint, suspects=int(suspects))
+        if metrics is not None:
+            metrics.record("samples_done", done)
+        if progress is not None:
+            if framebuffer.device.type == "cuda":
+                torch.cuda.synchronize(framebuffer.device)
+            progress(done, cfg.rays_per_pixel)
     suspects = int(suspects)  # one device sync, after the pass loop
+    if metrics is not None:
+        metrics.record("suspect_rays", suspects)
     if not suspects:
         return framebuffer
+    retry = dict(progress=progress, checkpoint_path=checkpoint_path,
+                 checkpoint_every=checkpoint_every, metrics=metrics, auto_retry=auto_retry)
     if auto_retry and cfg.live_schedule:
         warnings.warn(
             f"closest-hit certificate flagged {suspects} suspect ray-bounces with a "
             "static live_schedule set; re-rendering with the dynamic live prefix"
         )
-        return render_framebuffer(scene.with_config(live_schedule=()), auto_retry)
+        return render_framebuffer(scene.with_config(live_schedule=()), **retry)
     if auto_retry and cfg.packet_cap < scene.num_clusters:
         new_cap = min(max(cfg.packet_cap * 2, 8), scene.num_clusters)
         warnings.warn(
             f"closest-hit certificate flagged {suspects} suspect ray-bounces; "
             f"re-rendering with packet_cap {cfg.packet_cap} → {new_cap}"
         )
-        return render_framebuffer(scene.with_config(packet_cap=new_cap), auto_retry)
+        return render_framebuffer(scene.with_config(packet_cap=new_cap), **retry)
     raise RuntimeError(
         f"closest-hit exactness certificate failed: {suspects} suspect ray-bounces "
         "(packet pair-budget overflow); raise RenderConfig.packet_cap"

@@ -1,1 +1,1 @@
-"""Device selection and image output."""
+"""Device selection, image output, checkpoint / resume and metrics."""

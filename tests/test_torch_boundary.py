@@ -1,12 +1,14 @@
 """Boundaries of the PyTorch port: what it imports, and where it runs by default.
 
-- Importing every module of ``cuda_raytracer_tpu_torch`` (and
-  ``chip_smoke.py``) in a fresh interpreter loads neither ``jax`` nor the
+- Importing every module of ``cuda_raytracer_tpu_torch`` (the CLI, its
+  ``__main__``, the native BVH binding and ``utils`` among them) and
+  ``chip_smoke.py`` in a fresh interpreter loads neither ``jax`` nor the
   JAX package ``cuda_raytracer_tpu``. The names are matched exactly or as
   ``name.`` prefixes, because the port's own name starts with the JAX
   package's.
 - The entry points default to CUDA: called without ``device=`` on a machine
-  with no GPU they raise instead of rendering on the CPU.
+  with no GPU they raise instead of rendering on the CPU; so does the CLI's
+  accelerator run, before it reads the scene file.
 """
 
 import os
@@ -17,7 +19,7 @@ from pathlib import Path
 import pytest
 import torch
 
-from cuda_raytracer_tpu_torch import default_device
+from cuda_raytracer_tpu_torch import cli, default_device
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.models.scene import make_materials, precompute_camera
 from cuda_raytracer_tpu_torch.models.scene import scene_from_numpy, scene_to_numpy
@@ -33,7 +35,9 @@ import chip_smoke
 forbidden = ("jax", "cuda_raytracer_tpu")
 loaded = [m for m in sys.modules
           if any(m == f or m.startswith(f + ".") for f in forbidden)]
-assert "cuda_raytracer_tpu_torch.render.pipeline" in sys.modules
+for name in ("render.pipeline", "cli", "__main__", "native.bvh_native",
+             "utils.checkpoint", "utils.metrics"):
+    assert "cuda_raytracer_tpu_torch." + name in sys.modules, name
 print("FORBIDDEN", loaded)
 sys.exit(1 if loaded else 0)
 """
@@ -59,6 +63,8 @@ def test_entry_points_default_to_cuda():
         scene_dsl.assemble_scene(parsed)
     with pytest.raises(RuntimeError, match="CUDA"):
         scene_dsl.load_scene(str(REPO / "missing.scene"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([str(REPO / "missing.scene")])
     with pytest.raises(RuntimeError, match="CUDA"):
         precompute_camera([0, 0, 0], [0, 0, 1], [0, 1, 0], 1.0, 4, 4)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -1,4 +1,4 @@
-"""The packet kernels (cull, fused, fused1) on the GPU, against their plain PyTorch versions.
+"""The packet kernels (cull, gated cull, fused, fused1) on the GPU, against their plain PyTorch versions.
 
 Marked ``cuda``: skipped on a machine without a GPU. On the GPU machine,
 which has no JAX, run them without the suite's JAX conftest:
@@ -9,7 +9,9 @@ Each kernel is held BIT-EQUAL to its plain version on real wavefront states
 of the small torus at 32×32 (coherent primary rays and Morton-sorted
 bounced ones); a two-pass render through both regimes (fused1 for the
 10-rays-per-pixel pass, cull + fused for the 2-rays-per-pixel one) is held
-to the agreement gate against the same render with the xla engine.
+to the agreement gate against the same render with the xla engine. The
+gated cull is held bit-equal to its plain version with all-ones, real and
+all-zero gates, and the hierarchical cull engine to the flat one.
 """
 
 import pytest
@@ -109,3 +111,48 @@ def test_render_goes_through_kernels_and_matches_xla(cuda):
     assert torch.isfinite(fb).all()
     diff = (fb - plain).abs().amax(dim=1)
     assert float((diff < 1e-3).float().mean()) >= 0.999
+
+
+
+def test_gated_cull_bit_equal_plain(cuda):
+    """A torus cut into ~580 sub-boxes (five gate chunks): the gated kernel
+    against its plain version with all-ones, real and all-zero gates, with
+    and without hit words; the hierarchical engine against the flat one."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    scene = scene_dsl.assemble_scene(
+        parsed, config_overrides=dict(width=32, height=32, cull_split=2),
+        cluster_tris=32, device=cuda)
+    KS = scene.cluster_min.shape[0]
+    assert KS >= 2 * cull.GATE_CHUNK
+    Kp = -(-KS // cull.GATE_CHUNK) * cull.GATE_CHUNK
+    far = torch.full((Kp - KS, 3), 1e17, device=cuda)
+    aabb = cull.box_table(torch.cat([scene.cluster_min, far]),
+                          torch.cat([scene.cluster_max, far]))
+    for state in _states(scene):
+        alive = torch.any(state.transmitted != 0, dim=-1)
+        window = torch.where(alive, 1e30, -1.0)
+        rays = packet_intersect._pad_rays(state.origin[:-7], state.direction[:-7],
+                                          window[:-7], 64)
+        od8 = cull.make_od8(*rays, 64)
+        T = od8.shape[0]
+        flat = cull.plain_cull(od8, aabb, with_mask=True)
+        live = (flat[0] < cull.MISS_ENTRY * 0.5).reshape(T, -1, cull.GATE_CHUNK).any(dim=2)
+        before = cull.LAUNCHES_GATED
+        for gate in (torch.ones_like(live), live, torch.zeros_like(live)):
+            gates = cull.pack_bits(gate[:, :, None]).reshape(-1)
+            ref = cull.plain_cull_gated(od8, aabb, gates, with_mask=True)
+            got = cull.cull_tiles_gated(od8, aabb, gates, with_mask=True)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+            assert torch.equal(cull.cull_tiles_gated(od8, aabb, gates), ref[0])
+            if gate.any():
+                assert torch.equal(ref[0], flat[0]) and torch.equal(ref[1], flat[1])
+        torch.cuda.synchronize()
+        assert cull.LAUNCHES_GATED == before + 6
+    t = torch.where(alive, 1e30, -1.0)
+    index = torch.full_like(alive, -1, dtype=torch.int32)
+    for skip in (False, True):
+        args = (state.origin, state.direction, t, index)
+        ref = packet_intersect.closest_hit_packet(scene, *args, backend="fused", skip=skip)
+        got = packet_intersect.closest_hit_packet(scene.with_config(cull_hier=16), *args,
+                                                  backend="fused", skip=skip)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])

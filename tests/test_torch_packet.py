@@ -19,7 +19,10 @@ reproducible bit for bit by any code that rounds each operation. Hence:
   to 3.3e-5 relative on the random cloud, by measurement);
 - BIT-EQUAL to the port's own ``"xla"`` engine (the plain reference, as in
   the JAX package, whose tests/test_packet.py holds it bit-equal to both
-  Pallas kernels): the fused and fused1 engines on the CPU.
+  Pallas kernels): the fused and fused1 engines on the CPU;
+- BIT-EQUAL to JAX's interpret-mode gated cull: the plain gated cull's
+  entries and hit words; and to the flat cull: the hierarchical cull
+  (``cull_hier``) of the fused engine.
 """
 
 import numpy as np
@@ -297,11 +300,109 @@ def test_unported_options_raise(cloud):
             packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend=name)
     with pytest.raises(ValueError, match="unknown packet backend"):
         packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend="fused2")
-    with pytest.raises(NotImplementedError, match="cull_hier"):
-        packet_intersect.closest_hit_packet(ts.with_config(cull_hier=16), o, d, t0, i0,
-                                            backend="fused")
+    # cull_hier on the fused engine runs (too few boxes here to gate: the
+    # flat cull), bit-equal to the flat engine.
+    ref = packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend="fused")
+    got = packet_intersect.closest_hit_packet(ts.with_config(cull_hier=16), o, d, t0, i0,
+                                              backend="fused")
+    _assert_hits_equal(ref, got)
     with pytest.raises(NotImplementedError, match="cluster_pack"):
         packet_intersect.closest_hit_packet(ts.with_config(cluster_pack=2), o, d, t0, i0,
                                             backend="fused1")
     assert packet_intersect.resolve_backend("auto", torch.device("cpu")) == "xla"
     assert packet_intersect.resolve_backend("auto", torch.device("cuda")) == "fused"
+
+
+def _gates(live):
+    """(T, n_chunks) bool → flat (T * Wg,) int32 gate words, built in int64
+    and wrapped as the JAX test builds them."""
+    T, n = live.shape
+    Wg = -(-n // 32)
+    bits = np.zeros((T, Wg * 32), np.int64)
+    bits[:, :n] = live
+    words = (bits.reshape(T, Wg, 32) << np.arange(32)).sum(axis=2)
+    return (words & 0xFFFFFFFF).astype(np.uint32).view(np.int32).reshape(-1)
+
+
+@pytest.mark.parametrize("table", ["cloud", "wide"])
+def test_plain_cull_gated_bit_equal_jax_interpret(table):
+    """The gated cull's plain version against the Pallas kernel in interpret
+    mode, entries and hit words, with all-ones gates, with the real gates
+    (chunk live iff some box of it is hit) and with half of those cleared:
+    on the 4000-triangle cloud's cluster table (mirroring
+    tests/test_packet.py) and on a 4224-box table of 33 chunks, whose gate
+    words set bit 31."""
+    tile, n = 64, 256
+    o, d, t0, _ = _rays(n, seed=21, dead=(0, 0))
+    t0[::9] = -1.0
+    if table == "cloud":
+        _, ts = build_mesh_both(_cloud_text(4000), cluster_tris=32)
+        box_min, box_max = ts.cluster_min, ts.cluster_max
+    else:
+        rng = np.random.default_rng(5)
+        centre = rng.uniform(-6, 6, (33 * 128, 3)).astype(np.float32)
+        half = rng.uniform(0.02, 0.4, (33 * 128, 3)).astype(np.float32)
+        box_min, box_max = torch.from_numpy(centre - half), torch.from_numpy(centre + half)
+    K = box_min.shape[0]
+    Kp = -(-K // cull.GATE_CHUNK) * cull.GATE_CHUNK
+    far = torch.full((Kp - K, 3), 1e17)
+    aabb = cull.box_table(torch.cat([box_min, far]), torch.cat([box_max, far]))
+    od8 = cull.make_od8(*(torch.from_numpy(a) for a in (o, d, t0)), tile)
+    T, nch = od8.shape[0], Kp // cull.GATE_CHUNK
+    j_od8 = jnp.pad(jnp.asarray(od8.numpy()), ((0, 1), (0, 0), (0, 128 - tile)))
+    j_aabb = jnp.asarray(aabb.numpy())
+    e_ref, m_ref = jcull.cull_tiles(j_od8, j_aabb, tile=tile, interpret=True, with_mask=True)
+    live = np.asarray(e_ref < jcull.MISS_ENTRY * 0.5).reshape(T, nch, -1).any(axis=2)
+    assert live.any()
+    # A gate that also clears live chunks (every other one) is no longer
+    # conservative, but the gated function is defined for any gate words.
+    checker = live & (np.add.outer(np.arange(T), np.arange(nch)) % 2 == 0)
+    launches = cull.LAUNCHES_GATED
+    for conservative, gate in ((True, np.ones_like(live)), (True, live), (False, checker)):
+        gates = _gates(gate)
+        j_e, j_m = jcull.cull_tiles_gated(j_od8, j_aabb, jnp.asarray(gates), tile=tile,
+                                          interpret=True, with_mask=True)
+        if conservative:  # bit-equal to the flat cull
+            np.testing.assert_array_equal(np.asarray(j_e), np.asarray(e_ref))
+        else:  # the cleared live chunks read as misses
+            assert (np.asarray(j_e) == jcull.MISS_ENTRY).sum() > (e_ref == jcull.MISS_ENTRY).sum()
+        got = cull.cull_tiles_gated(od8, aabb, torch.from_numpy(gates), with_mask=True)
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(j_e))
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(j_m))
+        # The port builds the same words from the same bits.
+        port_gates = cull.pack_bits(cull.unpack_gates(torch.from_numpy(gates), T, nch)[:, :, None])
+        assert np.array_equal(port_gates.reshape(-1).numpy(), gates)
+    if table == "wide":
+        assert (_gates(live) < 0).any()  # bit 31 of some word is set
+    assert cull.LAUNCHES_GATED == launches  # plain on the CPU
+    with pytest.raises(ValueError, match="% 128"):
+        cull.cull_tiles_gated(od8, aabb[:, :-1].contiguous(), torch.from_numpy(gates))
+    with pytest.raises(ValueError, match="gates"):
+        cull.cull_tiles_gated(od8, aabb, torch.from_numpy(gates)[:-1])
+
+
+@pytest.fixture(scope="module")
+def cloud_hier():
+    """6000 triangles in clusters of 32, two sub-boxes each: K·S >= 256
+    boxes, so cull_hier = 16 gates chunks (GS = 32)."""
+    return build_mesh_both(_cloud_text(6000), cluster_tris=32,
+                           overrides=dict(cull_split=2, cull_hier=16))
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_hier_cull_bit_equal_flat_and_matches_jax(cloud_hier, skip):
+    js, ts = cloud_hier
+    assert ts.cluster_min.shape[0] >= 2 * cull.GATE_CHUNK
+    o, d, t0, i0 = _rays(384, seed=4)
+    rays = [torch.from_numpy(a) for a in (o, d, t0, i0)]
+    got = packet_intersect.closest_hit_packet(ts, *rays, tile=64, backend="fused", skip=skip)
+    flat = packet_intersect.closest_hit_packet(ts.with_config(cull_hier=0), *rays, tile=64,
+                                               backend="fused", skip=skip)
+    _assert_hits_equal(flat, got)
+    assert int((got[1] >= 0).sum()) > 100
+    ref = jpi.closest_hit_packet(js, *(jnp.asarray(a) for a in (o, d, t0, i0)), tile=64,
+                                 cap=js.num_clusters, backend="fused_interpret", skip=skip)
+    _assert_hits_match_jax(ref, got)
+    with pytest.raises(ValueError, match="must divide 128"):
+        packet_intersect.closest_hit_packet(ts.with_config(cull_hier=3), *rays, tile=64,
+                                            backend="fused")

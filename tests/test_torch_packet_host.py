@@ -7,7 +7,8 @@ as per-block drivers templated over an executor; ``csrc/packet_host.cpp``
 runs the same drivers over the grid as a loop on the host. This test builds
 that file with the host C++ compiler (``-ffp-contract=off``, like the GPU
 build's ``-fmad=false``) and holds every output BIT-EQUAL to the plain
-version: the cull's entries and hit words, and the (t, tri) of fused (with
+version: the cull's entries and hit words (flat, and gated with all-ones,
+real and cleared gates), and the (t, tri) of fused (with
 and without the skip test) and fused1 (flat and gated), on a torus cut into
 more than one 128-box chunk, with finite windows, dead rays and ray counts
 that do not fill the last tile.
@@ -40,6 +41,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
+    lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
     lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p] * 3
     lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 4 + [p] * 3
     return lib
@@ -120,3 +122,32 @@ def test_host_kernels_bit_equal_plain(host_lib, scene, n, tile):
         assert torch.equal(t, t1_ref) and torch.equal(tri, tri1_ref), gate
         assert 0 < stats[0] <= int(live.sum()) * K
         assert 0 < stats[1] <= pairs and 0 < stats[2] <= mt_tests
+
+
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_gated_cull_bit_equal_plain(host_lib, scene, n, tile):
+    """The gated driver over a table padded to whole 128-box chunks."""
+    od8 = _od8(n, tile, seed=n + 1)
+    T = od8.shape[0]
+    K = scene.num_clusters
+    Kp = -(-K // cull.GATE_CHUNK) * cull.GATE_CHUNK
+    far = torch.full((Kp - K, 3), 1e17)
+    aabb = cull.box_table(torch.cat([scene.cluster_min, far]),
+                          torch.cat([scene.cluster_max, far]))
+    flat = cull.plain_cull(od8, aabb, with_mask=True)
+    live = (flat[0] < cull.MISS_ENTRY * 0.5).reshape(T, -1, cull.GATE_CHUNK).any(dim=2)
+    checker = live & ((torch.arange(T)[:, None] + torch.arange(live.shape[1])) % 2 == 0)
+    for gate in (torch.ones_like(live), live, checker):
+        gates = cull.pack_bits(gate[:, :, None]).reshape(-1)
+        ref = cull.plain_cull_gated(od8, aabb, gates, with_mask=True)
+        entry, mask = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb), _ptr(gates), _ptr(entry),
+                                          _ptr(mask), T, Kp, tile)
+        assert torch.equal(entry, ref[0]) and torch.equal(mask, ref[1])
+        if gate is not checker:
+            assert torch.equal(entry, flat[0]) and torch.equal(mask, flat[1])
+        entry_only = torch.empty_like(ref[0])
+        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb), _ptr(gates),
+                                          _ptr(entry_only), None, T, Kp, tile)
+        assert torch.equal(entry_only, ref[0])
+    assert not torch.equal(checker, live)
