@@ -3,17 +3,20 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths at the reference benchmark shape
-(1000×1000, 100 rays per pixel in five passes of 20, 10 bounces): a
-forward render of a brute scene through the shade kernel, and of a
-126,000-triangle mesh through the packet kernels (fused1 for passes of
->= 10 rays per pixel, cull + fused below), and checks both. Phases, one
+Drives the port's main paths: forward renders at the reference benchmark
+shape (1000×1000, 100 rays per pixel in five passes of 20, 10 bounces) of a
+brute scene through the shade kernel and of a 126,000-triangle mesh through
+the packet kernels (fused1 for passes of >= 10 rays per pixel, cull + fused
+below), the command-line renderer, and the inverse-rendering train step on
+that mesh at the JAX package's forward+backward shape (256×256, 2 rays per
+pixel, 10 bounces) through both packet engines that reach a TPU kernel
+(cull + fused, and cull + the pair sweep), and checks them all. Phases, one
 line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
-   ``fused.cu`` and ``fused1.cu`` with nvcc, all four at once, and the
-   native BVH builder with g++; print seconds and registers;
+   ``fused.cu``, ``fused1.cu`` and ``sweep.cu`` with nvcc, all five at once,
+   and the native BVH builder with g++; print seconds and registers;
 3. kernel vs plain: each built-in scene at 64×64, 4 rays per pixel and 10
    bounces, plus an unaligned block (ray ids 100..359): per-ray agreement
    with the plain PyTorch version (max |Δ| < 1e-3 on ≥ 99.9 % of rays, none
@@ -65,7 +68,24 @@ line each:
    1; (d) a 128×128 render stopped after two passes and resumed from its
    checkpoint, bit-identical to an uninterrupted one; (e) ``cli.main`` with
    the ``cpu`` flag on the Cornell scene at 64×64: the GPU and CPU images
-   agree within 1 per channel on >= 99.9 % of the bytes.
+   agree within 1 per channel on >= 99.9 % of the bytes;
+10. differentiable rendering: (a) the pair sweep kernel against its plain
+   version on the torus centre block entering bounces 0-3, at an unaligned
+   ray count and at the full block: one-round, both rounds of the two-round
+   sweep and an overflowing pair budget, bit-equal in rows [:T]; then the
+   "pallas" engine's closest hit against the "fused" engine's, bit-equal;
+   (b) the sweep's time on bounces 0 and 1 (median of 5, CUDA events) with
+   its bound and plain time, beside the fused kernel on the same rays; (c)
+   the train step (``diff.make_train_step``, Adam) at 256×256 × 2 spp × 10
+   bounces on the full torus, for packet_backend "auto" and "pallas", with
+   and without per-bounce checkpointing: the pallas audit first (doubling
+   ``packet_cap`` until no ray is suspect), 2 warm-up steps and 5 timed ones
+   (seconds per step, paths/s, peak memory), a finite and falling loss,
+   finite gradients, closest-hit launches per step equal to the forward
+   pass's own (the backward launches none), one checkpointed step of each
+   engine under torch.profiler (device busy and idle share), and the two
+   engines' gradients within 1e-3 of the largest; (d) the inverse-rendering example at its
+   default size must recover the walls (error < 0.15).
 
 Then one JSON line per the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without a
@@ -127,13 +147,20 @@ MESH_FULL_SPP = 100
 MESH_FEW_SPP = 8  # one pass below the fused1 threshold: cull + fused
 MESH_SMALL_RPP = 4
 MESH_SMALL_BOUNCES = 4
+TRAIN = dict(width=256, height=256, rays_per_pixel=2, bounces=10)  # phase 10c
+TRAIN_SEED = 7
+TRAIN_LR = 2e-2
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+GRAD_TOL = 1e-3  # phase 10c: engines' gradients within GRAD_TOL * max |g| (+1e-6)
+EXAMPLE_BAR = 0.15  # phase 10d: the example's own bar
 CLI_SPP = 8  # phase 9: one pass in the cull + fused regime, where the gated cull runs
 CLI_GATE = 16  # --cull-hier: clusters per super box
 CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
 BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
 BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
 
-KERNEL_SOURCES = ("shade", "cull", "fused", "fused1")
+KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep")
 # (name, source, the TPU kernel it replaces) of the mesh path's kernels.
 PACKET_KERNELS = (
     ("cull_tiles", "cuda_raytracer_tpu_torch/csrc/cull.cu",
@@ -487,9 +514,36 @@ def phase_mesh_profile(full) -> None:
                        backend, kernels)
 
 
+def _profiled(fn):
+    """``fn()`` once under torch.profiler → (profile, wall ms, [(device ms,
+    count, kernel name)] sorted by device time). Only device-side events
+    count: an aten op's own row repeats the time of the kernels it
+    launched, so a sum over every row would count those twice."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue
+        dev_us = getattr(e, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(e, "self_cuda_time_total", 0.0)
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    return prof, wall_ms, rows
+
+
 def _profile_block(scene, backend: str, kernels) -> None:
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 
     rpp, seed = scene.config.rays_per_pixel, 80
@@ -505,26 +559,13 @@ def _profile_block(scene, backend: str, kernels) -> None:
                                scene.config.bounces, True)
 
     run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, e.count, e.key))
-    rows.sort(reverse=True)
+    prof, wall_ms, rows = _profiled(run)
     busy_ms = sum(r[0] for r in rows)
     kernel_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
     print(f"phase 8 profile: torus centre block packet_backend={backend} rays={block} "
           f"bounces={scene.config.bounces} live_bounds={bounds} wall_ms={wall_ms:.2f} "
           f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"packet_kernels_ms={kernel_ms:.3f} device_ops={sum(r[1] for r in rows)}")
+          f"packet_kernels_ms={kernel_ms:.3f} device_kernels={sum(r[1] for r in rows)}")
     for dev_ms, count, key in rows[:8]:
         print(f"phase 8 profile: {backend} top device time {dev_ms:.3f} ms x{count} "
               f"{key[:90]}")
@@ -625,17 +666,17 @@ def phase_packet_timing(full) -> dict:
 
 
 def _launch_counts() -> dict:
-    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade, sweep
 
     return {"shade_trace": shade.LAUNCHES, "cull_tiles": cull.LAUNCHES,
             "cull_gated": cull.LAUNCHES_GATED, "fused_closest_hit": fused.LAUNCHES,
-            "fused1_closest_hit": fused1.LAUNCHES}
+            "fused1_closest_hit": fused1.LAUNCHES, "sweep_pairs": sweep.LAUNCHES}
 
 
 def _zero_launch_counts() -> None:
-    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade, sweep
 
-    for module in (shade, cull, fused, fused1):
+    for module in (shade, cull, fused, fused1, sweep):
         module.LAUNCHES = 0
     cull.LAUNCHES_GATED = 0
 
@@ -892,6 +933,291 @@ def phase_cli(full) -> dict:
     return result
 
 
+def _pallas_inputs(scene, state, n: int):
+    """(od8, rays_tiles, padded window) of the first ``n`` rays of a
+    wavefront, as the "pallas" engine builds them."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, sweep
+
+    tile = scene.config.packet_tile
+    alive = torch.any(state.transmitted[:n] != 0.0, dim=-1)
+    window = torch.where(alive, 1e30, -1.0)  # the torus scene has no spheres
+    origin, direction, window = packet_intersect._pad_rays(
+        state.origin[:n], state.direction[:n], window, tile)
+    return (cull.make_od8(origin, direction, window, tile),
+            sweep.make_rays_tiles(origin, direction, tile), window)
+
+
+def _sweep_rounds(scene, od8, rays_tiles, window, cap: int):
+    """The pallas engine's sweeps on one ray batch, the kernel and the plain
+    version side by side on the same pair lists: one round, then round 1
+    and round 2 of the two-round sweep (round 2's windows from the kernel's
+    round 1) → [(label, pairs, total, overflow, kernel (t, tri), plain (t,
+    tri))]."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect as pi
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, sweep
+
+    T, _, tile = od8.shape
+    P = T * cap
+    blocks = scene.cluster_blocks.contiguous()
+    origin = od8[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
+    direction = od8[:, 3:6].permute(0, 2, 1).reshape(-1, 3)
+    entry = pi._block_cull(scene, od8, 1, False)[0]
+    hit = entry < pi.HIT_THRESH
+    nth = torch.kthvalue(entry, pi.ROUND1_NEAREST, dim=1, keepdim=True).values
+    sel1 = hit & (entry <= nth)
+    out = []
+    for label, select in (("one_round", hit), ("round1", sel1)):
+        pairs, total, overflow = pi.extract_pairs(select, P)
+        out.append((label, pairs, total, overflow,
+                    sweep.sweep_pairs(rays_tiles, blocks, pairs, total, tile),
+                    sweep.plain_sweep(rays_tiles, blocks, pairs, total, tile)))
+    t1 = out[-1][4][0][:T]
+    window2 = torch.minimum(window.reshape(T, tile), t1).reshape(-1)
+    entry2 = pi._block_cull(scene, cull.make_od8(origin, direction, window2, tile), 1,
+                            False)[0]
+    pairs, total, overflow = pi.extract_pairs((entry2 < pi.HIT_THRESH) & ~sel1, P)
+    out.append(("round2", pairs, total, overflow,
+                sweep.sweep_pairs(rays_tiles, blocks, pairs, total, tile),
+                sweep.plain_sweep(rays_tiles, blocks, pairs, total, tile)))
+    return out
+
+
+def phase_sweep(full) -> dict:
+    """10a and 10b: the pair sweep kernel against its plain version, the
+    pallas engine against the fused one, and the sweep's time."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, sweep
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    rpp, seed = 20, 80
+    scene = full.with_config(rays_per_pixel=rpp)
+    block_lo, block = _centre_block(scene, rpp)
+    ray_id = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    K, C = scene.num_clusters, scene.cluster_tris
+    cap = min(scene.config.packet_cap, K)
+    blocks = scene.cluster_blocks.contiguous()
+    real = (blocks[:, 9, :] >= 0).sum(dim=1)  # real triangles per cluster
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    f4 = 4
+    state = wavefront.make_initial_state(scene, ray_id, rpp, seed)
+    worst, result = 0.0, {}
+    for bounce in range(4):
+        for n in (block - 37, block):
+            od8, rays_tiles, window = _pallas_inputs(scene, state, n)
+            T = od8.shape[0]
+            bad, err, counts, dropped = 0, 0.0, [], {}
+            for small_cap in (cap, 1):  # a budget that holds, one that overflows
+                for label, pairs, total, overflow, got, want in _sweep_rounds(
+                        scene, od8, rays_tiles, window, small_cap):
+                    dropped[(small_cap, label)] = int(overflow)
+                    torch.cuda.synchronize()
+                    bad += sum(int((g[:T] != w[:T]).sum()) for g, w in zip(got, want))
+                    err = max([err] + [float((g[:T].double() - w[:T].double()).abs().max())
+                                       for g, w in zip(got, want)])
+                    counts.append(f"cap{small_cap}:{label}:pairs={int(total)}"
+                                  f"+{int(overflow)}dropped")
+            # The engines end to end: pallas (one and two rounds) against fused.
+            alive = torch.any(state.transmitted[:n] != 0.0, dim=-1)
+            args = (scene, state.origin[:n], state.direction[:n],
+                    torch.where(alive, 1e30, -1.0),
+                    torch.full((n,), -1, dtype=torch.int32, device=scene.device))
+            ref = packet_intersect.closest_hit_packet(*args, tile=scene.config.packet_tile,
+                                                      backend="fused", skip=True)
+            engine_bad, suspects = 0, []
+            for two_round in (False, True):
+                got = packet_intersect.closest_hit_packet(
+                    *args, tile=scene.config.packet_tile, cap=K, backend="pallas",
+                    two_round=two_round)
+                engine_bad += int((got[0] != ref[0]).sum()) + int((got[1] != ref[1]).sum())
+                suspects.append(int(got[2]))
+            over = packet_intersect.closest_hit_packet(*args, tile=scene.config.packet_tile,
+                                                       cap=1, backend="pallas")
+            print(f"phase 10a sweep vs plain: torus block lo={block_lo} bounce={bounce} "
+                  f"rays={n} tiles={T} mismatched={bad} max_abs_err={err:.3g} "
+                  f"{' '.join(counts)} | pallas_vs_fused mismatched={engine_bad} "
+                  f"suspects={suspects} overflow_cap1_suspects={int(over[2])}")
+            # All or nothing: every ray is suspect exactly when pairs dropped.
+            over_ok = int(over[2]) == (n if dropped[(1, "one_round")] else 0)
+            if (bad or engine_bad or any(suspects) or dropped[(cap, "one_round")]
+                    or not over_ok or (bounce == 0 and not dropped[(1, "one_round")])):
+                raise SystemExit(f"phase 10a failed: bounce {bounce}, {n} rays")
+            worst = max(worst, err)
+        if bounce <= 1:  # 10b: time at the full block
+            od8, rays_tiles, window = _pallas_inputs(scene, state, block)
+            T, _, tile = od8.shape
+            entry, mask = cull.cull_tiles(od8, aabb, with_mask=True)
+            select = entry < packet_intersect.HIT_THRESH
+            pairs, total, overflow = packet_intersect.extract_pairs(select, T * cap)
+            words = fused.pack_words(select)
+            k = int(total)
+            live_tile = (od8[:, 6, :] >= 0).sum(dim=1)
+            pt, pc = pairs[0, :k].long(), pairs[1, :k].long()
+            mts = int((live_tile[pt] * real[pc]).sum())  # what the swept pairs need
+            ms = _cuda_ms(lambda: sweep.sweep_pairs(rays_tiles, blocks, pairs, total, tile), 5)
+            plain_ms = _cuda_ms(
+                lambda: sweep.plain_sweep(rays_tiles, blocks, pairs, total, tile), 3)
+            fused_ms = _cuda_ms(
+                lambda: fused.fused_closest_hit(od8, blocks[:K], words, entry, mask), 5)
+            extract_ms = _cuda_ms(lambda: packet_intersect.extract_pairs(select, T * cap), 5)
+            nbytes = (rays_tiles.numel() + 2 * k + 1 + T * tile * 2
+                      + int(torch.unique(pc).numel()) * BLOCK_ROWS * C) * f4
+            ops_ms = mts * MT_OPS / PEAK_FP32_FLOPS * 1e3
+            bytes_ms = nbytes / PEAK_BYTES * 1e3
+            bound_ms = max(ops_ms, bytes_ms)
+            print(f"phase 10b sweep timing: torus block lo={block_lo} rays={block} "
+                  f"bounce={bounce} pairs={k} dropped={int(overflow)} sweep_ms={ms:.3f} "
+                  f"plain_ms={plain_ms:.1f} mt_tests={mts} ops_bound_ms={ops_ms:.4f} "
+                  f"bytes_bound_ms={bytes_ms:.4f} bound_share={bound_ms / ms:.3f} "
+                  f"pair_extraction_ms={extract_ms:.3f} fused_same_rays_ms={fused_ms:.3f}")
+            if bounce == 1:  # the kernel table reports the sorted bounced block
+                result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, fused_ms=fused_ms,
+                              bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+        state, _ = wavefront.process_rays(scene, state, seed, bounce)
+        state = wavefront.reorder_rays(scene, state)
+    result["max_abs_err"] = worst
+    return result
+
+
+def _pallas_cap(scene) -> int:
+    """The packet_cap at which the pallas engine's audit of one training
+    pass reports no suspect ray, doubling from the config's."""
+    from cuda_raytracer_tpu_torch.render import diff
+
+    cap = scene.config.packet_cap
+    while True:
+        audited = scene.with_config(packet_backend="pallas", packet_cap=cap)
+        suspects = diff.check_radiance_exact(audited, pass_seed=TRAIN_SEED)
+        print(f"phase 10c audit: packet_backend=pallas packet_cap={cap} suspects={suspects}")
+        if suspects == 0:
+            return cap
+        if cap >= scene.num_clusters:
+            raise SystemExit("phase 10c failed: the pallas audit is not clean at any cap")
+        cap = min(2 * cap, scene.num_clusters)
+
+
+def phase_train(full) -> dict:
+    """10c: the inverse-rendering train step on the full torus through
+    both engines, with and without per-bounce checkpointing."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import diff
+
+    base = _resized(full, TRAIN["width"], TRAIN["height"]).with_config(**TRAIN)
+    rpp, bounces = TRAIN["rays_per_pixel"], TRAIN["bounces"]
+    rays = base.num_pixels * rpp
+    true_params, _ = diff.split_params(base)
+    with torch.no_grad():
+        target = diff.render_radiance(true_params, base, TRAIN_SEED, rpp, bounces)
+    # Start from greyed diffuse albedos: the loss must fall back.
+    start = diff.params_to_numpy(true_params)
+    start["materials.diffuse_albedo"][:] = 0.5
+    schedule = diff.calibrate_live_schedule(base, seeds=(TRAIN_SEED, TRAIN_SEED + 1))
+    print(f"phase 10c set-up: torus {base.config.width}x{base.config.height} spp={rpp} "
+          f"bounces={bounces} rays={rays} triangles={base.triangle_count} "
+          f"clusters={base.num_clusters} live_schedule={[round(d, 3) for d in schedule]}")
+    scenes = {"auto": base, "pallas": base.with_config(packet_backend="pallas",
+                                                       packet_cap=_pallas_cap(base))}
+    engine_kernels = {"auto": ("cull_tiles", "fused_closest_hit"),
+                      "pallas": ("cull_tiles", "sweep_pairs")}
+    results = {}
+    for backend, checkpoint in (("auto", True), ("pallas", True), ("auto", False),
+                                ("pallas", False)):
+        params = diff.params_from_numpy(start, base.device, requires_grad=True)
+        optimizer = torch.optim.Adam(diff.param_leaves(params), lr=TRAIN_LR)
+        step = diff.make_train_step(scenes[backend], optimizer, rpp, bounces,
+                                    live_schedule=schedule, checkpoint_bounces=checkpoint)
+        with torch.no_grad():  # the forward pass alone, for its launch count
+            _zero_launch_counts()
+            diff.render_radiance(params, step.scene, TRAIN_SEED, rpp, bounces)
+            forward = _launch_counts()
+        for _ in range(TRAIN_WARMUP):
+            step(params, target, TRAIN_SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seconds, losses = [], []
+        _zero_launch_counts()
+        for _ in range(TRAIN_STEPS):
+            start_t = time.perf_counter()
+            loss = step(params, target, TRAIN_SEED)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start_t)
+            losses.append(float(loss))
+        counts = _launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        finite = all(bool(torch.isfinite(p).all()) and bool(torch.isfinite(p.grad).all())
+                     for p in diff.param_leaves(params))
+        median = statistics.median(seconds)
+        kernels = engine_kernels[backend]
+        ok_launches = all(per_step[k] == forward[k] > 0 for k in kernels) and all(
+            counts[k] == 0 for k in counts if k not in kernels)
+        falling = losses[-1] < losses[0] and all(map(lambda x: x == x, losses))
+        print(f"phase 10c train step: torus packet_backend={backend} "
+              f"checkpoint_bounces={checkpoint} seconds_per_step={median:.4f} "
+              f"steps={[round(x, 4) for x in seconds]} paths_per_s={rays / median:.6g} "
+              f"peak_mem_MiB={peak / 2**20:.1f} losses={[f'{x:.6g}' for x in losses]} "
+              f"launches_per_step={json.dumps(per_step)} forward_launches={json.dumps(forward)} "
+              f"finite={finite} loss_falling={falling} backward_launches_none={ok_launches}")
+        if not (finite and falling and ok_launches):
+            raise SystemExit(f"phase 10c failed: packet_backend={backend} "
+                             f"checkpoint_bounces={checkpoint}")
+        results[(backend, checkpoint)] = dict(seconds=median, launches=counts, peak=peak)
+        if checkpoint:  # where one step's time goes
+            _, wall_ms, rows = _profiled(lambda: step(params, target, TRAIN_SEED))
+            busy_ms = sum(r[0] for r in rows)
+            closest_ms = sum(r[0] for r in rows if any(
+                k in r[2] for k in ("cull_kernel", "fused_kernel", "sweep_kernel")))
+            print(f"phase 10c profile: packet_backend={backend} one step wall_ms={wall_ms:.2f} "
+                  f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
+                  f"closest_hit_kernels_ms={closest_ms:.3f} "
+                  f"device_kernels={sum(r[1] for r in rows)}")
+            for dev_ms, count, key in rows[:6]:
+                print(f"phase 10c profile: {backend} top device time {dev_ms:.3f} ms x{count} "
+                      f"{key[:90]}")
+    # The two engines' gradients at the same parameters.
+    grads = {}
+    for backend in ("auto", "pallas"):
+        _, g = diff.render_and_grad(scenes[backend], target=target, pass_seed=TRAIN_SEED,
+                                    rays_per_pixel=rpp, bounces=bounces)
+        grads[backend] = diff.param_leaves(g)
+    worst = 0.0
+    for a, b in zip(grads["auto"], grads["pallas"]):
+        tol = GRAD_TOL * float(a.abs().max()) + 1e-6
+        worst = max(worst, float((a - b).abs().max()) / tol)
+    print(f"phase 10c gradients auto vs pallas: worst |diff| / tolerance = {worst:.4g} "
+          f"(tolerance {GRAD_TOL} * max|g| + 1e-6 per leaf)")
+    if not worst <= 1.0:
+        raise SystemExit("phase 10c failed: the engines' gradients disagree")
+    return results
+
+
+def phase_example(device) -> None:
+    """10d: the inverse-rendering example at its default size."""
+    from cuda_raytracer_tpu_torch.examples import inverse_render
+
+    start = time.perf_counter()
+    lines = []
+    result = inverse_render.run(device=device, log=lines.append)
+    seconds = time.perf_counter() - start
+    print(f"phase 10d example: inverse_render 64x64 spp=8 steps=60 seconds={seconds:.2f} "
+          f"loss_first={result['losses'][0]:.6g} loss_last={result['losses'][-1]:.6g} "
+          f"wall_error={result['err']:.4f}")
+    if not result["err"] < EXAMPLE_BAR:
+        raise SystemExit("phase 10d failed: the example did not recover the walls")
+
+
+def phase_diff(full, device) -> dict:
+    """Phase 10: differentiable rendering on the card."""
+    result = phase_sweep(full)
+    train = phase_train(full)
+    phase_example(device)
+    result["launches"] = train[("pallas", True)]["launches"]["sweep_pairs"]
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -899,7 +1225,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
         return 1
-    from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1, shade
+    from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1, shade, sweep
 
     device = torch.device("cuda")
     smi = _smi()
@@ -909,7 +1235,7 @@ def main() -> int:
 
     start = time.perf_counter()
     built = build.load_all(KERNEL_SOURCES)
-    for module in (shade, cull, fused, fused1):
+    for module in (shade, cull, fused, fused1, sweep):
         module.library()  # bind the argument types
     for name, b in built.items():
         regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
@@ -930,6 +1256,7 @@ def main() -> int:
     mesh_timing = phase_packet_timing(scenes["torus"])
     phase_mesh_profile(scenes["torus"])
     gated = phase_cli(scenes["torus"])
+    diff_result = phase_diff(scenes["torus"], device)
 
     kernels = [{
         "name": "shade_trace",
@@ -979,6 +1306,22 @@ def main() -> int:
         "plain_ms": gated["plain_ms"],
         "bound_ms": gated["bound_ms"],
         "bound_by": gated["bound_by"],
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "sweep_pairs",
+        "route": "cuda",
+        "source": "cuda_raytracer_tpu_torch/csrc/sweep.cu",
+        "replaces": "cuda_raytracer_tpu/ops/pallas/sweep.py:149",
+        # The sweeps of the 5 timed "pallas" train steps (checkpointed).
+        "launches": diff_result["launches"],
+        "max_abs_err": diff_result["max_abs_err"],
+        "tolerance": "bit-equal",
+        "ms": diff_result["ms"],
+        "fused_same_rays_ms": diff_result["fused_ms"],
+        "plain_ms": diff_result["plain_ms"],
+        "bound_ms": diff_result["bound_ms"],
+        "bound_by": diff_result["bound_by"],
         "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,5 @@
 // Shared bodies of the packet closest-hit kernels (cull.cu, fused.cu,
-// fused1.cu), compiled twice: by nvcc for the card and by the host C++
+// fused1.cu, sweep.cu), compiled twice: by nvcc for the card and by the host C++
 // compiler for the CPU tests (packet_host.cpp).
 //
 // Everything the kernels compute is written here once: the windowed Tavian
@@ -14,12 +14,15 @@
 //   - on the host (HostExec) the single caller owns every row, any() is the
 //     identity and sync() does nothing, so one call runs the whole block.
 //
+// A result that several blocks fold into (the pair sweep) goes through
+// min_u64: a 64-bit atomicMin on the card, a plain min on the host.
+//
 // Per-ray state that must survive a synchronisation lives in arrays in
 // shared memory (on the host: a plain buffer), indexed by ray row, so the
 // same driver code is correct under both executors.
 //
 // Numerics follow the plain PyTorch versions (ops/kernels/cull.py,
-// fused.py, fused1.py) expression for expression: left-to-right sums,
+// fused.py, fused1.py, sweep.py) expression for expression: left-to-right sums,
 // NaN-propagating min/max with torch.minimum / torch.maximum's tie rule (the
 // first operand wins), the safe inverse direction of ops/traverse.py, and
 // t = td / det. Both builds disable multiply-add contraction (nvcc
@@ -130,6 +133,26 @@ RT_HD float inf_f() {
 #endif
 }
 
+RT_HD uint32_t float_bits(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(x);
+#else
+  uint32_t u;
+  __builtin_memcpy(&u, &x, sizeof u);
+  return u;
+#endif
+}
+
+RT_HD float bits_float(uint32_t u) {
+#ifdef __CUDA_ARCH__
+  return __uint_as_float(u);
+#else
+  float x;
+  __builtin_memcpy(&x, &u, sizeof x);
+  return x;
+#endif
+}
+
 RT_HD int ctz32(uint32_t w) {
 #ifdef __CUDA_ARCH__
   return __ffs((int)w) - 1;
@@ -218,6 +241,13 @@ struct DeviceExec {
     *dst += v;
 #endif
   }
+  RT_HD void min_u64(unsigned long long* dst, unsigned long long v) const {
+#ifdef __CUDA_ARCH__
+    atomicMin(dst, v);
+#else
+    if (v < *dst) *dst = v;
+#endif
+  }
 };
 #endif
 
@@ -229,6 +259,9 @@ struct HostExec {
   void sync() const {}
   void or_bits(uint32_t* dst, uint32_t v) const { *dst |= v; }
   void add(unsigned long long* dst, unsigned long long v) const { *dst += v; }
+  void min_u64(unsigned long long* dst, unsigned long long v) const {
+    if (v < *dst) *dst = v;
+  }
 };
 
 // ---- shared per-block state --------------------------------------------------
@@ -517,6 +550,51 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
     }
   }
   store_tile(ex, rt, t, tile, t_out, tri_out);
+}
+
+// ---- sweep: one (tile, cluster) pair of an extracted pair list, no window -------
+//
+// A ray's result folds over pairs that different blocks sweep, so it lives in
+// a 64-bit key: float bits of t high (t is positive or kMiss, so the bits
+// order as the values do), 0xFFFFFFFF - (tri + 1) low (so on equal t the
+// larger triangle id is the smaller key). The minimum key over a ray's
+// pairs is then the fold's result, whatever order the pairs come in.
+constexpr unsigned long long kMissKey = 0x7149F2CAFFFFFFFFull;  // (kMiss, -1)
+
+RT_HD unsigned long long sweep_key(float t, int tri) {
+  return ((unsigned long long)float_bits(t) << 32) |
+         (unsigned long long)(0xFFFFFFFFu - (uint32_t)(tri + 1));
+}
+
+RT_HD void sweep_unkey(unsigned long long key, float& t, int& tri) {
+  t = bits_float((uint32_t)(key >> 32));
+  tri = (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull)) - 1;
+}
+
+// Pair i of pairs (2, P) int32 ([tile; cluster]): stage the cluster's block,
+// sweep every ray of the tile (rays_tiles (T1, 8, L), rows o xyz, d xyz)
+// against it and min its best (t, tri) into keys (T1, tile). A pair whose
+// ids lie outside the inputs is skipped (the same for every thread of the
+// block). Shared: kBlockRows * C words.
+template <class Exec>
+RT_HD void sweep_pair_block(const Exec& ex, float* blk, const float* rays, int T1,
+                            int L, int tile, const float* blocks, int K, int C,
+                            const int* pairs, int P, int i,
+                            unsigned long long* keys) {
+  const int pt = pairs[i];
+  const int pc = pairs[P + i];
+  if (pt < 0 || pt >= T1 || pc < 0 || pc >= K) return;
+  stage_block(ex, blocks, pc, C, blk);
+  ex.sync();
+  const float* src = rays + (size_t)pt * 8 * L;
+  for (int r = ex.first(); r < tile; r += ex.step()) {
+    float best = kMiss;
+    int best_tri = -1;
+    sweep_ray(blk, C, src[r], src[L + r], src[2 * L + r], src[3 * L + r],
+              src[4 * L + r], src[5 * L + r], best, best_tri);
+    if (best < kMiss) ex.min_u64(&keys[(size_t)pt * tile + r], sweep_key(best, best_tri));
+  }
+  ex.sync();  // the next pair restages blk
 }
 
 }  // namespace rt

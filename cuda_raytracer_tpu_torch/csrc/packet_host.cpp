@@ -1,7 +1,7 @@
 // Host build of the packet kernels, for the CPU tests: the grids of
-// cull.cu (flat and gated), fused.cu and fused1.cu as loops over blocks,
-// each block run by rt::HostExec through the same drivers in packet.cuh the
-// card runs.
+// cull.cu (flat and gated), fused.cu, fused1.cu and sweep.cu as loops over
+// blocks, each block run by rt::HostExec through the same drivers in
+// packet.cuh the card runs.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libpacket_host.so packet_host.cpp
 
@@ -55,6 +55,20 @@ int rt_host_fused1_closest_hit(const float* od8, const float* aabb, const float*
   for (int t = 0; t < T; ++t)
     rt::fused1_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
                      tile, t, t_out, tri_out, stats);
+  return 0;
+}
+
+int rt_host_sweep_pairs(const float* rays, int T1, int L, int tile, const float* blocks,
+                        int K, int C, const int* pairs, int P, const int* total,
+                        unsigned long long* keys, float* t_out, int* tri_out) {
+  std::vector<float> blk(rt::kBlockRows * C);
+  rt::HostExec ex;
+  const int n = T1 * tile;
+  for (int i = 0; i < n; ++i) keys[i] = rt::kMissKey;
+  const int pairs_swept = *total < P ? *total : P;
+  for (int i = 0; i < pairs_swept; ++i)
+    rt::sweep_pair_block(ex, blk.data(), rays, T1, L, tile, blocks, K, C, pairs, P, i, keys);
+  for (int i = 0; i < n; ++i) rt::sweep_unkey(keys[i], t_out[i], tri_out[i]);
   return 0;
 }
 

@@ -120,28 +120,33 @@ def clamp_to_window(od8: torch.Tensor, t_tile, tri_tile):
     return torch.where(inside, t_tile, MISS), torch.where(inside, tri_tile, -1)
 
 
-def sweep_selected(od8: torch.Tensor, blocks: torch.Tensor, select: torch.Tensor):
-    """Every selected (tile, cluster) pair of the (T, K') bool ``select``
-    swept and folded, then clamped to the windows: the sweep both kernels
-    share, in PyTorch."""
-    T, _, tile = od8.shape
+def sweep_pair_list(rays: torch.Tensor, blocks: torch.Tensor, pair_tile, pair_k):
+    """The (tile, cluster) pairs listed by ``pair_tile`` / ``pair_k`` swept
+    and folded, without a window: per ray of each of the (T, 8, tile) ray
+    tiles (rows 0-5 read), the smallest t over its tile's pairs and the
+    largest triangle id reaching it, (``MISS``, -1) where none hits."""
+    T, _, tile = rays.shape
     C = blocks.shape[2]
-    pair_tile, pair_k = torch.nonzero(select, as_tuple=True)
     step = max(1, PLAIN_ELEMS // (tile * C))
     bests, tris = [], []
     for lo in range(0, pair_tile.shape[0], step):
-        t, trif = pair_t_planes(od8, blocks, pair_tile[lo:lo + step], pair_k[lo:lo + step])
+        t, trif = pair_t_planes(rays, blocks, pair_tile[lo:lo + step], pair_k[lo:lo + step])
         m = t.amin(dim=2)
         hit = (t == m[:, :, None]) & (t < MISS)
         bests.append(m)
         tris.append(torch.where(hit, trif, -1.0).amax(dim=2).to(torch.int32))
     if bests:
-        t_tile, tri_tile = fold_pairs(T, tile, pair_tile, torch.cat(bests),
-                                      torch.cat(tris), od8.device)
-    else:
-        t_tile = torch.full((T, tile), MISS, dtype=torch.float32, device=od8.device)
-        tri_tile = torch.full((T, tile), -1, dtype=torch.int32, device=od8.device)
-    return clamp_to_window(od8, t_tile, tri_tile)
+        return fold_pairs(T, tile, pair_tile, torch.cat(bests), torch.cat(tris), rays.device)
+    return (torch.full((T, tile), MISS, dtype=torch.float32, device=rays.device),
+            torch.full((T, tile), -1, dtype=torch.int32, device=rays.device))
+
+
+def sweep_selected(od8: torch.Tensor, blocks: torch.Tensor, select: torch.Tensor):
+    """Every selected (tile, cluster) pair of the (T, K') bool ``select``
+    swept and folded, then clamped to the windows: the sweep both kernels
+    share, in PyTorch."""
+    pair_tile, pair_k = torch.nonzero(select, as_tuple=True)
+    return clamp_to_window(od8, *sweep_pair_list(od8, blocks, pair_tile, pair_k))
 
 
 def plain_fused(od8, blocks, words, entry=None, hitmask=None):

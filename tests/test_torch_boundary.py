@@ -1,7 +1,8 @@
 """Boundaries of the PyTorch port: what it imports, and where it runs by default.
 
 - Importing every module of ``cuda_raytracer_tpu_torch`` (the CLI, its
-  ``__main__``, the native BVH binding and ``utils`` among them) and
+  ``__main__``, the native BVH binding, ``utils``, ``render.diff`` and the
+  inverse-rendering example among them) and
   ``chip_smoke.py`` in a fresh interpreter loads neither ``jax`` nor the
   JAX package ``cuda_raytracer_tpu``. The names are matched exactly or as
   ``name.`` prefixes, because the port's own name starts with the JAX
@@ -35,8 +36,9 @@ import chip_smoke
 forbidden = ("jax", "cuda_raytracer_tpu")
 loaded = [m for m in sys.modules
           if any(m == f or m.startswith(f + ".") for f in forbidden)]
-for name in ("render.pipeline", "cli", "__main__", "native.bvh_native",
-             "utils.checkpoint", "utils.metrics"):
+for name in ("render.pipeline", "render.diff", "cli", "__main__", "native.bvh_native",
+             "utils.checkpoint", "utils.metrics", "ops.kernels.sweep",
+             "examples.inverse_render"):
     assert "cuda_raytracer_tpu_torch." + name in sys.modules, name
 print("FORBIDDEN", loaded)
 sys.exit(1 if loaded else 0)

@@ -1,4 +1,4 @@
-"""The packet kernels (cull, gated cull, fused, fused1) on the GPU, against their plain PyTorch versions.
+"""The packet kernels (cull, gated cull, fused, fused1, the pair sweep) on the GPU, against their plain PyTorch versions.
 
 Marked ``cuda``: skipped on a machine without a GPU. On the GPU machine,
 which has no JAX, run them without the suite's JAX conftest:
@@ -11,7 +11,11 @@ bounced ones); a two-pass render through both regimes (fused1 for the
 10-rays-per-pixel pass, cull + fused for the 2-rays-per-pixel one) is held
 to the agreement gate against the same render with the xla engine. The
 gated cull is held bit-equal to its plain version with all-ones, real and
-all-zero gates, and the hierarchical cull engine to the flat one.
+all-zero gates, and the hierarchical cull engine to the flat one. The pair
+sweep is held bit-equal to its plain version (tile-major and shuffled
+pairs, a budget that holds and one that overflows), the "pallas" engine to
+the "fused" one, and a differentiable render through each engine launches
+its closest-hit kernels in the forward pass and none in the backward pass.
 """
 
 import pytest
@@ -19,8 +23,8 @@ import torch
 
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import packet_intersect
-from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
-from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade, sweep
+from cuda_raytracer_tpu_torch.render import diff, pipeline, wavefront
 
 pytestmark = pytest.mark.cuda
 
@@ -156,3 +160,64 @@ def test_gated_cull_bit_equal_plain(cuda):
         got = packet_intersect.closest_hit_packet(scene.with_config(cull_hier=16), *args,
                                                   backend="fused", skip=skip)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_sweep_kernel_bit_equal_plain(cuda):
+    scene = _scene(cuda)
+    K = scene.num_clusters
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    for state in _states(scene):
+        alive = torch.any(state.transmitted != 0, dim=-1)
+        window = torch.where(alive, 1e30, -1.0)
+        rays = packet_intersect._pad_rays(state.origin[:-7], state.direction[:-7],
+                                          window[:-7], 64)
+        od8 = cull.make_od8(*rays, 64)
+        T = od8.shape[0]
+        rays_tiles = sweep.make_rays_tiles(rays[0], rays[1], 64)
+        select = cull.plain_cull(od8, aabb) < packet_intersect.HIT_THRESH
+        for P in (T * K, T):  # a budget that holds, one that overflows
+            pairs, total, _ = packet_intersect.extract_pairs(select, P)
+            k = int(total)
+            shuffled = pairs.clone()
+            shuffled[:, :k] = pairs[:, torch.randperm(k, device=cuda)]
+            ref = sweep.plain_sweep(rays_tiles, scene.cluster_blocks, pairs, total, 64)
+            before = sweep.LAUNCHES
+            for pair_list in (pairs, shuffled):
+                got = sweep.sweep_pairs(rays_tiles, scene.cluster_blocks, pair_list, total, 64)
+                assert torch.equal(got[0][:T], ref[0][:T]) and torch.equal(got[1][:T], ref[1][:T])
+            torch.cuda.synchronize()
+            assert sweep.LAUNCHES == before + 2 and (ref[1] >= 0).any()
+
+
+def test_pallas_engine_bit_equal_fused(cuda):
+    scene = _scene(cuda, name="glass_torus")
+    state = _states(scene)[1]
+    alive = torch.any(state.transmitted != 0, dim=-1)
+    t = torch.where(alive, 1e30, -1.0)
+    index = torch.full_like(alive, -1, dtype=torch.int32)
+    args = (scene, state.origin, state.direction, t, index)
+    ref = packet_intersect.closest_hit_packet(*args, tile=64, backend="fused")
+    for two_round in (False, True):
+        got = packet_intersect.closest_hit_packet(*args, tile=64, cap=scene.num_clusters,
+                                                  backend="pallas", two_round=two_round)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]) and int(got[2]) == 0
+
+
+@pytest.mark.parametrize("backend,kernels", [("auto", ("cull", "fused")),
+                                             ("pallas", ("cull", "sweep"))])
+def test_backward_launches_no_closest_hit_kernel(cuda, backend, kernels):
+    scene = _scene(cuda, packet_backend=backend)
+    modules = {"cull": cull, "fused": fused, "fused1": fused1, "sweep": sweep}
+    counts = lambda: {name: m.LAUNCHES for name, m in modules.items()}
+    before = counts()
+    params = diff.make_leaves(diff.split_params(scene)[0])
+    loss = diff.render_radiance(params, scene, 0, 2, 4).square().mean()
+    forward = counts()
+    loss.backward()
+    torch.cuda.synchronize()
+    assert counts() == forward
+    assert all(forward[k] > before[k] for k in kernels)
+    assert all(forward[k] == before[k] for k in modules if k not in kernels)
+    for p in diff.param_leaves(params):
+        assert p.grad is None or torch.isfinite(p.grad).all()
+    assert params.materials.diffuse_albedo.grad.abs().sum() > 0

@@ -295,11 +295,17 @@ def test_fused1_gate_and_supers(cloud):
 def test_unported_options_raise(cloud):
     _, ts = cloud
     o, d, t0, i0 = (torch.from_numpy(a) for a in _rays(256))
-    for name in ("pallas", "pallas_interpret"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # The pallas engine runs (its sweep's plain version on the CPU), equal
+    # to the xla engine while its pair budget holds; the JAX package's
+    # interpret-mode names are unknown to the port.
+    xla = packet_intersect.closest_hit_packet(ts, o, d, t0, i0, cap=ts.num_clusters)
+    for two_round in (False, True):
+        got = packet_intersect.closest_hit_packet(ts, o, d, t0, i0, cap=ts.num_clusters,
+                                                  backend="pallas", two_round=two_round)
+        _assert_hits_equal(xla, got)
+    for name in ("pallas_interpret", "fused2"):
+        with pytest.raises(ValueError, match="unknown packet backend"):
             packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend=name)
-    with pytest.raises(ValueError, match="unknown packet backend"):
-        packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend="fused2")
     # cull_hier on the fused engine runs (too few boxes here to gate: the
     # flat cull), bit-equal to the flat engine.
     ref = packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend="fused")
@@ -311,6 +317,24 @@ def test_unported_options_raise(cloud):
                                             backend="fused1")
     assert packet_intersect.resolve_backend("auto", torch.device("cpu")) == "xla"
     assert packet_intersect.resolve_backend("auto", torch.device("cuda")) == "fused"
+
+
+@pytest.mark.parametrize("skip", [False, True])
+def test_fused_two_round_bit_equal_xla_and_jax(cloud, skip):
+    """The fused engine's front-to-back two-round sweep (round 1: each
+    tile's nearest cluster) is exact: bit-equal to the xla engine, and its
+    hits match JAX's fused two-round engine in interpret mode."""
+    js, ts = cloud
+    o, d, t0, i0 = _rays(300, seed=13)
+    rays = [torch.from_numpy(a) for a in (o, d, t0, i0)]
+    xla = packet_intersect.closest_hit_packet(ts, *rays, tile=64, cap=ts.num_clusters)
+    got = packet_intersect.closest_hit_packet(ts, *rays, tile=64, backend="fused",
+                                              two_round=True, skip=skip)
+    _assert_hits_equal(xla, got)
+    ref = jpi.closest_hit_packet(js, *(jnp.asarray(a) for a in (o, d, t0, i0)), tile=64,
+                                 cap=js.num_clusters, backend="fused_interpret",
+                                 two_round=True, skip=skip)
+    _assert_hits_match_jax(ref, got)
 
 
 def _gates(live):

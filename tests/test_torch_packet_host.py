@@ -1,7 +1,7 @@
 """The packet kernels' shared bodies, compiled for the host, against their plain versions.
 
-``cuda_raytracer_tpu_torch/csrc/cull.cu``, ``fused.cu`` and ``fused1.cu``
-run only on the GPU, where ``chip_smoke.py`` holds them against the plain
+``cuda_raytracer_tpu_torch/csrc/cull.cu``, ``fused.cu``, ``fused1.cu`` and
+``sweep.cu`` run only on the GPU, where ``chip_smoke.py`` holds them against the plain
 PyTorch versions. Everything they compute, though, is in ``csrc/packet.cuh``
 as per-block drivers templated over an executor; ``csrc/packet_host.cpp``
 runs the same drivers over the grid as a loop on the host. This test builds
@@ -9,9 +9,10 @@ that file with the host C++ compiler (``-ffp-contract=off``, like the GPU
 build's ``-fmad=false``) and holds every output BIT-EQUAL to the plain
 version: the cull's entries and hit words (flat, and gated with all-ones,
 real and cleared gates), and the (t, tri) of fused (with
-and without the skip test) and fused1 (flat and gated), on a torus cut into
-more than one 128-box chunk, with finite windows, dead rays and ray counts
-that do not fill the last tile.
+and without the skip test) and fused1 (flat and gated), and the pair
+sweep's (t, tri) over a pair list in tile-major and shuffled order with
+sentinels, on a torus cut into more than one 128-box chunk, with finite
+windows, dead rays and ray counts that do not fill the last tile.
 """
 
 import ctypes
@@ -24,7 +25,7 @@ import torch
 
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import packet_intersect
-from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1
+from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1, sweep
 
 
 @pytest.fixture(scope="module")
@@ -44,6 +45,7 @@ def host_lib(tmp_path_factory):
     lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
     lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p] * 3
     lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 4 + [p] * 3
+    lib.rt_host_sweep_pairs.argtypes = [p] + [i] * 3 + [p] + [i] * 2 + [p, i] + [p] * 4
     return lib
 
 
@@ -151,3 +153,35 @@ def test_host_gated_cull_bit_equal_plain(host_lib, scene, n, tile):
                                           _ptr(entry_only), None, T, Kp, tile)
         assert torch.equal(entry_only, ref[0])
     assert not torch.equal(checker, live)
+
+
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_sweep_bit_equal_plain(host_lib, scene, n, tile):
+    """The sweep driver over every culled pair, with (T, 0) sentinels past
+    the count, in tile-major and in shuffled order: bit-equal to
+    ``plain_sweep``, whose rows [:T] are the fused sweep's before the
+    window clamp."""
+    od8 = _od8(n, tile, seed=n + 2)
+    T = od8.shape[0]
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    select = cull.plain_cull(od8, aabb) < cull.MISS_ENTRY * 0.5
+    count = int(select.sum())
+    pairs, total, _ = packet_intersect.extract_pairs(select, count + 40)
+    origin = od8[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
+    direction = od8[:, 3:6].permute(0, 2, 1).reshape(-1, 3)
+    rays = sweep.make_rays_tiles(origin, direction, tile)
+    blocks = scene.cluster_blocks
+    K, _, C = blocks.shape
+    ref = sweep.plain_sweep(rays, blocks, pairs, total, tile)
+    unclamped = fused.sweep_pair_list(od8, blocks, *torch.nonzero(select, as_tuple=True))
+    assert torch.equal(ref[0][:T], unclamped[0]) and torch.equal(ref[1][:T], unclamped[1])
+    assert (ref[1][:T] >= 0).sum() > n // 10
+    shuffled = pairs.clone()
+    shuffled[:, :count] = pairs[:, torch.from_numpy(np.random.default_rng(n).permutation(count))]
+    for pair_list in (pairs, shuffled):
+        keys = torch.empty((T + 1, tile), dtype=torch.int64)
+        t, tri = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+        host_lib.rt_host_sweep_pairs(_ptr(rays), T + 1, rays.shape[2], tile, _ptr(blocks),
+                                     K, C, _ptr(pair_list), pair_list.shape[1], _ptr(total),
+                                     _ptr(keys), _ptr(t), _ptr(tri))
+        assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1])

@@ -134,8 +134,13 @@ def test_unported_paths_raise():
     traced, suspect = wavefront.trace_wavefront(ts.with_config(intersector="packet"),
                                                 state, 0, 2, sort_rays=True)
     assert int(suspect) == 0 and sorted(traced.ray_id.tolist()) == list(range(16))
-    with pytest.raises(NotImplementedError, match="reparameterised"):
-        wavefront.process_rays(ts, state, 0, 0, reparam=True)
+    # Reparameterised shading is ported (see test_torch_diff.py): it keeps
+    # the rays in the graph and gives the detached render's radiance here
+    # (a constant sky, so the bilinear fetch is the nearest one).
+    reparam, _ = wavefront.process_rays(ts, state, 0, 0, reparam=True)
+    plain, _ = wavefront.process_rays(ts, state, 0, 0)
+    assert torch.allclose(reparam.collected, plain.collected, rtol=1e-5, atol=1e-6)
+    assert torch.equal(reparam.transmitted != 0, plain.transmitted != 0)
     with pytest.raises(ValueError, match="unknown intersector"):
         wavefront.resolved_intersector(ts.with_config(intersector="clustered"))
 
