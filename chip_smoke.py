@@ -7,11 +7,12 @@ Drives the port's main paths: forward renders at the reference benchmark
 shape (1000×1000, 100 rays per pixel in five passes of 20, 10 bounces) of a
 brute scene through the shade kernel and of a 126,000-triangle mesh through
 the packet kernels (fused1 for passes of >= 10 rays per pixel, cull + fused
-below), the command-line renderer, and the inverse-rendering train step on
-that mesh at the JAX package's forward+backward shape (256×256, 2 rays per
-pixel, 10 bounces) through both packet engines that reach a TPU kernel
-(cull + fused, and cull + the pair sweep), and checks them all. Phases, one
-line each:
+below, and fused1 with pack=2 for a paired sub-cluster table), the
+command-line renderer, the inverse-rendering train step on that mesh at the
+JAX package's forward+backward shape (256×256, 2 rays per pixel, 10
+bounces) through both packet engines that reach a TPU kernel (cull + fused,
+and cull + the pair sweep), and sharded rendering and training over
+torch.distributed, and checks them all. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
@@ -85,7 +86,28 @@ line each:
    pass's own (the backward launches none), one checkpointed step of each
    engine under torch.profiler (device busy and idle share), and the two
    engines' gradients within 1e-3 of the largest; (d) the inverse-rendering example at its
-   default size must recover the walls (error < 0.15).
+   default size must recover the walls (error < 0.15);
+11. paired sub-cluster tables: the full torus built with ``cluster_pack=2``
+   (blocks of 256 lanes, sub-clusters of 128); (a) the pack-2 fused1 kernel
+   against its plain version at 64×64 × 4 spp entering bounces 0-3, at an
+   unaligned ray count, flat and gated, one shard and two block-aligned
+   shards, and against the pack-1 kernel on the torus cut at 128 (0
+   mismatched elements); (b) its time on the centre block of a 20-spp pass
+   at bounces 0 and 1 (median of 5, CUDA events), its counters and bound,
+   its plain time and bit-equality at that shape, beside the pack-1 kernel
+   of phase 8 on the same rays; (c) the main path: the packed torus at
+   1000×1000, 100 spp, 10 bounces after a small warm-up: pack-2 launches
+   and no other packet kernel's, a finite framebuffer bit-identical to
+   phase 7's unpacked one, seconds and Mrays/s;
+12. sharding: (a) phase 9a's command with ``--mesh 1`` (one spawned rank
+   joined by NCCL): exit 0, the render_sharded seconds, a PNG
+   byte-identical to phase 9a's; (b) two ranks on the one card, joined by
+   gloo, on the Cornell scene and the torus at 256×256 × 2 spp × 10
+   bounces: the sharded framebuffer against the single-device one, one
+   sharded train step's loss (the same bits on both ranks) against the
+   single-device loss, the summed gradients against
+   ``diff.render_and_grad``'s, and packet kernel launches in both ranks;
+   (c) ``scaling_report`` on the size-1 mesh.
 
 Then one JSON line per the kernel table, and as the last line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero. Without a
@@ -160,6 +182,15 @@ CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
 BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
 BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
 
+PACK_TRIS = 256  # phase 11: lanes per packed block (two sub-clusters of 128)
+PACK_GATE = 16  # phase 11: sub-cluster boxes per super box
+SHARD_RANKS = 2  # phase 12b
+SHARD_TIMEOUT = 600  # phase 12b: seconds before the ranks are killed
+SHARD_FB_TOL = dict(rtol=1e-5, atol=1e-4)  # phase 12b: framebuffer vs one device
+SHARD_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # phase 12b: gradients vs one device
+LOSS_RTOL = 1e-5  # phase 12b: loss vs one device
+SCALING_RPP = 4  # phase 12c
+
 KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep")
 # (name, source, the TPU kernel it replaces) of the mesh path's kernels.
 PACKET_KERNELS = (
@@ -205,6 +236,14 @@ def _cuda_ms(fn, runs: int):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def _mismatch(got, want):
+    """(mismatched elements, max |Δ|) between two tuples of tensors: a
+    kernel's outputs and its plain version's."""
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    worst = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+    return bad, worst
 
 
 def _scene(name: str, overrides: dict, device):
@@ -366,13 +405,13 @@ def _packet_rays(scene, state, tile: int):
     return cull.make_od8(*padded, tile)
 
 
-def _sharded(fn, K: int, shards: int):
-    """Run ``fn(lo, hi)`` over ``shards`` cluster ranges and merge."""
+def _sharded(fn, K: int, shards: int, pack: int = 1):
+    """Run ``fn(lo, hi)`` over ``shards`` box ranges cut at whole blocks of
+    ``pack`` boxes, and merge."""
     from cuda_raytracer_tpu_torch.ops import packet_intersect
 
     out = None
-    for s in range(shards):
-        lo, hi = K * s // shards, K * (s + 1) // shards
+    for lo, hi in packet_intersect.block_ranges(K, shards, pack):
         out = packet_intersect._merge(out, *fn(lo, hi))
     return out
 
@@ -393,29 +432,24 @@ def _packet_cases(scene, od8):
     select = e_ref < cull.MISS_ENTRY * 0.5
     ref = fused.plain_fused(od8, blocks, fused.pack_words(select))
     ref1 = fused1.plain_fused1(od8, aabb, blocks)
-
-    def err(got, want):
-        bad = sum(int((g != w).sum()) for g, w in zip(got, want))
-        worst = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
-        return bad, worst
-
-    out = {"cull_tiles": [err((entry, mask), (e_ref, m_ref)), err((entry_only,), (e_ref,))],
+    out = {"cull_tiles": [_mismatch((entry, mask), (e_ref, m_ref)),
+                          _mismatch((entry_only,), (e_ref,))],
            "fused_closest_hit": [], "fused1_closest_hit": [
-               err(ref1, ref)]}  # the two plain versions agree too
+               _mismatch(ref1, ref)]}  # the two plain versions agree too
     for skip in (False, True):
         for shards in (1, 2):
             got = _sharded(lambda lo, hi: fused.fused_closest_hit(
                 od8, blocks[lo:hi].contiguous(), fused.pack_words(select[:, lo:hi]),
                 entry[:, lo:hi].contiguous() if skip else None,
                 mask[:, :, lo:hi].contiguous() if skip else None), K, shards)
-            out["fused_closest_hit"].append(err(got, ref))
+            out["fused_closest_hit"].append(_mismatch(got, ref))
     for gate in (0, 16):
         for shards in (1, 2):
             got = _sharded(lambda lo, hi: fused1.fused1_closest_hit(
                 od8, cull.box_table(cmin[lo:hi], cmax[lo:hi]), blocks[lo:hi].contiguous(),
                 fused1.shard_supers(cmin[lo:hi], cmax[lo:hi], gate) if gate else None,
                 gate), K, shards)
-            out["fused1_closest_hit"].append(err(got, ref1))
+            out["fused1_closest_hit"].append(_mismatch(got, ref1))
     torch.cuda.synchronize()
     return {k: (len(v), sum(b for b, _ in v), max(w for _, w in v)) for k, v in out.items()}
 
@@ -452,7 +486,7 @@ def phase_mesh_main_path(full) -> dict:
 
     modules = {"shade_trace": shade, "cull_tiles": cull, "fused_closest_hit": fused,
                "fused1_closest_hit": fused1}
-    launches, images = {}, {}
+    launches, images, framebuffer_100 = {}, {}, None
     for spp, backend, regime in (
         (MESH_FULL_SPP, "auto", ("fused1_closest_hit",)),
         (MESH_FEW_SPP, "auto", ("cull_tiles", "fused_closest_hit")),
@@ -474,6 +508,8 @@ def phase_mesh_main_path(full) -> dict:
             finite = bool(torch.isfinite(framebuffer).all())
             same = bool((pipeline.render_image(scene, framebuffer=framebuffer) == image).all())
             images[spp] = image
+            if spp == MESH_FULL_SPP:
+                framebuffer_100 = framebuffer  # phase 11c's reference
         else:
             finite, same = True, bool((image == images[spp]).all())
         mean = float(image.mean())
@@ -490,7 +526,7 @@ def phase_mesh_main_path(full) -> dict:
             raise SystemExit(f"phase 7 failed: torus at {spp} spp, packet_backend={backend}")
         if main:
             launches.update({k: counts[k] for k in regime})
-    return launches
+    return launches, framebuffer_100
 
 
 def _centre_block(scene, rpp: int):
@@ -542,7 +578,7 @@ def _profiled(fn):
     return prof, wall_ms, rows
 
 
-def _profile_block(scene, backend: str, kernels) -> None:
+def _profile_block(scene, backend: str, kernels, phase: str = "8") -> None:
     import torch
     from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 
@@ -562,16 +598,16 @@ def _profile_block(scene, backend: str, kernels) -> None:
     prof, wall_ms, rows = _profiled(run)
     busy_ms = sum(r[0] for r in rows)
     kernel_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
-    print(f"phase 8 profile: torus centre block packet_backend={backend} rays={block} "
+    print(f"phase {phase} profile: torus centre block packet_backend={backend} rays={block} "
           f"bounces={scene.config.bounces} live_bounds={bounds} wall_ms={wall_ms:.2f} "
           f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
           f"packet_kernels_ms={kernel_ms:.3f} device_kernels={sum(r[1] for r in rows)}")
     for dev_ms, count, key in rows[:8]:
-        print(f"phase 8 profile: {backend} top device time {dev_ms:.3f} ms x{count} "
+        print(f"phase {phase} profile: {backend} top device time {dev_ms:.3f} ms x{count} "
               f"{key[:90]}")
     for name in kernels:
         per_launch = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
-        print(f"phase 8 profile: {backend} {name} ms per bounce "
+        print(f"phase {phase} profile: {backend} {name} ms per bounce "
               + " ".join(f"{us / 1e3:.3f}" for us in per_launch))
 
 
@@ -640,10 +676,7 @@ def phase_packet_timing(full) -> dict:
         for name, (kernel, plain) in runs.items():
             ms = _cuda_ms(kernel, 5)
             plain_ms = _cuda_ms(plain, 3)
-            got, want = kernel(), plain()
-            torch.cuda.synchronize()
-            bad = sum(int((g != w).sum()) for g, w in zip(got, want))
-            err = max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want))
+            bad, err = _mismatch(kernel(), plain())
             slabs, mts, nbytes = work[name]
             ops_ms = (slabs * SLAB_OPS + mts * MT_OPS) / PEAK_FP32_FLOPS * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
@@ -670,7 +703,8 @@ def _launch_counts() -> dict:
 
     return {"shade_trace": shade.LAUNCHES, "cull_tiles": cull.LAUNCHES,
             "cull_gated": cull.LAUNCHES_GATED, "fused_closest_hit": fused.LAUNCHES,
-            "fused1_closest_hit": fused1.LAUNCHES, "sweep_pairs": sweep.LAUNCHES}
+            "fused1_closest_hit": fused1.LAUNCHES,
+            "fused1_closest_hit_pack2": fused1.LAUNCHES_PACK2, "sweep_pairs": sweep.LAUNCHES}
 
 
 def _zero_launch_counts() -> None:
@@ -679,6 +713,7 @@ def _zero_launch_counts() -> None:
     for module in (shade, cull, fused, fused1, sweep):
         module.LAUNCHES = 0
     cull.LAUNCHES_GATED = 0
+    fused1.LAUNCHES_PACK2 = 0
 
 
 def _write_scenes(workdir: Path) -> dict:
@@ -693,18 +728,24 @@ def _write_scenes(workdir: Path) -> dict:
     return paths
 
 
+def _subprocess_env() -> dict:
+    """The environment of a ``python -m cuda_raytracer_tpu_torch`` child:
+    this checkout first on its path."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
 def phase_cli_subprocess(scenes: dict, workdir: Path) -> bytes:
     """9a: the real entry point, as a user runs it."""
     out = workdir / "gated.png"
     cmd = [sys.executable, "-m", "cuda_raytracer_tpu_torch", str(scenes["torus"]),
            "--spp", str(CLI_SPP), "--cull-hier", str(CLI_GATE), "--metrics",
            "--out", str(out)]
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        [str(Path(__file__).resolve().parent)] + [p for p in [env.get("PYTHONPATH")] if p])
     start = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=workdir, env=env, capture_output=True, text=True,
-                          timeout=600)
+    proc = subprocess.run(cmd, cwd=workdir, env=_subprocess_env(), capture_output=True,
+                          text=True, timeout=600)
     wall = time.perf_counter() - start
     metrics = [ln for ln in proc.stderr.splitlines() if ln.startswith("{")]
     print(f"phase 9a cli: python -m cuda_raytracer_tpu_torch torus.scene --spp {CLI_SPP} "
@@ -930,6 +971,7 @@ def phase_cli(full) -> dict:
         phase_resume(full, workdir)
         phase_cpu_flag(scenes, workdir)
     result["launches"] = launches
+    result["png"] = png  # phase 12a's reference
     return result
 
 
@@ -1218,6 +1260,378 @@ def phase_diff(full, device) -> dict:
     return result
 
 
+def _packed_scenes(device):
+    """Phase 11 set-up: the full torus with ``cluster_pack=2`` (blocks of
+    PACK_TRIS lanes, two sub-clusters of PACK_TRIS / 2 triangles each), and
+    the same torus cut unpacked at PACK_TRIS / 2: the same sub-clusters."""
+    from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+
+    start = time.perf_counter()
+    parsed = builtin_scenes.parse_mesh_scene("torus")
+    packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(cluster_pack=2),
+                                      cluster_tris=PACK_TRIS, device=device)
+    half = scene_dsl.assemble_scene(parsed, cluster_tris=PACK_TRIS // 2, device=device)
+    table = packed.cluster_blocks[:packed.num_clusters // 2]
+    print(f"phase 11 setup: torus cluster_pack=2 cluster_tris={packed.cluster_tris} "
+          f"sub_clusters={packed.num_clusters} blocks={table.shape[0]} "
+          f"table_MB={table.numel() * table.element_size() / 1e6:.2f} "
+          f"unpacked_at_{PACK_TRIS // 2}_clusters={half.num_clusters} "
+          f"setup_seconds={time.perf_counter() - start:.1f}")
+    return packed, half
+
+
+def _pack_cases(packed, half, od8):
+    """The pack-2 kernel on one ray batch (flat and gated, one shard and two
+    block-aligned shards) against its plain version, and the pack-1 kernel
+    on the torus cut at PACK_TRIS / 2 → [(case, mismatched, max |Δ|)]. The
+    comparisons read the outputs back, which synchronises."""
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused1
+
+    K = packed.num_clusters
+    cmin, cmax = packed.cluster_min, packed.cluster_max
+    blocks = packed.cluster_blocks[:K // 2].contiguous()
+    ref = fused1.plain_fused1(od8, cull.box_table(cmin, cmax), blocks, pack=2)
+    out = []
+    for gate in (0, PACK_GATE):
+        for shards in (1, 2):
+            got = _sharded(lambda lo, hi: fused1.fused1_closest_hit(
+                od8, cull.box_table(cmin[lo:hi], cmax[lo:hi]),
+                blocks[lo // 2:hi // 2].contiguous(),
+                fused1.shard_supers(cmin[lo:hi], cmax[lo:hi], gate) if gate else None,
+                gate, pack=2), K, shards, pack=2)
+            out.append((f"gate{gate}_shards{shards}", *_mismatch(got, ref)))
+    hmin, hmax = half.cluster_min, half.cluster_max
+    got = fused1.fused1_closest_hit(
+        od8, cull.box_table(hmin, hmax), half.cluster_blocks[:half.num_clusters].contiguous(),
+        fused1.shard_supers(hmin, hmax, PACK_GATE), PACK_GATE)
+    out.append((f"pack1_at_{PACK_TRIS // 2}", *_mismatch(got, ref)))
+    return out
+
+
+def phase_pack_vs_plain(packed, half) -> float:
+    """11a: the pack-2 kernel against its plain version and against pack 1
+    at PACK_TRIS / 2, at 64×64 × 4 spp entering bounces 0-3, unaligned."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    scene = _resized(packed, 64, 64)
+    rays = 64 * 64 * MESH_SMALL_RPP
+    ray_id = torch.arange(rays, dtype=torch.int32, device=scene.device)
+    state = wavefront.make_initial_state(scene, ray_id, MESH_SMALL_RPP, 3)
+    worst = 0.0
+    for bounce in range(MESH_SMALL_BOUNCES):
+        cut = wavefront.RayState(*(leaf[:rays - 37] for leaf in state))
+        cases = _pack_cases(packed, half, _packet_rays(scene, cut, scene.config.packet_tile))
+        print(f"phase 11a pack2 vs plain: torus 64x64 spp={MESH_SMALL_RPP} bounce={bounce} "
+              f"rays={rays - 37} " + " ".join(f"{c}:mismatched={b}" for c, b, _ in cases)
+              + f" max_abs_err={max(e for _, _, e in cases):.3g}")
+        if any(b for _, b, _ in cases):
+            raise SystemExit(f"phase 11a failed: bounce {bounce}")
+        worst = max([worst] + [e for _, _, e in cases])
+        state, _ = wavefront.process_rays(scene, state, 3, bounce)
+        state = wavefront.reorder_rays(scene, state)
+    return worst
+
+
+def phase_pack_timing(packed, full) -> dict:
+    """11b: the pack-2 kernel on the centre 2^18-ray block of a 20-spp pass,
+    bounces 0 and 1: time, counters, bound, plain time, bit-equality; and
+    the pack-1 kernel (phase 8's, C = 256) on the same rays."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused1
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    rpp, seed = 20, 80
+    scene = packed.with_config(rays_per_pixel=rpp)
+    block_lo, block = _centre_block(scene, rpp)
+    ray_id = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    state0 = wavefront.make_initial_state(scene, ray_id, rpp, seed)
+    state1 = wavefront.reorder_rays(scene, wavefront.process_rays(scene, state0, seed, 0)[0])
+    K, C, tile = scene.num_clusters, scene.cluster_tris, scene.config.packet_tile
+    cmin, cmax = scene.cluster_min, scene.cluster_max
+    aabb = cull.box_table(cmin, cmax)
+    blocks = scene.cluster_blocks[:K // 2].contiguous()
+    sup = fused1.shard_supers(cmin, cmax, PACK_GATE)
+    K1 = full.num_clusters
+    aabb1 = cull.box_table(full.cluster_min, full.cluster_max)
+    blocks1 = full.cluster_blocks[:K1].contiguous()
+    sup1 = fused1.shard_supers(full.cluster_min, full.cluster_max, PACK_GATE)
+    f4 = 4
+    results = {}
+    for bounce, state in ((0, state0), (1, state1)):
+        od8 = _packet_rays(scene, state, tile)
+        T = od8.shape[0]
+
+        def kernel():
+            return fused1.fused1_closest_hit(od8, aabb, blocks, sup, PACK_GATE, pack=2)
+
+        def plain():
+            return fused1.plain_fused1(od8, aabb, blocks, pack=2)
+
+        stats = torch.zeros(3, dtype=torch.int64, device=scene.device)
+        stats1 = torch.zeros(3, dtype=torch.int64, device=scene.device)
+        fused1.fused1_closest_hit(od8, aabb, blocks, sup, PACK_GATE, stats=stats, pack=2)
+        fused1.fused1_closest_hit(od8, aabb1, blocks1, sup1, PACK_GATE, stats=stats1)
+        ms = _cuda_ms(kernel, 5)
+        plain_ms = _cuda_ms(plain, 3)
+        pack1_ms = _cuda_ms(lambda: fused1.fused1_closest_hit(od8, aabb1, blocks1, sup1,
+                                                              PACK_GATE), 5)
+        bad, err = _mismatch(kernel(), plain())
+        # Every sub-cluster some tile's rays hit: its half block is read once.
+        hit_subs = int((cull.cull_tiles(od8, aabb) < packet_intersect.HIT_THRESH)
+                       .any(dim=0).sum())
+        nbytes = (od8.numel() + BOX_ROWS * K + sup.numel() + hit_subs * BLOCK_ROWS * C // 2
+                  + T * tile * 2) * f4
+        ops_ms = (int(stats[0]) * SLAB_OPS + int(stats[2]) * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        ops1_ms = (int(stats1[0]) * SLAB_OPS + int(stats1[2]) * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+        print(f"phase 11b pack2 timing: torus block lo={block_lo} rays={block} bounce={bounce} "
+              f"pack2_ms={ms:.3f} plain_ms={plain_ms:.1f} slab_tests={int(stats[0])} "
+              f"swept_sub_pairs={int(stats[1])} mt_tests={int(stats[2])} "
+              f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
+              f"bound_share={bound_ms / ms:.3f} full_shape_mismatched={bad} "
+              f"max_abs_err={err:.3g} | pack1_same_rays_ms={pack1_ms:.3f} "
+              f"pack1_slab_tests={int(stats1[0])} pack1_swept_pairs={int(stats1[1])} "
+              f"pack1_mt_tests={int(stats1[2])} pack1_ops_bound_ms={ops1_ms:.4f}")
+        if bad:
+            raise SystemExit(f"phase 11b failed: pack2 differs from its plain version "
+                             f"(bounce {bounce})")
+        results[bounce] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+                               pack1_ms=pack1_ms,
+                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    # Where the packed block's time goes, beside phase 8's profile of the
+    # unpacked one: the pack-2 kernel's time per bounce.
+    _profile_block(scene, "fused1 pack=2", ("fused1_kernel",), phase="11b")
+    return results[1]  # the kernel table reports the sorted bounced block
+
+
+def phase_pack_main_path(packed, reference_fb) -> int:
+    """11c: the packed torus at 1000×1000, 100 spp, 10 bounces, timed as
+    ``render_timed`` times it, after an untimed small warm-up: only the
+    pack-2 kernel launches, and the framebuffer equals phase 7's unpacked
+    one bit for bit."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    warm = _resized(packed, 128, 128).with_config(rays_per_pixel=20)
+    pipeline.render_framebuffer(warm)
+    scene = packed.with_config(rays_per_pixel=MESH_FULL_SPP)
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    start = time.perf_counter()
+    framebuffer = pipeline.render_framebuffer(scene)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    counts = _launch_counts()
+    image = pipeline.render_image(scene, framebuffer=framebuffer)
+    finite = bool(torch.isfinite(framebuffer).all())
+    same = bool(torch.equal(framebuffer, reference_fb))
+    mean = float(image.mean())
+    rays = scene.num_pixels * MESH_FULL_SPP
+    launches = counts["fused1_closest_hit_pack2"]
+    print(f"phase 11c packed main path: torus cluster_pack=2 {scene.config.width}x"
+          f"{scene.config.height} spp={MESH_FULL_SPP} bounces={scene.config.bounces} "
+          f"seconds={seconds:.4f} Mrays/s={rays / seconds / 1e6:.2f} "
+          f"launches={json.dumps(counts)} finite={finite} mean_display={mean:.2f} "
+          f"bit_identical_to_unpacked_phase7={same}")
+    others = [k for k, v in counts.items() if v and k != "fused1_closest_hit_pack2"]
+    if launches <= 0 or others or not finite or not same:
+        raise SystemExit("phase 11c failed: launches, finiteness or bits of the packed render")
+    return launches
+
+
+def phase_pack(full, device):
+    """Phase 11a-b: paired sub-cluster tables through the pack-2 kernel →
+    (the packed torus, the kernel's numbers)."""
+    packed, half = _packed_scenes(device)
+    worst = phase_pack_vs_plain(packed, half)
+    result = phase_pack_timing(packed, full)
+    result["max_abs_err"] = max(worst, result["max_abs_err"])
+    return packed, result
+
+
+def phase_mesh_cli(reference_png: bytes) -> None:
+    """12a: ``python -m cuda_raytracer_tpu_torch torus.scene`` with phase 9a's
+    flags and ``--mesh 1``: one spawned rank joined by NCCL; its PNG must
+    equal phase 9a's byte for byte."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as tmp:
+        workdir = Path(tmp)
+        scenes = _write_scenes(workdir)
+        out = workdir / "mesh1.png"
+        cmd = [sys.executable, "-m", "cuda_raytracer_tpu_torch", str(scenes["torus"]),
+               "--spp", str(CLI_SPP), "--cull-hier", str(CLI_GATE), "--mesh", "1",
+               "--metrics", "--out", str(out)]
+        start = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=workdir, env=_subprocess_env(), capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - start
+        metrics = [ln for ln in proc.stderr.splitlines() if ln.startswith("{")]
+        if proc.returncode != 0 or not out.exists() or not metrics:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise SystemExit("phase 12a failed: the CLI did not render with --mesh 1")
+        m = json.loads(metrics[-1])
+        same = out.read_bytes() == reference_png
+        print(f"phase 12a cli --mesh 1: rc={proc.returncode} wall_seconds={wall:.2f} "
+              f"load_scene_seconds={m['phases']['load_scene']:.3f} "
+              f"render_sharded_seconds={m['phases']['render_sharded']:.4f} "
+              f"paths_per_s={m['counters']['paths_per_s_sharded']:.6g} "
+              f"png_identical_to_phase_9a={same}")
+        if not same:
+            raise SystemExit("phase 12a failed: the --mesh 1 PNG differs from phase 9a's")
+
+
+def _shard_scene(name: str, device):
+    """A phase 12b scene at the train step's shape."""
+    from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+
+    if name == "cornell":
+        return _scene("cornell", TRAIN, device)
+    full = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus"), device=device)
+    return _resized(full, TRAIN["width"], TRAIN["height"]).with_config(**TRAIN)
+
+
+def _shard_rank(rank: int, coordinator: str, out_dir: str) -> None:
+    """One of phase 12b's two ranks, both on cuda:0, joined by gloo: per
+    scene the sharded framebuffer, the sharded gradients at the start
+    parameters, one sharded train step's loss and the launch counts; rank 0
+    adds the single-device framebuffer, loss and gradients."""
+    import torch
+    from cuda_raytracer_tpu_torch.parallel import mesh as mesh_mod
+    from cuda_raytracer_tpu_torch.parallel import shard
+    from cuda_raytracer_tpu_torch.render import diff, pipeline
+
+    device = torch.device("cuda", 0)
+    mesh = mesh_mod.init_group(coordinator, SHARD_RANKS, rank, device, backend="gloo")
+    rpp, bounces = TRAIN["rays_per_pixel"], TRAIN["bounces"]
+    results = {}
+    try:
+        for name in ("cornell", "torus"):
+            scene = _shard_scene(name, device)
+            true_params, _ = diff.split_params(scene)
+            with torch.no_grad():
+                target = diff.render_radiance(true_params, scene, TRAIN_SEED, rpp, bounces)
+            start = diff.params_to_numpy(true_params)
+            start["materials.diffuse_albedo"][:] = 0.5
+            start_scene = diff.merge_params(scene, diff.params_from_numpy(start, device))
+            _zero_launch_counts()
+            fb = shard.render_framebuffer_sharded(scene, mesh)
+            loss_g, grads = shard.sharded_loss_and_grad(start_scene, mesh, target, TRAIN_SEED,
+                                                        rpp, bounces)
+            params = diff.params_from_numpy(start, device, requires_grad=True)
+            optimizer = torch.optim.Adam(diff.param_leaves(params), lr=TRAIN_LR)
+            step = shard.make_sharded_train_step(scene, mesh, optimizer, rpp, bounces)
+            loss = step(params, target, TRAIN_SEED)
+            torch.cuda.synchronize()
+            entry = dict(fb=fb.cpu().numpy(), loss=float(loss), grad_loss=float(loss_g),
+                         grads=diff.params_to_numpy(grads), launches=_launch_counts())
+            if rank == 0:
+                single_loss, single_grads = diff.render_and_grad(
+                    start_scene, target=target, pass_seed=TRAIN_SEED, rays_per_pixel=rpp,
+                    bounces=bounces)
+                entry.update(single_fb=pipeline.render_framebuffer(scene).cpu().numpy(),
+                             single_loss=float(single_loss),
+                             single_grads=diff.params_to_numpy(single_grads))
+            results[name] = entry
+    finally:
+        mesh_mod.shutdown()
+    torch.save(results, Path(out_dir) / f"rank{rank}.pt")
+
+
+def phase_two_ranks() -> None:
+    """12b: two gloo ranks on the one card (NCCL takes one rank per GPU)
+    against the single-device render, loss and gradients."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            coordinator = f"localhost:{s.getsockname()[1]}"
+        start = time.perf_counter()
+        ctx = mp.start_processes(_shard_rank, args=(coordinator, tmp), nprocs=SHARD_RANKS,
+                                 join=False, start_method="spawn")
+        deadline = start + SHARD_TIMEOUT
+        while not ctx.join(timeout=max(0.0, deadline - time.perf_counter())):
+            if time.perf_counter() >= deadline:
+                for proc in ctx.processes:
+                    proc.kill()
+                raise SystemExit(f"phase 12b failed: ranks still running after "
+                                 f"{SHARD_TIMEOUT} s")
+        wall = time.perf_counter() - start
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(SHARD_RANKS)]
+    ok = True
+    for name in ("cornell", "torus"):
+        r0, r1 = ranks[0][name], ranks[1][name]
+        fb_replicated = np.array_equal(r0["fb"], r1["fb"])
+        fb_close = np.allclose(r0["fb"], r0["single_fb"], **SHARD_FB_TOL)
+        fb_bits = np.array_equal(r0["fb"], r0["single_fb"])
+        loss_same = r0["loss"] == r1["loss"] and r0["grad_loss"] == r1["grad_loss"]
+        loss_close = abs(r0["loss"] - r0["single_loss"]) <= LOSS_RTOL * abs(r0["single_loss"])
+        # Gradients per leaf: |Δ| / (rtol·|g| + atol) with SHARD_GRAD_TOL (the
+        # gate on the Cornell scene), and |Δ| / (GRAD_TOL·max|g| + 1e-6),
+        # phase 10c's gradient gate (the gate on the torus, where one material
+        # row's gradient is a float32 sum of ~1.3 M terms, 131,072 rays × 10
+        # bounces: its rounding at that length is of order 1e-4 of its value,
+        # and a sum split between two ranks moves by as much).
+        leaves = []
+        for k in r0["grads"]:
+            got, want = r0["grads"][k], r0["single_grads"][k]
+            delta, scale = np.abs(got - want), float(np.abs(want).max())
+            leaves.append((k, scale, float(delta.max()),
+                           float(np.max(delta / (SHARD_GRAD_TOL["atol"]
+                                                 + SHARD_GRAD_TOL["rtol"] * np.abs(want)))),
+                           float(delta.max()) / (GRAD_TOL * scale + 1e-6)))
+        gate = "literal" if name == "cornell" else "leaf_scaled"
+        grad_err = max(leaf[3 if gate == "literal" else 4] for leaf in leaves)
+        grads_same = all(np.array_equal(r0["grads"][k], r1["grads"][k]) for k in r0["grads"])
+        print(f"phase 12b gradients {name}: " + " ".join(
+            f"{k}:max|g|={sc:.4g},max|d|={d:.3g},literal={lit:.3g},leaf_scaled={ls:.3g}"
+            for k, sc, d, lit, ls in leaves))
+        kernels = ("cull_tiles", "fused_closest_hit") if name == "torus" else ("shade_trace",)
+        launched = all(r["launches"][k] > 0 for r in (r0, r1) for k in kernels)
+        print(f"phase 12b two gloo ranks on cuda:0: {name} {TRAIN['width']}x{TRAIN['height']} "
+              f"spp={TRAIN['rays_per_pixel']} bounces={TRAIN['bounces']} "
+              f"fb_replicated={fb_replicated} fb_within_tol={fb_close} "
+              f"fb_bit_identical_to_single={fb_bits} loss={r0['loss']:.9g} "
+              f"single_loss={r0['single_loss']:.9g} loss_same_bits_on_ranks={loss_same} "
+              f"loss_within_rtol={loss_close} grads_gate={gate} "
+              f"grads_worst_over_gate={grad_err:.3g} "
+              f"grads_replicated={grads_same} launches_rank0={json.dumps(r0['launches'])} "
+              f"launches_rank1={json.dumps(r1['launches'])}")
+        ok = ok and fb_replicated and fb_close and loss_same and loss_close and (
+            grad_err <= 1.0) and grads_same and launched
+    print(f"phase 12b two gloo ranks on cuda:0: wall_seconds={wall:.2f}")
+    if not ok:
+        raise SystemExit("phase 12b failed: the two ranks disagree with one device")
+
+
+def phase_scaling(full) -> None:
+    """12c: ``scaling_report`` on the size-1 mesh (no process group)."""
+    from cuda_raytracer_tpu_torch.parallel import mesh as mesh_mod
+    from cuda_raytracer_tpu_torch.parallel import shard
+
+    mesh = mesh_mod.make_mesh()
+    report = shard.scaling_report(full, mesh, rays_per_pixel=SCALING_RPP, repeats=3)
+    print(f"phase 12c scaling_report: torus {full.config.width}x{full.config.height} "
+          f"spp={SCALING_RPP} bounces={full.config.bounces} mesh_size={mesh.size} "
+          f"paths_per_s={json.dumps(report)}")
+    if not report["1dev"] > 0:
+        raise SystemExit("phase 12c failed: no paths/s")
+
+
+def phase_sharding(full, reference_png: bytes) -> None:
+    """Phase 12: sharded rendering and training."""
+    phase_mesh_cli(reference_png)
+    phase_two_ranks()
+    phase_scaling(full)
+
+
 def main() -> int:
     import torch
 
@@ -1252,11 +1666,15 @@ def main() -> int:
     timing = phase_timing(device)
     scenes = {name: _mesh_scene(name, device) for name in ("torus", "glass_torus")}
     worst = phase_packet_vs_plain(scenes)
-    mesh_launches = phase_mesh_main_path(scenes["torus"])
+    mesh_launches, framebuffer_100 = phase_mesh_main_path(scenes["torus"])
     mesh_timing = phase_packet_timing(scenes["torus"])
     phase_mesh_profile(scenes["torus"])
     gated = phase_cli(scenes["torus"])
     diff_result = phase_diff(scenes["torus"], device)
+    packed, pack_result = phase_pack(scenes["torus"], device)
+    pack_launches = phase_pack_main_path(packed, framebuffer_100)
+    del packed, framebuffer_100
+    phase_sharding(scenes["torus"], gated["png"])
 
     kernels = [{
         "name": "shade_trace",
@@ -1322,6 +1740,22 @@ def main() -> int:
         "plain_ms": diff_result["plain_ms"],
         "bound_ms": diff_result["bound_ms"],
         "bound_by": diff_result["bound_by"],
+        "library_ms": None,
+    })
+    kernels.append({
+        "name": "fused1_closest_hit_pack2",
+        "route": "cuda",
+        "source": "cuda_raytracer_tpu_torch/csrc/fused1.cu",
+        "replaces": "cuda_raytracer_tpu/ops/pallas/fused1.py:148",
+        # The packed torus render of phase 11c (1000×1000, 100 spp).
+        "launches": pack_launches,
+        "max_abs_err": pack_result["max_abs_err"],
+        "tolerance": "bit-equal",
+        "ms": pack_result["ms"],
+        "pack1_same_rays_ms": pack_result["pack1_ms"],
+        "plain_ms": pack_result["plain_ms"],
+        "bound_ms": pack_result["bound_ms"],
+        "bound_by": pack_result["bound_by"],
         "library_ms": None,
     })
     print(json.dumps({"kernels": kernels}))

@@ -15,7 +15,13 @@ checkpoint to ``<checkpoint>.cpu.npz``); both get the same post chain
 (``--no-bloom`` skips bloom on both). The GNU options expose what the
 reference configured by editing the scene file: resolution, samples,
 bounces, checkpointing, metrics and the packet intersector's knobs.
-``--mesh`` (sharding over several GPUs) is not ported yet.
+
+``--mesh N`` shares the rays of every pass among N ranks, one process per
+device (``parallel/shard.py``), started with ``torch.multiprocessing``:
+N CUDA devices joined by NCCL, or, with ``cpu no_gpu``, N ranks on the CPU
+joined by gloo. Rank 0 writes the PNG and the metrics line (phase
+``render_sharded``); as in the JAX CLI the sharded render takes no
+checkpoint and runs no second backend.
 """
 
 from __future__ import annotations
@@ -46,8 +52,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-every", type=int, default=1,
                         help="passes between checkpoints")
     parser.add_argument("--mesh", type=int, default=0,
-                        help="shard rays over N devices (0 = single-device render; "
-                        "not ported yet)")
+                        help="shard rays over N devices, one process each (0 = "
+                        "single-device render; with 'cpu no_gpu': N CPU ranks)")
     parser.add_argument("--metrics", action="store_true",
                         help="emit a JSON metrics line to stderr")
     parser.add_argument("--packet-skip", action="store_true",
@@ -84,10 +90,6 @@ def main(argv=None) -> int:
     if not run_cpu and not run_accel:
         print("No raytracing hardware specified", file=sys.stderr)
         return 2
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (sharded rendering over several GPUs) is not ported yet "
-            "(see ROADMAP.md queue A)")
 
     from cuda_raytracer_tpu_torch.models import cluster as cluster_mod
     from cuda_raytracer_tpu_torch.models.scene_dsl import load_scene
@@ -111,16 +113,17 @@ def main(argv=None) -> int:
     ):
         if value is not None:
             overrides[key] = value
+    load_kwargs = dict(use_bvh=use_bvh, config_overrides=overrides,
+                       cluster_tris=args.cluster_tris or cluster_mod.DEFAULT_CLUSTER_TRIS)
+
+    if args.mesh:
+        return _run_mesh(args, load_kwargs, "cuda" if run_accel else "cpu")
 
     # The accelerator run needs the GPU (and raises without one); a CPU-only
     # run never touches CUDA.
     device = default_device() if run_accel else torch.device("cpu")
     with metrics.phase("load_scene"):
-        scene = load_scene(
-            args.scene, use_bvh=use_bvh, config_overrides=overrides,
-            cluster_tris=args.cluster_tris or cluster_mod.DEFAULT_CLUSTER_TRIS,
-            device=device,
-        )
+        scene = load_scene(args.scene, device=device, **load_kwargs)
     print(
         f"Scene: {scene.sphere_count} spheres, {scene.triangle_count} triangles, "
         f"{scene.bvh_node_count} BVH nodes",
@@ -160,6 +163,33 @@ def main(argv=None) -> int:
 
     if args.metrics:
         metrics.emit(stream=sys.stderr, scene=args.scene)
+    print(f"Wrote {args.out}", file=sys.stderr)
+    return 0
+
+
+def _run_mesh(args, load_kwargs: dict, device_type: str) -> int:
+    """``--mesh N``: N ranks, one process per device, each running
+    ``parallel.shard.cli_worker``; a failed rank raises here."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from cuda_raytracer_tpu_torch.parallel import shard
+    from cuda_raytracer_tpu_torch.utils.backend import default_device
+
+    if device_type == "cuda":
+        default_device()  # raises without CUDA
+        if torch.cuda.device_count() < args.mesh:
+            raise RuntimeError(f"--mesh {args.mesh} needs {args.mesh} CUDA devices, "
+                               f"this machine has {torch.cuda.device_count()}")
+    with socket.socket() as s:  # a free port for rank 0 to listen on
+        s.bind(("localhost", 0))
+        coordinator = f"localhost:{s.getsockname()[1]}"
+    mp.start_processes(
+        shard.cli_worker, nprocs=args.mesh, join=True, start_method="spawn",
+        args=(coordinator, args.mesh, device_type, args.scene, load_kwargs, args.out,
+              not args.no_bloom, args.scene if args.metrics else None),
+    )
     print(f"Wrote {args.out}", file=sys.stderr)
     return 0
 

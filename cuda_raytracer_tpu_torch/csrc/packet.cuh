@@ -311,6 +311,23 @@ RT_HD void stage_block(const Exec& ex, const float* blocks, int k, int C,
   for (int i = ex.first(); i < kBlockRows * C; i += ex.step()) blk[i] = src[i];
 }
 
+// Stage sub-cluster k of a table of (16, C) blocks that each hold `pack`
+// sub-clusters side by side (models/cluster.pack_paired_blocks): lanes
+// [(k % pack) * cs, (k % pack + 1) * cs) of block k / pack, cs = C / pack,
+// into a (kBlockRows, cs) block. pack = 1 is stage_block.
+template <class Exec>
+RT_HD void stage_sub_block(const Exec& ex, const float* blocks, int k, int C,
+                           int pack, float* blk) {
+  if (pack == 1) {
+    stage_block(ex, blocks, k, C, blk);
+    return;
+  }
+  const int cs = C / pack;
+  const float* src = blocks + (size_t)(k / pack) * 16 * C + (k % pack) * cs;
+  for (int i = ex.first(); i < kBlockRows * cs; i += ex.step())
+    blk[i] = src[(i / cs) * C + i % cs];
+}
+
 template <class Exec>
 RT_HD void sweep_tile(const Exec& ex, const float* blk, int C, int tile,
                       RayTile& rt) {
@@ -464,12 +481,26 @@ RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
 // hits one of its supers (conservative, so the output is unchanged).
 // A tile whose rays are all dead skips everything. stats (null, or 3
 // counters): [0] += slab tests of live rays, [1] and [2] as fused_block's.
-// Shared: 12 * tile + kChunk * tile + 6 * kChunk + 4 + kBlockRows * C words.
+//
+// Paired sub-cluster tables (pack = 2, cluster_pack): the K boxes are
+// sub-cluster boxes and blocks holds K / 2 blocks of C lanes, sub-cluster k
+// in lanes [(k % 2) * C / 2, (k % 2 + 1) * C / 2) of block k / 2. Each hit
+// sub-cluster is its own pair: its entry gates it and only its C / 2 lanes
+// are staged and swept, so an unhit half is never swept (a triangle there
+// could win only through a degenerate slab tie) and the result and the
+// stats are those of pack = 1 over the same sub-clusters cut at C / 2. The
+// TPU kernel's split-plane chunk layout, permuted validity column and
+// 2-bit half masks exist to pair the halves in VMEM sublanes and SMEM
+// words; a thread per ray needs none of them, and pairing two hit halves
+// into one staging round would save one __syncthreads per such pair at the
+// cost of the per-half skip.
+// Shared: 12 * tile + kChunk * tile + 6 * kChunk + 4 + kBlockRows * C / pack
+// words.
 template <class Exec>
 RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
                         const float* aabb, int K, const float* sup, int n_sup,
-                        int gate_g, const float* blocks, int C, int tile,
-                        int t, float* t_out, int* tri_out,
+                        int gate_g, const float* blocks, int C, int pack,
+                        int tile, int t, float* t_out, int* tri_out,
                         unsigned long long* stats) {
   RayTile rt;
   float* ent = carve_rays(smem, tile, rt);
@@ -477,6 +508,7 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
   uint32_t* hitw = reinterpret_cast<uint32_t*>(box + 6 * kChunk);
   float* blk = box + 6 * kChunk + 4;
   const float inf = inf_f();
+  const int cs = C / pack;  // lanes of one swept sub-cluster
 
   load_rays(ex, od8, t, tile, true, rt);
   ex.sync();
@@ -536,13 +568,13 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
                    min_nan(rt.acc[r], rt.win[r]) >= ent[j * tile + r] * kSkipSlack;
           }
           if (!ex.any(need)) continue;
-          stage_block(ex, blocks, lo + j, C, blk);
+          stage_sub_block(ex, blocks, lo + j, C, pack, blk);
           ex.sync();
           if (stats && ex.leader()) {
             ex.add(&stats[1], 1ull);
-            ex.add(&stats[2], (unsigned long long)n_live * real_tris(blk, C));
+            ex.add(&stats[2], (unsigned long long)n_live * real_tris(blk, cs));
           }
-          sweep_tile(ex, blk, C, tile, rt);
+          sweep_tile(ex, blk, cs, tile, rt);
           ex.sync();
         }
       }

@@ -47,14 +47,14 @@ int rt_host_fused_closest_hit(const float* od8, const float* blocks, const int* 
 
 int rt_host_fused1_closest_hit(const float* od8, const float* aabb, const float* sup,
                                int n_sup, int gate_g, const float* blocks, int T,
-                               int K, int C, int tile, float* t_out, int* tri_out,
-                               unsigned long long* stats) {
+                               int K, int C, int pack, int tile, float* t_out,
+                               int* tri_out, unsigned long long* stats) {
   std::vector<float> smem(12 * tile + rt::kChunk * tile + 6 * rt::kChunk + 4 +
-                          rt::kBlockRows * C);
+                          rt::kBlockRows * (C / pack));
   rt::HostExec ex;
   for (int t = 0; t < T; ++t)
     rt::fused1_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
-                     tile, t, t_out, tri_out, stats);
+                     pack, tile, t, t_out, tri_out, stats);
   return 0;
 }
 

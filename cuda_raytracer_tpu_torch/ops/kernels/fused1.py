@@ -1,7 +1,7 @@
 """Single-kernel packet closest hit (cull + walk + sweep): wrapper of ``csrc/fused1.cu``.
 
 Counterpart of ``cuda_raytracer_tpu/ops/pallas/fused1.py``
-(``fused1_closest_hit``, ``pack=1``). For every ray tile it culls the rays
+(``fused1_closest_hit``, ``pack`` 1 and 2). For every ray tile it culls the rays
 against the K cluster boxes (the windowed slab test of ``cull.py``), and
 sweeps every box some ray of the tile hits, exactly as ``fused.py`` sweeps,
 with a per-ray early-out: a box is swept only when some ray's bound
@@ -13,10 +13,18 @@ skip and the early-out are conservative, so the output is the one
 ``fused.py`` documents: per ray, the closest hit strictly inside its window,
 else (``MISS``, -1).
 
+With ``pack=2`` (paired sub-cluster tables, ``cluster_pack=2``) the K boxes
+are sub-cluster boxes and ``blocks`` holds K / 2 blocks of C lanes: lanes
+``[h*C/2, (h+1)*C/2)`` of block b are sub-cluster 2b + h
+(``models/cluster.pack_paired_blocks``). Only the halves some ray of a tile
+hits are swept, so the result is that of ``pack=1`` over the same
+sub-clusters cut at C / 2.
+
 - On a CUDA tensor it launches the hand-written kernel and counts the launch
-  in ``LAUNCHES``. It never falls back.
+  in ``LAUNCHES`` (``pack=1``) or ``LAUNCHES_PACK2``. It never falls back.
 - On a CPU tensor it runs ``plain_fused1``: the plain cull's per-ray hit
-  bits ORed over each tile select the pairs, and every pair is swept.
+  bits ORed over each tile select the (sub-cluster) pairs, and every pair
+  is swept.
 """
 
 from __future__ import annotations
@@ -37,8 +45,12 @@ from cuda_raytracer_tpu_torch.ops.kernels.fused import sweep_selected
 
 CHUNK = 128  # boxes per cull chunk; gate_g must divide it
 
-# Kernel launches made by fused1_closest_hit in this process (CUDA tensors only).
+PACKS = (1, 2)  # sub-clusters per block the kernel takes
+
+# Kernel launches made by fused1_closest_hit in this process (CUDA tensors
+# only): with pack=1, and with pack=2.
 LAUNCHES = 0
+LAUNCHES_PACK2 = 0
 
 
 def shard_supers(box_min: torch.Tensor, box_max: torch.Tensor, G: int) -> torch.Tensor:
@@ -60,23 +72,41 @@ def shard_supers(box_min: torch.Tensor, box_max: torch.Tensor, G: int) -> torch.
     return torch.cat([gmin, gmax], dim=1).contiguous()
 
 
-def plain_fused1(od8, aabb, blocks, sup=None, gate_g: int = 0):
+def sub_blocks(blocks: torch.Tensor, pack: int) -> torch.Tensor:
+    """(Kb, 16, C) blocks of ``pack`` sub-clusters each → the (Kb * pack,
+    16, C / pack) blocks of the sub-clusters, one per box."""
+    if pack == 1:
+        return blocks
+    Kb, rows, C = blocks.shape
+    return (blocks.reshape(Kb, rows, pack, C // pack).permute(0, 2, 1, 3)
+            .reshape(Kb * pack, rows, C // pack))
+
+
+def plain_fused1(od8, aabb, blocks, sup=None, gate_g: int = 0, pack: int = 1):
     """The kernel's plain PyTorch version: cull, OR the per-ray hit bits over
     each tile, sweep every selected pair. The gate and the early-out do not
-    change the output, so the plain version has neither."""
+    change the output, so the plain version has neither. With ``pack=2``
+    the selection is per sub-cluster box, and each selected half of a block
+    is swept alone: an unhit half is a miss."""
     _, mask = plain_cull(od8, aabb, with_mask=True)
-    return sweep_selected(od8, blocks, (mask != 0).any(dim=1))
+    K = aabb.shape[1]
+    return sweep_selected(od8, sub_blocks(blocks[:K // pack], pack),
+                          (mask != 0).any(dim=1))
 
 
-def _check(od8, aabb, blocks, sup, gate_g, stats):
+def _check(od8, aabb, blocks, sup, gate_g, stats, pack):
     check_rays(od8)
     check_boxes(aabb, od8)
     K = aabb.shape[1]
     if blocks.dtype != torch.float32 or blocks.dim() != 3 or blocks.shape[1] != 16:
         raise ValueError(f"blocks must be (K, 16, C) float32, got {blocks.dtype} "
                          f"{tuple(blocks.shape)}")
-    if blocks.shape[0] < K:
-        raise ValueError(f"{blocks.shape[0]} blocks for {K} boxes")
+    if pack not in PACKS:
+        raise ValueError(f"pack={pack} unsupported (1 or 2)")
+    if K % pack or blocks.shape[2] % pack:
+        raise ValueError(f"pack={pack} must divide K={K} and C={blocks.shape[2]}")
+    if blocks.shape[0] < K // pack:
+        raise ValueError(f"{blocks.shape[0]} blocks for {K} boxes at pack={pack}")
     if gate_g < 0 or (gate_g and CHUNK % gate_g):
         raise ValueError(f"gate_g={gate_g} must divide {CHUNK}")
     if gate_g and (sup is None or sup.shape != (-(-K // gate_g), 6)
@@ -99,7 +129,7 @@ def library() -> build.Built:
     fn = built.lib.rt_fused1_closest_hit
     fn.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
     )
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -110,17 +140,18 @@ def library() -> build.Built:
 def fused1_closest_hit(
     od8: torch.Tensor,  # (T, 8, tile) f32 — rays and windows
     aabb: torch.Tensor,  # (8, K) f32 — box table
-    blocks: torch.Tensor,  # (>= K, 16, C) f32 — block k holds box k's triangles
+    blocks: torch.Tensor,  # (>= K / pack, 16, C) f32 — box k's triangles in block k / pack
     sup: torch.Tensor = None,  # (ceil(K / gate_g), 6) f32 super boxes
     gate_g: int = 0,  # boxes per super box; 0 culls every chunk
     stats: torch.Tensor = None,  # (3,) int64 on the card: [0] slab, [1] pairs, [2] MT tests
+    pack: int = 1,  # boxes (sub-clusters) per block: 1, or 2 for paired tables
 ):
     """→ (t (T, tile) float32, tri (T, tile) int32): the closest in-window
     hit of every ray over the boxes its tile hits."""
-    global LAUNCHES
-    _check(od8, aabb, blocks, sup, gate_g, stats)
+    global LAUNCHES, LAUNCHES_PACK2
+    _check(od8, aabb, blocks, sup, gate_g, stats, pack)
     if device_kind(od8, "fused1_closest_hit") == "cpu":
-        return plain_fused1(od8, aabb, blocks, sup, gate_g)
+        return plain_fused1(od8, aabb, blocks, sup, gate_g, pack)
     T, _, tile = od8.shape
     K = aabb.shape[1]
     t_out = torch.empty((T, tile), dtype=torch.float32, device=od8.device)
@@ -130,10 +161,13 @@ def fused1_closest_hit(
         err = lib.rt_fused1_closest_hit(
             od8.data_ptr(), aabb.data_ptr(), sup.data_ptr() if gate_g else None,
             sup.shape[0] if gate_g else 0, gate_g, blocks.data_ptr(), T, K,
-            blocks.shape[2], tile, t_out.data_ptr(), tri_out.data_ptr(),
+            blocks.shape[2], pack, tile, t_out.data_ptr(), tri_out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             torch.cuda.current_stream(od8.device).cuda_stream,
         )
     raise_on_error(lib, err, "fused1")
-    LAUNCHES += 1
+    if pack == 1:
+        LAUNCHES += 1
+    else:
+        LAUNCHES_PACK2 += 1
     return t_out, tri_out

@@ -33,7 +33,13 @@ kernel engines run their plain versions on CPU tensors (the JAX package's
 ``*_interpret`` engine names are not taken). Each kernel takes
 the whole cluster table in one launch (the TPU package's shards are a VMEM
 budget); ``_merge`` folds results over cluster ranges exactly, should a
-caller cut the table.
+caller cut the table (in whole blocks: ``block_ranges``).
+
+A paired sub-cluster table (``config.cluster_pack = 2``: K sub-cluster
+boxes over K / 2 blocks, ``models/cluster.pack_paired_blocks``) breaks the
+one box to one block map every other engine indexes by, so only fused1
+takes it: ``"auto"`` means ``"fused1"`` there on every device, and any
+other engine raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -57,17 +63,27 @@ HIT_THRESH = cull.MISS_ENTRY * 0.5  # a cull entry below it: some ray hits
 # slab entry.
 ROUND1_NEAREST = 4
 BACKENDS = ("auto", "xla", "fused", "fused1", "pallas")
-_LATER = "is not ported yet (see ROADMAP.md queue B)"
 
 
-def resolve_backend(backend: str, device: torch.device) -> str:
-    """``"auto"`` → ``"fused"`` on CUDA, ``"xla"`` elsewhere; unknown names
-    raise ValueError."""
+def resolve_backend(backend: str, device: torch.device, pack: int = 1) -> str:
+    """``"auto"`` → ``"fused1"`` for a paired table (``pack`` > 1), else
+    ``"fused"`` on CUDA and ``"xla"`` elsewhere; unknown names raise
+    ValueError."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown packet backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":
+        if pack > 1:
+            return "fused1"
         return "fused" if device.type == "cuda" else "xla"
     return backend
+
+
+def block_ranges(K: int, shards: int, pack: int = 1):
+    """``shards`` contiguous box ranges ``(lo, hi)`` over K boxes, cut at
+    whole blocks of ``pack`` boxes, so a block's sub-clusters never split."""
+    Kb = K // pack
+    return [((Kb * s // shards) * pack, (Kb * (s + 1) // shards) * pack)
+            for s in range(shards)]
 
 
 def _cull_tile_mask(origin, inv_dir, tmax, cmin, cmax, tile: int):
@@ -130,9 +146,10 @@ def closest_hit_packet(
     (closest, hit_index, suspect): ``suspect`` counts rays whose result a
     pair budget could have changed (the xla engine's per-tile cap, the
     pallas engine's global budget; 0 for the fused engines)."""
-    backend = resolve_backend(backend, origin.device)
-    if scene.config.cluster_pack > 1:
-        raise NotImplementedError(f"cluster_pack > 1 (paired cluster blocks) {_LATER}")
+    pack = scene.config.cluster_pack
+    backend = resolve_backend(backend, origin.device, pack)
+    if pack > 1 and backend != "fused1":
+        raise ValueError(f"cluster_pack > 1 requires the fused1 backend, got {backend!r}")
     R = origin.shape[0]
     K = scene.num_clusters
     S = scene.cluster_min.shape[0] // max(K, 1)  # cull_split sub-boxes per cluster
@@ -154,11 +171,13 @@ def closest_hit_packet(
                 raise ValueError(f"cull_hier={G} must divide {fused1.CHUNK}")
             box_min, box_max = scene.cluster_min, scene.cluster_max
             gate = G if (G and K > fused1.CHUNK) else 0
+            # The supers stay over sub-cluster boxes; a paired table has
+            # K / pack blocks.
             t_tile, tri_tile = fused1.fused1_closest_hit(
                 od8, cull.box_table(box_min, box_max),
-                scene.cluster_blocks[:K].contiguous(),
+                scene.cluster_blocks[:K // pack].contiguous(),
                 sup=fused1.shard_supers(box_min, box_max, gate) if gate else None,
-                gate_g=gate,
+                gate_g=gate, pack=pack,
             )
         else:
             blocks = scene.cluster_blocks[:K].contiguous()

@@ -102,24 +102,28 @@ def render_pass(
     bounces: int,
     sort_rays: bool,
     reparam: bool = False,
+    pixels: Optional[Tuple[int, int]] = None,
 ) -> Tuple[torch.Tensor, int]:
-    """Trace one pass of ``rays_per_pixel`` samples for every pixel into the
+    """Trace one pass of ``rays_per_pixel`` samples for every pixel (or the
+    pixels ``[lo, hi)`` of ``pixels``, a sharded rank's share) into the
     framebuffer: one block for the shade kernel, ≤ RAY_BLOCK-ray blocks of
-    whole pixels otherwise. Returns (framebuffer, suspect)."""
-    pixels = framebuffer.shape[0]
-    total = pixels * rays_per_pixel
+    whole pixels otherwise, counted from the first pixel traced. Returns
+    (framebuffer, suspect)."""
+    total = framebuffer.shape[0] * rays_per_pixel
     if total >= 1 << 31:
         raise ValueError(f"{total} rays in one pass exceed the int32 ray ids")
+    px_lo, px_hi = pixels if pixels is not None else (0, framebuffer.shape[0])
+    first, end = px_lo * rays_per_pixel, px_hi * rays_per_pixel
     scene = _regime_scene(scene, rays_per_pixel)
     if shade.megakernel_eligible(scene, reparam):
-        block = total
+        block = max(1, end - first)
     else:
         block = max(rays_per_pixel, (RAY_BLOCK // rays_per_pixel) * rays_per_pixel)
     suspect = 0
-    for lo in range(0, total, block):
+    for lo in range(first, end, block):
         framebuffer, s = _render_block(
             scene, framebuffer, pass_seed, lo, rays_per_pixel,
-            min(block, total - lo), bounces, sort_rays, reparam,
+            min(block, end - lo), bounces, sort_rays, reparam,
         )
         suspect += s
     return framebuffer, suspect

@@ -1,8 +1,8 @@
 """Boundaries of the PyTorch port: what it imports, and where it runs by default.
 
 - Importing every module of ``cuda_raytracer_tpu_torch`` (the CLI, its
-  ``__main__``, the native BVH binding, ``utils``, ``render.diff`` and the
-  inverse-rendering example among them) and
+  ``__main__``, the native BVH binding, ``utils``, ``render.diff``, the
+  inverse-rendering example and ``parallel`` among them) and
   ``chip_smoke.py`` in a fresh interpreter loads neither ``jax`` nor the
   JAX package ``cuda_raytracer_tpu``. The names are matched exactly or as
   ``name.`` prefixes, because the port's own name starts with the JAX
@@ -38,7 +38,7 @@ loaded = [m for m in sys.modules
           if any(m == f or m.startswith(f + ".") for f in forbidden)]
 for name in ("render.pipeline", "render.diff", "cli", "__main__", "native.bvh_native",
              "utils.checkpoint", "utils.metrics", "ops.kernels.sweep",
-             "examples.inverse_render"):
+             "examples.inverse_render", "parallel.mesh", "parallel.shard"):
     assert "cuda_raytracer_tpu_torch." + name in sys.modules, name
 print("FORBIDDEN", loaded)
 sys.exit(1 if loaded else 0)

@@ -6,7 +6,8 @@ identical; the gate allows what the repo's render parity allows, at most 1
 per channel on >= 99.9 % of the bytes (libm sin/cos may differ by ulps).
 The exit codes for a missing scene argument, an unknown flag and no backend
 equal JAX's. Without CUDA the accelerator run raises instead of rendering
-on the CPU, and ``--mesh`` (sharding) raises until it is ported.
+on the CPU, and so does ``--mesh`` unless ``cpu no_gpu`` asks for CPU ranks
+(``test_torch_parallel.py`` runs those).
 """
 
 import os
@@ -58,8 +59,8 @@ def test_accelerator_and_mesh_refused_without_support(cornell):
         cli.main([str(cornell), *SMALL])
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.main([str(cornell), "cpu", *SMALL])  # both backends: the GPU is required
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli.main([str(cornell), "cpu", "no_gpu", "--mesh", "1", *SMALL])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([str(cornell), "--mesh", "1", *SMALL])
 
 
 def test_module_entry_point(tmp_path):

@@ -16,6 +16,10 @@ sweep is held bit-equal to its plain version (tile-major and shuffled
 pairs, a budget that holds and one that overflows), the "pallas" engine to
 the "fused" one, and a differentiable render through each engine launches
 its closest-hit kernels in the forward pass and none in the backward pass.
+The pack-2 fused1 kernel (paired sub-cluster tables, ``cluster_pack=2``) is
+held bit-equal to its plain version (flat, gated, two block-aligned shards)
+and to the pack-1 kernel over the table cut at C/2, and a packed render
+launches it alone and equals the unpacked render at C/2 bit for bit.
 """
 
 import pytest
@@ -221,3 +225,64 @@ def test_backward_launches_no_closest_hit_kernel(cuda, backend, kernels):
     for p in diff.param_leaves(params):
         assert p.grad is None or torch.isfinite(p.grad).all()
     assert params.materials.diffuse_albedo.grad.abs().sum() > 0
+
+
+def _packed_pair(device, **overrides):
+    """The torus in sub-clusters of 32: packed two to a 64-lane block, and
+    unpacked."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    cfg = dict(width=32, height=32, **overrides)
+    packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(cfg, cluster_pack=2),
+                                      cluster_tris=64, device=device)
+    half = scene_dsl.assemble_scene(parsed, config_overrides=cfg, cluster_tris=32,
+                                    device=device)
+    return packed, half
+
+
+def test_pack2_kernel_bit_equal_plain(cuda):
+    packed, half = _packed_pair(cuda)
+    K = packed.num_clusters
+    assert K > 2 * fused1.CHUNK
+    cmin, cmax = packed.cluster_min, packed.cluster_max
+    blocks = packed.cluster_blocks[:K // 2].contiguous()
+    hmin, hmax = half.cluster_min, half.cluster_max
+    for state in _states(packed):
+        alive = torch.any(state.transmitted != 0, dim=-1)
+        window = torch.where(alive, 1e30, -1.0)
+        rays = packet_intersect._pad_rays(state.origin[:-7], state.direction[:-7],
+                                          window[:-7], 64)
+        od8 = cull.make_od8(*rays, 64)
+        ref = fused1.plain_fused1(od8, cull.box_table(cmin, cmax), blocks, pack=2)
+        before = (fused1.LAUNCHES, fused1.LAUNCHES_PACK2)
+        for gate in (0, 16):
+            def run(lo, hi):
+                return fused1.fused1_closest_hit(
+                    od8, cull.box_table(cmin[lo:hi], cmax[lo:hi]),
+                    blocks[lo // 2:hi // 2].contiguous(),
+                    fused1.shard_supers(cmin[lo:hi], cmax[lo:hi], gate) if gate else None,
+                    gate, pack=2)
+
+            merged = None
+            for lo, hi in packet_intersect.block_ranges(K, 2, pack=2):
+                merged = packet_intersect._merge(merged, *run(lo, hi))
+            for got in (run(0, K), merged):
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), gate
+        one = fused1.fused1_closest_hit(od8, cull.box_table(hmin, hmax),
+                                        half.cluster_blocks[:half.num_clusters].contiguous())
+        assert torch.equal(one[0], ref[0]) and torch.equal(one[1], ref[1])
+        torch.cuda.synchronize()
+        assert (fused1.LAUNCHES, fused1.LAUNCHES_PACK2) == (before[0] + 1, before[1] + 6)
+        assert (ref[1] >= 0).any()
+
+
+def test_packed_render_launches_pack2_and_matches_unpacked(cuda):
+    packed, half = _packed_pair(cuda, rays_per_pixel=12, bounces=4,
+                                max_rays_per_pixel_per_pass=10)
+    modules = {"cull": cull, "fused": fused, "fused1": fused1, "sweep": sweep}
+    counts = lambda: ({k: m.LAUNCHES for k, m in modules.items()}, fused1.LAUNCHES_PACK2)
+    before = counts()
+    fb = pipeline.render_framebuffer(packed)  # passes of 10 and 2: fused1 in both
+    after = counts()
+    assert after[0] == before[0] and after[1] > before[1]
+    torch.cuda.synchronize()
+    assert torch.equal(fb, pipeline.render_framebuffer(half)) and torch.isfinite(fb).all()

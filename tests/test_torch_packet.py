@@ -312,9 +312,17 @@ def test_unported_options_raise(cloud):
     got = packet_intersect.closest_hit_packet(ts.with_config(cull_hier=16), o, d, t0, i0,
                                               backend="fused")
     _assert_hits_equal(ref, got)
-    with pytest.raises(NotImplementedError, match="cluster_pack"):
-        packet_intersect.closest_hit_packet(ts.with_config(cluster_pack=2), o, d, t0, i0,
-                                            backend="fused1")
+    # A paired sub-cluster table runs through fused1 (and "auto"), equal to
+    # the unpacked table cut at C/2; the engines that index blocks by box
+    # raise.
+    _, packed = build_mesh_both(_cloud_text(), dict(cluster_pack=2), cluster_tris=256)
+    ref = packet_intersect.closest_hit_packet(ts, o, d, t0, i0, backend="fused1")
+    for name in ("fused1", "auto"):
+        _assert_hits_equal(ref, packet_intersect.closest_hit_packet(packed, o, d, t0, i0,
+                                                                    backend=name))
+    for name in ("xla", "fused", "pallas"):
+        with pytest.raises(ValueError, match="cluster_pack"):
+            packet_intersect.closest_hit_packet(packed, o, d, t0, i0, backend=name)
     assert packet_intersect.resolve_backend("auto", torch.device("cpu")) == "xla"
     assert packet_intersect.resolve_backend("auto", torch.device("cuda")) == "fused"
 

@@ -9,7 +9,9 @@ that file with the host C++ compiler (``-ffp-contract=off``, like the GPU
 build's ``-fmad=false``) and holds every output BIT-EQUAL to the plain
 version: the cull's entries and hit words (flat, and gated with all-ones,
 real and cleared gates), and the (t, tri) of fused (with
-and without the skip test) and fused1 (flat and gated), and the pair
+and without the skip test) and fused1 (flat and gated; over one box per
+block, and over paired sub-cluster blocks with ``pack=2``, whose counters
+equal the unpacked table's at C/2), and the pair
 sweep's (t, tri) over a pair list in tile-major and shuffled order with
 sentinels, on a torus cut into more than one 128-box chunk, with finite
 windows, dead rays and ray counts that do not fill the last tile.
@@ -44,7 +46,7 @@ def host_lib(tmp_path_factory):
     lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
     lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
     lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p] * 3
-    lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 4 + [p] * 3
+    lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 5 + [p] * 3
     lib.rt_host_sweep_pairs.argtypes = [p] + [i] * 3 + [p] + [i] * 2 + [p, i] + [p] * 4
     return lib
 
@@ -120,7 +122,7 @@ def test_host_kernels_bit_equal_plain(host_lib, scene, n, tile):
         stats = torch.zeros(3, dtype=torch.int64)
         host_lib.rt_host_fused1_closest_hit(
             _ptr(od8), _ptr(aabb), _ptr(sup), 0 if sup is None else sup.shape[0], gate,
-            _ptr(blocks), T, K, C, tile, _ptr(t), _ptr(tri), _ptr(stats))
+            _ptr(blocks), T, K, C, 1, tile, _ptr(t), _ptr(tri), _ptr(stats))
         assert torch.equal(t, t1_ref) and torch.equal(tri, tri1_ref), gate
         assert 0 < stats[0] <= int(live.sum()) * K
         assert 0 < stats[1] <= pairs and 0 < stats[2] <= mt_tests
@@ -185,3 +187,56 @@ def test_host_sweep_bit_equal_plain(host_lib, scene, n, tile):
                                      K, C, _ptr(pair_list), pair_list.shape[1], _ptr(total),
                                      _ptr(keys), _ptr(t), _ptr(tri))
         assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1])
+
+
+@pytest.fixture(scope="module")
+def packed_pair():
+    """The same torus with ``cluster_pack=2`` at C = 64 (sub-clusters of 32,
+    as ``scene`` is cut) and unpacked at 32."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    cfg = dict(width=8, height=8)
+    packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(cfg, cluster_pack=2),
+                                      prefer_native_bvh=False, cluster_tris=64, device="cpu")
+    half = scene_dsl.assemble_scene(parsed, config_overrides=cfg, prefer_native_bvh=False,
+                                    cluster_tris=32, device="cpu")
+    assert packed.num_clusters > 2 * fused1.CHUNK
+    return packed, half
+
+
+def _host_fused1(host_lib, od8, scene, gate, pack):
+    """The host build's fused1 loop over a scene's table → (t, tri, stats)."""
+    K = scene.num_clusters
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    blocks = scene.cluster_blocks[:K // pack].contiguous()
+    sup = fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate) if gate else None
+    T, _, tile = od8.shape
+    t = torch.empty((T, tile), dtype=torch.float32)
+    tri = torch.empty((T, tile), dtype=torch.int32)
+    stats = torch.zeros(3, dtype=torch.int64)
+    host_lib.rt_host_fused1_closest_hit(
+        _ptr(od8), _ptr(aabb), _ptr(sup), 0 if sup is None else sup.shape[0], gate,
+        _ptr(blocks), T, K, blocks.shape[2], pack, tile, _ptr(t), _ptr(tri), _ptr(stats))
+    return t, tri, stats
+
+
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_fused1_pack2_bit_equal_plain(host_lib, packed_pair, n, tile):
+    """The host build's pack-2 loop against ``plain_fused1(pack=2)``, flat
+    and gated; the same hits and the same swept pairs and Möller–Trumbore
+    tests as its pack-1 loop over the unpacked table at C/2 (an unhit half is
+    never swept), and one slab test per live ray and sub-cluster box."""
+    packed, half = packed_pair
+    od8 = _od8(n, tile, seed=n + 3)
+    K = packed.num_clusters
+    ref = fused1.plain_fused1(od8, cull.box_table(packed.cluster_min, packed.cluster_max),
+                              packed.cluster_blocks, pack=2)
+    assert (ref[1] >= 0).sum() > n // 10
+    live = int((od8[:, 6, :] >= 0).sum())
+    for gate in (0, 16):
+        t, tri, stats = _host_fused1(host_lib, od8, packed, gate, 2)
+        assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1]), gate
+        t1, tri1, stats1 = _host_fused1(host_lib, od8, half, gate, 1)
+        assert torch.equal(t1, t) and torch.equal(tri1, tri)
+        assert torch.equal(stats[1:], stats1[1:]) and stats[1] > 0
+        if gate == 0:
+            assert int(stats[0]) == K * live and int(stats1[0]) == half.num_clusters * live
