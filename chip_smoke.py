@@ -6,18 +6,21 @@
 Drives the port's main paths: forward renders at the reference benchmark
 shape (1000×1000, 100 rays per pixel in five passes of 20, 10 bounces) of a
 brute scene through the shade kernel and of a 126,000-triangle mesh through
-the packet kernels (fused1 for passes of >= 10 rays per pixel, cull + fused
-below, and fused1 with pack=2 for a paired sub-cluster table), the
-command-line renderer, the inverse-rendering train step on that mesh at the
-JAX package's forward+backward shape (256×256, 2 rays per pixel, 10
-bounces) through both packet engines that reach a TPU kernel (cull + fused,
-and cull + the pair sweep), and sharded rendering and training over
-torch.distributed, and checks them all. Phases, one line each:
+the packet kernels (fused1 by default, cull + fused when asked for, with
+the gated cull behind ``cull_hier``, and fused1 with pack=2 for a paired
+sub-cluster table) with every forward bounce shaded by the bounce kernel,
+the command-line renderer, the
+inverse-rendering train step on that mesh at the JAX package's
+forward+backward shape (256×256, 2 rays per pixel, 10 bounces) through both
+packet engines that reach a TPU kernel (cull + fused, and cull + the pair
+sweep), and sharded rendering and training over torch.distributed, and
+checks them all. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
-   ``fused.cu``, ``fused1.cu`` and ``sweep.cu`` with nvcc, all five at once,
-   and the native BVH builder with g++; print seconds and registers;
+   ``fused.cu``, ``fused1.cu``, ``sweep.cu`` and ``bounce.cu`` with nvcc, all
+   six at once, and the native BVH builder with g++; print seconds and
+   registers;
 3. kernel vs plain: each built-in scene at 64×64, 4 rays per pixel and 10
    bounces, plus an unaligned block (ray ids 100..359): per-ray agreement
    with the plain PyTorch version (max |Δ| < 1e-3 on ≥ 99.9 % of rays, none
@@ -36,40 +39,54 @@ torch.distributed, and checks them all. Phases, one line each:
    primary rays, then Morton-sorted bounced ones), cut to an unaligned ray
    count: cull (with and without hit words), fused (with and without the
    skip test, one and two shards) and fused1 (flat and gated, one and two
-   shards) must equal their plain versions bit for bit;
-7. mesh main path: ``render_timed`` of the torus at 1000×1000 and 10
-   bounces, each after one untimed warm-up render: 100 rays per pixel
-   (fused1 regime) and 8 rays per pixel in one pass (cull + fused regime);
-   launch counts per kernel (> 0 for the regime's kernels, 0 for the
-   others), finite framebuffer, sane mean display value, identical rerender;
-   then the 100-ray-per-pixel render once more through cull + fused
-   (``packet_backend="fused"``), which must give the same image: the two
-   regimes compared end to end;
+   shards, one block per tile and split) must equal their plain versions
+   bit for bit; (b) the bounce kernel against its plain version (the torch
+   shading) on the torus, the glass torus and the spheres scene under the
+   substitute sky at 64×64 × 4 spp, and on the torus's centre 2^18-ray block
+   of a 20-spp pass, each entering bounces 0-9: the shade kernel's gate;
+7. mesh main path: the torus at 1000×1000 and 10 bounces after small
+   warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
+   rays per pixel, each through the fused1 regime ("auto") and through cull
+   + fused (fused1, cull + fused, cull + fused, fused1); launch counts per
+   kernel (> 0 for the regime's kernels and the bounce kernel, 0 for the
+   other packet kernels), finite framebuffers, sane mean display values,
+   and every image of a spp identical;
 8. packet timing: the 2^18-ray block of the 20-rays-per-pixel pass that
    holds the image centre,
    entering bounce 0 and bounce 1 (sorted): each kernel and its plain
    version (CUDA events, median), the slab tests of live rays and the
    Möller–Trumbore tests of live rays against real (unpadded) triangles
    that the kernel did, the bound they imply, and bit-equality at that full
-   shape; then that block's whole trace (10 bounces) under torch.profiler,
-   through fused1 and through cull + fused: device time by kernel, the
-   packet kernels' time per bounce and the device's idle share;
+   shape; (b) the bounce kernel's time, its plain version's, the bytes the
+   block needs and its bound; then fused1 on the same block traced as a
+   render traces it (live prefix, Morton sort), entering bounces 2-9, one
+   block per tile and at the chosen split, both bit-equal to the plain
+   version, both timed; then that block's whole trace (10 bounces) under
+   torch.profiler, through fused1 with the bounce kernel and with the torch
+   shading (the plain version called by name), and through cull + fused:
+   device time by kernel, the packet kernels' time per bounce, the device
+   kernel count and the device's idle share;
 9. the command-line renderer: the full-size torus and the Cornell scene
    written as ``.scene`` files; (a) ``python -m cuda_raytracer_tpu_torch
    torus.scene --spp 8 --cull-hier 16 --metrics`` as a subprocess (exit 0,
    the PNG, paths/s; its load_scene seconds with the native BVH, render
-   seconds and metrics line); (b) ``cli.main`` in process on the same
-   render with ``--cull-hier 16`` and with the flat cull, in turns (gated,
-   flat, flat, gated): the gated cull kernel launches in every gated run
-   and in no flat one, every PNG is byte-identical, and each run's render
-   seconds are printed; (c) the gated cull against its plain version on the
-   torus centre block at bounces 0-3, with and without hit words, at an
-   unaligned ray count and at the full block (0 mismatched elements), and
-   its time with its super pre-pass against the flat cull on bounces 0 and
-   1; (d) a 128×128 render stopped after two passes and resumed from its
-   checkpoint, bit-identical to an uninterrupted one; (e) ``cli.main`` with
-   the ``cpu`` flag on the Cornell scene at 64×64: the GPU and CPU images
-   agree within 1 per channel on >= 99.9 % of the bytes;
+   seconds and metrics line, whose launch counters must show the fused1
+   and bounce kernels); (b) ``cli.main`` in process on the same render with
+   fused1's super-box gate (``--cull-hier 16``) and without it
+   (``--cull-hier -1``), in turns (gated, flat, flat, gated): fused1 and the
+   bounce kernel launch in every run, every PNG is byte-identical to 9a's,
+   and each run's render seconds are printed; (c) the gated cull kernel's
+   path: the 8-spp torus through cull + fused with ``cull_hier=16`` and with
+   the flat cull, in turns: the gated cull launches in every gated render
+   and in no flat one, every image identical; then the gated cull against
+   its plain version on the torus centre block at bounces 0-3, with and
+   without hit words, at an unaligned ray count and at the full block (0
+   mismatched elements), and its time with its super pre-pass against the
+   flat cull on bounces 0 and 1; (d) a 128×128 render stopped after two
+   passes and resumed from its checkpoint, bit-identical to an
+   uninterrupted one; (e) ``cli.main`` with the ``cpu`` flag on the Cornell
+   scene at 64×64: the GPU and CPU images agree within 1 per channel on >=
+   99.9 % of the bytes;
 10. differentiable rendering: (a) the pair sweep kernel against its plain
    version on the torus centre block entering bounces 0-3, at an unaligned
    ray count and at the full block: one-round, both rounds of the two-round
@@ -83,10 +100,14 @@ torch.distributed, and checks them all. Phases, one line each:
    ``packet_cap`` until no ray is suspect), 2 warm-up steps and 5 timed ones
    (seconds per step, paths/s, peak memory), a finite and falling loss,
    finite gradients, closest-hit launches per step equal to the forward
-   pass's own (the backward launches none), one checkpointed step of each
-   engine under torch.profiler (device busy and idle share), and the two
-   engines' gradients within 1e-3 of the largest; (d) the inverse-rendering example at its
-   default size must recover the walls (error < 0.15);
+   pass's own (the backward launches none), no bounce kernel in a step
+   (training shades with torch), the audit (which shades with the bounce
+   kernel) keeping or dropping the calibrated live schedule as it does
+   under the torch shading, the step's scene reporting no suspect ray under
+   the step's own shading, one checkpointed step of each engine under
+   torch.profiler (device busy and idle share), and the two engines'
+   gradients within 1e-3 of the largest; (d) the inverse-rendering example
+   at its default size must recover the walls (error < 0.15);
 11. paired sub-cluster tables: the full torus built with ``cluster_pack=2``
    (blocks of 256 lanes, sub-clusters of 128); (a) the pack-2 fused1 kernel
    against its plain version at 64×64 × 4 spp entering bounces 0-3, at an
@@ -95,13 +116,14 @@ torch.distributed, and checks them all. Phases, one line each:
    mismatched elements); (b) its time on the centre block of a 20-spp pass
    at bounces 0 and 1 (median of 5, CUDA events), its counters and bound,
    its plain time and bit-equality at that shape, beside the pack-1 kernel
-   of phase 8 on the same rays; (c) the main path: the packed torus at
-   1000×1000, 100 spp, 10 bounces after a small warm-up: pack-2 launches
-   and no other packet kernel's, a finite framebuffer bit-identical to
-   phase 7's unpacked one, seconds and Mrays/s;
+   of phase 8 on the same rays, its profile, and bounces 2-9 as in phase
+   8; (c) the main path: the packed and the unpacked torus at 1000×1000,
+   100 spp, 10 bounces in turns (packed, unpacked, unpacked, packed):
+   pack-2 launches and no other packet kernel's in the packed renders,
+   finite framebuffers bit-identical to phase 7's, seconds and Mrays/s;
 12. sharding: (a) phase 9a's command with ``--mesh 1`` (one spawned rank
-   joined by NCCL): exit 0, the render_sharded seconds, a PNG
-   byte-identical to phase 9a's; (b) two ranks on the one card, joined by
+   joined by NCCL): exit 0, the render_sharded seconds, the fused1 and
+   bounce kernels launched, a PNG byte-identical to phase 9a's; (b) two ranks on the one card, joined by
    gloo, on the Cornell scene and the torus at 256×256 × 2 spp × 10
    bounces: the sharded framebuffer against the single-device one, one
    sharded train step's loss (the same bits on both ranks) against the
@@ -116,6 +138,7 @@ CUDA device it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -166,7 +189,7 @@ CAMERA_OPS = 29
 SLAB_OPS = 24
 MT_OPS = 47
 MESH_FULL_SPP = 100
-MESH_FEW_SPP = 8  # one pass below the fused1 threshold: cull + fused
+MESH_FEW_SPP = 8  # one pass: the sparse-sample render
 MESH_SMALL_RPP = 4
 MESH_SMALL_BOUNCES = 4
 TRAIN = dict(width=256, height=256, rays_per_pixel=2, bounces=10)  # phase 10c
@@ -176,8 +199,11 @@ TRAIN_WARMUP = 2
 TRAIN_STEPS = 5
 GRAD_TOL = 1e-3  # phase 10c: engines' gradients within GRAD_TOL * max |g| (+1e-6)
 EXAMPLE_BAR = 0.15  # phase 10d: the example's own bar
-CLI_SPP = 8  # phase 9: one pass in the cull + fused regime, where the gated cull runs
+CLI_SPP = 8  # phase 9: one pass (9c renders it through cull + fused, the gated cull's path)
 CLI_GATE = 16  # --cull-hier: clusters per super box
+# Kernels the 8-spp CLI render must launch (phases 9a, 12a): "auto" is the
+# fused1 regime, and --cull-hier sets its super-box gate.
+CLI_KERNELS = ("fused1_closest_hit", "shade_bounce")
 CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
 BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
 BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
@@ -191,7 +217,19 @@ SHARD_GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # phase 12b: gradients vs one devic
 LOSS_RTOL = 1e-5  # phase 12b: loss vs one device
 SCALING_RPP = 4  # phase 12c
 
-KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep")
+# The bounce kernel (csrc/bounce.cu), per live ray that hits: SHADE_OPS as
+# above; per live ray that misses, the environment fetch: rotation 6,
+# projection ~24, texel index 8, the radiance add 6 = 44 FP32 operations.
+# Bytes per ray: state in 4 x 12, ray id, hit distance, hit index 12, state
+# out 48.
+ENV_OPS = 44
+BOUNCE_RAY_BYTES = 4 * 12 + 12 + 48
+
+KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep", "bounce")
+# Device kernels of one fused1 call in a profile: the unsplit and the split
+# kernel (fused1_kernel, fused1_split_kernel), the split's key set-up and
+# finishing pass.
+FUSED1_KERNELS = ("fused1_", "init_keys", "finish_keys")
 # (name, source, the TPU kernel it replaces) of the mesh path's kernels.
 PACKET_KERNELS = (
     ("cull_tiles", "cuda_raytracer_tpu_torch/csrc/cull.cu",
@@ -445,11 +483,12 @@ def _packet_cases(scene, od8):
             out["fused_closest_hit"].append(_mismatch(got, ref))
     for gate in (0, 16):
         for shards in (1, 2):
-            got = _sharded(lambda lo, hi: fused1.fused1_closest_hit(
-                od8, cull.box_table(cmin[lo:hi], cmax[lo:hi]), blocks[lo:hi].contiguous(),
-                fused1.shard_supers(cmin[lo:hi], cmax[lo:hi], gate) if gate else None,
-                gate), K, shards)
-            out["fused1_closest_hit"].append(_mismatch(got, ref1))
+            for splits in (1, None):  # one block per tile; split_plan's choice
+                got = _sharded(lambda lo, hi: fused1.fused1_closest_hit(
+                    od8, cull.box_table(cmin[lo:hi], cmax[lo:hi]), blocks[lo:hi].contiguous(),
+                    fused1.shard_supers(cmin[lo:hi], cmax[lo:hi], gate) if gate else None,
+                    gate, splits=splits), K, shards)
+                out["fused1_closest_hit"].append(_mismatch(got, ref1))
     torch.cuda.synchronize()
     return {k: (len(v), sum(b for b, _ in v), max(w for _, w in v)) for k, v in out.items()}
 
@@ -479,54 +518,157 @@ def phase_packet_vs_plain(scenes) -> dict:
     return worst
 
 
-def phase_mesh_main_path(full) -> dict:
+def _state_rows(state):
     import torch
-    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade
+
+    return torch.cat(list(state[:4]), dim=1)
+
+
+def _bounce_vs_plain(scene, state, seed: int, bounces: int, label: str) -> float:
+    """The bounce kernel against its plain version on ``state`` entering
+    bounces 0..bounces-1 (the same closest hit for both), the kernel's
+    output carried on and Morton-sorted as a render does; fails below the
+    gate → the worst |Δ|."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    worst = 0.0
+    for b in range(bounces):
+        alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
+        got = bounce.shade_bounce(scene, state, t, hit_index, seed, b)
+        ref = bounce.plain_shade_bounce(scene, state, t, hit_index, seed, b)
+        torch.cuda.synchronize()
+        agree, err, finite = _agreement(_state_rows(got), _state_rows(ref))
+        print(f"phase 6b bounce vs plain: {label} bounce={b} rays={t.shape[0]} "
+              f"live={int(alive.sum())} hits={int((alive & (hit_index >= 0)).sum())} "
+              f"agree={agree:.6f} max_abs_err={err:.3g} finite={finite}")
+        if not finite or agree < AGREE_MIN:
+            raise SystemExit(f"phase 6b failed: {label} bounce {b}")
+        worst = max(worst, err)
+        state = (wavefront.reorder_rays(scene, got) if wavefront.reorder_is_useful(scene)
+                 else got)
+    return worst
+
+
+def phase_bounce_vs_plain(scenes, device) -> dict:
+    """6b: the bounce kernel against its plain version: the torus, the glass
+    torus and the spheres scene under the substitute sky (brute intersector,
+    texel fetches) at 64×64 × 4 spp, and the torus's centre 2^18-ray block of
+    a 20-spp pass, entering bounces 0-9 (max |Δ| < 1e-3 on ≥ 99.9 % of
+    rays, every component of the next state, none non-finite)."""
+    import torch
+    from cuda_raytracer_tpu_torch.models import builtin_scenes, procedural, scene_dsl
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    parsed = scene_dsl.parse_scene_text(builtin_scenes.SPHERES, filename="spheres")
+    parsed.environment_map = procedural.substitute_envmap()
+    sky = scene_dsl.assemble_scene(parsed, config_overrides=SMALL, device=device)
+    small = {name: _resized(full, 64, 64) for name, full in scenes.items()}
+    small["spheres_sky"] = sky
+    worst = 0.0
+    for name, scene in small.items():
+        rays = 64 * 64 * MESH_SMALL_RPP
+        ids = torch.arange(rays, dtype=torch.int32, device=device)
+        state = wavefront.make_initial_state(scene, ids, MESH_SMALL_RPP, 3)
+        worst = max(worst, _bounce_vs_plain(scene, state, 3, SMALL_BOUNCES,
+                                            f"{name} 64x64 spp={MESH_SMALL_RPP}"))
+    rpp, seed = 20, 80
+    scene = scenes["torus"].with_config(rays_per_pixel=rpp)
+    block_lo, block = _centre_block(scene, rpp)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=device)
+    state = wavefront.make_initial_state(scene, ids, rpp, seed)
+    worst = max(worst, _bounce_vs_plain(scene, state, seed, scene.config.bounces,
+                                        f"torus centre block lo={block_lo}"))
+    return dict(max_abs_err=worst)
+
+
+def _timed_framebuffer(scene):
+    """``render_timed``'s scope (the pass loop, ending when the device has
+    finished) → (framebuffer, uint8 image, seconds)."""
+    import torch
     from cuda_raytracer_tpu_torch.render import pipeline
 
-    modules = {"shade_trace": shade, "cull_tiles": cull, "fused_closest_hit": fused,
-               "fused1_closest_hit": fused1}
-    launches, images, framebuffer_100 = {}, {}, None
-    for spp, backend, regime in (
-        (MESH_FULL_SPP, "auto", ("fused1_closest_hit",)),
-        (MESH_FEW_SPP, "auto", ("cull_tiles", "fused_closest_hit")),
-        # The 100-spp render forced through cull + fused: the regimes compared
-        # end to end. No warm-up (every kernel is built and warm by now); it
-        # must give the fused1 regime's image bit for bit.
-        (MESH_FULL_SPP, "fused", ("cull_tiles", "fused_closest_hit")),
-    ):
-        scene = full.with_config(rays_per_pixel=spp, packet_backend=backend)
-        main = backend == "auto"
-        if main:
-            framebuffer = pipeline.render_framebuffer(scene)  # warm-up, checked below
-        torch.cuda.synchronize()
-        for module in modules.values():
-            module.LAUNCHES = 0
-        image, seconds = pipeline.render_timed(scene)
-        counts = {name: module.LAUNCHES for name, module in modules.items()}
-        if main:
-            finite = bool(torch.isfinite(framebuffer).all())
-            same = bool((pipeline.render_image(scene, framebuffer=framebuffer) == image).all())
-            images[spp] = image
-            if spp == MESH_FULL_SPP:
-                framebuffer_100 = framebuffer  # phase 11c's reference
-        else:
-            finite, same = True, bool((image == images[spp]).all())
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    framebuffer = pipeline.render_framebuffer(scene)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    return framebuffer, pipeline.render_image(scene, framebuffer=framebuffer), seconds
+
+
+def _render_turns(label_scenes, regimes, phase: str, tag: str):
+    """Render each (label, scene) in order, launch counts set to 0 just before
+    each and read just after → ({label: [seconds]}, and in order the
+    framebuffers, the images and the launch counts). Every render must launch its regime's kernels and the
+    bounce kernel, no other packet kernel, and give a finite framebuffer and
+    a sane image."""
+    import torch
+
+    seconds, framebuffers, images, launches = {}, [], [], []
+    for turn, (label, scene) in enumerate(label_scenes):
+        _zero_launch_counts()
+        framebuffer, image, secs = _timed_framebuffer(scene)
+        counts = _launch_counts()
+        finite = bool(torch.isfinite(framebuffer).all())
         mean = float(image.mean())
-        rays = scene.num_pixels * spp
-        print(f"phase 7 mesh main path: torus {scene.config.width}x{scene.config.height} "
-              f"spp={spp} bounces={scene.config.bounces} packet_backend={backend} "
-              f"regime={'+'.join(regime)} seconds={seconds:.4f} "
-              f"Mrays/s={rays / seconds / 1e6:.2f} launches={json.dumps(counts)} "
-              f"finite={finite} mean_display={mean:.2f} "
-              f"{'rerender_identical' if main else 'identical_to_fused1_regime'}={same}")
-        ok = all(counts[k] > 0 for k in regime) and all(
-            counts[k] == 0 for k in counts if k not in regime)
-        if not (ok and finite and same and 20.0 <= mean <= 235.0):
-            raise SystemExit(f"phase 7 failed: torus at {spp} spp, packet_backend={backend}")
-        if main:
-            launches.update({k: counts[k] for k in regime})
-    return launches, framebuffer_100
+        rays = scene.num_pixels * scene.config.rays_per_pixel
+        regime = regimes[label]
+        print(f"phase {phase} {tag}: torus {scene.config.width}x{scene.config.height} "
+              f"spp={scene.config.rays_per_pixel} bounces={scene.config.bounces} turn={turn} "
+              f"{label} regime={'+'.join(regime)} seconds={secs:.4f} "
+              f"Mrays/s={rays / secs / 1e6:.2f} launches={json.dumps(counts)} "
+              f"finite={finite} mean_display={mean:.2f}")
+        packet = ("cull_tiles", "fused_closest_hit", "fused1_closest_hit",
+                  "fused1_closest_hit_pack2", "cull_gated", "sweep_pairs", "shade_trace")
+        ok = all(counts[k] > 0 for k in regime + ("shade_bounce",)) and all(
+            counts[k] == 0 for k in packet if k not in regime)
+        if not (ok and finite and 20.0 <= mean <= 235.0):
+            raise SystemExit(f"phase {phase} failed: {label} render, turn {turn}")
+        seconds.setdefault(label, []).append(secs)
+        framebuffers.append(framebuffer)
+        images.append(image)
+        launches.append(counts)
+    return seconds, framebuffers, images, launches
+
+
+def phase_mesh_main_path(full) -> tuple:
+    """Phase 7: the torus at 1000×1000, 10 bounces, after small warm-ups:
+    100 spp, then 8 spp, each through the fused1 regime ("auto") and through
+    cull + fused (``packet_backend="fused"``) in turns (fused1, cull + fused,
+    cull + fused, fused1). Every image of a spp must be identical → (the
+    kernel table's launches, the 100-spp "auto" framebuffer)."""
+    import numpy as np
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    for backend in ("auto", "fused"):  # kernels, allocator and clocks warm
+        pipeline.render_framebuffer(_resized(full, 128, 128).with_config(
+            rays_per_pixel=20, packet_backend=backend))
+    regimes = {"fused1": ("fused1_closest_hit",),
+               "cull+fused": ("cull_tiles", "fused_closest_hit")}
+    order = ("fused1", "cull+fused", "cull+fused", "fused1")
+    launches, reference = {}, None
+    for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
+        # "auto" is the fused1 regime on the card (pipeline._regime_scene).
+        turns = [(label, full.with_config(
+            rays_per_pixel=spp, packet_backend="auto" if label == "fused1" else "fused"))
+            for label in order]
+        seconds, fbs, images, counts = _render_turns(turns, regimes, "7", "mesh main path")
+        same = all(np.array_equal(img, images[0]) for img in images)
+        print(f"phase 7 mesh main path: spp={spp} seconds " + " ".join(
+            f"{label}={[round(x, 4) for x in secs]}" for label, secs in seconds.items())
+            + f" (fused1 is packet_backend=auto) images_identical={same}")
+        if not same:
+            raise SystemExit(f"phase 7 failed: the {spp}-spp images differ between regimes")
+        # The kernel table's launches: fused1 and the bounce kernel from the
+        # 100-spp "auto" render (turn 0), cull and fused from the 8-spp
+        # render through cull + fused (turn 1).
+        if spp == MESH_FULL_SPP:
+            reference = fbs[0]  # phase 11c's reference
+            launches.update({k: counts[0][k] for k in ("fused1_closest_hit", "shade_bounce")})
+        else:
+            launches.update({k: counts[1][k] for k in regimes["cull+fused"]})
+    return launches, reference
 
 
 def _centre_block(scene, rpp: int):
@@ -539,15 +681,35 @@ def _centre_block(scene, rpp: int):
     return centre // block * block, block
 
 
+@contextlib.contextmanager
+def _torch_shading():
+    """Within it, forward bounces shade with the bounce kernel's plain
+    version, called by name (``bounce.plain_shade_bounce``) where
+    ``wavefront.process_rays`` calls the wrapper: the torch shading, for
+    the profile beside the kernel's."""
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce
+
+    wrapper = bounce.shade_bounce
+    bounce.shade_bounce = bounce.plain_shade_bounce
+    try:
+        yield
+    finally:
+        bounce.shade_bounce = wrapper
+
+
 def phase_mesh_profile(full) -> None:
     """Where one pass block's time goes: the centre block of a 20-spp pass,
-    10 bounces, under torch.profiler, through the fused1 regime and through
-    cull + fused (device time by kernel, the packet kernels' time per
-    bounce, device busy share of the wall time)."""
-    for backend, kernels in (("fused1", ("fused1_kernel",)),
-                             ("fused", ("cull_kernel", "fused_kernel"))):
-        _profile_block(full.with_config(rays_per_pixel=20, packet_backend=backend),
-                       backend, kernels)
+    10 bounces, under torch.profiler, through the fused1 regime with the
+    bounce kernel and with the torch shading, and through cull + fused
+    (device time by kernel, the packet kernels' time per bounce, device busy
+    share of the wall time, device kernels)."""
+    scene = full.with_config(rays_per_pixel=20)
+    _profile_block(scene.with_config(packet_backend="fused1"), "fused1", FUSED1_KERNELS)
+    with _torch_shading():
+        _profile_block(scene.with_config(packet_backend="fused1"), "fused1 torch-shading",
+                       FUSED1_KERNELS)
+    _profile_block(scene.with_config(packet_backend="fused"), "fused",
+                   ("cull_kernel", "fused_kernel"))
 
 
 def _profiled(fn):
@@ -580,6 +742,8 @@ def _profiled(fn):
 
 def _profile_block(scene, backend: str, kernels, phase: str = "8") -> None:
     import torch
+    from torch.autograd import DeviceType
+
     from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 
     rpp, seed = scene.config.rays_per_pixel, 80
@@ -598,17 +762,21 @@ def _profile_block(scene, backend: str, kernels, phase: str = "8") -> None:
     prof, wall_ms, rows = _profiled(run)
     busy_ms = sum(r[0] for r in rows)
     kernel_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
+    bounce_ms = sum(r[0] for r in rows if "bounce_kernel" in r[2])
     print(f"phase {phase} profile: torus centre block packet_backend={backend} rays={block} "
           f"bounces={scene.config.bounces} live_bounds={bounds} wall_ms={wall_ms:.2f} "
           f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
-          f"packet_kernels_ms={kernel_ms:.3f} device_kernels={sum(r[1] for r in rows)}")
+          f"packet_kernels_ms={kernel_ms:.3f} bounce_kernel_ms={bounce_ms:.3f} "
+          f"device_kernels={sum(r[1] for r in rows)}")
     for dev_ms, count, key in rows[:8]:
         print(f"phase {phase} profile: {backend} top device time {dev_ms:.3f} ms x{count} "
               f"{key[:90]}")
     for name in kernels:
-        per_launch = [e.time_range.elapsed_us() for e in prof.events() if name in e.name]
-        print(f"phase {phase} profile: {backend} {name} ms per bounce "
-              + " ".join(f"{us / 1e3:.3f}" for us in per_launch))
+        per_launch = [e.time_range.elapsed_us() for e in prof.events()
+                      if name in e.name and e.device_type != DeviceType.CPU]
+        if per_launch:
+            print(f"phase {phase} profile: {backend} {name} ms per bounce "
+                  + " ".join(f"{us / 1e3:.3f}" for us in per_launch))
 
 
 def phase_packet_timing(full) -> dict:
@@ -695,25 +863,130 @@ def phase_packet_timing(full) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     # The kernel table reports the sorted bounced block (bounce 1): bounces
     # 1-9 of every pass are sorted bounced wavefronts.
-    return {name: results[(name, 1)] for name in runs}
+    out = {name: results[(name, 1)] for name in runs}
+    out["shade_bounce"] = [_bounce_timing(scene, st, seed, b)
+                           for b, st in ((0, state0), (1, state1))][1]
+    out["fused1_closest_hit"].update(_fused1_tail(scene, 1, 16, "8"))
+    return out
+
+
+def _bounce_timing(scene, state, seed: int, b: int) -> dict:
+    """8b: the bounce kernel on a block entering bounce ``b``: its time and
+    its plain version's (CUDA events, median of 5 / 3), the bytes and
+    operations this block needs, the bound, and agreement at that shape."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import envmap, vecmath
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
+    ms = _cuda_ms(lambda: bounce.shade_bounce(scene, state, t, hit_index, seed, b), 5)
+    plain_ms = _cuda_ms(lambda: bounce.plain_shade_bounce(scene, state, t, hit_index, seed, b),
+                        3)
+    agree, err, finite = _agreement(
+        _state_rows(bounce.shade_bounce(scene, state, t, hit_index, seed, b)),
+        _state_rows(bounce.plain_shade_bounce(scene, state, t, hit_index, seed, b)))
+    rays = t.shape[0]
+    hits = alive & (hit_index >= 0)
+    misses = alive & (hit_index < 0)
+    # Each table row this block reads, once: the hit primitives' normals and
+    # material ids, their materials' rows, the texels the misses fetch.
+    prims = torch.unique(hit_index[hits].long())
+    mats = int(torch.unique(scene.material_index[prims]).numel())
+    env = scene.environment_map
+    H, W = env.shape[0], env.shape[1]
+    if H * W == 1:
+        texels = int(bool(misses.any()))
+    else:
+        uv = envmap.equal_area_sphere_to_square(
+            envmap.rotate_to_map_space(state.direction[misses]))
+        tx = torch.clamp((vecmath.clamp01(uv[:, 0]) * (W - 1) + 0.5).long(), 0, W - 1)
+        ty = torch.clamp((vecmath.clamp01(uv[:, 1]) * (H - 1) + 0.5).long(), 0, H - 1)
+        texels = int(torch.unique(ty * W + tx).numel())
+    nbytes = rays * BOUNCE_RAY_BYTES + int(prims.numel()) * 16 + mats * 48 + texels * 12
+    n_hits, n_misses = int(hits.sum()), int(misses.sum())
+    ops_ms = (n_hits * SHADE_OPS + n_misses * ENV_OPS) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"phase 8b bounce timing: torus block rays={rays} bounce={b} live={int(alive.sum())} "
+          f"hits={n_hits} misses={n_misses} bounce_ms={ms:.4f} plain_ms={plain_ms:.2f} "
+          f"bytes={nbytes} bytes_bound_ms={bytes_ms:.4f} ops_bound_ms={ops_ms:.4f} "
+          f"bound_share={bound_ms / ms:.3f} agree={agree:.6f} max_abs_err={err:.3g} "
+          f"finite={finite}")
+    if not finite or agree < AGREE_MIN:
+        raise SystemExit(f"phase 8b failed: the bounce kernel at the full block, bounce {b}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err, agreement=agree,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+
+
+def _fused1_tail(scene, pack: int, gate: int, phase: str) -> dict:
+    """The centre block of a 20-spp pass traced as a render traces it (the
+    live prefix, the Morton sort): fused1 on the ray tiles entering bounces
+    2-9, one block per tile (S = 1) and at split_plan's split, both
+    bit-equal to plain_fused1; each timed (CUDA events, median of 5), with
+    the S = 1 counters' bound and the split's own counters beside it."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import fused1
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    rpp, seed = 20, 80
+    scene = scene.with_config(rays_per_pixel=rpp)
+    block_lo, block = _centre_block(scene, rpp)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    state = wavefront.make_initial_state(scene, ids, rpp, seed)
+    K, tile = scene.num_clusters, scene.config.packet_tile
+    aabb = packet_intersect.box_table(scene)
+    sup = packet_intersect.super_table(scene, gate)
+    blocks = scene.cluster_blocks[:K // pack].contiguous()
+    live_bound, rows = block, []
+    for b, do_sort in enumerate(wavefront._sort_schedule(scene, True, scene.config.bounces)):
+        if b >= 2:
+            n = next(size for size in reversed(wavefront.live_prefix_sizes(scene, block))
+                     if size >= live_bound)
+            od8 = _packet_rays(scene, wavefront.RayState(*(leaf[:n] for leaf in state)), tile)
+            T = od8.shape[0]
+            splits = fused1.split_plan(T, K, gate)[0]
+            ref = fused1.plain_fused1(od8, aabb, blocks, pack=pack)
+            stats = {1: torch.zeros(3, dtype=torch.int64, device=scene.device),
+                     splits: torch.zeros(3, dtype=torch.int64, device=scene.device)}
+            bad, ms = 0, {}
+            for s_ in (1, splits):
+                run = (lambda s_=s_: fused1.fused1_closest_hit(od8, aabb, blocks, sup, gate,
+                                                               pack=pack, splits=s_))
+                bad += _mismatch(fused1.fused1_closest_hit(
+                    od8, aabb, blocks, sup, gate, stats=stats[s_], pack=pack, splits=s_),
+                    ref)[0]
+                ms[s_] = _cuda_ms(run, 5)
+            s1 = stats[1]
+            ops_ms = (int(s1[0]) * SLAB_OPS + int(s1[2]) * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+            live = int((od8[:, 6, :] >= 0).sum())
+            live_tiles = int((od8[:, 6, :] >= 0).any(dim=1).sum())
+            print(f"phase {phase} fused1 tail: pack={pack} bounce={b} rays={n} tiles={T} "
+                  f"live={live} live_tiles={live_tiles} splits={splits} "
+                  f"ms_split1={ms[1]:.4f} ms_split{splits}={ms[splits]:.4f} "
+                  f"ops_bound_ms={ops_ms:.4f} counters_split1={s1.tolist()} "
+                  f"counters_split{splits}={stats[splits].tolist()} mismatched={bad}")
+            if bad:
+                raise SystemExit(f"phase {phase} failed: fused1 pack {pack} differs from its "
+                                 f"plain version at bounce {b}")
+            rows.append(dict(bounce=b, tiles=T, splits=splits, ms_split1=ms[1],
+                             ms_chosen=ms[splits], bound_ms=ops_ms))
+        state, live_bound, _ = wavefront.bounce_on_live_prefix(scene, state, seed, b,
+                                                               live_bound, do_sort)
+    return dict(tail=rows)
 
 
 def _launch_counts() -> dict:
-    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade, sweep
+    from cuda_raytracer_tpu_torch.ops.kernels import counts
 
-    return {"shade_trace": shade.LAUNCHES, "cull_tiles": cull.LAUNCHES,
-            "cull_gated": cull.LAUNCHES_GATED, "fused_closest_hit": fused.LAUNCHES,
-            "fused1_closest_hit": fused1.LAUNCHES,
-            "fused1_closest_hit_pack2": fused1.LAUNCHES_PACK2, "sweep_pairs": sweep.LAUNCHES}
+    return counts.launch_counts()
 
 
 def _zero_launch_counts() -> None:
-    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade, sweep
+    from cuda_raytracer_tpu_torch.ops.kernels import counts
 
-    for module in (shade, cull, fused, fused1, sweep):
-        module.LAUNCHES = 0
-    cull.LAUNCHES_GATED = 0
-    fused1.LAUNCHES_PACK2 = 0
+    counts.zero_launch_counts()
 
 
 def _write_scenes(workdir: Path) -> dict:
@@ -755,29 +1028,34 @@ def phase_cli_subprocess(scenes: dict, workdir: Path) -> bytes:
         raise SystemExit("phase 9a failed: the CLI did not render the torus")
     m = json.loads(metrics[-1])
     phases = m["phases"]
+    launched = {k: m["counters"].get(f"launches_{k}", 0) for k in CLI_KERNELS}
     print(f"phase 9a cli: load_scene_seconds={phases['load_scene']:.3f} (native BVH) "
           f"render_seconds={phases['render_accelerator']:.4f} "
           f"paths_per_s={m['counters']['paths_per_s_accelerator']:.6g} "
-          f"post_seconds={phases['post_accelerator']:.4f}")
+          f"post_seconds={phases['post_accelerator']:.4f} launches={json.dumps(launched)}")
     print(f"phase 9a cli metrics: {metrics[-1]}")
+    if not all(launched.values()):
+        raise SystemExit("phase 9a failed: the CLI render did not launch its kernels")
     return out.read_bytes()
 
 
-def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> int:
-    """9b: ``cli.main`` with the hierarchical cull and with the flat one, in
-    turns (gated, flat, flat, gated), each run's launch counts set to 0
-    just before it and read just after."""
+def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> None:
+    """9b: ``cli.main`` with fused1's super-box gate (``--cull-hier 16``)
+    and without it (``--cull-hier -1``), in turns (gated, flat, flat,
+    gated), each run's launch counts set to 0 just before it and read just
+    after: fused1 and the bounce kernel launch in every run, no other packet
+    kernel, and every PNG equals phase 9a's byte for byte."""
     import contextlib
     import io
 
     from cuda_raytracer_tpu_torch import cli
 
-    pngs, gated_launches, flat_launches, seconds = [], [], [], {"gated": [], "flat": []}
+    pngs, seconds, ok = [], {"gated": [], "flat": []}, True
     for turn, label in enumerate(("gated", "flat", "flat", "gated")):
-        extra = ["--cull-hier", str(CLI_GATE)] if label == "gated" else []
+        gate = CLI_GATE if label == "gated" else -1
         out = workdir / f"inproc_{turn}_{label}.png"
-        argv = [str(scenes["torus"]), "--spp", str(CLI_SPP), *extra, "--metrics",
-                "--out", str(out)]
+        argv = [str(scenes["torus"]), "--spp", str(CLI_SPP), "--cull-hier", str(gate),
+                "--metrics", "--out", str(out)]
         err = io.StringIO()
         _zero_launch_counts()
         with contextlib.redirect_stderr(err):
@@ -789,21 +1067,49 @@ def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> 
         m = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
         render = m["phases"]["render_accelerator"]
         seconds[label].append(render)
-        (gated_launches if label == "gated" else flat_launches).append(counts["cull_gated"])
+        ok = ok and all(counts[k] > 0 for k in CLI_KERNELS) and not any(
+            v for k, v in counts.items() if k not in CLI_KERNELS)
         pngs.append(out.read_bytes())
-        print(f"phase 9b cli.main: torus spp={CLI_SPP} turn={turn} {label} rc={rc} "
-              f"load_scene_seconds={m['phases']['load_scene']:.3f} "
+        print(f"phase 9b cli.main: torus spp={CLI_SPP} turn={turn} {label} "
+              f"--cull-hier {gate} rc={rc} load_scene_seconds={m['phases']['load_scene']:.3f} "
               f"render_seconds={render:.4f} launches={json.dumps(counts)}")
     same = all(png == pngs[0] for png in pngs)
     same_sub = pngs[0] == subprocess_png
     print(f"phase 9b cli.main: render_seconds gated={seconds['gated']} "
-          f"flat={seconds['flat']} gated_launches={gated_launches} "
-          f"flat_launches={flat_launches} png_byte_identical={same} "
+          f"flat={seconds['flat']} png_byte_identical={same} "
           f"identical_to_subprocess={same_sub}")
-    if not (all(n > 0 for n in gated_launches) and not any(flat_launches)
-            and same and same_sub):
-        raise SystemExit("phase 9b failed: gated launches, flat launches or PNG bytes")
-    return gated_launches[0]
+    if not (ok and same and same_sub):
+        raise SystemExit("phase 9b failed: launches or PNG bytes")
+
+
+def phase_gated_render(full) -> int:
+    """9c, the main path of the gated cull kernel: the torus at 1000×1000
+    and 8 spp through cull + fused (``packet_backend="fused"``) with
+    ``cull_hier=16`` and with the flat cull, in turns (gated, flat, flat,
+    gated): the gated cull launches in every gated render and in no flat
+    one, every image identical → the first gated render's launches."""
+    import numpy as np
+
+    images, seconds, launches = [], {"gated": [], "flat": []}, []
+    for turn, label in enumerate(("gated", "flat", "flat", "gated")):
+        scene = full.with_config(rays_per_pixel=CLI_SPP, packet_backend="fused",
+                                 cull_hier=CLI_GATE if label == "gated" else 0)
+        _zero_launch_counts()
+        _, image, secs = _timed_framebuffer(scene)
+        counts = _launch_counts()
+        images.append(image)
+        seconds[label].append(secs)
+        launches.append(counts["cull_gated"])
+        print(f"phase 9c gated render: torus spp={CLI_SPP} turn={turn} {label} "
+              f"seconds={secs:.4f} launches={json.dumps(counts)}")
+        if (counts["cull_gated"] > 0) != (label == "gated") or not counts["shade_bounce"]:
+            raise SystemExit(f"phase 9c failed: launches of the {label} render")
+    same = all(np.array_equal(img, images[0]) for img in images)
+    print(f"phase 9c gated render: seconds gated={seconds['gated']} flat={seconds['flat']} "
+          f"images_identical={same}")
+    if not same:
+        raise SystemExit("phase 9c failed: the gated and flat images differ")
+    return launches[0]
 
 
 def phase_gated_cull(full) -> dict:
@@ -966,7 +1272,8 @@ def phase_cli(full) -> dict:
         workdir = Path(tmp)
         scenes = _write_scenes(workdir)
         png = phase_cli_subprocess(scenes, workdir)
-        launches = phase_cli_in_process(scenes, workdir, png)
+        phase_cli_in_process(scenes, workdir, png)
+        launches = phase_gated_render(full)
         result = phase_gated_cull(full)
         phase_resume(full, workdir)
         phase_cpu_flag(scenes, workdir)
@@ -1141,6 +1448,26 @@ def _pallas_cap(scene) -> int:
         cap = min(2 * cap, scene.num_clusters)
 
 
+def _step_shading_suspects(scene, params, rpp: int, bounces: int) -> int:
+    """The suspect count of one pass of the step's scene (its static live
+    schedule) traced as the step traces it: with the parameters in the graph,
+    so every bounce shades with torch. Launches no bounce kernel."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce
+    from cuda_raytracer_tpu_torch.render import diff, wavefront
+
+    merged = diff.merge_params(scene, params)
+    ids = torch.arange(merged.num_pixels * rpp, dtype=torch.int32, device=merged.device)
+    launches = bounce.LAUNCHES
+    with torch.enable_grad():
+        state = wavefront.make_initial_state(merged, ids, rpp, TRAIN_SEED)
+        _, suspect = wavefront.trace_wavefront(merged, state, TRAIN_SEED, bounces,
+                                               merged.config.sort_rays)
+    if bounce.LAUNCHES != launches:
+        raise SystemExit("phase 10c failed: a graph-building pass launched the bounce kernel")
+    return int(suspect)
+
+
 def phase_train(full) -> dict:
     """10c: the inverse-rendering train step on the full torus through
     both engines, with and without per-bounce checkpointing."""
@@ -1171,6 +1498,18 @@ def phase_train(full) -> dict:
         optimizer = torch.optim.Adam(diff.param_leaves(params), lr=TRAIN_LR)
         step = diff.make_train_step(scenes[backend], optimizer, rpp, bounces,
                                     live_schedule=schedule, checkpoint_bounces=checkpoint)
+        # Calibration and the audit trace forward passes, which shade through
+        # the bounce kernel; the step shades with torch. The audit must keep
+        # or drop the schedule as it would under the torch shading, and the
+        # scene the step renders (with the calibrated schedule if the audit
+        # kept it, else the dynamic prefix) must be exact under the step's
+        # own shading.
+        kept = step.scene.config.live_schedule == tuple(schedule)
+        with _torch_shading():
+            kept_torch = diff.check_radiance_exact(
+                scenes[backend].with_config(live_schedule=tuple(schedule)),
+                rays_per_pixel=rpp, bounces=bounces) == 0
+        suspects = _step_shading_suspects(step.scene, params, rpp, bounces)
         with torch.no_grad():  # the forward pass alone, for its launch count
             _zero_launch_counts()
             diff.render_radiance(params, step.scene, TRAIN_SEED, rpp, bounces)
@@ -1202,8 +1541,10 @@ def phase_train(full) -> dict:
               f"steps={[round(x, 4) for x in seconds]} paths_per_s={rays / median:.6g} "
               f"peak_mem_MiB={peak / 2**20:.1f} losses={[f'{x:.6g}' for x in losses]} "
               f"launches_per_step={json.dumps(per_step)} forward_launches={json.dumps(forward)} "
-              f"finite={finite} loss_falling={falling} backward_launches_none={ok_launches}")
-        if not (finite and falling and ok_launches):
+              f"finite={finite} loss_falling={falling} backward_launches_none={ok_launches} "
+              f"schedule_kept={kept} schedule_kept_under_torch_shading={kept_torch} "
+              f"step_shading_suspects={suspects}")
+        if not (finite and falling and ok_launches and suspects == 0 and kept == kept_torch):
             raise SystemExit(f"phase 10c failed: packet_backend={backend} "
                              f"checkpoint_bounces={checkpoint}")
         results[(backend, checkpoint)] = dict(seconds=median, launches=counts, peak=peak)
@@ -1403,43 +1744,34 @@ def phase_pack_timing(packed, full) -> dict:
                                bound_by="operations" if ops_ms >= bytes_ms else "bytes")
     # Where the packed block's time goes, beside phase 8's profile of the
     # unpacked one: the pack-2 kernel's time per bounce.
-    _profile_block(scene, "fused1 pack=2", ("fused1_kernel",), phase="11b")
+    _profile_block(scene, "fused1 pack=2", FUSED1_KERNELS, phase="11b")
+    results[1].update(_fused1_tail(packed, 2, PACK_GATE, "11b"))
     return results[1]  # the kernel table reports the sorted bounced block
 
 
-def phase_pack_main_path(packed, reference_fb) -> int:
-    """11c: the packed torus at 1000×1000, 100 spp, 10 bounces, timed as
-    ``render_timed`` times it, after an untimed small warm-up: only the
-    pack-2 kernel launches, and the framebuffer equals phase 7's unpacked
-    one bit for bit."""
+def phase_pack_main_path(packed, full, reference_fb) -> int:
+    """11c: the packed torus and the unpacked one at 1000×1000, 100 spp, 10
+    bounces, in turns (packed, unpacked, unpacked, packed), each timed as
+    ``render_timed`` times it: the packed renders launch the pack-2 kernel
+    and no other packet kernel, the unpacked ones fused1, and every
+    framebuffer equals phase 7's unpacked one bit for bit → the first packed
+    render's pack-2 launches."""
     import torch
-    from cuda_raytracer_tpu_torch.render import pipeline
 
-    warm = _resized(packed, 128, 128).with_config(rays_per_pixel=20)
-    pipeline.render_framebuffer(warm)
-    scene = packed.with_config(rays_per_pixel=MESH_FULL_SPP)
-    torch.cuda.synchronize()
-    _zero_launch_counts()
-    start = time.perf_counter()
-    framebuffer = pipeline.render_framebuffer(scene)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    counts = _launch_counts()
-    image = pipeline.render_image(scene, framebuffer=framebuffer)
-    finite = bool(torch.isfinite(framebuffer).all())
-    same = bool(torch.equal(framebuffer, reference_fb))
-    mean = float(image.mean())
-    rays = scene.num_pixels * MESH_FULL_SPP
-    launches = counts["fused1_closest_hit_pack2"]
-    print(f"phase 11c packed main path: torus cluster_pack=2 {scene.config.width}x"
-          f"{scene.config.height} spp={MESH_FULL_SPP} bounces={scene.config.bounces} "
-          f"seconds={seconds:.4f} Mrays/s={rays / seconds / 1e6:.2f} "
-          f"launches={json.dumps(counts)} finite={finite} mean_display={mean:.2f} "
-          f"bit_identical_to_unpacked_phase7={same}")
-    others = [k for k, v in counts.items() if v and k != "fused1_closest_hit_pack2"]
-    if launches <= 0 or others or not finite or not same:
-        raise SystemExit("phase 11c failed: launches, finiteness or bits of the packed render")
-    return launches
+    pack2, pack1 = ("fused1_closest_hit_pack2",), ("fused1_closest_hit",)
+    scenes = {"packed": packed.with_config(rays_per_pixel=MESH_FULL_SPP),
+              "unpacked": full.with_config(rays_per_pixel=MESH_FULL_SPP)}
+    order = ("packed", "unpacked", "unpacked", "packed")
+    seconds, fbs, _, counts = _render_turns([(label, scenes[label]) for label in order],
+                                            {"packed": pack2, "unpacked": pack1}, "11c",
+                                            "packed main path")
+    same = [bool(torch.equal(fb, reference_fb)) for fb in fbs]
+    print(f"phase 11c packed main path: seconds " + " ".join(
+        f"{label}={[round(x, 4) for x in secs]}" for label, secs in seconds.items())
+        + f" bit_identical_to_unpacked_phase7={same}")
+    if not all(same):
+        raise SystemExit("phase 11c failed: a framebuffer differs from phase 7's")
+    return counts[0]["fused1_closest_hit_pack2"]
 
 
 def phase_pack(full, device):
@@ -1473,13 +1805,15 @@ def phase_mesh_cli(reference_png: bytes) -> None:
             raise SystemExit("phase 12a failed: the CLI did not render with --mesh 1")
         m = json.loads(metrics[-1])
         same = out.read_bytes() == reference_png
+        launched = {k: m["counters"].get(f"launches_{k}", 0) for k in CLI_KERNELS}
         print(f"phase 12a cli --mesh 1: rc={proc.returncode} wall_seconds={wall:.2f} "
               f"load_scene_seconds={m['phases']['load_scene']:.3f} "
               f"render_sharded_seconds={m['phases']['render_sharded']:.4f} "
               f"paths_per_s={m['counters']['paths_per_s_sharded']:.6g} "
-              f"png_identical_to_phase_9a={same}")
-        if not same:
-            raise SystemExit("phase 12a failed: the --mesh 1 PNG differs from phase 9a's")
+              f"launches_rank0={json.dumps(launched)} png_identical_to_phase_9a={same}")
+        if not same or not all(launched.values()):
+            raise SystemExit("phase 12a failed: the --mesh 1 PNG differs from phase 9a's, "
+                             "or a kernel of the path did not launch")
 
 
 def _shard_scene(name: str, device):
@@ -1593,7 +1927,10 @@ def phase_two_ranks() -> None:
         print(f"phase 12b gradients {name}: " + " ".join(
             f"{k}:max|g|={sc:.4g},max|d|={d:.3g},literal={lit:.3g},leaf_scaled={ls:.3g}"
             for k, sc, d, lit, ls in leaves))
-        kernels = ("cull_tiles", "fused_closest_hit") if name == "torus" else ("shade_trace",)
+        # The torus renders through fused1 and the bounce kernel, and trains
+        # through cull + fused.
+        kernels = (("fused1_closest_hit", "shade_bounce", "cull_tiles", "fused_closest_hit")
+                   if name == "torus" else ("shade_trace",))
         launched = all(r["launches"][k] > 0 for r in (r0, r1) for k in kernels)
         print(f"phase 12b two gloo ranks on cuda:0: {name} {TRAIN['width']}x{TRAIN['height']} "
               f"spp={TRAIN['rays_per_pixel']} bounces={TRAIN['bounces']} "
@@ -1639,7 +1976,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs a GPU",
               file=sys.stderr)
         return 1
-    from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1, shade, sweep
+    from cuda_raytracer_tpu_torch.ops.kernels import (
+        bounce, build, cull, fused, fused1, shade, sweep)
 
     device = torch.device("cuda")
     smi = _smi()
@@ -1649,7 +1987,7 @@ def main() -> int:
 
     start = time.perf_counter()
     built = build.load_all(KERNEL_SOURCES)
-    for module in (shade, cull, fused, fused1, sweep):
+    for module in (shade, cull, fused, fused1, sweep, bounce):
         module.library()  # bind the argument types
     for name, b in built.items():
         regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
@@ -1666,13 +2004,14 @@ def main() -> int:
     timing = phase_timing(device)
     scenes = {name: _mesh_scene(name, device) for name in ("torus", "glass_torus")}
     worst = phase_packet_vs_plain(scenes)
+    bounce_check = phase_bounce_vs_plain(scenes, device)
     mesh_launches, framebuffer_100 = phase_mesh_main_path(scenes["torus"])
     mesh_timing = phase_packet_timing(scenes["torus"])
     phase_mesh_profile(scenes["torus"])
     gated = phase_cli(scenes["torus"])
     diff_result = phase_diff(scenes["torus"], device)
     packed, pack_result = phase_pack(scenes["torus"], device)
-    pack_launches = phase_pack_main_path(packed, framebuffer_100)
+    pack_launches = phase_pack_main_path(packed, scenes["torus"], framebuffer_100)
     del packed, framebuffer_100
     phase_sharding(scenes["torus"], gated["png"])
 
@@ -1706,7 +2045,27 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
+            # fused1: the centre block's bounces 2-9 at S = 1 and at the split.
+            **({"tail": t["tail"]} if "tail" in t else {}),
         })
+    b = mesh_timing["shade_bounce"]
+    kernels.append({
+        "name": "shade_bounce",
+        "route": "cuda",
+        "source": "cuda_raytracer_tpu_torch/csrc/bounce.cu",
+        # No TPU kernel: the JAX package's process_rays, fused by XLA.
+        "replaces": "cuda_raytracer_tpu/render/wavefront.py:275",
+        # The 100-spp torus render of phase 7 ("auto", the fused1 regime).
+        "launches": mesh_launches["shade_bounce"],
+        "max_abs_err": max(bounce_check["max_abs_err"], b["max_abs_err"]),
+        "agreement": b["agreement"],
+        "tolerance": f"max |d| < {AGREE_TOL} on >= {AGREE_MIN} of rays",
+        "ms": b["ms"],
+        "plain_ms": b["plain_ms"],
+        "bound_ms": b["bound_ms"],
+        "bound_by": b["bound_by"],
+        "library_ms": None,
+    })
     kernels.append({
         "name": "cull_gated",
         "route": "cuda",
@@ -1752,6 +2111,7 @@ def main() -> int:
         "max_abs_err": pack_result["max_abs_err"],
         "tolerance": "bit-equal",
         "ms": pack_result["ms"],
+        "tail": pack_result["tail"],
         "pack1_same_rays_ms": pack_result["pack1_ms"],
         "plain_ms": pack_result["plain_ms"],
         "bound_ms": pack_result["bound_ms"],

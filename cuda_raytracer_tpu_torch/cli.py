@@ -93,6 +93,7 @@ def main(argv=None) -> int:
 
     from cuda_raytracer_tpu_torch.models import cluster as cluster_mod
     from cuda_raytracer_tpu_torch.models.scene_dsl import load_scene
+    from cuda_raytracer_tpu_torch.ops.kernels.counts import launch_counts, launches_since
     from cuda_raytracer_tpu_torch.render import pipeline
     from cuda_raytracer_tpu_torch.utils.backend import default_device
     from cuda_raytracer_tpu_torch.utils.metrics import Metrics
@@ -131,6 +132,7 @@ def main(argv=None) -> int:
     )
 
     def run_backend(scene, label: str, checkpoint_path):
+        before = launch_counts()
         with metrics.phase(f"render_{label}"):
             framebuffer = pipeline.render_framebuffer(
                 scene, checkpoint_path=checkpoint_path,
@@ -138,6 +140,8 @@ def main(argv=None) -> int:
             )
             if framebuffer.device.type == "cuda":
                 torch.cuda.synchronize(framebuffer.device)
+        for name, n in launches_since(before).items():
+            metrics.count(f"launches_{name}", n)
         with metrics.phase(f"post_{label}"):
             image = pipeline.render_image(scene, apply_bloom=not args.no_bloom,
                                           framebuffer=framebuffer)

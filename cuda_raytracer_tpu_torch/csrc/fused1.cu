@@ -17,17 +17,34 @@
 // What bounds it: FP32 operations: ~24 per (ray, box) slab test and ~48 per
 // (ray, triangle) Moller-Trumbore test; the bytes are the ray tiles and box
 // table in, 10 * (C / pack) * 4 B per swept pair from L2, and 8 B out per
-// ray.
+// ray. On this card it ran at ~5 % of that bound, for two reasons: one
+// block per tile, one thread per ray, sweeps every hit cluster of its tile
+// in sequence, and after the first bounces the Morton sort and live-prefix
+// compaction leave a few dozen live tiles (the centre 2^18-ray block of a
+// 20-spp pass holds 14,050 down to 657 live rays on bounces 2-9), so a
+// handful of blocks work while most of the 132 SMs idle; and a block's
+// shared memory, 4 * (12 * tile + 128 * tile + 6 * 128 + 4 + 10 * C / pack)
+// B = 49,168 B at tile 64, C = 256, pack 1 (44,048 B at pack 2), leaves
+// room for 4 (5) resident blocks, 8 (10) warps, per SM.
 //
 // What the design does about that bound: the TPU kernel keeps a
 // (8 tiles, Kp, tile) per-ray entry scratch (196 KB per tile at the
-// teapot's K) that shared memory cannot hold; here one 128-box chunk's
-// entries (32 KB at tile 64) are live at a time and the chunk is swept before
-// the next is culled, in ascending cluster order. No (T, K) table ever
-// reaches device memory. The 16-bit pack matmuls and SMEM word panels of the
-// TPU kernel are gone: the any-hit bits are four shared words set with
-// atomicOr. The arithmetic is rt::fused1_block in packet.cuh, shared with the
-// host build the CPU tests run.
+// teapot's K) that shared memory cannot hold; here one chunk's entries are
+// live at a time and the chunk is swept before the next is culled, in
+// ascending cluster order. No (T, K) table ever reaches device memory. The
+// 16-bit pack matmuls and SMEM word panels of the TPU kernel are gone: the
+// any-hit bits are four shared words set with atomicOr. When a launch has
+// few tiles, the host splits each tile's K boxes into `splits` ranges of
+// whole chunks of 32 boxes, or gate_g if larger (grid (T, splits),
+// fused1_split_kernel): each block culls and sweeps only its range and
+// folds its per-ray best into a (T, tile) uint64 key with a 64-bit
+// atomicMin (the pair sweep's fold), and a finishing pass applies the
+// windows. On the centre block's bounces 3-9 that is 23 blocks for each of
+// its ~11 live tiles. The smaller chunk shrinks the entry array: 22,288 B
+// per block at tile 64, C = 256 (17,168 B at pack 2), 10 (12) resident
+// blocks per SM. With one split the kernel is the unsplit one above,
+// counters and all. The arithmetic is rt::fused1_block in packet.cuh,
+// shared with the host build the CPU tests run.
 
 #include <cuda_runtime.h>
 
@@ -45,25 +62,68 @@ __global__ void fused1_kernel(const float* __restrict__ od8,
   extern __shared__ float smem[];
   rt::DeviceExec ex;
   rt::fused1_block(ex, smem, od8, aabb, K, sup, n_sup, gate_g, blocks, C, kPack,
-                   tile, blockIdx.x, t_out, tri_out, stats);
+                   tile, blockIdx.x, 0, K, rt::kChunk, t_out, tri_out, nullptr, stats);
+}
+
+// Block (t, s) = (blockIdx.x, blockIdx.y) of the split kernel.
+template <int kPack>
+__global__ void fused1_split_kernel(const float* __restrict__ od8,
+                                    const float* __restrict__ aabb, int K,
+                                    const float* __restrict__ sup, int n_sup, int gate_g,
+                                    const float* __restrict__ blocks, int C, int tile,
+                                    int per, int chunk, unsigned long long* keys,
+                                    unsigned long long* stats) {
+  extern __shared__ float smem[];
+  rt::DeviceExec ex;
+  rt::fused1_split_block(ex, smem, od8, aabb, K, sup, n_sup, gate_g, blocks, C, kPack,
+                         tile, blockIdx.x, blockIdx.y, per, chunk, keys, stats);
+}
+
+__global__ void init_keys(unsigned long long* keys, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) keys[i] = rt::kMissKey;
+}
+
+__global__ void finish_keys(const unsigned long long* __restrict__ keys,
+                            const float* __restrict__ od8, int tile, int n,
+                            float* __restrict__ t_out, int* __restrict__ tri_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) rt::finish_key(keys, od8, tile, i, t_out, tri_out);
+}
+
+template <class Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
 }
 
 template <int kPack>
 int launch(const float* od8, const float* aabb, const float* sup, int n_sup,
-           int gate_g, const float* blocks, int T, int K, int C, int tile,
-           float* t_out, int* tri_out, unsigned long long* stats,
-           cudaStream_t stream) {
+           int gate_g, const float* blocks, int T, int K, int C, int tile, int splits,
+           int chunk, unsigned long long* keys, float* t_out, int* tri_out,
+           unsigned long long* stats, cudaStream_t stream) {
   const int threads = (tile + 31) / 32 * 32;
-  const size_t smem = sizeof(float) * (12 * tile + rt::kChunk * tile +
-                                       6 * rt::kChunk + 4 +
-                                       rt::kBlockRows * (C / kPack));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused1_kernel<kPack>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (splits == 1) {
+    const size_t smem = sizeof(float) * rt::fused1_smem_words(tile, rt::kChunk, C, kPack);
+    const cudaError_t err = allow_smem(fused1_kernel<kPack>, smem);
     if (err != cudaSuccess) return (int)err;
+    fused1_kernel<kPack><<<T, threads, smem, stream>>>(
+        od8, aabb, K, sup, n_sup, gate_g, blocks, C, tile, t_out, tri_out, stats);
+    return (int)cudaGetLastError();
   }
-  fused1_kernel<kPack><<<T, threads, smem, stream>>>(
-      od8, aabb, K, sup, n_sup, gate_g, blocks, C, tile, t_out, tri_out, stats);
+  if (keys == nullptr || chunk <= 0 || chunk > rt::kChunk ||
+      (gate_g > 0 && chunk % gate_g))
+    return (int)cudaErrorInvalidValue;
+  const int per = rt::fused1_split_per(K, splits, chunk);
+  const int n = T * tile;
+  const size_t smem = sizeof(float) * rt::fused1_smem_words(tile, chunk, C, kPack);
+  const cudaError_t err = allow_smem(fused1_split_kernel<kPack>, smem);
+  if (err != cudaSuccess) return (int)err;
+  init_keys<<<(n + 255) / 256, 256, 0, stream>>>(keys, n);
+  fused1_split_kernel<kPack><<<dim3(T, splits), threads, smem, stream>>>(
+      od8, aabb, K, sup, n_sup, gate_g, blocks, C, tile, per, chunk, keys, stats);
+  finish_keys<<<(n + 255) / 256, 256, 0, stream>>>(keys, od8, tile, n, t_out, tri_out);
   return (int)cudaGetLastError();
 }
 
@@ -76,20 +136,26 @@ extern "C" {
 // sub-clusters per block; stats null or 3 uint64 counters ([0] += slab
 // tests of live rays, [1] += swept sub-cluster pairs, [2] += their
 // Moller-Trumbore tests of live rays x real triangles) -> t_out (T, tile)
-// f32, tri_out (T, tile) int32. Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for another pack.
+// f32, tri_out (T, tile) int32. splits = 1 runs one block per tile over all
+// K boxes in 128-box chunks; splits > 1 spreads each tile's boxes over
+// `splits` blocks in chunks of `chunk` boxes (<= 128, a multiple of gate_g),
+// folding through keys (T * tile uint64 scratch). Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another pack or a bad
+// split.
 int rt_fused1_closest_hit(const float* od8, const float* aabb, const float* sup,
                           int n_sup, int gate_g, const float* blocks, int T, int K,
-                          int C, int pack, int tile, float* t_out, int* tri_out,
+                          int C, int pack, int tile, int splits, int chunk,
+                          unsigned long long* keys, float* t_out, int* tri_out,
                           unsigned long long* stats, void* stream) {
   if (T <= 0) return (int)cudaGetLastError();
+  if (splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (pack == 1)
-    return launch<1>(od8, aabb, sup, n_sup, gate_g, blocks, T, K, C, tile, t_out,
-                     tri_out, stats, s);
+    return launch<1>(od8, aabb, sup, n_sup, gate_g, blocks, T, K, C, tile, splits, chunk,
+                     keys, t_out, tri_out, stats, s);
   if (pack == 2)
-    return launch<2>(od8, aabb, sup, n_sup, gate_g, blocks, T, K, C, tile, t_out,
-                     tri_out, stats, s);
+    return launch<2>(od8, aabb, sup, n_sup, gate_g, blocks, T, K, C, tile, splits, chunk,
+                     keys, t_out, tri_out, stats, s);
   return (int)cudaErrorInvalidValue;
 }
 

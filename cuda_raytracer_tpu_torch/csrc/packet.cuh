@@ -14,8 +14,9 @@
 //   - on the host (HostExec) the single caller owns every row, any() is the
 //     identity and sync() does nothing, so one call runs the whole block.
 //
-// A result that several blocks fold into (the pair sweep) goes through
-// min_u64: a 64-bit atomicMin on the card, a plain min on the host.
+// A result that several blocks fold into (the pair sweep, the split fused1)
+// goes through min_u64: a 64-bit atomicMin on the card, a plain min on the
+// host.
 //
 // Per-ray state that must survive a synchronisation lives in arrays in
 // shared memory (on the host: a plain buffer), indexed by ray row, so the
@@ -50,7 +51,7 @@ constexpr float kHuge = 1e30f;
 // (ops/pallas/fused.py SKIP_SLACK); a pair is skipped only when its slightly
 // shrunk entry lies beyond every demanding ray's current bound.
 constexpr float kSkipSlack = 0.99993896484375f;
-constexpr int kChunk = 128;  // boxes per fused1 cull chunk
+constexpr int kChunk = 128;  // boxes per cull chunk, and per unsplit fused1 chunk
 constexpr int kBlockRows = 10;  // block rows read by the sweep: p1 e1 e2, tri id
 
 RT_HD bool is_nan(float x) { return x != x; }
@@ -470,17 +471,63 @@ RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
   store_tile(ex, rt, t, tile, t_out, tri_out);
 }
 
+// ---- 64-bit hit keys: a fold across blocks ----------------------------------------
+//
+// A ray's result that several blocks fold into (the pair sweep, the split
+// fused1) lives in a 64-bit key: float bits of t high (t is positive or
+// kMiss, so the bits order as the values do), 0xFFFFFFFF - (tri + 1) low (so
+// on equal t the larger triangle id is the smaller key). The minimum key
+// over a ray's blocks is then the fold's result, whatever order they come
+// in.
+constexpr unsigned long long kMissKey = 0x7149F2CAFFFFFFFFull;  // (kMiss, -1)
+
+RT_HD unsigned long long sweep_key(float t, int tri) {
+  return ((unsigned long long)float_bits(t) << 32) |
+         (unsigned long long)(0xFFFFFFFFu - (uint32_t)(tri + 1));
+}
+
+RT_HD void sweep_unkey(unsigned long long key, float& t, int& tri) {
+  t = bits_float((uint32_t)(key >> 32));
+  tri = (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull)) - 1;
+}
+
+// Ray i of the split fused1's (T, tile) keys → its (t, tri) as store_tile
+// writes them: the hit if it lies inside the ray's window (od8 row 6), else
+// (kMiss, -1).
+RT_HD void finish_key(const unsigned long long* keys, const float* od8, int tile, int i,
+                      float* t_out, int* tri_out) {
+  float t;
+  int tri;
+  sweep_unkey(keys[i], t, tri);
+  const bool in = t < od8[((size_t)(i / tile) * 8 + 6) * tile + i % tile];
+  t_out[i] = in ? t : kMiss;
+  tri_out[i] = in ? tri : -1;
+}
+
 // ---- fused1: cull + walk + sweep of one tile ------------------------------------
 //
-// The tile's rays are culled against the K boxes 128 at a time; each ray's
-// entry for the chunk stays in shared memory (+inf where it misses), the
-// chunk's any-hit bits are ORed together, and then each hit box whose entry
-// some ray's bound reaches (the per-ray early-out) has its block swept.
-// With gate_g > 0, sup holds the super boxes (n_sup, 6): min xyz, max xyz
-// over gate_g consecutive boxes, and a chunk is culled only when some ray
-// hits one of its supers (conservative, so the output is unchanged).
-// A tile whose rays are all dead skips everything. stats (null, or 3
-// counters): [0] += slab tests of live rays, [1] and [2] as fused_block's.
+// The tile's rays are culled against boxes [k_lo, k_hi) `chunk` (<= kChunk)
+// at a time; each ray's entry for the chunk stays in shared memory (+inf
+// where it misses), the chunk's any-hit bits are ORed together, and then
+// each hit box whose entry some ray's bound reaches (the per-ray early-out)
+// has its block swept. With gate_g > 0 (dividing chunk, and k_lo a multiple
+// of chunk), sup holds the super boxes (n_sup, 6): min xyz, max xyz over
+// gate_g consecutive boxes, and a chunk is culled only when some ray hits
+// one of its supers (conservative, so the output is unchanged). A tile
+// whose rays are all dead skips everything. stats (null, or 3 counters):
+// [0] += slab tests of live rays, [1] and [2] as fused_block's.
+//
+// Output. With keys null the block owns all K boxes of its tile
+// ([k_lo, k_hi) = [0, K)) and writes the in-window (t, tri) with
+// store_tile. With keys non-null the tile's boxes are split over several
+// blocks (fused1_split_block): each folds its own share into a running
+// best and min_u64s it into the tile's (T, tile) keys (sweep_key, so the
+// minimum is the fold's result whatever order the blocks finish in), and
+// finish_key applies the window afterwards. A block's early-out uses only
+// its own running best, a weaker bound than the whole tile's, so it may
+// sweep more but never drops the winning hit; and filtering after the
+// minimum equals filtering before it, because the window is a threshold on
+// t and the key orders by t first.
 //
 // Paired sub-cluster tables (pack = 2, cluster_pack): the K boxes are
 // sub-cluster boxes and blocks holds K / 2 blocks of C lanes, sub-cluster k
@@ -494,19 +541,23 @@ RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
 // words; a thread per ray needs none of them, and pairing two hit halves
 // into one staging round would save one __syncthreads per such pair at the
 // cost of the per-half skip.
-// Shared: 12 * tile + kChunk * tile + 6 * kChunk + 4 + kBlockRows * C / pack
-// words.
+// Shared: fused1_smem_words.
+RT_HD size_t fused1_smem_words(int tile, int chunk, int C, int pack) {
+  return (size_t)12 * tile + (size_t)chunk * tile + 6 * chunk + 4 + kBlockRows * (C / pack);
+}
+
 template <class Exec>
 RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
                         const float* aabb, int K, const float* sup, int n_sup,
                         int gate_g, const float* blocks, int C, int pack,
-                        int tile, int t, float* t_out, int* tri_out,
+                        int tile, int t, int k_lo, int k_hi, int chunk, float* t_out,
+                        int* tri_out, unsigned long long* keys,
                         unsigned long long* stats) {
   RayTile rt;
   float* ent = carve_rays(smem, tile, rt);
-  float* box = ent + kChunk * tile;
-  uint32_t* hitw = reinterpret_cast<uint32_t*>(box + 6 * kChunk);
-  float* blk = box + 6 * kChunk + 4;
+  float* box = ent + chunk * tile;
+  uint32_t* hitw = reinterpret_cast<uint32_t*>(box + 6 * chunk);
+  float* blk = box + 6 * chunk + 4;
   const float inf = inf_f();
   const int cs = C / pack;  // lanes of one swept sub-cluster
 
@@ -515,13 +566,13 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
   const int n_live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
   bool live = false;
   for (int r = ex.first(); r < tile; r += ex.step()) live = live || rt.win[r] >= 0.0f;
-  if (ex.any(live)) {
-    const int spc = gate_g > 0 ? kChunk / gate_g : 0;
-    for (int lo = 0; lo < K; lo += kChunk) {
-      const int nb = K - lo < kChunk ? K - lo : kChunk;
-      if (spc > 0) {
+  if (k_lo < k_hi && ex.any(live)) {
+    for (int lo = k_lo; lo < k_hi; lo += chunk) {
+      const int nb = k_hi - lo < chunk ? k_hi - lo : chunk;
+      if (gate_g > 0) {
         const int s_lo = lo / gate_g;
-        const int s_hi = s_lo + spc < n_sup ? s_lo + spc : n_sup;
+        const int s_end = s_lo + (nb + gate_g - 1) / gate_g;
+        const int s_hi = s_end < n_sup ? s_end : n_sup;
         bool hit_sup = false;
         for (int r = ex.first(); r < tile; r += ex.step()) {
           const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
@@ -533,9 +584,9 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
         }
         if (!ex.any(hit_sup)) continue;
       }
-      for (int i = ex.first(); i < 6 * kChunk; i += ex.step()) {
-        const int a = i / kChunk;
-        const int j = i % kChunk;
+      for (int i = ex.first(); i < 6 * chunk; i += ex.step()) {
+        const int a = i / chunk;
+        const int j = i % chunk;
         box[i] = j < nb ? aabb[(size_t)a * K + lo + j] : 0.0f;
       }
       for (int i = ex.first(); i < 4; i += ex.step()) hitw[i] = 0u;
@@ -545,9 +596,9 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
         const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
         uint32_t bits[4] = {0u, 0u, 0u, 0u};
         for (int j = 0; j < nb; ++j) {
-          const float lo3[3] = {box[j], box[kChunk + j], box[2 * kChunk + j]};
-          const float hi3[3] = {box[3 * kChunk + j], box[4 * kChunk + j],
-                                box[5 * kChunk + j]};
+          const float lo3[3] = {box[j], box[chunk + j], box[2 * chunk + j]};
+          const float hi3[3] = {box[3 * chunk + j], box[4 * chunk + j],
+                                box[5 * chunk + j]};
           float e;
           const bool hit = slab(o, inv, rt.win[r], lo3, hi3, e);
           ent[j * tile + r] = hit ? e : inf;
@@ -581,28 +632,42 @@ RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
       ex.sync();
     }
   }
-  store_tile(ex, rt, t, tile, t_out, tri_out);
+  if (keys == nullptr) {
+    store_tile(ex, rt, t, tile, t_out, tri_out);
+    return;
+  }
+  for (int r = ex.first(); r < tile; r += ex.step())
+    if (rt.acc[r] < kMiss)
+      ex.min_u64(&keys[(size_t)t * tile + r], sweep_key(rt.acc[r], rt.acc_tri[r]));
+}
+
+// Boxes per block of the split fused1: whole chunks, as many as cover K in
+// `splits` ranges.
+RT_HD int fused1_split_per(int K, int splits, int chunk) {
+  const int n_chunks = (K + chunk - 1) / chunk;
+  return (n_chunks + splits - 1) / splits * chunk;
+}
+
+// Block (t, s) of the split fused1: boxes [s * per, (s + 1) * per) of tile
+// t, folded into keys. per is a multiple of chunk; a block past K does
+// nothing.
+template <class Exec>
+RT_HD void fused1_split_block(const Exec& ex, float* smem, const float* od8,
+                              const float* aabb, int K, const float* sup, int n_sup,
+                              int gate_g, const float* blocks, int C, int pack, int tile,
+                              int t, int s, int per, int chunk, unsigned long long* keys,
+                              unsigned long long* stats) {
+  const long long lo = (long long)s * per;
+  if (lo >= K) return;  // the whole block: s is the same for every thread
+  const int k_hi = lo + per < K ? (int)(lo + per) : K;
+  fused1_block(ex, smem, od8, aabb, K, sup, n_sup, gate_g, blocks, C, pack, tile, t,
+               (int)lo, k_hi, chunk, nullptr, nullptr, keys, stats);
 }
 
 // ---- sweep: one (tile, cluster) pair of an extracted pair list, no window -------
 //
-// A ray's result folds over pairs that different blocks sweep, so it lives in
-// a 64-bit key: float bits of t high (t is positive or kMiss, so the bits
-// order as the values do), 0xFFFFFFFF - (tri + 1) low (so on equal t the
-// larger triangle id is the smaller key). The minimum key over a ray's
-// pairs is then the fold's result, whatever order the pairs come in.
-constexpr unsigned long long kMissKey = 0x7149F2CAFFFFFFFFull;  // (kMiss, -1)
-
-RT_HD unsigned long long sweep_key(float t, int tri) {
-  return ((unsigned long long)float_bits(t) << 32) |
-         (unsigned long long)(0xFFFFFFFFu - (uint32_t)(tri + 1));
-}
-
-RT_HD void sweep_unkey(unsigned long long key, float& t, int& tri) {
-  t = bits_float((uint32_t)(key >> 32));
-  tri = (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull)) - 1;
-}
-
+// Each pair's best (t, tri) is min_u64ed into the ray's key (sweep_key).
+//
 // Pair i of pairs (2, P) int32 ([tile; cluster]): stage the cluster's block,
 // sweep every ray of the tile (rays_tiles (T1, 8, L), rows o xyz, d xyz)
 // against it and min its best (t, tri) into keys (T1, tile). A pair whose

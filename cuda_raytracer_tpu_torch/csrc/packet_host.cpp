@@ -1,7 +1,7 @@
 // Host build of the packet kernels, for the CPU tests: the grids of
-// cull.cu (flat and gated), fused.cu, fused1.cu and sweep.cu as loops over
-// blocks, each block run by rt::HostExec through the same drivers in
-// packet.cuh the card runs.
+// cull.cu (flat and gated), fused.cu, fused1.cu (unsplit and split) and
+// sweep.cu as loops over blocks, each block run by rt::HostExec through the
+// same drivers in packet.cuh the card runs.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libpacket_host.so packet_host.cpp
 
@@ -45,16 +45,29 @@ int rt_host_fused_closest_hit(const float* od8, const float* blocks, const int* 
   return 0;
 }
 
+// splits = 1: one block per tile over all K boxes (chunk ignored); splits >
+// 1: blocks (t, s) over `chunk`-box chunks, run split-major (every tile's
+// split 0, then split 1, ...), folded through keys and finished.
 int rt_host_fused1_closest_hit(const float* od8, const float* aabb, const float* sup,
                                int n_sup, int gate_g, const float* blocks, int T,
-                               int K, int C, int pack, int tile, float* t_out,
-                               int* tri_out, unsigned long long* stats) {
-  std::vector<float> smem(12 * tile + rt::kChunk * tile + 6 * rt::kChunk + 4 +
-                          rt::kBlockRows * (C / pack));
+                               int K, int C, int pack, int tile, int splits, int chunk,
+                               float* t_out, int* tri_out, unsigned long long* stats) {
   rt::HostExec ex;
-  for (int t = 0; t < T; ++t)
-    rt::fused1_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
-                     pack, tile, t, t_out, tri_out, stats);
+  if (splits == 1) {
+    std::vector<float> smem(rt::fused1_smem_words(tile, rt::kChunk, C, pack));
+    for (int t = 0; t < T; ++t)
+      rt::fused1_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
+                       pack, tile, t, 0, K, rt::kChunk, t_out, tri_out, nullptr, stats);
+    return 0;
+  }
+  std::vector<float> smem(rt::fused1_smem_words(tile, chunk, C, pack));
+  std::vector<unsigned long long> keys((size_t)T * tile, rt::kMissKey);
+  const int per = rt::fused1_split_per(K, splits, chunk);
+  for (int s = 0; s < splits; ++s)
+    for (int t = 0; t < T; ++t)
+      rt::fused1_split_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
+                             pack, tile, t, s, per, chunk, keys.data(), stats);
+  for (int i = 0; i < T * tile; ++i) rt::finish_key(keys.data(), od8, tile, i, t_out, tri_out);
   return 0;
 }
 

@@ -1,0 +1,288 @@
+// Per-ray body of one mesh bounce's shading (bounce.cu), compiled twice: by
+// nvcc for the card and by the host C++ compiler for the CPU tests
+// (bounce_host.cpp).
+//
+// rt::shade_bounce_ray takes one ray's state and its closest hit and returns
+// its next state: what render/wavefront.py's hit record gathers (material
+// row, geometric normal) and wavefront.shade compute with reparam=False.
+// A dead ray (transmitted all zero) is copied through; a miss adds the
+// environment's radiance (the nearest texel of the equal-area octahedral
+// map, a 1x1 map as a constant) and dies; a hit adds its emission and
+// scatters: rough normal, metallicity coin for opaque materials, Schlick +
+// total internal reflection for dielectrics, else refraction.
+//
+// Numerics follow the plain PyTorch version expression for expression:
+// left-to-right dot products, normalise_safe as v / max(sqrt(sum), 1e-20),
+// x**5 as x * ((x*x) * (x*x)), the sphere normal as (hp - c) / r, draws
+// converted with a round-to-nearest unsigned->float cast. Both builds
+// disable multiply-add contraction (nvcc -fmad=false, g++
+// -ffp-contract=off). Only libm's sin / cos / atan may differ by ulps. The
+// PCG state is a native uint64_t; its bits equal the 32-bit-limb generator
+// of ops/rng.py. The score-function weight p / p.detach() of the torch
+// shading is exactly 1.0 in value, so it is left out.
+
+#pragma once
+
+#include <math.h>
+#include <stddef.h>
+#include <stdint.h>
+
+#ifndef RT_HD
+#ifdef __CUDACC__
+#define RT_HD __host__ __device__ __forceinline__
+#else
+#define RT_HD inline
+#endif
+#endif
+
+namespace rt {
+
+// float32(1) / float32(4294967295), and the 2 and 2*pi variants, as the plain
+// version computes them in float32 (float32(4294967295) is 2^32).
+constexpr float kOneInv = 0x1p-32f;
+constexpr float kTwoInv = 0x1p-31f;
+constexpr float kTwoPiInv = 0x1.921fb6p-30f;
+
+constexpr uint32_t kBounceRayMult = 4137874753u;
+constexpr uint32_t kBounceSeedMult = 279220567u;
+constexpr uint32_t kPassStride = 20u;
+constexpr uint64_t kPcgMult = 6364136223846793005ULL;
+constexpr uint64_t kPcgInc = 820957824423429ULL;
+constexpr uint64_t kPcgSeedMult = 6839056345687307ULL;
+
+// ops/envmap.py: the map-space rotation and 2 / pi, each a double rounded
+// to float32 as NumPy rounds it.
+constexpr float kRotA = (float)(-0.386527);
+constexpr float kRotB = (float)(0.922278);
+constexpr float kTwoOverPi = (float)(2.0 / 3.14159265358979323846);
+
+constexpr int kMatWords = 12;  // diffuse specular emitted metallicity roughness ior
+
+RT_HD uint64_t pcg_seed(uint32_t seed) {
+  // Multiply the seed by a large odd constant and burn one step.
+  return ((uint64_t)seed * kPcgSeedMult) * kPcgMult + kPcgInc;
+}
+
+RT_HD uint32_t pcg_next(uint64_t& state) {
+  const uint64_t old = state;
+  state = old * kPcgMult + kPcgInc;
+  const uint32_t xorshifted = (uint32_t)(((old >> 18) ^ old) >> 27);
+  const uint32_t rot = (uint32_t)(old >> 59);
+  return (xorshifted >> rot) | (xorshifted << ((0u - rot) & 31u));
+}
+
+RT_HD void normalise_safe(float& x, float& y, float& z) {
+  const float m = fmaxf(sqrtf(x * x + y * y + z * z), 1e-20f);
+  x = x / m;
+  y = y / m;
+  z = z / m;
+}
+
+RT_HD float clamp01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
+
+// On-sphere point from two raw draws: r1 in [0, 2 pi), r2 in [0, 2].
+RT_HD void on_sphere(uint32_t a, uint32_t b, float p[3]) {
+  const float r1 = (float)a * kTwoPiInv;
+  const float r2 = (float)b * kTwoInv;
+  const float x = sqrtf(r2 * (2.0f - r2));
+  p[0] = cosf(r1) * x;
+  p[1] = sinf(r1) * x;
+  p[2] = 1.0f - r2;
+}
+
+// ops/envmap.sample_environment(bilinear=False): nearest texel of the (h, w,
+// 3) map, indexed y * w + x, with the reference's rounding.
+RT_HD void environment(const float* env, int h, int w, const float d[3], float out[3]) {
+  if (h * w == 1) {
+    out[0] = env[0];
+    out[1] = env[1];
+    out[2] = env[2];
+    return;
+  }
+  const float mx = d[0] * kRotA + d[2] * kRotB;
+  const float my = d[0] * -kRotB + d[2] * kRotA;
+  const float mz = d[1];
+  const float x = fabsf(mx);
+  const float y = fabsf(my);
+  const float z = fabsf(mz);
+  const float r = sqrtf(fmaxf(1.0f - fminf(z, 1.0f), 0.0f));
+  const float a = fmaxf(x, y);
+  float b = fminf(x, y);
+  b = a == 0.0f ? 0.0f : b / a;
+  float phi = kTwoOverPi * atanf(b);
+  phi = x < y ? 1.0f - phi : phi;
+  float v = phi * r;
+  float u = r - v;
+  if (mz < 0.0f) {  // southern hemisphere: reflect across the diagonal
+    const float us = 1.0f - v;
+    const float vs = 1.0f - u;
+    u = us;
+    v = vs;
+  }
+  u = copysignf(u, mx);
+  v = copysignf(v, my);
+  int tx = (int)(clamp01((u + 1.0f) * 0.5f) * (float)(w - 1) + 0.5f);
+  int ty = (int)(clamp01((v + 1.0f) * 0.5f) * (float)(h - 1) + 0.5f);
+  tx = tx < 0 ? 0 : (tx > w - 1 ? w - 1 : tx);
+  ty = ty < 0 ? 0 : (ty > h - 1 ? h - 1 : ty);
+  const float* px = env + 3 * ((size_t)ty * w + tx);
+  out[0] = px[0];
+  out[1] = px[1];
+  out[2] = px[2];
+}
+
+// The scene tables one bounce reads, all in device memory (host memory in
+// the host build). Row counts are the padded ones; sphere_count is the true
+// count that splits the shared hit-index space (spheres first).
+struct BounceTables {
+  const int* material_index;   // (n_prims,) int32
+  int n_prims;
+  const float* sphere_center;  // (n_sphere_rows, 3)
+  const float* sphere_radius;  // (n_sphere_rows,)
+  int n_sphere_rows;
+  int sphere_count;
+  const float* tri_normal;     // (n_tri_rows, 3)
+  int n_tri_rows;
+  const float* materials;      // (M, kMatWords)
+  const float* env;            // (env_h, env_w, 3)
+  int env_h;
+  int env_w;
+};
+
+RT_HD int clamp_index(int i, int hi) { return i < 0 ? 0 : (i > hi ? hi : i); }
+
+// One ray's bounce: state in (o, d, tr, co), closest hit (t_hit, hit; hit < 0
+// is a miss) → next state (no, nd, ntr, nco).
+RT_HD void shade_bounce_ray(const BounceTables& tb, const float o[3], const float d[3],
+                            const float tr[3], const float co[3], int ray_id, float t_hit,
+                            int hit, uint32_t pass_seed, uint32_t bounce, float no[3],
+                            float nd[3], float ntr[3], float nco[3]) {
+  for (int a = 0; a < 3; ++a) {
+    no[a] = o[a];
+    nd[a] = d[a];
+    ntr[a] = tr[a];
+    nco[a] = co[a];
+  }
+  if (tr[0] == 0.0f && tr[1] == 0.0f && tr[2] == 0.0f) return;  // dead: unchanged
+
+  if (hit < 0) {  // miss: environment radiance, the ray dies
+    float sky[3];
+    environment(tb.env, tb.env_h, tb.env_w, d, sky);
+    for (int a = 0; a < 3; ++a) {
+      nco[a] = co[a] + sky[a] * tr[a];
+      ntr[a] = 0.0f;
+    }
+    return;
+  }
+
+  // ---- per-bounce PCG draws (rng.uniforms of wavefront.bounce_seeds) ------
+  uint64_t st = pcg_seed((uint32_t)ray_id * kBounceRayMult +
+                         kBounceSeedMult * (pass_seed * kPassStride + bounce));
+  const uint32_t d0 = pcg_next(st);
+  const uint32_t d1 = pcg_next(st);
+  const uint32_t d2 = pcg_next(st);
+  const uint32_t d3 = pcg_next(st);
+  const uint32_t d4 = pcg_next(st);
+  float sa[3], sb[3];
+  on_sphere(d0, d1, sa);  // rough normal
+  on_sphere(d3, d4, sb);  // diffuse direction
+  const float branch_u = (float)d2 * kOneInv;
+
+  // ---- hit record: hit point, material row, geometric normal --------------
+  const float hp[3] = {o[0] + t_hit * d[0], o[1] + t_hit * d[1], o[2] + t_hit * d[2]};
+  const int hs = clamp_index(hit, tb.n_prims - 1);
+  float n[3];
+  if (hs < tb.sphere_count) {
+    const int si = clamp_index(hs, tb.n_sphere_rows - 1);
+    const float* c = tb.sphere_center + 3 * (size_t)si;
+    const float r = tb.sphere_radius[si] == 0.0f ? 1.0f : tb.sphere_radius[si];
+    for (int a = 0; a < 3; ++a) n[a] = (hp[a] - c[a]) / r;
+  } else {
+    const float* tn = tb.tri_normal + 3 * (size_t)clamp_index(hs - tb.sphere_count,
+                                                              tb.n_tri_rows - 1);
+    for (int a = 0; a < 3; ++a) n[a] = tn[a];
+  }
+  const float* mt = tb.materials + kMatWords * (size_t)tb.material_index[hs];
+  const float metallicity = mt[9], roughness = mt[10], ior0 = mt[11];
+
+  // ---- shading ---------------------------------------------------------------
+  const bool front = n[0] * d[0] + n[1] * d[1] + n[2] * d[2] < 0.0f;
+  if (!front) {
+    n[0] = -n[0];
+    n[1] = -n[1];
+    n[2] = -n[2];
+  }
+  float rn[3] = {n[0] + roughness * sa[0], n[1] + roughness * sa[1],
+                 n[2] + roughness * sa[2]};
+  normalise_safe(rn[0], rn[1], rn[2]);
+  const float cos_theta = rn[0] * d[0] + rn[1] * d[1] + rn[2] * d[2];
+
+  for (int a = 0; a < 3; ++a) nco[a] = co[a] + mt[6 + a] * tr[a];
+
+  // Opaque: metallicity coin flip between mirror and diffuse.
+  const bool take_spec = branch_u <= metallicity;
+  // Dielectric: Schlick reflectance, TIR-or-roulette reflect, else refract.
+  const bool is_diel = ior0 > 0.0f;
+  const float ior_nz = ior0 == 0.0f ? 1.0f : ior0;
+  const float ior = front ? 1.0f / ior_nz : ior0;
+  const float inv_ior = front ? ior0 : 1.0f / ior_nz;
+  const float sin_sq = 1.0f - cos_theta * cos_theta;
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  const float cosine = 1.0f + cos_theta;
+  const float cosine2 = cosine * cosine;
+  const float reflectance = r0 + (1.0f - r0) * (cosine * (cosine2 * cosine2));
+  const bool take_refl = (sin_sq > inv_ior * inv_ior) || (branch_u < reflectance);
+  const bool spec_like = is_diel ? take_refl : take_spec;
+
+  if (spec_like) {
+    for (int a = 0; a < 3; ++a) {
+      nd[a] = d[a] - 2.0f * cos_theta * rn[a];
+      ntr[a] = tr[a] * mt[3 + a];
+    }
+  } else {
+    if (is_diel) {
+      const float rp[3] = {ior * (d[0] - cos_theta * rn[0]), ior * (d[1] - cos_theta * rn[1]),
+                           ior * (d[2] - cos_theta * rn[2])};
+      const float par = 1.0f - (rp[0] * rp[0] + rp[1] * rp[1] + rp[2] * rp[2]);
+      const float rpar = par > 0.0f ? sqrtf(par) : 0.0f;
+      for (int a = 0; a < 3; ++a) nd[a] = -rpar * rn[a] + rp[a];
+    } else {
+      for (int a = 0; a < 3; ++a) nd[a] = n[a] + sb[a];
+    }
+    normalise_safe(nd[0], nd[1], nd[2]);
+    for (int a = 0; a < 3; ++a) ntr[a] = tr[a] * mt[a];
+  }
+  for (int a = 0; a < 3; ++a) no[a] = hp[a];
+}
+
+// Strided (R, 3) float32 rows: row i starts at base + i * stride.
+struct Rows3 {
+  const float* base;
+  long long stride;
+  RT_HD void load(int i, float v[3]) const {
+    const float* p = base + (size_t)i * (size_t)stride;
+    v[0] = p[0];
+    v[1] = p[1];
+    v[2] = p[2];
+  }
+};
+
+// Ray i of a wavefront: the four state rows in, the next state out as one
+// (R, 12) row [origin direction transmitted collected].
+RT_HD void shade_bounce_row(const BounceTables& tb, const Rows3& origin,
+                            const Rows3& direction, const Rows3& transmitted,
+                            const Rows3& collected, const int* ray_id, const float* t_hit,
+                            const int* hit, uint32_t pass_seed, uint32_t bounce, int i,
+                            float* out) {
+  float o[3], d[3], tr[3], co[3];
+  origin.load(i, o);
+  direction.load(i, d);
+  transmitted.load(i, tr);
+  collected.load(i, co);
+  float* row = out + 12 * (size_t)i;
+  shade_bounce_ray(tb, o, d, tr, co, ray_id[i], t_hit[i], hit[i], pass_seed, bounce, row,
+                   row + 3, row + 6, row + 9);
+}
+
+}  // namespace rt

@@ -15,7 +15,8 @@ and the port the very same scene.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import weakref
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,6 +26,32 @@ from cuda_raytracer_tpu_torch.utils.backend import resolve_device
 # Sentinel coordinate for padding primitives: far enough that padded spheres
 # can never be hit, small enough that squaring it stays finite in float32.
 PAD_COORD = 1e17
+
+# derived(): key + ids of the source tensors → (their versions, weak
+# references to them, the value).
+_DERIVED: Dict[tuple, tuple] = {}
+
+
+def derived(key: tuple, sources: Tuple[torch.Tensor, ...], build: Callable[[], object]):
+    """``build()``, computed once per ``key`` and set of ``sources`` (a
+    scene's tensors, by identity) and reused while none of them has been
+    modified in place. A scene keeps its tensors through ``with_config`` and
+    ``replace`` of other fields, so tables derived from them (the packet
+    kernels' box and super-box tables, the shading's material table) are
+    built once per scene, on its device, not once per bounce. The entry is
+    dropped when a source tensor is freed, so the value must not be a view
+    of one (a view would keep it alive)."""
+    ident = (key,) + tuple(id(t) for t in sources)
+    versions = tuple(t._version for t in sources)
+    hit = _DERIVED.get(ident)
+    if hit is not None and hit[0] == versions and all(
+            ref() is t for ref, t in zip(hit[1], sources)):
+        return hit[2]
+    value = build()
+    refs = tuple(weakref.ref(t, lambda _, ident=ident: _DERIVED.pop(ident, None))
+                 for t in sources)
+    _DERIVED[ident] = (versions, refs, value)
+    return value
 
 
 def _tensor_fields(obj):

@@ -20,6 +20,13 @@ are sub-cluster boxes and ``blocks`` holds K / 2 blocks of C lanes: lanes
 hits are swept, so the result is that of ``pack=1`` over the same
 sub-clusters cut at C / 2.
 
+When a launch has few ray tiles, each tile's boxes are split over several
+blocks (``split_plan``: the grid is (T, splits), each block culls and
+sweeps its own range of whole ``SPLIT_CHUNK``-box chunks and folds its
+per-ray best into a 64-bit key by atomic minimum; a finishing pass applies
+the windows), so the tail bounces' few live tiles fill the card. The result
+is the same at every split; ``splits=1`` is one block per tile.
+
 - On a CUDA tensor it launches the hand-written kernel and counts the launch
   in ``LAUNCHES`` (``pack=1``) or ``LAUNCHES_PACK2``. It never falls back.
 - On a CPU tensor it runs ``plain_fused1``: the plain cull's per-ray hit
@@ -44,6 +51,12 @@ from cuda_raytracer_tpu_torch.ops.kernels.cull import (
 from cuda_raytracer_tpu_torch.ops.kernels.fused import sweep_selected
 
 CHUNK = 128  # boxes per cull chunk; gate_g must divide it
+# Boxes per cull chunk of the split kernel (at least gate_g): a smaller chunk
+# shrinks each block's shared entry array, so more blocks are resident.
+SPLIT_CHUNK = 32
+# Blocks (tiles x splits) a launch aims for: a few per SM of the 132 on an
+# H100, counting dead tiles, which return at once.
+TARGET_BLOCKS = 4096
 
 PACKS = (1, 2)  # sub-clusters per block the kernel takes
 
@@ -80,6 +93,21 @@ def sub_blocks(blocks: torch.Tensor, pack: int) -> torch.Tensor:
     Kb, rows, C = blocks.shape
     return (blocks.reshape(Kb, rows, pack, C // pack).permute(0, 2, 1, 3)
             .reshape(Kb * pack, rows, C // pack))
+
+
+def split_plan(T: int, K: int, gate_g: int = 0, splits: int = None):
+    """(splits, chunk) of a launch over T tiles and K boxes: ``splits=None``
+    chooses enough splits that T * splits reaches ``TARGET_BLOCKS``, at most
+    one per chunk; 1 keeps one block per tile and 128-box chunks. Any
+    explicit count is taken as it is (blocks past K do nothing)."""
+    chunk = max(SPLIT_CHUNK, gate_g)
+    if splits is None:
+        n_chunks = max(1, -(-K // chunk))
+        per = -(-n_chunks // min(-(-TARGET_BLOCKS // max(T, 1)), n_chunks))
+        splits = -(-n_chunks // per)  # no split left without boxes
+    if splits < 1:
+        raise ValueError(f"splits must be >= 1, got {splits}")
+    return (1, CHUNK) if splits == 1 else (splits, chunk)
 
 
 def plain_fused1(od8, aabb, blocks, sup=None, gate_g: int = 0, pack: int = 1):
@@ -129,7 +157,7 @@ def library() -> build.Built:
     fn = built.lib.rt_fused1_closest_hit
     fn.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
-        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 5
     )
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -145,24 +173,29 @@ def fused1_closest_hit(
     gate_g: int = 0,  # boxes per super box; 0 culls every chunk
     stats: torch.Tensor = None,  # (3,) int64 on the card: [0] slab, [1] pairs, [2] MT tests
     pack: int = 1,  # boxes (sub-clusters) per block: 1, or 2 for paired tables
+    splits: int = None,  # blocks per tile; None: split_plan's choice
 ):
     """→ (t (T, tile) float32, tri (T, tile) int32): the closest in-window
     hit of every ray over the boxes its tile hits."""
     global LAUNCHES, LAUNCHES_PACK2
     _check(od8, aabb, blocks, sup, gate_g, stats, pack)
-    if device_kind(od8, "fused1_closest_hit") == "cpu":
-        return plain_fused1(od8, aabb, blocks, sup, gate_g, pack)
     T, _, tile = od8.shape
     K = aabb.shape[1]
+    splits, chunk = split_plan(T, K, gate_g, splits)
+    if device_kind(od8, "fused1_closest_hit") == "cpu":
+        return plain_fused1(od8, aabb, blocks, sup, gate_g, pack)
     t_out = torch.empty((T, tile), dtype=torch.float32, device=od8.device)
     tri_out = torch.empty((T, tile), dtype=torch.int32, device=od8.device)
+    keys = (torch.empty((T, tile), dtype=torch.int64, device=od8.device)
+            if splits > 1 else None)
     lib = library().lib
     with torch.cuda.device(od8.device):
         err = lib.rt_fused1_closest_hit(
             od8.data_ptr(), aabb.data_ptr(), sup.data_ptr() if gate_g else None,
             sup.shape[0] if gate_g else 0, gate_g, blocks.data_ptr(), T, K,
-            blocks.shape[2], pack, tile, t_out.data_ptr(), tri_out.data_ptr(),
-            stats.data_ptr() if stats is not None else None,
+            blocks.shape[2], pack, tile, splits, chunk,
+            keys.data_ptr() if keys is not None else None, t_out.data_ptr(),
+            tri_out.data_ptr(), stats.data_ptr() if stats is not None else None,
             torch.cuda.current_stream(od8.device).cuda_stream,
         )
     raise_on_error(lib, err, "fused1")

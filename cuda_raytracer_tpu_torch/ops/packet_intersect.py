@@ -48,7 +48,7 @@ from typing import Tuple
 
 import torch
 
-from cuda_raytracer_tpu_torch.models.scene import Scene
+from cuda_raytracer_tpu_torch.models.scene import Scene, derived
 from cuda_raytracer_tpu_torch.ops.intersect import MISS
 from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, sweep
 from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
@@ -169,15 +169,12 @@ def closest_hit_packet(
             G = max(G, 0)
             if G and fused1.CHUNK % G:
                 raise ValueError(f"cull_hier={G} must divide {fused1.CHUNK}")
-            box_min, box_max = scene.cluster_min, scene.cluster_max
             gate = G if (G and K > fused1.CHUNK) else 0
             # The supers stay over sub-cluster boxes; a paired table has
             # K / pack blocks.
             t_tile, tri_tile = fused1.fused1_closest_hit(
-                od8, cull.box_table(box_min, box_max),
-                scene.cluster_blocks[:K // pack].contiguous(),
-                sup=fused1.shard_supers(box_min, box_max, gate) if gate else None,
-                gate_g=gate, pack=pack,
+                od8, box_table(scene), scene.cluster_blocks[:K // pack].contiguous(),
+                sup=super_table(scene, gate) if gate else None, gate_g=gate, pack=pack,
             )
         else:
             blocks = scene.cluster_blocks[:K].contiguous()
@@ -258,6 +255,22 @@ def closest_hit_packet(
         t_tile = torch.full((T, tile), MISS, dtype=torch.float32, device=origin.device)
         tri_tile = torch.full((T, tile), -1, dtype=torch.int32, device=origin.device)
     return _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile)
+
+
+def box_table(scene: Scene) -> torch.Tensor:
+    """The (8, K * S) box table of the scene's cluster (sub-)boxes, built
+    once per scene (``models.scene.derived``)."""
+    box_min, box_max = scene.cluster_min, scene.cluster_max
+    return derived(("box_table",), (box_min, box_max),
+                   lambda: cull.box_table(box_min, box_max))
+
+
+def super_table(scene: Scene, gate: int) -> torch.Tensor:
+    """fused1's (ceil(K / gate), 6) super boxes over ``gate`` consecutive
+    cluster boxes, built once per scene and gate."""
+    box_min, box_max = scene.cluster_min, scene.cluster_max
+    return derived(("super_table", gate), (box_min, box_max),
+                   lambda: fused1.shard_supers(box_min, box_max, gate))
 
 
 def _block_cull(scene: Scene, od8: torch.Tensor, S: int, with_mask: bool):
@@ -348,11 +361,12 @@ def _cull(scene: Scene, od8: torch.Tensor, S: int, with_mask: bool):
     KS = box_min.shape[0]
     G = scene.config.cull_hier
     if not (G > 0 and KS >= 2 * cull.GATE_CHUNK):
-        aabb = cull.box_table(box_min, box_max)
+        aabb = box_table(scene)
         if with_mask:
             return cull.cull_tiles(od8, aabb, with_mask=True)
         return cull.cull_tiles(od8, aabb), None
-    aabb_p, sup_aabb = hier_tables(box_min, box_max, G * S)
+    aabb_p, sup_aabb = derived(("hier_tables", G * S), (box_min, box_max),
+                               lambda: hier_tables(box_min, box_max, G * S))
     gates = hier_gates(od8, sup_aabb, aabb_p.shape[1] // cull.GATE_CHUNK)
     out = cull.cull_tiles_gated(od8, aabb_p, gates, with_mask=with_mask)
     if with_mask:

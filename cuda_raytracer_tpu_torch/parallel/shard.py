@@ -278,8 +278,10 @@ def cli_worker(rank: int, coordinator: str, size: int, device_type: str, scene_p
     started by ``torch.multiprocessing`` with its rank first: join the
     group on ``cuda:rank`` (NCCL) or the CPU (gloo), load the scene, render
     it sharded; rank 0 writes the PNG and, when ``metrics_scene`` is set,
-    the metrics line (phases ``load_scene`` and ``render_sharded``)."""
+    the metrics line (phases ``load_scene`` and ``render_sharded``, and the
+    render's kernel launches as ``launches_<kernel>`` counters)."""
     from cuda_raytracer_tpu_torch.models.scene_dsl import load_scene
+    from cuda_raytracer_tpu_torch.ops.kernels.counts import launch_counts, launches_since
     from cuda_raytracer_tpu_torch.utils.metrics import Metrics
     from cuda_raytracer_tpu_torch.utils.png import write_png
 
@@ -289,9 +291,12 @@ def cli_worker(rank: int, coordinator: str, size: int, device_type: str, scene_p
         metrics = Metrics()
         with metrics.phase("load_scene"):
             scene = load_scene(scene_path, device=device, **load_kwargs)
+        before = launch_counts()
         with metrics.phase("render_sharded"):
             framebuffer = render_framebuffer_sharded(scene, mesh)
             _sync(device)
+        for name, n in launches_since(before).items():
+            metrics.count(f"launches_{name}", n)
         if rank == 0:
             print(f"Scene: {scene.sphere_count} spheres, {scene.triangle_count} triangles, "
                   f"{scene.bvh_node_count} BVH nodes", file=sys.stderr)

@@ -39,18 +39,17 @@ RAY_BLOCK = 1 << 18
 FUSED1_TABLE_BYTES = 16 << 20
 
 
-def _regime_scene(scene: Scene, rays_per_pixel: int) -> Scene:
-    """Resolve packet_backend "auto" per pass regime, on a CUDA device:
-    passes of >= 10 rays per pixel (strong per-pixel primary coherence, long
-    dead tails in each ray block) with a table of at most 16 MB go to the
-    single fused1 kernel; sparse-sample passes and larger tables keep the
-    cull + fused kernels. Explicit packet_backend values are never
-    overridden."""
+def _regime_scene(scene: Scene) -> Scene:
+    """Resolve packet_backend "auto" on a CUDA device: a table of at most
+    16 MB with cull_split 1 goes to the single fused1 kernel at every sample
+    count (on an H100 its renders of the 126,000-triangle torus beat cull +
+    fused at both 8 and 100 rays per pixel, timed in turns: PERF.md); larger
+    tables and split boxes keep the cull + fused kernels. Explicit
+    packet_backend values are never overridden."""
     cfg = scene.config
     table_bytes = scene.cluster_blocks.numel() * scene.cluster_blocks.element_size()
     if (
         cfg.packet_backend == "auto"
-        and rays_per_pixel >= 10
         and cfg.cull_split == 1
         and table_bytes <= FUSED1_TABLE_BYTES
         and scene.device.type == "cuda"
@@ -114,7 +113,7 @@ def render_pass(
         raise ValueError(f"{total} rays in one pass exceed the int32 ray ids")
     px_lo, px_hi = pixels if pixels is not None else (0, framebuffer.shape[0])
     first, end = px_lo * rays_per_pixel, px_hi * rays_per_pixel
-    scene = _regime_scene(scene, rays_per_pixel)
+    scene = _regime_scene(scene)
     if shade.megakernel_eligible(scene, reparam):
         block = max(1, end - first)
     else:

@@ -12,7 +12,10 @@ This is the port's PyTorch wavefront: it renders brute scenes on any
 device (and is the plain version the CUDA shade kernel,
 ``ops/kernels/shade.py``, is held against), and mesh scenes through the
 packet intersector (``ops/packet_intersect.py``), whose kernels run on a
-CUDA device. Between bounces the wavefront is reordered by Morton key
+CUDA device. A forward bounce's shading (no autograd graph to build) goes
+through ``ops/kernels/bounce.shade_bounce``: one kernel per bounce on a
+CUDA device, this module's torch shading (``gather_hit`` + ``shade``) on
+the CPU. Between bounces the wavefront is reordered by Morton key
 (chunk-local, see ``SORT_CHUNK``), and each bounce runs on the smallest
 static prefix that holds every live ray (dead-ray compaction); a final
 by-ray-id unsort restores pixel order. The BVH intersector belongs to a
@@ -44,6 +47,7 @@ import torch.utils.checkpoint
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops import camera as camera_ops
 from cuda_raytracer_tpu_torch.ops import envmap, intersect, morton, packet_intersect, rng, vecmath
+from cuda_raytracer_tpu_torch.ops.kernels import bounce as bounce_kernel
 
 # Per-(ray, bounce) seeding constants (raytracing.cu:89). The scalar seed is
 # `pass_seed * 20 + bounce`.
@@ -218,24 +222,39 @@ class HitRecord(NamedTuple):
     normal: Optional[torch.Tensor]  # (R, 3) geometric normal; None in reparam mode
 
 
-def hit_record(scene: Scene, state: RayState, bounce: int, reparam: bool = False):
+def closest_hit_of(scene: Scene, state: RayState, bounce: int):
     """The closest hit of every ray of ``state`` on detached rays, under
-    ``torch.no_grad()`` → (HitRecord, suspect). The ``"pallas"`` engine runs
-    its two-round sweep on the bounces of ``TWO_ROUND_BOUNCES``."""
+    ``torch.no_grad()`` → (alive, t, hit_index, suspect). The ``"pallas"``
+    engine runs its two-round sweep on the bounces of ``TWO_ROUND_BOUNCES``."""
     with torch.no_grad():
-        origin, direction = state.origin.detach(), state.direction.detach()
         alive = torch.any(state.transmitted != 0.0, dim=-1)
-        t, hit_index, suspect = closest_hit(scene, origin, direction, alive,
+        t, hit_index, suspect = closest_hit(scene, state.origin.detach(),
+                                            state.direction.detach(), alive,
                                             two_round=bounce in TWO_ROUND_BOUNCES)
+    return alive, t, hit_index, suspect
+
+
+def gather_hit(scene: Scene, state: RayState, alive: torch.Tensor, t: torch.Tensor,
+               hit_index: torch.Tensor, reparam: bool = False) -> HitRecord:
+    """The hit record of a closest hit: material row and, in detached mode,
+    the geometric normal, gathered without gradient."""
+    with torch.no_grad():
         hit_safe = torch.clamp(hit_index, 0, scene.material_index.shape[0] - 1).long()
         mat_i = scene.material_index[hit_safe].long()
         normal = None
         if not reparam:
             # Geometry carries no gradient in detached mode: the normal of
             # the hit is part of the record, outside the recomputed shading.
+            origin, direction = state.origin.detach(), state.direction.detach()
             hit_point = origin + torch.where(hit_index < 0, 0.0, t)[:, None] * direction
             normal = _gather_normal(scene, hit_safe, hit_point)
-    return HitRecord(alive, t, hit_index, mat_i, normal), suspect
+    return HitRecord(alive, t, hit_index, mat_i, normal)
+
+
+def hit_record(scene: Scene, state: RayState, bounce: int, reparam: bool = False):
+    """``closest_hit_of`` then ``gather_hit`` → (HitRecord, suspect)."""
+    alive, t, hit_index, suspect = closest_hit_of(scene, state, bounce)
+    return gather_hit(scene, state, alive, t, hit_index, reparam), suspect
 
 
 def shade(
@@ -366,11 +385,19 @@ def process_rays(
 ) -> Tuple[RayState, int]:
     """One bounce for the whole wavefront (reference Scene::process_ray,
     scene.cu:320-487): ``hit_record`` then ``shade``. Returns (new_state,
-    suspect). With ``checkpoint`` and a graph to build, the shading runs
-    under ``torch.utils.checkpoint``: the backward pass recomputes it from
-    the state and the hit record and never repeats the closest-hit search."""
+    suspect). A forward bounce (detached mode, no graph to build) shades
+    through ``ops/kernels/bounce.shade_bounce``: one kernel on the card, the
+    same torch shading on the CPU. With ``checkpoint`` and a graph to build,
+    the shading runs under ``torch.utils.checkpoint``: the backward pass
+    recomputes it from the state and the hit record and never repeats the
+    closest-hit search."""
+    needs_graph = _needs_graph(scene, state)
+    if not reparam and not needs_graph:
+        _, t, hit_index, suspect = closest_hit_of(scene, state, bounce)
+        return bounce_kernel.shade_bounce(scene, state, t, hit_index, pass_seed,
+                                          bounce), suspect
     hit, suspect = hit_record(scene, state, bounce, reparam)
-    if checkpoint and _needs_graph(scene, state):
+    if checkpoint and needs_graph:
         new_state = torch.utils.checkpoint.checkpoint(
             shade, scene, state, hit, pass_seed, bounce, reparam,
             use_reentrant=False, preserve_rng_state=False,

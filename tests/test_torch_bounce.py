@@ -1,0 +1,202 @@
+"""The mesh bounce's shading kernel (``csrc/bounce.cu``) against the torch shading and JAX.
+
+``bounce.cu`` runs only on the GPU, where ``chip_smoke.py`` holds it against
+its plain version. Its per-ray body is ``rt::shade_bounce_ray`` in
+``csrc/shading.cuh``; ``csrc/bounce_host.cpp`` runs the same body over the
+rays on the host. This test builds that file with the host C++ compiler
+(``-ffp-contract=off``, like the GPU build's ``-fmad=false``) and holds the
+next state it writes against:
+
+- ``bounce.plain_shade_bounce`` (the hit record's gathers and
+  ``wavefront.shade``) on the same state and closest hit, for the small
+  torus, the glass torus (refraction and total internal reflection) and a
+  sphere scene under the substitute sky (brute intersector, texel fetches),
+  entering bounces 0-3, the state strided as the Morton reorder leaves it;
+- JAX's ``process_rays`` for one bounce on the same inputs, on the rays
+  whose closest hits agree (JAX's CPU floats carry FMA contraction, so hit
+  distances agree to rtol 1e-4 and indices exactly).
+
+Tolerance, the shade kernel's gate: on at least 99.9 % of rays every
+component of the next state is within 1e-3, and none is non-finite (libm
+sin / cos / atan differ from torch's by ulps, which can move a texel or flip
+a branch).
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from cuda_raytracer_tpu.render import wavefront as jwavefront
+from cuda_raytracer_tpu_torch.models import builtin_scenes
+from cuda_raytracer_tpu_torch.ops.kernels import bounce, build
+from cuda_raytracer_tpu_torch.render import wavefront
+
+from test_torch_packet import build_mesh_both
+
+AGREE_TOL = 1e-3
+AGREE_MIN = 0.999
+SIZE = dict(width=16, height=16, rays_per_pixel=4, bounces=4)
+SCENE_TEXT = {
+    "torus": builtin_scenes.torus(builtin_scenes.SMALL),
+    "glass_torus": builtin_scenes.glass_torus(builtin_scenes.SMALL),
+    "spheres_sky": builtin_scenes.SPHERES,
+}
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib_path = tmp_path_factory.mktemp("bounce_host") / "libbounce_host.so"
+    subprocess.run(
+        [cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(lib_path), str(build.CSRC_DIR / "bounce_host.cpp")],
+        check=True, capture_output=True,
+    )
+    lib = ctypes.CDLL(str(lib_path))
+    p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
+    lib.rt_host_shade_bounce.argtypes = (
+        [p, ll] * 4 + [p] * 3 + [i] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p])
+    lib.rt_host_shade_bounce.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture(scope="module")
+def scenes():
+    return {name: build_mesh_both(text, SIZE, sky=True) for name, text in SCENE_TEXT.items()}
+
+
+def host_bounce(lib, scene, state, t, hit_index, pass_seed, bnc):
+    """The host build of the kernel on one wavefront → the next RayState."""
+    out = torch.empty((state.origin.shape[0], 12), dtype=torch.float32)
+    assert lib.rt_host_shade_bounce(
+        *bounce.kernel_args(scene, state, t, hit_index, pass_seed, bnc, out)) == 0
+    return bounce.state_from_rows(state, out)
+
+
+def assert_states_agree(got, ref, rows=None):
+    a = torch.cat(list(got[:4]), dim=1).numpy()
+    b = torch.cat(list(ref[:4]), dim=1).numpy()
+    if rows is not None:
+        a, b = a[rows], b[rows]
+    assert np.isfinite(a).all() and np.isfinite(b).all()
+    diff = np.abs(a - b).max(axis=1)
+    agree = (diff < AGREE_TOL).mean()
+    assert agree >= AGREE_MIN, f"{agree:.4%} of rays agree (worst {diff.max():.3g})"
+    return agree
+
+
+@pytest.mark.parametrize("name", list(SCENE_TEXT))
+def test_host_kernel_matches_torch_shading(host_lib, scenes, name):
+    """Bounces 0-3 of one pass: the host build against the plain version
+    on the same state and closest hit; dead, missing and hitting rays all
+    occur, and after the first reorder the state rows are strided views."""
+    _, scene = scenes[name]
+    seed = 5
+    rays = scene.num_pixels * SIZE["rays_per_pixel"]
+    state = wavefront.make_initial_state(
+        scene, torch.arange(rays, dtype=torch.int32), SIZE["rays_per_pixel"], seed)
+    kinds = set()
+    for bnc in range(4):
+        alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, bnc)
+        kinds |= {"dead" if not alive.all() else "", "miss" if (alive & (hit_index < 0)).any()
+                  else "", "hit" if (hit_index >= 0).any() else ""}
+        ref = bounce.plain_shade_bounce(scene, state, t, hit_index, seed, bnc)
+        got = host_bounce(host_lib, scene, state, t, hit_index, seed, bnc)
+        assert torch.equal(got.ray_id, state.ray_id)
+        assert_states_agree(got, ref)
+        if wavefront.reorder_is_useful(scene):
+            assert bnc == 0 or state.origin.stride(0) == 16  # the reorder's packed rows
+            state = wavefront.reorder_rays(scene, ref)
+        else:
+            state = ref
+    assert {"dead", "miss", "hit"} <= kinds
+
+
+def test_host_kernel_bits_of_dead_rays_and_draws(host_lib, scenes):
+    """Dead rays come out bit-identical; a ray's scatter depends on its id
+    (the PCG stream), not its row."""
+    _, scene = scenes["torus"]
+    rays = 512
+    state = wavefront.make_initial_state(scene, torch.arange(rays, dtype=torch.int32), 4, 3)
+    dead = torch.arange(rays) % 5 == 0
+    state = state._replace(transmitted=torch.where(dead[:, None], 0.0, state.transmitted))
+    _, t, hit_index, _ = wavefront.closest_hit_of(scene, state, 0)
+    got = host_bounce(host_lib, scene, state, t, hit_index, 3, 0)
+    for new, old in zip(got[:4], state[:4]):
+        assert torch.equal(new[dead], old[dead])
+    flip = torch.flip(torch.arange(rays), [0])
+    flipped = wavefront.RayState(*(leaf[flip].contiguous() for leaf in state))
+    got_flipped = host_bounce(host_lib, scene, flipped, t[flip].contiguous(),
+                              hit_index[flip].contiguous(), 3, 0)
+    for a, b in zip(got_flipped[:4], got[:4]):
+        assert torch.equal(a, b[flip])
+
+
+@pytest.mark.parametrize("name", list(SCENE_TEXT))
+def test_host_kernel_matches_jax_process_rays(host_lib, scenes, name):
+    """One bounce (bounce 1, after a plain bounce 0) through JAX's
+    process_rays and through the port's closest hit + the host kernel."""
+    js, ts = scenes[name]
+    seed, bnc = 9, 1
+    rays = ts.num_pixels * SIZE["rays_per_pixel"]
+    ids = np.arange(rays, dtype=np.int32)
+    tstate = wavefront.make_initial_state(ts, torch.from_numpy(ids), 4, seed)
+    tstate, _ = wavefront.process_rays(ts, tstate, seed, 0)
+    jstate = jwavefront.RayState(*(jnp.asarray(leaf.numpy()) for leaf in tstate))
+    jnext, _ = jwavefront.process_rays(js, jstate, seed, bnc)
+    jalive = jnp.any(jstate.transmitted != 0.0, axis=-1)
+    jt, jhit, _ = jwavefront.closest_hit(js, jstate.origin, jstate.direction, jalive)
+    _, t, hit_index, _ = wavefront.closest_hit_of(ts, tstate, bnc)
+    same_hit = hit_index.numpy() == np.asarray(jhit)
+    assert same_hit.mean() >= AGREE_MIN
+    tri = same_hit & (hit_index.numpy() >= ts.sphere_count)
+    sphere = same_hit & (hit_index.numpy() >= 0) & ~tri
+    np.testing.assert_allclose(t.numpy()[tri], np.asarray(jt)[tri], rtol=1e-4)
+    # The sphere quadratic's cancellation magnifies the FMA ulps near
+    # grazing hits: sphere distances are held to the state's gate.
+    np.testing.assert_allclose(t.numpy()[sphere], np.asarray(jt)[sphere], rtol=1e-4,
+                               atol=AGREE_TOL)
+    got = host_bounce(host_lib, ts, tstate, t, hit_index, seed, bnc)
+    ref = wavefront.RayState(*(torch.from_numpy(np.array(leaf)) for leaf in jnext))
+    assert torch.equal(got.ray_id, ref.ray_id)
+    assert_states_agree(got, ref, rows=same_hit)
+
+
+def test_wrapper_runs_plain_on_cpu_and_checks_inputs(scenes):
+    _, scene = scenes["torus"]
+    state = wavefront.make_initial_state(scene, torch.arange(256, dtype=torch.int32), 4, 1)
+    _, t, hit_index, _ = wavefront.closest_hit_of(scene, state, 0)
+    launches = bounce.LAUNCHES
+    got = bounce.shade_bounce(scene, state, t, hit_index, 1, 0)
+    ref = bounce.plain_shade_bounce(scene, state, t, hit_index, 1, 0)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert bounce.LAUNCHES == launches  # CPU tensors never launch
+    with pytest.raises(ValueError, match="hit_index"):
+        bounce.shade_bounce(scene, state, t, hit_index.long(), 1, 0)
+    with pytest.raises(ValueError, match="origin"):
+        bounce.shade_bounce(scene, state._replace(origin=state.origin.double()), t,
+                            hit_index, 1, 0)
+
+
+def test_material_table_built_once_and_rebuilt_after_update(scenes):
+    _, scene = scenes["glass_torus"]
+    table = bounce.material_table(scene)
+    assert table.shape == (scene.materials.roughness.shape[0], bounce.MAT_WORDS)
+    assert bounce.material_table(scene.with_config(width=8)) is table
+    assert torch.equal(table[:, 11], scene.materials.index_of_refraction)
+    mats = scene.materials
+    roughness = mats.roughness.clone()
+    scene2 = scene.replace(materials=mats.__class__(**{
+        **{f: getattr(mats, f) for f in bounce.MATERIAL_FIELDS}, "roughness": roughness}))
+    assert bounce.material_table(scene2) is not table
+    with torch.no_grad():
+        roughness += 0.25  # in place, as an optimizer step updates a leaf
+    updated = bounce.material_table(scene2)
+    assert torch.equal(updated[:, 10], roughness)

@@ -38,6 +38,7 @@ loaded = [m for m in sys.modules
           if any(m == f or m.startswith(f + ".") for f in forbidden)]
 for name in ("render.pipeline", "render.diff", "cli", "__main__", "native.bvh_native",
              "utils.checkpoint", "utils.metrics", "ops.kernels.sweep",
+             "ops.kernels.bounce", "ops.kernels.counts",
              "examples.inverse_render", "parallel.mesh", "parallel.shard"):
     assert "cuda_raytracer_tpu_torch." + name in sys.modules, name
 print("FORBIDDEN", loaded)

@@ -7,9 +7,9 @@ which has no JAX, run them without the suite's JAX conftest:
 
 Each kernel is held BIT-EQUAL to its plain version on real wavefront states
 of the small torus at 32×32 (coherent primary rays and Morton-sorted
-bounced ones); a two-pass render through both regimes (fused1 for the
-10-rays-per-pixel pass, cull + fused for the 2-rays-per-pixel one) is held
-to the agreement gate against the same render with the xla engine. The
+bounced ones); a two-pass render ("auto": fused1 for both its 10- and its
+2-rays-per-pixel pass) is held to the agreement gate against the same
+render with the xla engine, and bit-equal to it through cull + fused. The
 gated cull is held bit-equal to its plain version with all-ones, real and
 all-zero gates, and the hierarchical cull engine to the flat one. The pair
 sweep is held bit-equal to its plain version (tile-major and shuffled
@@ -19,7 +19,10 @@ its closest-hit kernels in the forward pass and none in the backward pass.
 The pack-2 fused1 kernel (paired sub-cluster tables, ``cluster_pack=2``) is
 held bit-equal to its plain version (flat, gated, two block-aligned shards)
 and to the pack-1 kernel over the table cut at C/2, and a packed render
-launches it alone and equals the unpacked render at C/2 bit for bit.
+launches it alone and equals the unpacked render at C/2 bit for bit. fused1
+split over several blocks per tile is held bit-equal to its plain version,
+and the bounce kernel to the torch shading under the shade gate; a forward
+render launches the bounce kernel and a graph-building pass does not.
 """
 
 import pytest
@@ -110,9 +113,13 @@ def test_render_goes_through_kernels_and_matches_xla(cuda):
     scene = _scene(cuda, rays_per_pixel=12, bounces=4, max_rays_per_pixel_per_pass=10)
     counts = lambda: (cull.LAUNCHES, fused.LAUNCHES, fused1.LAUNCHES, shade.LAUNCHES)
     before = counts()
-    fb = pipeline.render_framebuffer(scene)  # passes of 10 (fused1) and 2 (cull + fused)
+    fb = pipeline.render_framebuffer(scene)  # passes of 10 and 2, both through fused1
     after = counts()
-    assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3] == before[3]
+    assert after[2] > before[2] and after[:2] == before[:2] and after[3] == before[3]
+    fused_fb = pipeline.render_framebuffer(scene.with_config(packet_backend="fused"))
+    assert all(a > b for a, b in zip(counts()[:2], after[:2]))  # cull + fused
+    assert torch.equal(fused_fb, fb)
+    after = counts()
     plain = pipeline.render_framebuffer(scene.with_config(packet_backend="xla"))
     assert counts() == after  # the xla engine launches no kernel
     torch.cuda.synchronize()
@@ -286,3 +293,58 @@ def test_packed_render_launches_pack2_and_matches_unpacked(cuda):
     assert after[0] == before[0] and after[1] > before[1]
     torch.cuda.synchronize()
     assert torch.equal(fb, pipeline.render_framebuffer(half)) and torch.isfinite(fb).all()
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+def test_bounce_kernel_matches_plain_and_runs_forward_only(cuda, name):
+    """The bounce kernel against its plain version (the torch shading) on
+    the wavefront entering bounces 0-3, under the shade gate; a forward
+    render launches it, a graph-building pass does not."""
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce
+
+    scene = _scene(cuda, name)
+    for b, state in enumerate(_states(scene, bounces=4)):
+        _, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
+        before = bounce.LAUNCHES
+        got = bounce.shade_bounce(scene, state, t, hit_index, 3, b)
+        assert bounce.LAUNCHES == before + 1
+        ref = bounce.plain_shade_bounce(scene, state, t, hit_index, 3, b)
+        a, r = torch.cat(list(got[:4]), dim=1), torch.cat(list(ref[:4]), dim=1)
+        assert torch.isfinite(a).all() and torch.isfinite(r).all()
+        assert float(((a - r).abs().amax(dim=1) < 1e-3).float().mean()) >= 0.999
+        assert torch.equal(got.ray_id, state.ray_id)
+    before = bounce.LAUNCHES
+    pipeline.render_framebuffer(scene.with_config(rays_per_pixel=2))
+    assert bounce.LAUNCHES > before
+    before = bounce.LAUNCHES
+    params = diff.make_leaves(diff.split_params(scene)[0])
+    diff.render_radiance(params, scene, 0, 2, 3).sum().backward()
+    assert bounce.LAUNCHES == before
+
+
+def test_fused1_split_bit_equal_plain(cuda):
+    """fused1 with each tile's boxes split over 2, 3 and more blocks than it
+    has chunks, flat and gated, pack 1 and 2: bit-equal to its plain
+    version."""
+    for pack in (1, 2):
+        scene = _scene(cuda, cluster_pack=pack) if pack == 1 else scene_dsl.assemble_scene(
+            builtin_scenes.parse_mesh_scene("torus", builtin_scenes.SMALL),
+            config_overrides=dict(width=32, height=32, cluster_pack=2), cluster_tris=64,
+            device=cuda)
+        K = scene.num_clusters
+        aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+        blocks = scene.cluster_blocks[:K // pack].contiguous()
+        for state in _states(scene):
+            alive = torch.any(state.transmitted != 0, dim=-1)
+            rays = packet_intersect._pad_rays(state.origin[:-7], state.direction[:-7],
+                                              torch.where(alive, 1e30, -1.0)[:-7], 64)
+            od8 = cull.make_od8(*rays, 64)
+            ref = fused1.plain_fused1(od8, aabb, blocks, pack=pack)
+            for gate in (0, 4):
+                sup = (fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate)
+                       if gate else None)
+                for splits in (1, 2, 3, -(-K // fused1.SPLIT_CHUNK) + 2, None):
+                    got = fused1.fused1_closest_hit(od8, aabb, blocks, sup, gate, pack=pack,
+                                                    splits=splits)
+                    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+                        pack, gate, splits)

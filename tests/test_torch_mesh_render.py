@@ -102,7 +102,7 @@ def test_certificate_retries_then_raises():
 
 def test_regime_and_unported_paths():
     _, ts = _both("torus")
-    assert pipeline._regime_scene(ts, 20) is ts  # fused1 is keyed on a CUDA device
+    assert pipeline._regime_scene(ts) is ts  # fused1 is keyed on a CUDA device
     for key in ("cullhit", "auto"):
         state = wavefront.make_initial_state(ts, torch.arange(64, dtype=torch.int32), 4, 0)
         with pytest.raises(NotImplementedError, match="cullhit"):

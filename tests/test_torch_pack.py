@@ -134,7 +134,7 @@ def test_packed_backend_rules(tables, monkeypatch):
         assert packet_intersect.resolve_backend("auto", torch.device(device), 2) == "fused1"
     monkeypatch.setattr(pipeline, "FUSED1_TABLE_BYTES", 0)
     scene = ts.with_config(width=8, height=8, rays_per_pixel=12, bounces=2)
-    assert pipeline._regime_scene(scene, 12).config.packet_backend == "auto"
+    assert pipeline._regime_scene(scene).config.packet_backend == "auto"
     assert torch.isfinite(pipeline.render_framebuffer(scene)).all()
     with pytest.raises(ValueError, match="pack=3"):
         fused1.fused1_closest_hit(cull.make_od8(*rays[:3], 64),

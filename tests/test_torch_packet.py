@@ -292,6 +292,32 @@ def test_fused1_gate_and_supers(cloud):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
+@pytest.mark.parametrize("backend,hier", [("fused1", 0), ("fused", 0), ("fused", 2)])
+def test_scene_tables_built_once_hits_unchanged(torus, backend, hier):
+    """The box, super-box and gated-cull tables are built once per scene
+    (``scene.derived``): a second bounce, or the same scene under another
+    config, reuses them; the closest hit is bit-identical to one through
+    freshly built tables; a replaced cluster table is rebuilt."""
+    _, ts = torus
+    ts = ts.with_config(cull_hier=hier)
+    rays = [torch.from_numpy(a) for a in _rays(333, seed=11)]
+    ref = packet_intersect.closest_hit_packet(ts, *rays, tile=32, cap=ts.num_clusters,
+                                              backend="xla")
+    first = packet_intersect.closest_hit_packet(ts, *rays, tile=32, backend=backend)
+    _assert_hits_equal(ref, first)
+    table = packet_intersect.box_table(ts)
+    assert packet_intersect.box_table(ts.with_config(width=8)) is table
+    assert torch.equal(table, cull.box_table(ts.cluster_min, ts.cluster_max))
+    assert torch.equal(packet_intersect.super_table(ts, 16),
+                       fused1.shard_supers(ts.cluster_min, ts.cluster_max, 16))
+    _assert_hits_equal(first, packet_intersect.closest_hit_packet(ts, *rays, tile=32,
+                                                                  backend=backend))
+    moved = ts.replace(cluster_min=ts.cluster_min - 0.5)
+    assert not torch.equal(packet_intersect.box_table(moved), table)
+    assert torch.equal(packet_intersect.box_table(moved),
+                       cull.box_table(moved.cluster_min, moved.cluster_max))
+
+
 def test_unported_options_raise(cloud):
     _, ts = cloud
     o, d, t0, i0 = (torch.from_numpy(a) for a in _rays(256))

@@ -14,7 +14,10 @@ block, and over paired sub-cluster blocks with ``pack=2``, whose counters
 equal the unpacked table's at C/2), and the pair
 sweep's (t, tri) over a pair list in tile-major and shuffled order with
 sentinels, on a torus cut into more than one 128-box chunk, with finite
-windows, dead rays and ray counts that do not fill the last tile.
+windows, dead rays and ray counts that do not fill the last tile. The split
+fused1 (a tile's boxes over several blocks, folded through 64-bit keys) is
+held to the same bits at every split, and its unsplit counters to a
+PyTorch recount of the kernel's walk.
 """
 
 import ctypes
@@ -27,7 +30,11 @@ import torch
 
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import packet_intersect
+from cuda_raytracer_tpu_torch.ops.intersect import MISS
 from cuda_raytracer_tpu_torch.ops.kernels import build, cull, fused, fused1, sweep
+from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
+
+SKIP_SLACK = 0.99993896484375  # rt::kSkipSlack
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +53,7 @@ def host_lib(tmp_path_factory):
     lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
     lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
     lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p] * 3
-    lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 5 + [p] * 3
+    lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 7 + [p] * 3
     lib.rt_host_sweep_pairs.argtypes = [p] + [i] * 3 + [p] + [i] * 2 + [p, i] + [p] * 4
     return lib
 
@@ -122,7 +129,7 @@ def test_host_kernels_bit_equal_plain(host_lib, scene, n, tile):
         stats = torch.zeros(3, dtype=torch.int64)
         host_lib.rt_host_fused1_closest_hit(
             _ptr(od8), _ptr(aabb), _ptr(sup), 0 if sup is None else sup.shape[0], gate,
-            _ptr(blocks), T, K, C, 1, tile, _ptr(t), _ptr(tri), _ptr(stats))
+            _ptr(blocks), T, K, C, 1, tile, 1, fused1.CHUNK, _ptr(t), _ptr(tri), _ptr(stats))
         assert torch.equal(t, t1_ref) and torch.equal(tri, tri1_ref), gate
         assert 0 < stats[0] <= int(live.sum()) * K
         assert 0 < stats[1] <= pairs and 0 < stats[2] <= mt_tests
@@ -203,20 +210,110 @@ def packed_pair():
     return packed, half
 
 
-def _host_fused1(host_lib, od8, scene, gate, pack):
-    """The host build's fused1 loop over a scene's table → (t, tri, stats)."""
+def _host_fused1(host_lib, od8, scene, gate, pack, splits=1):
+    """The host build's fused1 loop over a scene's table, with ``splits``
+    blocks per tile (split_plan's chunk) → (t, tri, stats)."""
     K = scene.num_clusters
     aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
     blocks = scene.cluster_blocks[:K // pack].contiguous()
     sup = fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate) if gate else None
     T, _, tile = od8.shape
+    splits, chunk = fused1.split_plan(T, K, gate, splits)
     t = torch.empty((T, tile), dtype=torch.float32)
     tri = torch.empty((T, tile), dtype=torch.int32)
     stats = torch.zeros(3, dtype=torch.int64)
     host_lib.rt_host_fused1_closest_hit(
         _ptr(od8), _ptr(aabb), _ptr(sup), 0 if sup is None else sup.shape[0], gate,
-        _ptr(blocks), T, K, blocks.shape[2], pack, tile, _ptr(t), _ptr(tri), _ptr(stats))
+        _ptr(blocks), T, K, blocks.shape[2], pack, tile, splits, chunk, _ptr(t), _ptr(tri),
+        _ptr(stats))
     return t, tri, stats
+
+
+def _fused1_counters(od8, scene, gate, pack):
+    """The unsplit kernel's counters recomputed in PyTorch: per tile, the
+    128-box chunks in order (a gated chunk skipped unless some ray hits one
+    of its super boxes), each hit box swept when some ray's bound min(best,
+    window) reaches its entry scaled by SKIP_SLACK, the bests folded as
+    the kernel folds → [slab tests, swept pairs, Möller–Trumbore tests]."""
+    K = scene.num_clusters
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    sub = fused1.sub_blocks(scene.cluster_blocks[:K // pack], pack)
+    real = (sub[:, 9, :] >= 0).sum(dim=1)
+    sup = fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate) if gate else None
+    T, _, tile = od8.shape
+    stats = [0, 0, 0]
+    for t in range(T):
+        o, d, win = od8[t, 0:3].T, od8[t, 3:6].T, od8[t, 6]
+        n_live = int((win >= 0).sum())
+        if not n_live:
+            continue
+        inv = _safe_inv_dir(d)
+        acc = torch.full((tile,), MISS)
+        acc_tri = torch.full((tile,), -1, dtype=torch.int32)
+        for lo in range(0, K, fused1.CHUNK):
+            nb = min(fused1.CHUNK, K - lo)
+            if gate:
+                s = sup[lo // gate:-(-(lo + nb) // gate)]
+                if not cull.slab_window(o[:, None], inv[:, None], win, s[None, :, :3],
+                                        s[None, :, 3:])[0].any():
+                    continue
+            hit, ent = cull.slab_window(o[:, None], inv[:, None], win,
+                                        aabb[0:3, lo:lo + nb].T[None],
+                                        aabb[3:6, lo:lo + nb].T[None])
+            ent = torch.where(hit, ent, float("inf"))
+            stats[0] += nb * n_live
+            for j in torch.nonzero(hit.any(dim=0)).reshape(-1).tolist():
+                if not (torch.minimum(acc, win) >= ent[:, j] * SKIP_SLACK).any():
+                    continue
+                k = lo + j
+                stats[1] += 1
+                stats[2] += n_live * int(real[k])
+                tt = fused.mt_t_plane(tuple(o[:, a:a + 1] for a in range(3)),
+                                      tuple(d[:, a:a + 1] for a in range(3)),
+                                      tuple(sub[k, i][None] for i in range(9)))
+                best = tt.min(dim=1).values
+                ids = sub[k, 9].to(torch.int32)[None].expand_as(tt)
+                best_tri = torch.where(tt == best[:, None], ids, -1).amax(dim=1)
+                better = (best < MISS) & ((best < acc) | ((best == acc) & (best_tri > acc_tri)))
+                acc = torch.where(better, best, acc)
+                acc_tri = torch.where(better, best_tri, acc_tri)
+    return stats
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_fused1_split_bit_equal_plain(host_lib, scene, packed_pair, pack, n, tile):
+    """The split fused1 (a tile's boxes over 2, 3 and more blocks than it has
+    chunks, folded through 64-bit keys) against ``plain_fused1``, flat and
+    gated, for pack 1 and 2; with one split the counters are the unsplit
+    kernel's, recomputed by ``_fused1_counters``."""
+    table = scene if pack == 1 else packed_pair[0]
+    od8 = _od8(n, tile, seed=n + 4)
+    K = table.num_clusters
+    ref = fused1.plain_fused1(od8, cull.box_table(table.cluster_min, table.cluster_max),
+                              table.cluster_blocks, pack=pack)
+    assert (ref[1] >= 0).sum() > n // 10
+    n_chunks = -(-K // fused1.SPLIT_CHUNK)
+    for gate in (0, 16):
+        for splits in (1, 2, 3, n_chunks + 2):
+            t, tri, stats = _host_fused1(host_lib, od8, table, gate, pack, splits)
+            assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1]), (gate, splits)
+            if splits == 1:
+                assert stats.tolist() == _fused1_counters(od8, table, gate, pack), gate
+            else:
+                assert stats[1] > 0
+
+
+def test_split_plan():
+    """One block per tile while the tiles fill the card; below that, enough
+    splits of whole chunks, none without boxes."""
+    assert fused1.split_plan(4096, 721) == (1, fused1.CHUNK)
+    assert fused1.split_plan(64, 721, 16) == (23, 32)
+    assert fused1.split_plan(256, 721, 16) == (12, 32)
+    assert fused1.split_plan(64, 721, 64) == (12, 64)
+    assert fused1.split_plan(8, 40) == (2, 32)
+    assert fused1.split_plan(64, 721, 16, splits=5) == (5, 32)
+    assert fused1.split_plan(64, 721, 16, splits=1) == (1, fused1.CHUNK)
 
 
 @pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
