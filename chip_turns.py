@@ -1,0 +1,117 @@
+#!/usr/bin/env python3
+"""Time one checkout of the PyTorch / CUDA port on one GPU, for comparing two trees in turns.
+
+    python3 chip_turns.py --tree DIR --label NAME
+
+imports ``cuda_raytracer_tpu_torch`` from ``DIR`` (default: this file's
+directory) and prints one JSON line with NAME, the card and its power limit:
+
+- ``cornell_s``: a 1000×1000, 100-spp, 10-bounce Cornell render (five
+  20-spp passes through the brute-scene megakernel), after one untimed
+  render; host clock around work ending in ``torch.cuda.synchronize``;
+- ``train_s``: the median of 5 inverse-rendering train steps ("auto"
+  engine, per-bounce checkpointing, Adam) on the 126,000-triangle torus at
+  256×256 × 2 spp × 10 bounces, after 2 untimed steps: phase 10c's shape;
+- ``train_busy_ms``, ``train_wall_ms``: one more step under torch.profiler,
+  the device's busy time (device-side events only) and the wall time.
+
+Only APIs that every tree since the train step (``render/diff.py``) has are
+used, so an older tree unpacked with ``git archive`` runs it as it is. Run
+the two trees alternately in one call (A, B, B, A), each in its own
+process, so both see one card and one host.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+TRAIN = dict(width=256, height=256, rays_per_pixel=2, bounces=10)
+SEED = 7
+STEPS = 5
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--tree", default=str(Path(__file__).resolve().parent))
+    parser.add_argument("--label", required=True)
+    args = parser.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_turns: no CUDA device", file=sys.stderr)
+        return 1
+    from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+    from cuda_raytracer_tpu_torch.models.scene import precompute_camera
+    from cuda_raytracer_tpu_torch.render import diff, pipeline
+
+    device = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+
+    cornell = scene_dsl.assemble_scene(
+        scene_dsl.parse_scene_text(builtin_scenes.CORNELL, filename="cornell"),
+        config_overrides=dict(width=1000, height=1000, rays_per_pixel=100, bounces=10),
+        device=device)
+    pipeline.render_framebuffer(cornell)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    pipeline.render_framebuffer(cornell)
+    torch.cuda.synchronize()
+    cornell_s = time.perf_counter() - start
+
+    full = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus"), device=device)
+    cam = full.camera
+    camera = precompute_camera(cam.position.cpu().numpy(), cam.forward.cpu().numpy(),
+                               cam.up.cpu().numpy(), cam.vertical_fov, TRAIN["width"],
+                               TRAIN["height"], device=device)
+    scene = full.replace(camera=camera).with_config(**TRAIN)
+    rpp, bounces = TRAIN["rays_per_pixel"], TRAIN["bounces"]
+    true_params, _ = diff.split_params(scene)
+    with torch.no_grad():
+        target = diff.render_radiance(true_params, scene, SEED, rpp, bounces)
+    start_params = diff.params_to_numpy(true_params)
+    start_params["materials.diffuse_albedo"][:] = 0.5
+    schedule = diff.calibrate_live_schedule(scene, seeds=(SEED, SEED + 1))
+    params = diff.params_from_numpy(start_params, device, requires_grad=True)
+    optimizer = torch.optim.Adam(diff.param_leaves(params), lr=2e-2)
+    step = diff.make_train_step(scene, optimizer, rpp, bounces, live_schedule=schedule,
+                                checkpoint_bounces=True)
+    for _ in range(2):
+        step(params, target, SEED)
+    torch.cuda.synchronize()
+    seconds = []
+    for _ in range(STEPS):
+        start = time.perf_counter()
+        step(params, target, SEED)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        step(params, target, SEED)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    busy_ms = 0.0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CPU:
+            busy_ms += getattr(e, "self_device_time_total", 0.0) / 1e3
+    print(json.dumps(dict(label=args.label, card=smi, cornell_s=cornell_s,
+                          train_s=statistics.median(seconds), train_steps_s=seconds,
+                          train_busy_ms=busy_ms, train_wall_ms=wall_ms)))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

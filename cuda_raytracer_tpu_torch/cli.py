@@ -16,8 +16,9 @@ checkpoint to ``<checkpoint>.cpu.npz``); both get the same post chain
 reference configured by editing the scene file: resolution, samples,
 bounces, checkpointing, metrics and the packet intersector's knobs.
 
-``--mesh N`` shares the rays of every pass among N ranks, one process per
-device (``parallel/shard.py``), started with ``torch.multiprocessing``:
+``--mesh N`` shares the rays of every pass among N ranks
+(``parallel/shard.py``). One device renders in this process, as in the JAX
+CLI; N > 1 starts one process per device with ``torch.multiprocessing``:
 N CUDA devices joined by NCCL, or, with ``cpu no_gpu``, N ranks on the CPU
 joined by gloo. Rank 0 writes the PNG and the metrics line (phase
 ``render_sharded``); as in the JAX CLI the sharded render takes no
@@ -172,13 +173,16 @@ def main(argv=None) -> int:
 
 
 def _run_mesh(args, load_kwargs: dict, device_type: str) -> int:
-    """``--mesh N``: N ranks, one process per device, each running
+    """``--mesh N``. One device renders in this process, on a size-1 mesh
+    (``parallel.mesh.make_mesh``), as the JAX CLI does; N > 1 spawns N
+    ranks, one process per device, each running
     ``parallel.shard.cli_worker``; a failed rank raises here."""
     import socket
 
     import torch.multiprocessing as mp
 
     from cuda_raytracer_tpu_torch.parallel import shard
+    from cuda_raytracer_tpu_torch.parallel.mesh import make_mesh
     from cuda_raytracer_tpu_torch.utils.backend import default_device
 
     if device_type == "cuda":
@@ -186,14 +190,17 @@ def _run_mesh(args, load_kwargs: dict, device_type: str) -> int:
         if torch.cuda.device_count() < args.mesh:
             raise RuntimeError(f"--mesh {args.mesh} needs {args.mesh} CUDA devices, "
                                f"this machine has {torch.cuda.device_count()}")
-    with socket.socket() as s:  # a free port for rank 0 to listen on
-        s.bind(("localhost", 0))
-        coordinator = f"localhost:{s.getsockname()[1]}"
-    mp.start_processes(
-        shard.cli_worker, nprocs=args.mesh, join=True, start_method="spawn",
-        args=(coordinator, args.mesh, device_type, args.scene, load_kwargs, args.out,
-              not args.no_bloom, args.scene if args.metrics else None),
-    )
+    render_args = (args.scene, load_kwargs, args.out, not args.no_bloom,
+                   args.scene if args.metrics else None)
+    if args.mesh == 1:
+        shard.cli_render(make_mesh([device_type]), *render_args)
+    else:
+        with socket.socket() as s:  # a free port for rank 0 to listen on
+            s.bind(("localhost", 0))
+            coordinator = f"localhost:{s.getsockname()[1]}"
+        mp.start_processes(shard.cli_worker, nprocs=args.mesh, join=True,
+                           start_method="spawn",
+                           args=(coordinator, args.mesh, device_type, *render_args))
     print(f"Wrote {args.out}", file=sys.stderr)
     return 0
 

@@ -79,18 +79,6 @@ __global__ void fused1_split_kernel(const float* __restrict__ od8,
                          tile, blockIdx.x, blockIdx.y, per, chunk, keys, stats);
 }
 
-__global__ void init_keys(unsigned long long* keys, int n) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) keys[i] = rt::kMissKey;
-}
-
-__global__ void finish_keys(const unsigned long long* __restrict__ keys,
-                            const float* __restrict__ od8, int tile, int n,
-                            float* __restrict__ t_out, int* __restrict__ tri_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) rt::finish_key(keys, od8, tile, i, t_out, tri_out);
-}
-
 template <class Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
@@ -120,10 +108,10 @@ int launch(const float* od8, const float* aabb, const float* sup, int n_sup,
   const size_t smem = sizeof(float) * rt::fused1_smem_words(tile, chunk, C, kPack);
   const cudaError_t err = allow_smem(fused1_split_kernel<kPack>, smem);
   if (err != cudaSuccess) return (int)err;
-  init_keys<<<(n + 255) / 256, 256, 0, stream>>>(keys, n);
+  rt::init_keys<<<(n + 255) / 256, 256, 0, stream>>>(keys, n);
   fused1_split_kernel<kPack><<<dim3(T, splits), threads, smem, stream>>>(
       od8, aabb, K, sup, n_sup, gate_g, blocks, C, tile, per, chunk, keys, stats);
-  finish_keys<<<(n + 255) / 256, 256, 0, stream>>>(keys, od8, tile, n, t_out, tri_out);
+  rt::finish_keys<<<(n + 255) / 256, 256, 0, stream>>>(keys, od8, tile, n, t_out, tri_out);
   return (int)cudaGetLastError();
 }
 

@@ -162,6 +162,14 @@ RT_HD int ctz32(uint32_t w) {
 #endif
 }
 
+RT_HD int popc32(uint32_t w) {
+#ifdef __CUDA_ARCH__
+  return __popc(w);
+#else
+  return __builtin_popcount(w);
+#endif
+}
+
 // Sweep one ray against a staged (kBlockRows, C) block and fold.
 RT_HD void sweep_ray(const float* blk, int C, float ox, float oy, float oz,
                      float dx, float dy, float dz, float& best, int& best_tri) {
@@ -249,6 +257,35 @@ struct DeviceExec {
     if (v < *dst) *dst = v;
 #endif
   }
+  // Start copying n words from global src to shared dst, the block's
+  // threads sharing the words (cp.async, 16 bytes a copy where both ends
+  // are 16-byte aligned, else 4), and close this thread's copy group.
+  RT_HD void copy_async(float* dst, const float* src, int n) const {
+#ifdef __CUDA_ARCH__
+    const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
+    if (((size_t)dst | (size_t)src) % 16 == 0 && n % 4 == 0) {
+      for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + 4 * i),
+                     "l"(src + i));
+    } else {
+      for (int i = threadIdx.x; i < n; i += blockDim.x)
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(base + 4 * i),
+                     "l"(src + i));
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+#endif
+  }
+  // Wait until at most `pending` (0 or 1) of this thread's newest copy
+  // groups are still in flight; a sync() after it makes every thread's
+  // finished copies visible to the block.
+  RT_HD void wait_copies(int pending) const {
+#ifdef __CUDA_ARCH__
+    if (pending == 0)
+      asm volatile("cp.async.wait_group 0;\n" ::);
+    else
+      asm volatile("cp.async.wait_group 1;\n" ::);
+#endif
+  }
 };
 #endif
 
@@ -263,6 +300,11 @@ struct HostExec {
   void min_u64(unsigned long long* dst, unsigned long long v) const {
     if (v < *dst) *dst = v;
   }
+  // The copy is done when this returns.
+  void copy_async(float* dst, const float* src, int n) const {
+    for (int i = 0; i < n; ++i) dst[i] = src[i];
+  }
+  void wait_copies(int) const {}
 };
 
 // ---- shared per-block state --------------------------------------------------
@@ -420,61 +462,10 @@ RT_HD void cull_block_gated(const Exec& ex, float* smem, const float* od8,
   }
 }
 
-// ---- fused: walk one tile's selected clusters, sweep, fold ----------------------
-//
-// words (T, Kw): bit b of words[t, g] selects cluster 32 g + b. With skip
-// (entry and mask non-null, the cull's (T, K) entries and (T, W, K) per-ray
-// hit bits) a cluster is swept only when some ray that slab-hits its box has
-// a bound min(acc, win) reaching the entry scaled by kSkipSlack.
-// stats (null, or 3 counters): [1] += swept pairs, [2] += the Moller-Trumbore
-// tests they need (live rays of the tile x real triangles of the cluster).
-// Shared: 12 * tile + kBlockRows * C words.
-template <class Exec>
-RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
-                       const float* blocks, const int* words, int Kw,
-                       const float* entry, const int* mask, int K, int C,
-                       int tile, int t, float* t_out, int* tri_out,
-                       unsigned long long* stats) {
-  RayTile rt;
-  float* blk = carve_rays(smem, tile, rt);
-  load_rays(ex, od8, t, tile, false, rt);
-  ex.sync();
-  const int live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
-  const bool skip = entry != nullptr && mask != nullptr;
-  const int mwords = (tile + 31) / 32;
-  for (int g = 0; g < Kw; ++g) {
-    uint32_t w = (uint32_t)words[(size_t)t * Kw + g];
-    while (w) {
-      const int k = g * 32 + ctz32(w);
-      w &= w - 1;
-      if (skip) {
-        const float e = entry[(size_t)t * K + k] * kSkipSlack;
-        bool need = false;
-        for (int r = ex.first(); r < tile; r += ex.step()) {
-          const uint32_t bits =
-              (uint32_t)mask[((size_t)t * mwords + r / 32) * K + k];
-          need = need || (((bits >> (r % 32)) & 1u) &&
-                          min_nan(rt.acc[r], rt.win[r]) >= e);
-        }
-        if (!ex.any(need)) continue;
-      }
-      stage_block(ex, blocks, k, C, blk);
-      ex.sync();
-      if (stats && ex.leader()) {
-        ex.add(&stats[1], 1ull);
-        ex.add(&stats[2], (unsigned long long)live * real_tris(blk, C));
-      }
-      sweep_tile(ex, blk, C, tile, rt);
-      ex.sync();
-    }
-  }
-  store_tile(ex, rt, t, tile, t_out, tri_out);
-}
-
 // ---- 64-bit hit keys: a fold across blocks ----------------------------------------
 //
 // A ray's result that several blocks fold into (the pair sweep, the split
-// fused1) lives in a 64-bit key: float bits of t high (t is positive or
+// fused and fused1) lives in a 64-bit key: float bits of t high (t is positive or
 // kMiss, so the bits order as the values do), 0xFFFFFFFF - (tri + 1) low (so
 // on equal t the larger triangle id is the smaller key). The minimum key
 // over a ray's blocks is then the fold's result, whatever order they come
@@ -491,7 +482,7 @@ RT_HD void sweep_unkey(unsigned long long key, float& t, int& tri) {
   tri = (int)(0xFFFFFFFFu - (uint32_t)(key & 0xFFFFFFFFull)) - 1;
 }
 
-// Ray i of the split fused1's (T, tile) keys → its (t, tri) as store_tile
+// Ray i of the split fused's or fused1's (T, tile) keys → its (t, tri) as store_tile
 // writes them: the hit if it lies inside the ray's window (od8 row 6), else
 // (kMiss, -1).
 RT_HD void finish_key(const unsigned long long* keys, const float* od8, int tile, int i,
@@ -502,6 +493,144 @@ RT_HD void finish_key(const unsigned long long* keys, const float* od8, int tile
   const bool in = t < od8[((size_t)(i / tile) * 8 + 6) * tile + i % tile];
   t_out[i] = in ? t : kMiss;
   tri_out[i] = in ? tri : -1;
+}
+
+#ifdef __CUDACC__
+// The device passes around a split launch (fused.cu, fused1.cu): every key
+// to kMissKey before it, and each key to its (t, tri) after it.
+static __global__ void init_keys(unsigned long long* keys, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) keys[i] = kMissKey;
+}
+
+static __global__ void finish_keys(const unsigned long long* __restrict__ keys,
+                                   const float* __restrict__ od8, int tile, int n,
+                                   float* __restrict__ t_out, int* __restrict__ tri_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) finish_key(keys, od8, tile, i, t_out, tri_out);
+}
+#endif
+
+// ---- fused: walk one tile's selected clusters, sweep, fold ----------------------
+//
+// words (T, Kw): bit b of words[t, g] selects cluster 32 g + b. With skip
+// (entry and mask non-null, the cull's (T, K) entries and (T, W, K) per-ray
+// hit bits) a cluster is swept only when some ray that slab-hits its box has
+// a bound min(acc, win) reaching the entry scaled by kSkipSlack.
+// stats (null, or 3 counters): [1] += swept pairs, [2] += the Moller-Trumbore
+// tests they need (live rays of the tile x real triangles of the cluster).
+//
+// Split (fused_split_block): block (t, s) of S takes the s-th share of tile
+// t's selected clusters, bits [n s / S, n (s + 1) / S) of its n set bits in
+// ascending cluster id, keeps its own running best (also for its skip test:
+// a weaker bound than the whole tile's, so it may sweep more but never drops
+// the winner) and min_u64s it into the tile's (T, tile) keys; finish_key
+// applies the windows after the minimum, as for the split fused1. S = 1 is
+// the whole tile in one block, written with store_tile.
+//
+// Staging is double-buffered: while a cluster's block is swept, the next
+// selected cluster's (kBlockRows, C) block is already being copied into the
+// other buffer (Exec::copy_async: cp.async on the card, a plain copy on the
+// host). The skip test still decides on the current best, so the pairs swept
+// and the counters are those of a synchronous walk; a prefetched block that
+// the skip test then passes over costs only its copy.
+// Shared: fused_smem_words.
+RT_HD size_t fused_smem_words(int tile, int C) {
+  return (size_t)12 * tile + 2 * (size_t)kBlockRows * C;
+}
+
+// The set bits of one tile's selection words, walked in ascending order:
+// the `left` bits after the first `skip` ones.
+struct BitWalk {
+  const int* words;
+  int g;
+  uint32_t w;
+  int left;
+  // The next selected cluster, or -1 when the share is done.
+  RT_HD int next() {
+    if (left == 0) return -1;
+    while (w == 0) w = (uint32_t)words[++g];
+    const int k = g * 32 + ctz32(w);
+    w &= w - 1;
+    --left;
+    return k;
+  }
+};
+
+// Share s of S of the n set bits of words[0, Kw): bits [n s / S, n (s + 1) / S).
+RT_HD BitWalk share_walk(const int* words, int Kw, int s, int S) {
+  int n = 0;
+  for (int g = 0; g < Kw; ++g) n += popc32((uint32_t)words[g]);
+  const int lo = (int)((long long)n * s / S);
+  const int hi = (int)((long long)n * (s + 1) / S);
+  BitWalk walk{words, 0, Kw > 0 ? (uint32_t)words[0] : 0u, hi - lo};
+  for (int skip = lo; skip > 0;) {
+    const int c = popc32(walk.w);
+    if (skip >= c) {
+      skip -= c;
+      ++walk.g;
+      walk.w = walk.g < Kw ? (uint32_t)words[walk.g] : 0u;
+    } else {
+      for (; skip > 0; --skip) walk.w &= walk.w - 1;
+    }
+  }
+  return walk;
+}
+
+template <class Exec>
+RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
+                       const float* blocks, const int* words, int Kw,
+                       const float* entry, const int* mask, int K, int C,
+                       int tile, int t, int s, int S, float* t_out, int* tri_out,
+                       unsigned long long* keys, unsigned long long* stats) {
+  RayTile rt;
+  float* cur = carve_rays(smem, tile, rt);  // the two staging buffers
+  float* other = cur + kBlockRows * C;
+  BitWalk walk = share_walk(words + (size_t)t * Kw, Kw, s, S);
+  int k = walk.next();
+  if (k >= 0) ex.copy_async(cur, blocks + (size_t)k * 16 * C, kBlockRows * C);
+  load_rays(ex, od8, t, tile, false, rt);
+  ex.sync();
+  const int live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
+  const bool skip = entry != nullptr && mask != nullptr;
+  const int mwords = (tile + 31) / 32;
+  while (k >= 0) {
+    bool need = true;
+    if (skip) {
+      const float e = entry[(size_t)t * K + k] * kSkipSlack;
+      need = false;
+      for (int r = ex.first(); r < tile; r += ex.step()) {
+        const uint32_t bits =
+            (uint32_t)mask[((size_t)t * mwords + r / 32) * K + k];
+        need = need || (((bits >> (r % 32)) & 1u) &&
+                        min_nan(rt.acc[r], rt.win[r]) >= e);
+      }
+      need = ex.any(need);
+    }
+    const int next = walk.next();
+    if (next >= 0) ex.copy_async(other, blocks + (size_t)next * 16 * C, kBlockRows * C);
+    ex.wait_copies(next >= 0 ? 1 : 0);  // block k has landed
+    ex.sync();
+    if (need) {
+      if (stats && ex.leader()) {
+        ex.add(&stats[1], 1ull);
+        ex.add(&stats[2], (unsigned long long)live * real_tris(cur, C));
+      }
+      sweep_tile(ex, cur, C, tile, rt);
+    }
+    ex.sync();  // cur is free for the copy after next
+    float* swap = cur;
+    cur = other;
+    other = swap;
+    k = next;
+  }
+  if (keys == nullptr) {
+    store_tile(ex, rt, t, tile, t_out, tri_out);
+    return;
+  }
+  for (int r = ex.first(); r < tile; r += ex.step())
+    if (rt.acc[r] < kMiss)
+      ex.min_u64(&keys[(size_t)t * tile + r], sweep_key(rt.acc[r], rt.acc_tri[r]));
 }
 
 // ---- fused1: cull + walk + sweep of one tile ------------------------------------

@@ -1,5 +1,5 @@
 // Host build of the packet kernels, for the CPU tests: the grids of
-// cull.cu (flat and gated), fused.cu, fused1.cu (unsplit and split) and
+// cull.cu (flat and gated), fused.cu and fused1.cu (unsplit and split) and
 // sweep.cu as loops over blocks, each block run by rt::HostExec through the
 // same drivers in packet.cuh the card runs.
 //
@@ -33,15 +33,27 @@ int rt_host_cull_tiles_gated(const float* od8, const float* aabb, const int* gat
   return 0;
 }
 
+// splits = 1: one block per tile; splits > 1: blocks (t, s) over shares of
+// each tile's selected clusters, run split-major, folded through keys and
+// finished.
 int rt_host_fused_closest_hit(const float* od8, const float* blocks, const int* words,
                               int Kw, const float* entry, const int* mask, int T,
-                              int K, int C, int tile, float* t_out, int* tri_out,
-                              unsigned long long* stats) {
-  std::vector<float> smem(12 * tile + rt::kBlockRows * C);
+                              int K, int C, int tile, int splits, float* t_out,
+                              int* tri_out, unsigned long long* stats) {
+  std::vector<float> smem(rt::fused_smem_words(tile, C));
   rt::HostExec ex;
-  for (int t = 0; t < T; ++t)
-    rt::fused_block(ex, smem.data(), od8, blocks, words, Kw, entry, mask, K, C, tile,
-                    t, t_out, tri_out, stats);
+  if (splits == 1) {
+    for (int t = 0; t < T; ++t)
+      rt::fused_block(ex, smem.data(), od8, blocks, words, Kw, entry, mask, K, C, tile,
+                      t, 0, 1, t_out, tri_out, nullptr, stats);
+    return 0;
+  }
+  std::vector<unsigned long long> keys((size_t)T * tile, rt::kMissKey);
+  for (int s = 0; s < splits; ++s)
+    for (int t = 0; t < T; ++t)
+      rt::fused_block(ex, smem.data(), od8, blocks, words, Kw, entry, mask, K, C, tile,
+                      t, s, splits, t_out, tri_out, keys.data(), stats);
+  for (int i = 0; i < T * tile; ++i) rt::finish_key(keys.data(), od8, tile, i, t_out, tri_out);
   return 0;
 }
 

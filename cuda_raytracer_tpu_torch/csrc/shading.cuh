@@ -1,10 +1,14 @@
-// Per-ray body of one mesh bounce's shading (bounce.cu), compiled twice: by
-// nvcc for the card and by the host C++ compiler for the CPU tests
-// (bounce_host.cpp).
+// Per-ray shading of one bounce, shared by the mesh bounce kernel
+// (bounce.cu) and the brute-scene megakernel (shade.cu, through brute.cuh),
+// compiled twice: by nvcc for the card and by the host C++ compiler for the
+// CPU tests (bounce_host.cpp, shade_host.cpp).
 //
 // rt::shade_bounce_ray takes one ray's state and its closest hit and returns
 // its next state: what render/wavefront.py's hit record gathers (material
 // row, geometric normal) and wavefront.shade compute with reparam=False.
+// Its draws (bounce_draws) and its scatter at a hit (scatter_hit) are the
+// megakernel's too, which finds the normal and material row in its own
+// staged tables.
 // A dead ray (transmitted all zero) is copied through; a miss adds the
 // environment's radiance (the nearest texel of the equal-area octahedral
 // map, a 1x1 map as a constant) and dies; a hit adds its emission and
@@ -151,6 +155,86 @@ struct BounceTables {
 
 RT_HD int clamp_index(int i, int hi) { return i < 0 ? 0 : (i > hi ? hi : i); }
 
+// The five PCG draws of one (ray, bounce) (rng.uniforms of
+// wavefront.bounce_seeds): the rough-normal and diffuse-direction points on
+// the sphere, and the metallicity / roulette coin.
+struct BounceDraws {
+  float sa[3];  // rough normal
+  float sb[3];  // diffuse direction
+  float branch_u;
+};
+
+RT_HD void bounce_draws(int ray_id, uint32_t pass_seed, uint32_t bounce, BounceDraws& dr) {
+  uint64_t st = pcg_seed((uint32_t)ray_id * kBounceRayMult +
+                         kBounceSeedMult * (pass_seed * kPassStride + bounce));
+  const uint32_t d0 = pcg_next(st);
+  const uint32_t d1 = pcg_next(st);
+  const uint32_t d2 = pcg_next(st);
+  const uint32_t d3 = pcg_next(st);
+  const uint32_t d4 = pcg_next(st);
+  on_sphere(d0, d1, dr.sa);
+  on_sphere(d3, d4, dr.sb);
+  dr.branch_u = (float)d2 * kOneInv;
+}
+
+// The scatter of a live ray at its hit point hp: geometric normal n (turned
+// here to face the ray), material row mt (kMatWords) → next state. Emission
+// is added, then a rough normal, the metallicity coin for opaque materials,
+// or Schlick + total internal reflection for dielectrics, else refraction.
+RT_HD void scatter_hit(const float* mt, float n[3], const float hp[3], const float d[3],
+                       const float tr[3], const float co[3], const BounceDraws& dr,
+                       float no[3], float nd[3], float ntr[3], float nco[3]) {
+  const float metallicity = mt[9], roughness = mt[10], ior0 = mt[11];
+  const bool front = n[0] * d[0] + n[1] * d[1] + n[2] * d[2] < 0.0f;
+  if (!front) {
+    n[0] = -n[0];
+    n[1] = -n[1];
+    n[2] = -n[2];
+  }
+  float rn[3] = {n[0] + roughness * dr.sa[0], n[1] + roughness * dr.sa[1],
+                 n[2] + roughness * dr.sa[2]};
+  normalise_safe(rn[0], rn[1], rn[2]);
+  const float cos_theta = rn[0] * d[0] + rn[1] * d[1] + rn[2] * d[2];
+
+  for (int a = 0; a < 3; ++a) nco[a] = co[a] + mt[6 + a] * tr[a];
+
+  // Opaque: metallicity coin flip between mirror and diffuse.
+  const bool take_spec = dr.branch_u <= metallicity;
+  // Dielectric: Schlick reflectance, TIR-or-roulette reflect, else refract.
+  const bool is_diel = ior0 > 0.0f;
+  const float ior_nz = ior0 == 0.0f ? 1.0f : ior0;
+  const float ior = front ? 1.0f / ior_nz : ior0;
+  const float inv_ior = front ? ior0 : 1.0f / ior_nz;
+  const float sin_sq = 1.0f - cos_theta * cos_theta;
+  float r0 = (1.0f - ior) / (1.0f + ior);
+  r0 = r0 * r0;
+  const float cosine = 1.0f + cos_theta;
+  const float cosine2 = cosine * cosine;
+  const float reflectance = r0 + (1.0f - r0) * (cosine * (cosine2 * cosine2));
+  const bool take_refl = (sin_sq > inv_ior * inv_ior) || (dr.branch_u < reflectance);
+  const bool spec_like = is_diel ? take_refl : take_spec;
+
+  if (spec_like) {
+    for (int a = 0; a < 3; ++a) {
+      nd[a] = d[a] - 2.0f * cos_theta * rn[a];
+      ntr[a] = tr[a] * mt[3 + a];
+    }
+  } else {
+    if (is_diel) {
+      const float rp[3] = {ior * (d[0] - cos_theta * rn[0]), ior * (d[1] - cos_theta * rn[1]),
+                           ior * (d[2] - cos_theta * rn[2])};
+      const float par = 1.0f - (rp[0] * rp[0] + rp[1] * rp[1] + rp[2] * rp[2]);
+      const float rpar = par > 0.0f ? sqrtf(par) : 0.0f;
+      for (int a = 0; a < 3; ++a) nd[a] = -rpar * rn[a] + rp[a];
+    } else {
+      for (int a = 0; a < 3; ++a) nd[a] = n[a] + dr.sb[a];
+    }
+    normalise_safe(nd[0], nd[1], nd[2]);
+    for (int a = 0; a < 3; ++a) ntr[a] = tr[a] * mt[a];
+  }
+  for (int a = 0; a < 3; ++a) no[a] = hp[a];
+}
+
 // One ray's bounce: state in (o, d, tr, co), closest hit (t_hit, hit; hit < 0
 // is a miss) → next state (no, nd, ntr, nco).
 RT_HD void shade_bounce_ray(const BounceTables& tb, const float o[3], const float d[3],
@@ -175,18 +259,8 @@ RT_HD void shade_bounce_ray(const BounceTables& tb, const float o[3], const floa
     return;
   }
 
-  // ---- per-bounce PCG draws (rng.uniforms of wavefront.bounce_seeds) ------
-  uint64_t st = pcg_seed((uint32_t)ray_id * kBounceRayMult +
-                         kBounceSeedMult * (pass_seed * kPassStride + bounce));
-  const uint32_t d0 = pcg_next(st);
-  const uint32_t d1 = pcg_next(st);
-  const uint32_t d2 = pcg_next(st);
-  const uint32_t d3 = pcg_next(st);
-  const uint32_t d4 = pcg_next(st);
-  float sa[3], sb[3];
-  on_sphere(d0, d1, sa);  // rough normal
-  on_sphere(d3, d4, sb);  // diffuse direction
-  const float branch_u = (float)d2 * kOneInv;
+  BounceDraws dr;
+  bounce_draws(ray_id, pass_seed, bounce, dr);
 
   // ---- hit record: hit point, material row, geometric normal --------------
   const float hp[3] = {o[0] + t_hit * d[0], o[1] + t_hit * d[1], o[2] + t_hit * d[2]};
@@ -203,57 +277,7 @@ RT_HD void shade_bounce_ray(const BounceTables& tb, const float o[3], const floa
     for (int a = 0; a < 3; ++a) n[a] = tn[a];
   }
   const float* mt = tb.materials + kMatWords * (size_t)tb.material_index[hs];
-  const float metallicity = mt[9], roughness = mt[10], ior0 = mt[11];
-
-  // ---- shading ---------------------------------------------------------------
-  const bool front = n[0] * d[0] + n[1] * d[1] + n[2] * d[2] < 0.0f;
-  if (!front) {
-    n[0] = -n[0];
-    n[1] = -n[1];
-    n[2] = -n[2];
-  }
-  float rn[3] = {n[0] + roughness * sa[0], n[1] + roughness * sa[1],
-                 n[2] + roughness * sa[2]};
-  normalise_safe(rn[0], rn[1], rn[2]);
-  const float cos_theta = rn[0] * d[0] + rn[1] * d[1] + rn[2] * d[2];
-
-  for (int a = 0; a < 3; ++a) nco[a] = co[a] + mt[6 + a] * tr[a];
-
-  // Opaque: metallicity coin flip between mirror and diffuse.
-  const bool take_spec = branch_u <= metallicity;
-  // Dielectric: Schlick reflectance, TIR-or-roulette reflect, else refract.
-  const bool is_diel = ior0 > 0.0f;
-  const float ior_nz = ior0 == 0.0f ? 1.0f : ior0;
-  const float ior = front ? 1.0f / ior_nz : ior0;
-  const float inv_ior = front ? ior0 : 1.0f / ior_nz;
-  const float sin_sq = 1.0f - cos_theta * cos_theta;
-  float r0 = (1.0f - ior) / (1.0f + ior);
-  r0 = r0 * r0;
-  const float cosine = 1.0f + cos_theta;
-  const float cosine2 = cosine * cosine;
-  const float reflectance = r0 + (1.0f - r0) * (cosine * (cosine2 * cosine2));
-  const bool take_refl = (sin_sq > inv_ior * inv_ior) || (branch_u < reflectance);
-  const bool spec_like = is_diel ? take_refl : take_spec;
-
-  if (spec_like) {
-    for (int a = 0; a < 3; ++a) {
-      nd[a] = d[a] - 2.0f * cos_theta * rn[a];
-      ntr[a] = tr[a] * mt[3 + a];
-    }
-  } else {
-    if (is_diel) {
-      const float rp[3] = {ior * (d[0] - cos_theta * rn[0]), ior * (d[1] - cos_theta * rn[1]),
-                           ior * (d[2] - cos_theta * rn[2])};
-      const float par = 1.0f - (rp[0] * rp[0] + rp[1] * rp[1] + rp[2] * rp[2]);
-      const float rpar = par > 0.0f ? sqrtf(par) : 0.0f;
-      for (int a = 0; a < 3; ++a) nd[a] = -rpar * rn[a] + rp[a];
-    } else {
-      for (int a = 0; a < 3; ++a) nd[a] = n[a] + sb[a];
-    }
-    normalise_safe(nd[0], nd[1], nd[2]);
-    for (int a = 0; a < 3; ++a) ntr[a] = tr[a] * mt[a];
-  }
-  for (int a = 0; a < 3; ++a) no[a] = hp[a];
+  scatter_hit(mt, n, hp, d, tr, co, dr, no, nd, ntr, nco);
 }
 
 // Strided (R, 3) float32 rows: row i starts at base + i * stride.

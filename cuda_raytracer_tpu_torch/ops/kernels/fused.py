@@ -18,6 +18,14 @@ or beyond the slab entry of a box that holds it; ``SKIP_SLACK`` covers the
 rounding between the two expression chains), so the skip does not change
 the output.
 
+When a launch has few ray tiles, each tile's selected clusters are split
+over several blocks (``fused1.split_plan``'s choice of splits, as for
+fused1: the grid is (T, splits), each block sweeps its own share of the
+tile's set bits and folds its per-ray best into a 64-bit key by atomic
+minimum; a finishing pass applies the windows), so the tail bounces' few
+live tiles fill the card. The result is the same at every split;
+``splits=1`` is one block per tile.
+
 - On a CUDA tensor it launches the hand-written kernel and counts the launch
   in ``LAUNCHES``. It never falls back.
 - On a CPU tensor it runs ``plain_fused``: every selected pair swept in
@@ -196,7 +204,7 @@ def library() -> build.Built:
     fn = built.lib.rt_fused_closest_hit
     fn.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+        + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5
     )
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -211,23 +219,30 @@ def fused_closest_hit(
     entry: torch.Tensor = None,  # (T, K) f32 cull entries — enables the skip
     hitmask: torch.Tensor = None,  # (T, ceil(tile/32), K) int32 per-ray hit bits
     stats: torch.Tensor = None,  # (3,) int64 on the card: [1] swept pairs, [2] their MT tests
+    splits: int = None,  # blocks per tile; None: fused1.split_plan's choice
 ):
     """→ (t (T, tile) float32, tri (T, tile) int32): the closest in-window
     hit of every ray over its tile's selected clusters."""
     global LAUNCHES
+    from cuda_raytracer_tpu_torch.ops.kernels.fused1 import split_plan
+
     _check(od8, blocks, words, entry, hitmask, stats)
+    T, _, tile = od8.shape
+    splits = split_plan(T, blocks.shape[0], splits=splits)[0]
     if device_kind(od8, "fused_closest_hit") == "cpu":
         return plain_fused(od8, blocks, words, entry, hitmask)
-    T, _, tile = od8.shape
     t_out = torch.empty((T, tile), dtype=torch.float32, device=od8.device)
     tri_out = torch.empty((T, tile), dtype=torch.int32, device=od8.device)
+    keys = (torch.empty((T, tile), dtype=torch.int64, device=od8.device)
+            if splits > 1 else None)
     skip = entry is not None
     lib = library().lib
     with torch.cuda.device(od8.device):
         err = lib.rt_fused_closest_hit(
             od8.data_ptr(), blocks.data_ptr(), words.data_ptr(), words.shape[1],
             entry.data_ptr() if skip else None, hitmask.data_ptr() if skip else None,
-            T, entry.shape[1] if skip else 0, blocks.shape[2], tile,
+            T, entry.shape[1] if skip else 0, blocks.shape[2], tile, splits,
+            keys.data_ptr() if keys is not None else None,
             t_out.data_ptr(), tri_out.data_ptr(),
             stats.data_ptr() if stats is not None else None,
             torch.cuda.current_stream(od8.device).cuda_stream,

@@ -5,8 +5,11 @@ traces a block of rays through the whole pass (camera ray, every bounce's
 closest hit and shading, the PCG chain) and returns the collected radiance
 ``(R, 3)`` that the pass loop accumulates.
 
-- On a CUDA tensor it launches the hand-written kernel, one thread per ray,
-  and counts the launch in ``LAUNCHES``. It never falls back.
+- On a CUDA tensor it launches the hand-written kernel on its persistent
+  grid (the blocks resident on the card at once; each lane traces one path
+  and then takes the next ray id) and counts the launch in ``LAUNCHES``. It
+  never falls back. ``trace_on_grid`` launches it on another grid, with the
+  same bits.
 - On a CPU tensor it runs the kernel's plain version: the wavefront path
   (``make_initial_state`` → ``trace_wavefront(sort_rays=False)`` →
   ``collected``), which the JAX package holds its own megakernel to
@@ -21,6 +24,7 @@ import torch
 
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops.kernels import build
+from cuda_raytracer_tpu_torch.ops.kernels.cull import raise_on_error
 from cuda_raytracer_tpu_torch.render import wavefront
 
 # Table limits: every shipped brute scene fits with slack (cornell_plus has
@@ -32,7 +36,7 @@ MAX_MATS = 16
 MAX_BOUNCES = 15
 SHADE_ENGINES = ("auto", "xla", "megakernel")
 
-# Packed table layout, in 32-bit words (must match csrc/shade.cu).
+# Packed table layout, in 32-bit words (must match csrc/brute.cuh).
 HEAD_WORDS = 24  # camera [0, 14), sky [14, 17), padding
 SPHERE_WORDS = 8  # cx cy cz r mat pad pad pad
 TRI_WORDS = 16  # p1 e1 e2 normal mat pad pad pad
@@ -141,12 +145,63 @@ def library() -> build.Built:
     built = build.load("shade")
     fn = built.lib.rt_shade_trace
     fn.argtypes = (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.c_void_p]
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_uint, ctypes.c_int]
+        + [ctypes.c_void_p] * 2
     )
     fn.restype = ctypes.c_int
+    grid = built.lib.rt_shade_grid
+    grid.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    grid.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
     return built
+
+
+def persistent_grid(scene: Scene) -> tuple:
+    """(blocks per SM, SMs) of the kernel's persistent grid for ``scene``'s
+    table on its CUDA device: ``shade_trace`` launches their product."""
+    lib = library().lib
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(scene.device):
+        err = lib.rt_shade_grid(scene.sphere_count, scene.triangle_count,
+                                scene.material_count, ctypes.byref(per_sm), ctypes.byref(sms))
+    raise_on_error(lib, err, "shade (occupancy query)")
+    return per_sm.value, sms.value
+
+
+def trace_on_grid(
+    scene: Scene,
+    ray_id: torch.Tensor,
+    rays_per_pixel: int,
+    pass_seed,
+    bounces: int,
+    blocks: int,
+) -> torch.Tensor:
+    """``shade_trace`` with the kernel on ``blocks`` blocks (<= 0: the
+    persistent grid). A path's radiance depends on its ray id alone, so
+    every grid gives the same bits."""
+    global LAUNCHES
+    _check(scene, ray_id, rays_per_pixel, bounces)
+    if ray_id.device.type == "cpu":
+        return plain_trace(scene, ray_id, rays_per_pixel, pass_seed, bounces)
+    if ray_id.device.type != "cuda":
+        raise ValueError(f"shade_trace runs on CUDA or the CPU, not {ray_id.device}")
+    table = pack_table(scene)
+    rays = ray_id.shape[0]
+    out = torch.empty((rays, 3), dtype=torch.float32, device=ray_id.device)
+    next_id = torch.empty(1, dtype=torch.int32, device=ray_id.device)
+    lib = library().lib
+    with torch.cuda.device(ray_id.device):
+        err = lib.rt_shade_trace(
+            table.data_ptr(), ray_id.data_ptr(), out.data_ptr(), rays,
+            rays_per_pixel, scene.config.width, bounces, scene.sphere_count,
+            scene.triangle_count, scene.material_count, int(pass_seed) & 0xFFFFFFFF,
+            int(blocks), next_id.data_ptr(),
+            torch.cuda.current_stream(ray_id.device).cuda_stream,
+        )
+    raise_on_error(lib, err, "shade")
+    LAUNCHES += 1
+    return out
 
 
 def shade_trace(
@@ -158,26 +213,4 @@ def shade_trace(
 ) -> torch.Tensor:
     """Trace ``ray_id``'s rays through the whole pass → collected radiance
     (R, 3) float32, in ray order."""
-    global LAUNCHES
-    _check(scene, ray_id, rays_per_pixel, bounces)
-    if ray_id.device.type == "cpu":
-        return plain_trace(scene, ray_id, rays_per_pixel, pass_seed, bounces)
-    if ray_id.device.type != "cuda":
-        raise ValueError(f"shade_trace runs on CUDA or the CPU, not {ray_id.device}")
-    table = pack_table(scene)
-    rays = ray_id.shape[0]
-    out = torch.empty((rays, 3), dtype=torch.float32, device=ray_id.device)
-    lib = library().lib
-    with torch.cuda.device(ray_id.device):
-        err = lib.rt_shade_trace(
-            table.data_ptr(), ray_id.data_ptr(), out.data_ptr(), rays,
-            rays_per_pixel, scene.config.width, bounces, scene.sphere_count,
-            scene.triangle_count, scene.material_count, int(pass_seed) & 0xFFFFFFFF,
-            torch.cuda.current_stream(ray_id.device).cuda_stream,
-        )
-    if err:
-        raise RuntimeError(
-            f"shade kernel launch failed: {lib.rt_error_string(err).decode()}"
-        )
-    LAUNCHES += 1
-    return out
+    return trace_on_grid(scene, ray_id, rays_per_pixel, pass_seed, bounces, 0)

@@ -24,7 +24,8 @@ the bits of the single-device one.
   backward all-reduces the cotangent again would give a loss replicated on
   N ranks N times its gradient.)
 
-``cli_worker`` is the per-rank entry point of the command line's ``--mesh``.
+``cli_render`` is one rank's part of the command line's ``--mesh N``: in the
+calling process for N = 1, in each rank ``cli_worker`` spawns for N > 1.
 """
 
 from __future__ import annotations
@@ -272,42 +273,50 @@ def scaling_report(scene: Scene, mesh: Mesh, rays_per_pixel: int = 4,
     return results
 
 
-def cli_worker(rank: int, coordinator: str, size: int, device_type: str, scene_path: str,
-               load_kwargs: dict, out: str, apply_bloom: bool, metrics_scene) -> None:
-    """One rank of ``python -m cuda_raytracer_tpu_torch <scene> --mesh N``,
-    started by ``torch.multiprocessing`` with its rank first: join the
-    group on ``cuda:rank`` (NCCL) or the CPU (gloo), load the scene, render
-    it sharded; rank 0 writes the PNG and, when ``metrics_scene`` is set,
-    the metrics line (phases ``load_scene`` and ``render_sharded``, and the
-    render's kernel launches as ``launches_<kernel>`` counters)."""
+def cli_render(mesh: Mesh, scene_path: str, load_kwargs: dict, out: str, apply_bloom: bool,
+               metrics_scene) -> None:
+    """One rank's share of ``python -m cuda_raytracer_tpu_torch <scene> --mesh N``
+    on ``mesh``: load the scene on the rank's device and render it sharded;
+    rank 0 writes the PNG and, when ``metrics_scene`` is set, the metrics
+    line (phases ``load_scene`` and ``render_sharded``, and the render's
+    kernel launches as ``launches_<kernel>`` counters). A size-1 mesh runs it
+    in the calling process, as the JAX CLI does."""
     from cuda_raytracer_tpu_torch.models.scene_dsl import load_scene
     from cuda_raytracer_tpu_torch.ops.kernels.counts import launch_counts, launches_since
     from cuda_raytracer_tpu_torch.utils.metrics import Metrics
     from cuda_raytracer_tpu_torch.utils.png import write_png
 
+    metrics = Metrics()
+    with metrics.phase("load_scene"):
+        scene = load_scene(scene_path, device=mesh.device, **load_kwargs)
+    before = launch_counts()
+    with metrics.phase("render_sharded"):
+        framebuffer = render_framebuffer_sharded(scene, mesh)
+        _sync(mesh.device)
+    for name, n in launches_since(before).items():
+        metrics.count(f"launches_{name}", n)
+    if mesh.rank == 0:
+        print(f"Scene: {scene.sphere_count} spheres, {scene.triangle_count} triangles, "
+              f"{scene.bvh_node_count} BVH nodes", file=sys.stderr)
+        write_png(out, pipeline.render_image(scene, apply_bloom=apply_bloom,
+                                             framebuffer=framebuffer))
+        rate = metrics.throughput("paths_per_s_sharded",
+                                  scene.num_pixels * scene.config.rays_per_pixel,
+                                  "render_sharded")
+        print(f"sharded over {mesh.size} ranks took {metrics.phases['render_sharded']:.2f}s"
+              + (f" ({rate:.3e} paths/s)" if rate else ""), file=sys.stderr)
+        if metrics_scene is not None:
+            metrics.emit(stream=sys.stderr, scene=metrics_scene, mesh=mesh.size)
+
+
+def cli_worker(rank: int, coordinator: str, size: int, device_type: str, scene_path: str,
+               load_kwargs: dict, out: str, apply_bloom: bool, metrics_scene) -> None:
+    """One spawned rank of ``--mesh N`` (N > 1), started by
+    ``torch.multiprocessing`` with its rank first: join the group on
+    ``cuda:rank`` (NCCL) or the CPU (gloo), then ``cli_render``."""
     device = torch.device("cuda", rank) if device_type == "cuda" else torch.device("cpu")
     mesh = init_group(coordinator, size, rank, device)
     try:
-        metrics = Metrics()
-        with metrics.phase("load_scene"):
-            scene = load_scene(scene_path, device=device, **load_kwargs)
-        before = launch_counts()
-        with metrics.phase("render_sharded"):
-            framebuffer = render_framebuffer_sharded(scene, mesh)
-            _sync(device)
-        for name, n in launches_since(before).items():
-            metrics.count(f"launches_{name}", n)
-        if rank == 0:
-            print(f"Scene: {scene.sphere_count} spheres, {scene.triangle_count} triangles, "
-                  f"{scene.bvh_node_count} BVH nodes", file=sys.stderr)
-            write_png(out, pipeline.render_image(scene, apply_bloom=apply_bloom,
-                                                 framebuffer=framebuffer))
-            rate = metrics.throughput("paths_per_s_sharded",
-                                      scene.num_pixels * scene.config.rays_per_pixel,
-                                      "render_sharded")
-            print(f"sharded over {size} ranks took {metrics.phases['render_sharded']:.2f}s"
-                  + (f" ({rate:.3e} paths/s)" if rate else ""), file=sys.stderr)
-            if metrics_scene is not None:
-                metrics.emit(stream=sys.stderr, scene=metrics_scene, mesh=size)
+        cli_render(mesh, scene_path, load_kwargs, out, apply_bloom, metrics_scene)
     finally:
         shutdown()

@@ -251,6 +251,28 @@ def gather_hit(scene: Scene, state: RayState, alive: torch.Tensor, t: torch.Tens
     return HitRecord(alive, t, hit_index, mat_i, normal)
 
 
+def material_rows(mats, mat_i: torch.Tensor, sampling_grad: bool = True) -> torch.Tensor:
+    """Each ray's material row, (R, 12) float32 [diffuse specular emitted
+    metallicity roughness ior], as the JAX package looks it up: a one-hot
+    (R, M) matrix times the (M, 12) table, so the backward pass is a matmul
+    into the table and not the row gather's scatter-add. With
+    ``sampling_grad`` False (detached mode) roughness and ior enter the
+    table detached, so no graph edge reaches them.
+
+    With 0/1 rows the product reproduces the table entries exactly, the
+    gather's bits. It is computed in float64, where TF32 cannot reach
+    (``torch.backends.cuda.matmul.allow_tf32`` rounds float32 products
+    only), so no global setting can change it."""
+    roughness, ior = mats.roughness, mats.index_of_refraction
+    if not sampling_grad:
+        roughness, ior = roughness.detach(), ior.detach()
+    table = torch.cat([mats.diffuse_albedo, mats.specular_albedo, mats.emitted,
+                       mats.metallicity[:, None], roughness[:, None], ior[:, None]], dim=1)
+    ids = torch.arange(table.shape[0], dtype=mat_i.dtype, device=mat_i.device)
+    onehot = (mat_i[:, None] == ids).to(torch.float64)
+    return torch.matmul(onehot, table.to(torch.float64)).to(torch.float32)
+
+
 def hit_record(scene: Scene, state: RayState, bounce: int, reparam: bool = False):
     """``closest_hit_of`` then ``gather_hit`` → (HitRecord, suspect)."""
     alive, t, hit_index, suspect = closest_hit_of(scene, state, bounce)
@@ -286,27 +308,20 @@ def shade(
 
     # ---- Hit: emissive add + scatter --------------------------------------
     hit_point = state.origin + t[:, None] * state.direction
-    mat_i = hit.mat_i
-    mats = scene.materials
-    diffuse = mats.diffuse_albedo[mat_i]
-    specular = mats.specular_albedo[mat_i]
-    emitted = mats.emitted[mat_i]
-    metallicity = mats.metallicity[mat_i]
-    roughness = mats.roughness[mat_i]
-    ior0 = mats.index_of_refraction[mat_i]
+    # Detached sampling: geometry, roughness and ior carry no gradient.
+    rows = material_rows(scene.materials, hit.mat_i, sampling_grad=reparam)
+    diffuse, specular, emitted = rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+    metallicity, roughness, ior0 = rows[:, 9], rows[:, 10], rows[:, 11]
 
     if reparam:
         hit_safe = torch.clamp(hit_index, 0, scene.material_index.shape[0] - 1).long()
         normal = _gather_normal(scene, hit_safe, hit_point)
-        roughness_s, ior_s = roughness, ior0
     else:
-        # Detached sampling: geometry, roughness and ior carry no gradient.
         normal = hit.normal
-        roughness_s, ior_s = roughness.detach(), ior0.detach()
     front_face = vecmath.dot(normal, state.direction) < 0
     normal = torch.where(front_face[:, None], normal, -normal)
 
-    rough_normal = vecmath.normalise_safe(normal + roughness_s[:, None] * sphere_a)
+    rough_normal = vecmath.normalise_safe(normal + roughness[:, None] * sphere_a)
     cos_theta = vecmath.dot(rough_normal, state.direction)
 
     collected_hit = state.collected + emitted * state.transmitted
@@ -318,9 +333,9 @@ def shade(
 
     # Dielectric branch: swap ior for front faces, Schlick reflectance,
     # TIR-or-roulette reflect, else Snell refraction.
-    ior_nz = torch.where(ior_s == 0, 1.0, ior_s)
-    ior = torch.where(front_face, 1.0 / ior_nz, ior_s)
-    inv_ior = torch.where(front_face, ior_s, 1.0 / ior_nz)
+    ior_nz = torch.where(ior0 == 0, 1.0, ior0)
+    ior = torch.where(front_face, 1.0 / ior_nz, ior0)
+    inv_ior = torch.where(front_face, ior0, 1.0 / ior_nz)
     sin_theta_sq = 1.0 - cos_theta * cos_theta
     r0 = (1.0 - ior) / (1.0 + ior)
     r0 = r0 * r0

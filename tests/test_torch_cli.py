@@ -7,9 +7,11 @@ per channel on >= 99.9 % of the bytes (libm sin/cos may differ by ulps).
 The exit codes for a missing scene argument, an unknown flag and no backend
 equal JAX's. Without CUDA the accelerator run raises instead of rendering
 on the CPU, and so does ``--mesh`` unless ``cpu no_gpu`` asks for CPU ranks
-(``test_torch_parallel.py`` runs those).
+(``test_torch_parallel.py`` runs those). ``--mesh 1`` renders in the calling
+process, as the JAX CLI does, and writes the plain run's PNG bytes.
 """
 
+import multiprocessing.process
 import os
 import subprocess
 import sys
@@ -82,3 +84,19 @@ def test_module_entry_point(tmp_path):
     assert read_png(str(out)).shape == (16, 16, 3)
     with np.load(check) as data:
         assert int(data["samples_done"]) == 2
+
+
+def test_mesh_1_renders_in_process(cornell, tmp_path, monkeypatch):
+    """``cpu no_gpu --mesh 1``: no child process is started (spawning one
+    fails the test), and the PNG equals the plain run's byte for byte."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("--mesh 1 started a child process")
+
+    plain, mesh = tmp_path / "plain.png", tmp_path / "mesh1.png"
+    assert cli.main([str(cornell), "cpu", "no_gpu", *SMALL, "--out", str(plain)]) == 0
+    monkeypatch.setattr(multiprocessing.process.BaseProcess, "start", refuse)
+    monkeypatch.setattr(subprocess, "Popen", refuse)
+    monkeypatch.setattr(torch.multiprocessing, "start_processes", refuse)
+    assert cli.main([str(cornell), "cpu", "no_gpu", *SMALL, "--mesh", "1", "--metrics",
+                     "--out", str(mesh)]) == 0
+    assert mesh.read_bytes() == plain.read_bytes()

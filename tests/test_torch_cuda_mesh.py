@@ -20,7 +20,8 @@ The pack-2 fused1 kernel (paired sub-cluster tables, ``cluster_pack=2``) is
 held bit-equal to its plain version (flat, gated, two block-aligned shards)
 and to the pack-1 kernel over the table cut at C/2, and a packed render
 launches it alone and equals the unpacked render at C/2 bit for bit. fused1
-split over several blocks per tile is held bit-equal to its plain version,
+and fused split over several blocks per tile are held bit-equal to their
+plain versions (fused with and without its skip test),
 and the bounce kernel to the torch shading under the shade gate; a forward
 render launches the bounce kernel and a graph-building pass does not.
 """
@@ -348,3 +349,29 @@ def test_fused1_split_bit_equal_plain(cuda):
                                                     splits=splits)
                     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
                         pack, gate, splits)
+
+
+def test_fused_split_bit_equal_plain(cuda):
+    """fused with each tile's selected clusters split over 1, 2, 3 and more
+    blocks than a tile selects, and at split_plan's choice, with and
+    without the skip test: bit-equal to its plain version."""
+    scene = _scene(cuda)
+    K = scene.num_clusters
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    blocks = scene.cluster_blocks[:K].contiguous()
+    for state in _states(scene, bounces=3):
+        alive = torch.any(state.transmitted != 0, dim=-1)
+        rays = packet_intersect._pad_rays(state.origin[:-7], state.direction[:-7],
+                                          torch.where(alive, 1e30, -1.0)[:-7], 64)
+        od8 = cull.make_od8(*rays, 64)
+        entry, mask = cull.cull_tiles(od8, aabb, with_mask=True)
+        select = entry < cull.MISS_ENTRY * 0.5
+        words = fused.pack_words(select)
+        ref = fused.plain_fused(od8, blocks, words)
+        many = int(select.sum(dim=1).max()) + 3
+        for skip in (False, True):
+            for splits in (1, 2, 3, many, None):
+                got = fused.fused_closest_hit(od8, blocks, words, entry if skip else None,
+                                              mask if skip else None, splits=splits)
+                assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+                    skip, splits)

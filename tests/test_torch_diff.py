@@ -13,7 +13,10 @@ targets and optimiser state are handed to both as numpy arrays. Tolerances:
 - detached mode: roughness and ior gradients EXACTLY 0, metallicity non-zero;
 - a few Adam steps: parameters within 1e-5 of optax's;
 - the unsort's backward, checkpointed against stored bounces, the live
-  schedule and the audit: EQUAL.
+  schedule and the audit: EQUAL;
+- the material lookup (a one-hot product, as in JAX): the gather's forward
+  bits EXACTLY, its gradient within 1e-5 of the largest of the gather's
+  (a float64 matmul against a float32 scatter-add: sum order).
 """
 
 import dataclasses
@@ -341,3 +344,35 @@ def test_params_numpy_round_trip():
                                       np.asarray(getattr(ref.materials, f)))
     np.testing.assert_array_equal(np.asarray(jp.environment_map),
                                   np.asarray(ref.environment_map))
+
+
+def test_material_lookup_one_hot_equals_gather():
+    """``wavefront.material_rows`` against the row gathers it replaced: the
+    same forward bits; the same gradient up to the sum's rounding; in
+    detached mode no graph edge reaches roughness or ior."""
+    _, ts = _brute(METAL_GLASS)
+    rng = np.random.default_rng(0)
+    M = ts.materials.diffuse_albedo.shape[0]
+    mat_i = torch.from_numpy(rng.integers(0, M, 5000))
+    w = torch.from_numpy(rng.normal(size=(5000, 12)).astype(np.float32))
+    fields = ("diffuse_albedo", "specular_albedo", "emitted", "metallicity", "roughness",
+              "index_of_refraction")
+
+    def leaves():
+        return diff.make_leaves(diff.split_params(ts)[0]).materials
+
+    mats = leaves()
+    rows = wavefront.material_rows(mats, mat_i)
+    (rows * w).sum().backward()
+    ref_mats = leaves()
+    gathered = [getattr(ref_mats, f)[mat_i] for f in fields]
+    ref = torch.cat([g if g.dim() == 2 else g[:, None] for g in gathered], dim=1)
+    (ref * w).sum().backward()
+    assert torch.equal(rows, ref.detach())
+    for f in fields:
+        got, want = getattr(mats, f).grad, getattr(ref_mats, f).grad
+        assert torch.allclose(got, want, rtol=0, atol=1e-5 * float(want.abs().max())), f
+    detached = leaves()
+    (wavefront.material_rows(detached, mat_i, sampling_grad=False) * w).sum().backward()
+    assert detached.roughness.grad is None and detached.index_of_refraction.grad is None
+    assert detached.metallicity.grad is not None

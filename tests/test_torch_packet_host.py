@@ -15,9 +15,11 @@ equal the unpacked table's at C/2), and the pair
 sweep's (t, tri) over a pair list in tile-major and shuffled order with
 sentinels, on a torus cut into more than one 128-box chunk, with finite
 windows, dead rays and ray counts that do not fill the last tile. The split
-fused1 (a tile's boxes over several blocks, folded through 64-bit keys) is
-held to the same bits at every split, and its unsplit counters to a
-PyTorch recount of the kernel's walk.
+fused1 (a tile's boxes over several blocks, folded through 64-bit keys) and
+the split fused (a tile's selected clusters over several blocks, the same
+fold; its staging double-buffered, which the host build copies at once) are
+held to the same bits at every split, with and without fused's skip test,
+and their unsplit counters to a PyTorch recount of the kernel's walk.
 """
 
 import ctypes
@@ -52,7 +54,7 @@ def host_lib(tmp_path_factory):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
     lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
-    lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 4 + [p] * 3
+    lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 5 + [p] * 3
     lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 7 + [p] * 3
     lib.rt_host_sweep_pairs.argtypes = [p] + [i] * 3 + [p] + [i] * 2 + [p, i] + [p] * 4
     return lib
@@ -114,7 +116,7 @@ def test_host_kernels_bit_equal_plain(host_lib, scene, n, tile):
         host_lib.rt_host_fused_closest_hit(
             _ptr(od8), _ptr(blocks), _ptr(words), words.shape[1],
             _ptr(entry_ref) if skip else None, _ptr(mask_ref) if skip else None,
-            T, K, C, tile, _ptr(t), _ptr(tri), _ptr(stats))
+            T, K, C, tile, 1, _ptr(t), _ptr(tri), _ptr(stats))
         assert torch.equal(t, t_ref) and torch.equal(tri, tri_ref), skip
         if skip:
             assert 0 < stats[1] <= pairs and 0 < stats[2] <= mt_tests
@@ -337,3 +339,69 @@ def test_host_fused1_pack2_bit_equal_plain(host_lib, packed_pair, n, tile):
         assert torch.equal(stats[1:], stats1[1:]) and stats[1] > 0
         if gate == 0:
             assert int(stats[0]) == K * live and int(stats1[0]) == half.num_clusters * live
+
+
+def _fused_counters(od8, blocks, select, entry=None, mask=None):
+    """The unsplit fused kernel's counters recomputed in PyTorch: per tile,
+    the selected clusters in ascending id, each swept unless the skip test
+    (entry and mask given) finds no ray that hits its box with a bound
+    min(best, window) reaching the entry scaled by SKIP_SLACK, the bests
+    folded as the kernel folds → [0, swept pairs, Möller–Trumbore tests]."""
+    real = (blocks[:, 9, :] >= 0).sum(dim=1)
+    T, _, tile = od8.shape
+    stats = [0, 0, 0]
+    for t in range(T):
+        o, d, win = od8[t, 0:3].T, od8[t, 3:6].T, od8[t, 6]
+        n_live = int((win >= 0).sum())
+        acc = torch.full((tile,), MISS)
+        acc_tri = torch.full((tile,), -1, dtype=torch.int32)
+        for k in torch.nonzero(select[t]).reshape(-1).tolist():
+            if entry is not None:
+                bits = (mask[t, torch.arange(tile) // 32, k] >> (torch.arange(tile) % 32)) & 1
+                if not ((bits != 0) & (torch.minimum(acc, win) >= entry[t, k] * SKIP_SLACK)).any():
+                    continue
+            stats[1] += 1
+            stats[2] += n_live * int(real[k])
+            tt = fused.mt_t_plane(tuple(o[:, a:a + 1] for a in range(3)),
+                                  tuple(d[:, a:a + 1] for a in range(3)),
+                                  tuple(blocks[k, i][None] for i in range(9)))
+            best = tt.min(dim=1).values
+            ids = blocks[k, 9].to(torch.int32)[None].expand_as(tt)
+            best_tri = torch.where(tt == best[:, None], ids, -1).amax(dim=1)
+            better = (best < MISS) & ((best < acc) | ((best == acc) & (best_tri > acc_tri)))
+            acc = torch.where(better, best, acc)
+            acc_tri = torch.where(better, best_tri, acc_tri)
+    return stats
+
+
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_fused_split_bit_equal_plain(host_lib, scene, n, tile):
+    """The split fused (a tile's selected clusters over 1, 2, 3 and more
+    blocks than the tile selects, folded through 64-bit keys) against
+    ``plain_fused``, with and without the skip test; with one split the
+    counters are the unsplit kernel's, recomputed by ``_fused_counters``."""
+    od8 = _od8(n, tile, seed=n + 5)
+    T = od8.shape[0]
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    K = aabb.shape[1]
+    blocks = scene.cluster_blocks[:K].contiguous()
+    entry, mask = cull.plain_cull(od8, aabb, with_mask=True)
+    select = entry < cull.MISS_ENTRY * 0.5
+    words = fused.pack_words(select)
+    ref = fused.plain_fused(od8, blocks, words)
+    assert (ref[1] >= 0).sum() > n // 10
+    many = int(select.sum(dim=1).max()) + 3
+    for skip in (False, True):
+        counters = _fused_counters(od8, blocks, select, *((entry, mask) if skip else ()))
+        for splits in (1, 2, 3, many):
+            t, tri = torch.empty_like(ref[0]), torch.empty_like(ref[1])
+            stats = torch.zeros(3, dtype=torch.int64)
+            host_lib.rt_host_fused_closest_hit(
+                _ptr(od8), _ptr(blocks), _ptr(words), words.shape[1],
+                _ptr(entry) if skip else None, _ptr(mask) if skip else None,
+                T, K, blocks.shape[2], tile, splits, _ptr(t), _ptr(tri), _ptr(stats))
+            assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1]), (skip, splits)
+            if splits == 1:
+                assert stats.tolist() == counters, skip
+            else:
+                assert stats[1] >= counters[1] > 0
