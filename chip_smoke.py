@@ -6,10 +6,10 @@
 Drives the port's main paths: forward renders at the reference benchmark
 shape (1000×1000, 100 rays per pixel in five passes of 20, 10 bounces) of a
 brute scene through the shade kernel and of a 126,000-triangle mesh through
-the packet kernels (fused1 by default, cull + fused when asked for, with
-the gated cull behind ``cull_hier``, and fused1 with pack=2 for a paired
-sub-cluster table) with every forward bounce shaded by the bounce kernel,
-the command-line renderer, the
+the packet kernels (cull + fused by default, with the gated cull behind
+``cull_hier``; fused1 when asked for, and with pack=2 for a paired
+sub-cluster table) on the packed forward wavefront (set-up, bounce and
+sort-key kernels), the command-line renderer, the
 inverse-rendering train step on that mesh at the JAX package's
 forward+backward shape (256×256, 2 rays per pixel, 10 bounces) through both
 packet engines that reach a TPU kernel (cull + fused, and cull + the pair
@@ -18,9 +18,9 @@ checks them all. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
-   ``fused.cu``, ``fused1.cu``, ``sweep.cu`` and ``bounce.cu`` with nvcc, all
-   six at once, and the native BVH builder with g++; print seconds and
-   registers;
+   ``fused.cu``, ``fused1.cu``, ``sweep.cu``, ``bounce.cu`` and ``rays.cu``
+   with nvcc, all seven at once, and the native BVH builder with g++; print
+   seconds and registers;
 3. kernel vs plain: each built-in scene at 64×64, 4 rays per pixel and 10
    bounces, plus an unaligned block (ray ids 100..359): per-ray agreement
    with the plain PyTorch version (max |Δ| < 1e-3 on ≥ 99.9 % of rays, none
@@ -47,13 +47,21 @@ checks them all. Phases, one line each:
    shading) on the torus, the glass torus and the spheres scene under the
    substitute sky at 64×64 × 4 spp, and on the torus's centre 2^18-ray block
    of a 20-spp pass, each entering bounces 0-9: the shade kernel's gate;
+   (c) the forward trace's row kernels on that block traced as the packed
+   trace traces it, bounces 0-9: the set-up kernel (alive bit, sphere hit,
+   ray tiles), the sort keys and live count (both engines, and the sorted
+   permutation) and the PCG draws (a bounce's; the camera's at bounce 0)
+   bit-equal to their plain versions, the packed bounce kernel against the
+   torch shading at the shade gate; then their times (each call on rows out
+   of L2), plain times and bounds;
 7. mesh main path: the torus at 1000×1000 and 10 bounces after small
    warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
-   rays per pixel, each through the fused1 regime ("auto") and through cull
-   + fused (fused1, cull + fused, cull + fused, fused1); launch counts per
-   kernel (> 0 for the regime's kernels and the bounce kernel, 0 for the
-   other packet kernels), finite framebuffers, sane mean display values,
-   and every image of a spp identical;
+   rays per pixel, each through fused1 and through cull + fused (fused1,
+   cull + fused, cull + fused, fused1), then once through "auto" (cull +
+   fused on the card); launch counts per kernel (> 0 for the regime's
+   kernels and the forward kernels: camera draws, set-up, bounce, sort
+   keys; 0 for the other packet kernels), finite framebuffers, sane mean
+   display values, and every image of a spp identical;
 8. packet timing: the 2^18-ray block of the 20-rays-per-pixel pass that
    holds the image centre,
    entering bounce 0 and bounce 1 (sorted): each kernel and its plain
@@ -64,24 +72,25 @@ checks them all. Phases, one line each:
    block needs and its bound; then fused1 on the same block traced as a
    render traces it (live prefix, Morton sort), entering bounces 2-9, one
    block per tile and at the chosen split, both bit-equal to the plain
-   version, both timed; fused (with its skip test, as the cull + fused
-   engine calls it) on the same block's bounces 0-9 at one block per tile
-   and at the chosen split, both bit-equal to plain_fused, both timed; then
-   that block's whole trace (10 bounces) under
-   torch.profiler, through fused1 with the bounce kernel and with the torch
-   shading (the plain version called by name), and through cull + fused:
-   device time by kernel, the packet kernels' time per bounce, the device
-   kernel count and the device's idle share;
+   version, both timed; the cull (0 mismatched elements against
+   plain_cull, timed beside its bound) and fused (with its skip test, as
+   the cull + fused engine calls it) on the same block's bounces 0-9, fused
+   at one block per tile and at the chosen split, both bit-equal to
+   plain_fused, both timed; then that block's whole trace (10 bounces)
+   under torch.profiler, through fused1 with the bounce kernel and with the
+   torch shading (the plain version called by name), and through cull +
+   fused: device time by kernel, the packet kernels' time per bounce, the
+   device kernels per block and per bounce and the device's idle share;
 9. the command-line renderer: the full-size torus and the Cornell scene
    written as ``.scene`` files; (a) ``python -m cuda_raytracer_tpu_torch
-   torus.scene --spp 8 --cull-hier 16 --metrics`` as a subprocess (exit 0,
-   the PNG, paths/s; its load_scene seconds with the native BVH, render
-   seconds and metrics line, whose launch counters must show the fused1
-   and bounce kernels); (b) ``cli.main`` in process on the same render with
-   fused1's super-box gate (``--cull-hier 16``) and without it
-   (``--cull-hier -1``), in turns (gated, flat, flat, gated): fused1 and the
-   bounce kernel launch in every run, every PNG is byte-identical to 9a's,
-   and each run's render seconds are printed; (c) the gated cull kernel's
+   torus.scene --spp 8 --metrics`` as a subprocess (exit 0, the PNG,
+   paths/s; its load_scene seconds with the native BVH, render seconds and
+   metrics line, whose launch counters must show the cull, fused and
+   forward kernels); (b) ``cli.main`` in process on the same render with
+   the gated cull (``--cull-hier 16``) and the flat one (``--cull-hier
+   -1``), in turns (gated, flat, flat, gated): those kernels launch in every
+   run, the gated cull in the gated ones, every PNG is byte-identical to
+   9a's, and each run's render seconds are printed; (c) the gated cull kernel's
    path: the 8-spp torus through cull + fused with ``cull_hier=16`` and with
    the flat cull, in turns: the gated cull launches in every gated render
    and in no flat one, every image identical; then the gated cull against
@@ -99,9 +108,10 @@ checks them all. Phases, one line each:
    sweep and an overflowing pair budget, bit-equal in rows [:T]; then the
    "pallas" engine's closest hit against the "fused" engine's, bit-equal;
    (b) the sweep's time on bounces 0 and 1 with its bound and plain time,
-   beside the fused kernel on the same rays; fused at one block per tile
-   and at the chosen split on the train step's pass (131,072 rays, bounces
-   0-9), bit-equal to plain_fused; (c) the wavefront's one-hot material
+   beside the fused kernel on the same rays; the cull (held to plain_cull)
+   and fused at one block per tile and at the chosen split on the train
+   step's pass (131,072 rays, bounces 0-9), bit-equal to plain_fused; (c)
+   the wavefront's one-hot material
    lookup bit-equal to the row gathers on the card, with TF32 allowed and
    not; then
    the train step (``diff.make_train_step``, Adam) at 256×256 × 2 spp × 10
@@ -110,8 +120,9 @@ checks them all. Phases, one line each:
    ``packet_cap`` until no ray is suspect), 2 warm-up steps and 5 timed ones
    (seconds per step, paths/s, peak memory), a finite and falling loss,
    finite gradients, closest-hit launches per step equal to the forward
-   pass's own (the backward launches none), no bounce kernel in a step
-   (training shades with torch), the audit (which shades with the bounce
+   pass's own (the backward launches none), no bounce or set-up kernel in a
+   step (training shades with torch, its PCG draws and sort keys from their
+   kernels), the device kernels of one step, the audit (which shades with the bounce
    kernel) keeping or dropping the calibrated live schedule as it does
    under the torch shading, the step's scene reporting no suspect ray under
    the step's own shading, one checkpointed step of each engine under
@@ -130,11 +141,12 @@ checks them all. Phases, one line each:
    8; (c) the main path: the packed and the unpacked torus at 1000×1000,
    100 spp, 10 bounces in turns (packed, unpacked, unpacked, packed):
    pack-2 launches and no other packet kernel's in the packed renders,
+   fused1 (pack 1) in the unpacked ones,
    finite framebuffers bit-identical to phase 7's, seconds and Mrays/s;
 12. sharding: (a) phase 9a's command with ``--mesh 1``, in one process
    (an entry that fails the run if a rank is spawned): exit 0, its wall and
-   render_sharded seconds beside 9a's, the fused1 and bounce kernels
-   launched, a PNG byte-identical to phase 9a's; (b) two ranks on the one card, joined by
+   render_sharded seconds beside 9a's, 9a's kernels launched, a PNG
+   byte-identical to phase 9a's; (b) two ranks on the one card, joined by
    gloo, on the Cornell scene and the torus at 256×256 × 2 spp × 10
    bounces: the sharded framebuffer against the single-device one, one
    sharded train step's loss (the same bits on both ranks) against the
@@ -196,15 +208,18 @@ SHADE_OPS = 98
 CAMERA_OPS = 29
 
 # Mesh path. FP32 operations per test, counted from csrc/packet.cuh:
-#   slab test (rt::slab) per (live ray, box): 3 axes × (2 sub, 2 mul,
-#                 4 min/max)                                         = 24
+#   slab test per (live ray, box), in rt::slab_ordered's form (slab()'s
+#                 values): 3 axes × (2 sub, 2 mul), the entry's max
+#                 over 0 and 3 near planes 3, the exit's min over the
+#                 window and 3 far planes 3, the entry's running
+#                 minimum 1                                          = 19
 #                 (the safe inverse, 3 per ray, is amortised over K)
 #   Möller–Trumbore (rt::mt_t) per (live ray, real triangle of a swept
 #                 cluster; padding slots excluded): h 6 mul + 3 sub,
 #                 det 3 mul + 2 add, f 3 sub, ud 5, q 9, vd 5, td 5,
 #                 |det| 1, us vs ts 3 mul, us+vs 1, eps·|det| 1      = 47
 #                 (+1 division per accepted hit, not counted)
-SLAB_OPS = 24
+SLAB_OPS = 19
 MT_OPS = 47
 MESH_FULL_SPP = 100
 MESH_FEW_SPP = 8  # one pass: the sparse-sample render
@@ -219,9 +234,16 @@ GRAD_TOL = 1e-3  # phase 10c: engines' gradients within GRAD_TOL * max |g| (+1e-
 EXAMPLE_BAR = 0.15  # phase 10d: the example's own bar
 CLI_SPP = 8  # phase 9: one pass (9c renders it through cull + fused, the gated cull's path)
 CLI_GATE = 16  # --cull-hier: clusters per super box
-# Kernels the 8-spp CLI render must launch (phases 9a, 12a): "auto" is the
-# fused1 regime, and --cull-hier sets its super-box gate.
-CLI_KERNELS = ("fused1_closest_hit", "shade_bounce")
+# The kernels every forward mesh render launches beside its closest hit: the
+# camera's PCG draws and the packed trace's set-up, bounce and sort-key
+# kernels.
+FORWARD_KERNELS = ("pcg_draws", "rays_setup", "shade_rows", "ray_keys")
+# Kernels the 8-spp CLI render must launch (phases 9a, 9b, 12a), "auto" on
+# the card; --cull-hier adds the gated cull (9b).
+# The closest-hit kernels of packet_backend "auto" on the card
+# (packet_intersect.resolve_backend): cull + fused.
+AUTO_KERNELS = ("cull_tiles", "fused_closest_hit")
+CLI_KERNELS = AUTO_KERNELS + FORWARD_KERNELS
 CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
 BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
 BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
@@ -241,9 +263,21 @@ SCALING_RPP = 4  # phase 12c
 # Bytes per ray: state in 4 x 12, ray id, hit distance, hit index 12, state
 # out 48.
 ENV_OPS = 44
-BOUNCE_RAY_BYTES = 4 * 12 + 12 + 48
+# Bytes the packed bounce needs per ray (wavefront.pack_rows rows): a dead
+# ray its transmitted weight (12); a live ray its hit (sphere t and index,
+# triangle t and index: 16) and, on a miss, direction, transmitted and
+# collected in (36) and transmitted and collected out (24); on a hit, origin,
+# direction, transmitted, collected and ray id in (52) and the four out (48).
+BOUNCE_DEAD_BYTES = 12
+BOUNCE_MISS_BYTES = 16 + 36 + 24
+BOUNCE_HIT_BYTES = 16 + 52 + 48
+# The set-up and key kernels read a row's origin, direction and transmitted
+# weight (48 bytes); the key is ~18 FP32 operations per live ray (origin
+# normalised 6, direction mapped 6, scaled 6).
+ROW_STATE_BYTES = 48
+KEY_OPS = 18
 
-KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep", "bounce")
+KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep", "bounce", "rays")
 # Device kernels of one fused1 call in a profile: the unsplit and the split
 # kernel (fused1_kernel, fused1_split_kernel), the split's key set-up and
 # finishing pass.
@@ -389,6 +423,7 @@ def phase_main_path(device) -> dict:
 
 def phase_timing(device) -> dict:
     import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays as rays_kernel
     from cuda_raytracer_tpu_torch.ops.kernels import shade
     from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 
@@ -420,16 +455,18 @@ def phase_timing(device) -> dict:
 
     plain_ms = _plain_ms(plain_pass, 1)
 
-    # The same pass once more, bounce by bounce, counting the live rays that
-    # enter each bounce: the work the kernel actually has to do.
+    # The same pass once more, the plain version bounce by bounce, counting
+    # the live rays that enter each bounce: the work the kernel actually has
+    # to do.
     live = torch.zeros((), dtype=torch.int64, device=device)
     ref = torch.empty_like(got)
     for lo in range(0, rays, block):
-        state = wavefront.make_initial_state(scene, ray_id[lo:lo + block], rpp, seed)
+        rows = wavefront.pack_rows(wavefront.make_initial_state(
+            scene, ray_id[lo:lo + block], rpp, seed, plain=True))
         for b in range(bounces):
-            live += torch.any(state.transmitted != 0.0, dim=-1).sum()
-            state, _ = wavefront.process_rays(scene, state, seed, b)
-        ref[lo:lo + block] = state.collected
+            live += rays_kernel.rows_alive(rows).sum()
+            wavefront.bounce_rows(scene, rows, seed, b, plain=True)
+        ref[lo:lo + block] = rows[:, 9:12]
     live = int(live)
     agree, worst, finite = _agreement(got, ref)
     outside = int(((got - ref).abs().amax(dim=1) >= AGREE_TOL).sum())
@@ -570,15 +607,18 @@ def phase_packet_vs_plain(scenes) -> dict:
                     raise SystemExit(f"phase 6 failed: {kernel} differs from its plain "
                                      f"version ({name}, bounce {bounce})")
                 worst[kernel] = max(worst.get(kernel, 0.0), err)
-            state, _ = wavefront.process_rays(scene, state, 3, bounce)
-            state = wavefront.reorder_rays(scene, state)
+            state = _next_state(scene, state, 3, bounce)
     return worst
 
 
-def _state_rows(state):
-    import torch
+def _next_state(scene, state, seed: int, b: int):
+    """``state`` after bounce ``b`` as the forward trace runs it
+    (``wavefront.bounce_rows`` on its packed rows), Morton-sorted."""
+    from cuda_raytracer_tpu_torch.render import wavefront
 
-    return torch.cat(list(state[:4]), dim=1)
+    rows = wavefront.pack_rows(state)
+    wavefront.bounce_rows(scene, rows, seed, b)
+    return wavefront.reorder_rays(scene, wavefront.unpack_rows(rows))
 
 
 def _bounce_vs_plain(scene, state, seed: int, bounces: int, label: str) -> float:
@@ -593,16 +633,18 @@ def _bounce_vs_plain(scene, state, seed: int, bounces: int, label: str) -> float
     worst = 0.0
     for b in range(bounces):
         alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
-        got = bounce.shade_bounce(scene, state, t, hit_index, seed, b)
-        ref = bounce.plain_shade_bounce(scene, state, t, hit_index, seed, b)
+        got, ref = wavefront.pack_rows(state), wavefront.pack_rows(state)
+        bounce.shade_rows(scene, got, t, hit_index, seed, b)
+        bounce.plain_shade_rows(scene, ref, t, hit_index, seed, b)
         torch.cuda.synchronize()
-        agree, err, finite = _agreement(_state_rows(got), _state_rows(ref))
+        agree, err, finite = _agreement(got[:, :12], ref[:, :12])
         print(f"phase 6b bounce vs plain: {label} bounce={b} rays={t.shape[0]} "
               f"live={int(alive.sum())} hits={int((alive & (hit_index >= 0)).sum())} "
               f"agree={agree:.6f} max_abs_err={err:.3g} finite={finite}")
         if not finite or agree < AGREE_MIN:
             raise SystemExit(f"phase 6b failed: {label} bounce {b}")
         worst = max(worst, err)
+        got = wavefront.unpack_rows(got)
         state = (wavefront.reorder_rays(scene, got) if wavefront.reorder_is_useful(scene)
                  else got)
     return worst
@@ -678,7 +720,7 @@ def _render_turns(label_scenes, regimes, phase: str, tag: str):
               f"finite={finite} mean_display={mean:.2f}")
         packet = ("cull_tiles", "fused_closest_hit", "fused1_closest_hit",
                   "fused1_closest_hit_pack2", "cull_gated", "sweep_pairs", "shade_trace")
-        ok = all(counts[k] > 0 for k in regime + ("shade_bounce",)) and all(
+        ok = all(counts[k] > 0 for k in regime + FORWARD_KERNELS) and all(
             counts[k] == 0 for k in packet if k not in regime)
         if not (ok and finite and 20.0 <= mean <= 235.0):
             raise SystemExit(f"phase {phase} failed: {label} render, turn {turn}")
@@ -691,40 +733,38 @@ def _render_turns(label_scenes, regimes, phase: str, tag: str):
 
 def phase_mesh_main_path(full) -> tuple:
     """Phase 7: the torus at 1000×1000, 10 bounces, after small warm-ups:
-    100 spp, then 8 spp, each through the fused1 regime ("auto") and through
-    cull + fused (``packet_backend="fused"``) in turns (fused1, cull + fused,
-    cull + fused, fused1). Every image of a spp must be identical → (the
-    kernel table's launches, the 100-spp "auto" framebuffer)."""
+    100 spp, then 8 spp, each through fused1 (``packet_backend="fused1"``)
+    and through cull + fused (``"fused"``) in turns (fused1, cull + fused,
+    cull + fused, fused1), and once through ``"auto"``. Every image of a spp
+    must be identical → (the kernel table's launches, the 100-spp "auto"
+    framebuffer)."""
     import numpy as np
     from cuda_raytracer_tpu_torch.render import pipeline
 
-    for backend in ("auto", "fused"):  # kernels, allocator and clocks warm
+    for backend in ("fused1", "fused"):  # kernels, allocator and clocks warm
         pipeline.render_framebuffer(_resized(full, 128, 128).with_config(
             rays_per_pixel=20, packet_backend=backend))
     regimes = {"fused1": ("fused1_closest_hit",),
-               "cull+fused": ("cull_tiles", "fused_closest_hit")}
-    order = ("fused1", "cull+fused", "cull+fused", "fused1")
+               "cull+fused": ("cull_tiles", "fused_closest_hit"), "auto": AUTO_KERNELS}
+    backends = {"fused1": "fused1", "cull+fused": "fused", "auto": "auto"}
+    order = ("fused1", "cull+fused", "cull+fused", "fused1", "auto")
     launches, reference = {}, None
     for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
-        # "auto" is the fused1 regime on the card (pipeline._regime_scene).
-        turns = [(label, full.with_config(
-            rays_per_pixel=spp, packet_backend="auto" if label == "fused1" else "fused"))
-            for label in order]
+        turns = [(label, full.with_config(rays_per_pixel=spp, packet_backend=backends[label]))
+                 for label in order]
         seconds, fbs, images, counts = _render_turns(turns, regimes, "7", "mesh main path")
         same = all(np.array_equal(img, images[0]) for img in images)
         print(f"phase 7 mesh main path: spp={spp} seconds " + " ".join(
             f"{label}={[round(x, 4) for x in secs]}" for label, secs in seconds.items())
-            + f" (fused1 is packet_backend=auto) images_identical={same}")
+            + f" images_identical={same}")
         if not same:
             raise SystemExit(f"phase 7 failed: the {spp}-spp images differ between regimes")
-        # The kernel table's launches: fused1 and the bounce kernel from the
-        # 100-spp "auto" render (turn 0), cull and fused from the 8-spp
-        # render through cull + fused (turn 1).
+        # The kernel table's launches: the main path's, the 100-spp "auto"
+        # render (the last turn), and fused1's from its own turn (turn 0).
         if spp == MESH_FULL_SPP:
-            reference = fbs[0]  # phase 11c's reference
-            launches.update({k: counts[0][k] for k in ("fused1_closest_hit", "shade_bounce")})
-        else:
-            launches.update({k: counts[1][k] for k in regimes["cull+fused"]})
+            reference = fbs[-1]  # phase 11c's reference: the "auto" render
+            launches.update({k: counts[-1][k] for k in AUTO_KERNELS + FORWARD_KERNELS})
+            launches["fused1_closest_hit"] = counts[0]["fused1_closest_hit"]
     return launches, reference
 
 
@@ -741,17 +781,17 @@ def _centre_block(scene, rpp: int):
 @contextlib.contextmanager
 def _torch_shading():
     """Within it, forward bounces shade with the bounce kernel's plain
-    version, called by name (``bounce.plain_shade_bounce``) where
-    ``wavefront.process_rays`` calls the wrapper: the torch shading, for
-    the profile beside the kernel's."""
+    version, called by name (``bounce.plain_shade_rows``) where
+    ``wavefront.bounce_rows`` calls the wrapper: the torch shading, for the
+    profile beside the kernel's."""
     from cuda_raytracer_tpu_torch.ops.kernels import bounce
 
-    wrapper = bounce.shade_bounce
-    bounce.shade_bounce = bounce.plain_shade_bounce
+    wrapper = bounce.shade_rows
+    bounce.shade_rows = bounce.plain_shade_rows
     try:
         yield
     finally:
-        bounce.shade_bounce = wrapper
+        bounce.shade_rows = wrapper
 
 
 def phase_mesh_profile(full) -> None:
@@ -819,12 +859,14 @@ def _profile_block(scene, backend: str, kernels, phase: str = "8") -> None:
     prof, wall_ms, rows = _profiled(run)
     busy_ms = sum(r[0] for r in rows)
     kernel_ms = sum(r[0] for r in rows if any(k in r[2] for k in kernels))
-    bounce_ms = sum(r[0] for r in rows if "bounce_kernel" in r[2])
+    bounce_ms = sum(r[0] for r in rows if "bounce_rows_kernel" in r[2])
+    device_kernels = sum(r[1] for r in rows)
     print(f"phase {phase} profile: torus centre block packet_backend={backend} rays={block} "
           f"bounces={scene.config.bounces} live_bounds={bounds} wall_ms={wall_ms:.2f} "
           f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
           f"packet_kernels_ms={kernel_ms:.3f} bounce_kernel_ms={bounce_ms:.3f} "
-          f"device_kernels={sum(r[1] for r in rows)}")
+          f"device_kernels={device_kernels} "
+          f"device_kernels_per_bounce={device_kernels / scene.config.bounces:.1f}")
     for dev_ms, count, key in rows[:8]:
         print(f"phase {phase} profile: {backend} top device time {dev_ms:.3f} ms x{count} "
               f"{key[:90]}")
@@ -846,7 +888,7 @@ def phase_packet_timing(full) -> dict:
     block_lo, block = _centre_block(scene, rpp)
     ray_id = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
     state0 = wavefront.make_initial_state(scene, ray_id, rpp, seed)
-    state1 = wavefront.reorder_rays(scene, wavefront.process_rays(scene, state0, seed, 0)[0])
+    state1 = _next_state(scene, state0, seed, 0)
     K, C, tile = scene.num_clusters, scene.cluster_tris, scene.config.packet_tile
     cmin, cmax = scene.cluster_min, scene.cluster_max
     aabb = cull.box_table(cmin, cmax)
@@ -921,7 +963,7 @@ def phase_packet_timing(full) -> dict:
     # The kernel table reports the sorted bounced block (bounce 1): bounces
     # 1-9 of every pass are sorted bounced wavefronts.
     out = {name: results[(name, 1)] for name in runs}
-    out["shade_bounce"] = [_bounce_timing(scene, st, seed, b)
+    out["shade_rows"] = [_bounce_timing(scene, st, seed, b)
                            for b, st in ((0, state0), (1, state1))][1]
     out["fused1_closest_hit"].update(_fused1_tail(scene, 1, 16, "8"))
     out["fused_closest_hit"]["tail"] = _fused_tail(scene, ray_id, rpp, seed,
@@ -929,22 +971,50 @@ def phase_packet_timing(full) -> dict:
     return out
 
 
+def _row_hits(scene, rows):
+    """The set-up kernel's sphere hit and ray tiles of packed rows, and
+    fused1's raw triangle hit on them: the bounce kernel's inputs."""
+    from cuda_raytracer_tpu_torch.ops import packet_intersect
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    alive, t, index, od8 = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius,
+                                           scene.config.packet_tile)
+    t_tri, tri = packet_intersect.packet_tiles(scene, od8, "fused1")
+    return alive, t, index, od8, t_tri, tri
+
+
 def _bounce_timing(scene, state, seed: int, b: int) -> dict:
-    """8b: the bounce kernel on a block entering bounce ``b``: its time and
-    its plain version's, the bytes and
-    operations this block needs, the bound, and agreement at that shape."""
+    """8b: the bounce kernel on a block entering bounce ``b``, its state
+    packed into rows as the forward trace holds it: its time (each call on a
+    fresh copy of the rows, since it shades in place) and its plain
+    version's, the bytes and operations this block needs, the bound, and
+    agreement at that shape."""
     import torch
-    from cuda_raytracer_tpu_torch.ops import envmap, vecmath
+    from cuda_raytracer_tpu_torch.ops import envmap, packet_intersect, vecmath
     from cuda_raytracer_tpu_torch.ops.kernels import bounce
     from cuda_raytracer_tpu_torch.render import wavefront
 
-    alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
-    ms = _cuda_ms(lambda: bounce.shade_bounce(scene, state, t, hit_index, seed, b))
-    plain_ms = _plain_ms(lambda: bounce.plain_shade_bounce(scene, state, t, hit_index, seed, b))
-    agree, err, finite = _agreement(
-        _state_rows(bounce.shade_bounce(scene, state, t, hit_index, seed, b)),
-        _state_rows(bounce.plain_shade_bounce(scene, state, t, hit_index, seed, b)))
-    rays = t.shape[0]
+    rows = wavefront.pack_rows(state)
+    alive, t, index, _, t_tri, tri = _row_hits(scene, rows)
+    n = rows.shape[0]
+    copies = [rows.clone() for _ in range(24)]
+    calls = iter(range(10 ** 9))
+
+    def run():
+        bounce.shade_rows(scene, copies[next(calls) % len(copies)], t, index, seed, b,
+                          t_tri, tri)
+
+    ms = _cuda_ms(run)
+
+    def plain():
+        bounce.plain_shade_rows(scene, rows.clone(), t, index, seed, b, t_tri, tri)
+
+    plain_ms = _plain_ms(plain)
+    got, want = rows.clone(), rows.clone()
+    bounce.shade_rows(scene, got, t, index, seed, b, t_tri, tri)
+    bounce.plain_shade_rows(scene, want, t, index, seed, b, t_tri, tri)
+    agree, err, finite = _agreement(got[:, :12], want[:, :12])
+    _, hit_index, _ = packet_intersect._finalize(scene, t_tri, tri, None, t, index, n, 1)
     hits = alive & (hit_index >= 0)
     misses = alive & (hit_index < 0)
     # Each table row this block reads, once: the hit primitives' normals and
@@ -957,16 +1027,18 @@ def _bounce_timing(scene, state, seed: int, b: int) -> dict:
         texels = int(bool(misses.any()))
     else:
         uv = envmap.equal_area_sphere_to_square(
-            envmap.rotate_to_map_space(state.direction[misses]))
+            envmap.rotate_to_map_space(rows[:, 3:6][misses]))
         tx = torch.clamp((vecmath.clamp01(uv[:, 0]) * (W - 1) + 0.5).long(), 0, W - 1)
         ty = torch.clamp((vecmath.clamp01(uv[:, 1]) * (H - 1) + 0.5).long(), 0, H - 1)
         texels = int(torch.unique(ty * W + tx).numel())
-    nbytes = rays * BOUNCE_RAY_BYTES + int(prims.numel()) * 16 + mats * 48 + texels * 12
     n_hits, n_misses = int(hits.sum()), int(misses.sum())
+    nbytes = ((n - n_hits - n_misses) * BOUNCE_DEAD_BYTES + n_hits * BOUNCE_HIT_BYTES
+              + n_misses * BOUNCE_MISS_BYTES + int(prims.numel()) * 16 + mats * 48
+              + texels * 12)
     ops_ms = (n_hits * SHADE_OPS + n_misses * ENV_OPS) / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    print(f"phase 8b bounce timing: torus block rays={rays} bounce={b} live={int(alive.sum())} "
+    print(f"phase 8b bounce timing: torus block rays={n} bounce={b} live={int(alive.sum())} "
           f"hits={n_hits} misses={n_misses} bounce_ms={ms:.4f} plain_ms={plain_ms:.2f} "
           f"bytes={nbytes} bytes_bound_ms={bytes_ms:.4f} ops_bound_ms={ops_ms:.4f} "
           f"bound_share={bound_ms / ms:.3f} agree={agree:.6f} max_abs_err={err:.3g} "
@@ -977,22 +1049,189 @@ def _bounce_timing(scene, state, seed: int, b: int) -> dict:
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes")
 
 
-def _traced_od8(scene, ids, rpp: int, seed: int, first: int = 0):
-    """The ray tiles one block's closest hit gets at each bounce, the block
-    traced as a render traces it (the live prefix, the Morton sort) →
-    yields (bounce, rays, od8) for bounces ``first``.. of the scene's."""
+def _traced_rows(scene, ids, rpp: int, seed: int):
+    """One block traced as ``wavefront.trace_packed`` traces it (the live
+    prefix, the Morton sort) → yields (bounce, the live prefix's packed rows)
+    before each bounce; the caller must not change them."""
+    import torch
     from cuda_raytracer_tpu_torch.render import wavefront
 
-    state = wavefront.make_initial_state(scene, ids, rpp, seed)
-    block, live_bound = ids.shape[0], ids.shape[0]
+    cur = wavefront.pack_rows(wavefront.make_initial_state(scene, ids, rpp, seed))
+    R = live_bound = cur.shape[0]
     for b, do_sort in enumerate(wavefront._sort_schedule(scene, True, scene.config.bounces)):
+        n = next(size for size in reversed(wavefront.live_prefix_sizes(scene, R))
+                 if size >= live_bound)
+        yield b, cur[:n]
+        rows = cur[:n].clone()
+        wavefront.bounce_rows(scene, rows, seed, b)
+        if do_sort:
+            order, live = wavefront.sort_order(scene, rows, n)
+            cur = torch.cat([rows[order], cur[n:]])
+            live_bound = int(live.item())
+        else:
+            cur = torch.cat([rows, cur[n:]])
+
+
+def _bits(x):
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _bit_mismatch(got, want):
+    """(elements whose bits differ, the largest |Δ| among them) between two
+    tuples of tensors."""
+    bad, worst = 0, 0.0
+    for g, w in zip(got, want):
+        differ = _bits(g) != _bits(w)
+        bad += int(differ.sum())
+        if differ.any():
+            worst = max(worst, float((g.double() - w.double()).abs()[differ].max()))
+    return bad, worst
+
+
+def phase_row_kernels(full) -> dict:
+    """6c: the forward trace's row kernels against their plain versions on
+    the torus's centre 2^18-ray block of a 20-spp pass, traced as the packed
+    trace traces it, entering bounces 0-9: the set-up kernel (alive bit,
+    sphere hit, ray tiles), the sort keys and live count (argsort and count
+    engines; the sorted permutation too) and the PCG draws (a bounce's, and
+    at bounce 0 the camera's) bit-equal (0 mismatched bits), the packed
+    bounce kernel against the torch shading at the shade gate. Then their
+    times at bounce 1 (the draws on the train step's 131,072 ray ids), each
+    beside its bound and plain time."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import camera
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce, rays
+
+    rpp, seed = 20, 80
+    scene = full.with_config(rays_per_pixel=rpp, packet_backend="fused1")
+    tile = scene.config.packet_tile
+    block_lo, block = _centre_block(scene, rpp)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    worst, at1 = 0.0, None
+    errs = dict.fromkeys(("rays_setup", "ray_keys", "pcg_draws"), 0.0)
+    for b, rows in _traced_rows(scene, ids, rpp, seed):
+        n = rows.shape[0]
+        checks = {"rays_setup": [], "ray_keys": [], "pcg_draws": []}
+        setup = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, tile)
+        checks["rays_setup"].append(_bit_mismatch(setup, rays.plain_rays_setup(
+            rows, scene.sphere_center, scene.sphere_radius, tile)))
+        for count in (False, True):
+            got = rays.ray_keys(rows, scene.min_coord, scene.inv_extent, count, n)
+            want = rays.plain_ray_keys(rows, scene.min_coord, scene.inv_extent, count, n)
+            checks["ray_keys"] += [_bit_mismatch(got, want), _bit_mismatch(
+                (torch.argsort(got[0], stable=True),), (torch.argsort(want[0], stable=True),))]
+        rid = rows[:, 12].contiguous().view(torch.int32)
+        checks["pcg_draws"].append(_bit_mismatch((rays.bounce_draws(rid, seed, b),),
+                                                 (rays.plain_bounce_draws(rid, seed, b),)))
+        if b == 0:  # the camera's jitter, seeded as camera.initial_ray_seeds
+            seeding = (rid, camera.RAY_SEED_MULT, camera._seed_add(seed), 2)
+            checks["pcg_draws"].append(_bit_mismatch((rays.pcg_draws(*seeding),),
+                                                     (rays.plain_pcg_draws(*seeding),)))
+        for name, results in checks.items():
+            errs[name] = max([errs[name]] + [err for _, err in results])
+        bad_setup, bad_keys, bad_draws = (sum(bad for bad, _ in checks[name])
+                                          for name in checks)
+        alive, t, index, _, t_tri, tri = _row_hits(scene, rows)
+        got, want = rows.clone(), rows.clone()
+        bounce.shade_rows(scene, got, t, index, seed, b, t_tri, tri)
+        bounce.plain_shade_rows(scene, want, t, index, seed, b, t_tri, tri)
+        agree, err, finite = _agreement(got[:, :12], want[:, :12])
+        same_ids = torch.equal(got[:, 12:], rows[:, 12:])
+        torch.cuda.synchronize()
+        print(f"phase 6c row kernels: torus centre block lo={block_lo} bounce={b} rays={n} "
+              f"live={int(alive.sum())} rays_setup_mismatched={bad_setup} "
+              f"ray_keys_mismatched={bad_keys} pcg_draws_mismatched={bad_draws} "
+              f"max_abs_err={json.dumps({k: errs[k] for k in checks})} "
+              f"bounce_agree={agree:.6f} bounce_max_abs_err={err:.3g} finite={finite} "
+              f"id_columns_untouched={same_ids}")
+        if bad_setup or bad_keys or bad_draws or not (finite and same_ids) or agree < AGREE_MIN:
+            raise SystemExit(f"phase 6c failed: a row kernel differs from its plain version "
+                             f"(bounce {b})")
+        worst = max(worst, err)
+        if b == 1:
+            at1 = rows.clone()
+    out = _row_timing(scene, at1)
+    for name, err in errs.items():
+        out[name]["max_abs_err"] = err
+    out["bounce_max_abs_err"] = worst
+    return out
+
+
+def _row_timing(scene, rows) -> dict:
+    """6c: the set-up and key kernels on the centre block's sorted bounce-1
+    rows, and the draw kernel on the train step's ray ids (a bounce's five
+    draws, as the training shading draws them): each kernel's time
+    and its plain version's, the bytes and operations it needs, its bound;
+    for the set-up kernel, torch.stack of its ray tiles' rows too (the one
+    call that does part of its work: the packing)."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    n, tile = rows.shape[0], scene.config.packet_tile
+    n_pad = -(-n // tile) * tile
+    # Each call reads its own copy of the rows, four copies being more than
+    # the 50 MB L2 holds, so the rows come from device memory as a bounce's
+    # would (its rows were written a bounce ago, with megabytes of tables
+    # read since).
+    copies = [rows.clone() for _ in range(4)]
+    calls = iter(range(10 ** 9))
+
+    def cold():
+        return copies[next(calls) % len(copies)]
+
+    spheres = scene.sphere_center.shape[0]
+    live = int(rays.rows_alive(rows).sum())
+    train_ids = torch.arange(TRAIN["width"] * TRAIN["height"] * TRAIN["rays_per_pixel"],
+                             dtype=torch.int32, device=scene.device)
+    comps = [rows[:, c] for c in range(6)] + [rows[:, 6], torch.zeros_like(rows[:, 6])]
+    cases = {
+        # (kernel, plain, bytes, FP32 operations, library call)
+        "rays_setup": (
+            lambda: rays.rays_setup(cold(), scene.sphere_center, scene.sphere_radius, tile),
+            lambda: rays.plain_rays_setup(rows, scene.sphere_center, scene.sphere_radius, tile),
+            n * ROW_STATE_BYTES + n * (1 + 4 + 4) + n_pad * 8 * 4 + spheres * 16,
+            n * spheres * SPHERE_OPS,
+            lambda: torch.stack([c.reshape(-1, tile) for c in
+                                 (x[:n // tile * tile] for x in comps)], dim=1)),
+        "ray_keys": (
+            lambda: rays.ray_keys(cold(), scene.min_coord, scene.inv_extent, False, n),
+            lambda: rays.plain_ray_keys(rows, scene.min_coord, scene.inv_extent, False, n),
+            n * ROW_STATE_BYTES + n * 8 + 4, live * KEY_OPS, None),
+        "pcg_draws": (
+            lambda: rays.bounce_draws(train_ids, TRAIN_SEED, 1),
+            lambda: rays.plain_bounce_draws(train_ids, TRAIN_SEED, 1),
+            train_ids.numel() * (4 + 5 * 8), 0, None),
+    }
+    out = {}
+    for name, (kernel, plain, nbytes, ops, library) in cases.items():
+        ms = _cuda_ms(kernel)
+        plain_ms = _plain_ms(plain)
+        library_ms = _cuda_ms(library) if library else None
+        ops_ms = ops / PEAK_FP32_FLOPS * 1e3
+        bytes_ms = nbytes / PEAK_BYTES * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        rays_n = train_ids.numel() if name == "pcg_draws" else n
+        print(f"phase 6c timing: {name} rays={rays_n} ms={ms:.4f} plain_ms={plain_ms:.3f} "
+              f"library_ms={library_ms if library_ms is None else round(library_ms, 4)} "
+              f"bytes={nbytes} bytes_bound_ms={bytes_ms:.4f} ops_bound_ms={ops_ms:.4f} "
+              f"bound_share={bound_ms / ms:.3f}")
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by="operations" if ops_ms >= bytes_ms else "bytes")
+    return out
+
+
+def _traced_od8(scene, ids, rpp: int, seed: int, first: int = 0):
+    """The ray tiles one block's closest hit gets at each bounce, the block
+    traced as a render traces it (``_traced_rows``) → yields (bounce, rays,
+    od8) for bounces ``first``.. of the scene's."""
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    for b, rows in _traced_rows(scene, ids, rpp, seed):
         if b >= first:
-            n = next(size for size in reversed(wavefront.live_prefix_sizes(scene, block))
-                     if size >= live_bound)
-            yield b, n, _packet_rays(scene, wavefront.RayState(*(leaf[:n] for leaf in state)),
-                                     scene.config.packet_tile)
-        state, live_bound, _ = wavefront.bounce_on_live_prefix(scene, state, seed, b,
-                                                               live_bound, do_sort)
+            yield b, rows.shape[0], _packet_rays(scene, wavefront.unpack_rows(rows),
+                                                 scene.config.packet_tile)
 
 
 def _fused1_tail(scene, pack: int, gate: int, phase: str) -> dict:
@@ -1048,7 +1287,8 @@ def _fused1_tail(scene, pack: int, gate: int, phase: str) -> dict:
 def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list:
     """One block traced as a render traces it: at each of its bounces, the
     cull + fused engine's inputs (the cull's entries, hit bits and selection
-    words), and the fused kernel with its skip test at one block per tile
+    words; the cull held to plain_cull, 0 mismatched elements, and timed
+    beside its bound), and the fused kernel with its skip test at one block per tile
     (S = 1) and at split_plan's split, both bit-equal to plain_fused (0
     mismatched elements); each timed (_cuda_ms), with the S = 1 counters'
     bound and the split's counters beside it."""
@@ -1063,6 +1303,15 @@ def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list
     for b, n, od8 in _traced_od8(scene, ids, rpp, seed):
         T = od8.shape[0]
         entry, mask = cull.cull_tiles(od8, aabb, with_mask=True)
+        cull_bad = _mismatch((entry, mask), cull.plain_cull(od8, aabb, with_mask=True))[0]
+        cull_ms = _cuda_ms(lambda: cull.cull_tiles(od8, aabb, with_mask=True))
+        cull_bound = int((od8[:, 6, :] >= 0).sum()) * K * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
+        print(f"phase {phase} cull: {label} bounce={b} rays={n} tiles={T} cull_ms={cull_ms:.4f} "
+              f"ops_bound_ms={cull_bound:.4f} bound_share={cull_bound / cull_ms:.3f} "
+              f"mismatched={cull_bad}")
+        if cull_bad:
+            raise SystemExit(f"phase {phase} failed: the cull differs from its plain version "
+                             f"({label}, bounce {b})")
         words = fused.pack_words(entry < packet_intersect.HIT_THRESH)
         ref = fused.plain_fused(od8, blocks, words)
         splits = fused1.split_plan(T, K)[0]
@@ -1087,7 +1336,8 @@ def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list
             raise SystemExit(f"phase {phase} failed: fused differs from its plain version "
                              f"({label}, bounce {b})")
         rows.append(dict(bounce=b, tiles=T, splits=splits, ms_split1=ms[1],
-                         ms_chosen=ms[splits], bound_ms=ops_ms))
+                         ms_chosen=ms[splits], bound_ms=ops_ms, cull_ms=cull_ms,
+                         cull_bound_ms=cull_bound))
     return rows
 
 
@@ -1128,15 +1378,14 @@ def phase_cli_subprocess(scenes: dict, workdir: Path) -> bytes:
     """9a: the real entry point, as a user runs it."""
     out = workdir / "gated.png"
     cmd = [sys.executable, "-m", "cuda_raytracer_tpu_torch", str(scenes["torus"]),
-           "--spp", str(CLI_SPP), "--cull-hier", str(CLI_GATE), "--metrics",
-           "--out", str(out)]
+           "--spp", str(CLI_SPP), "--metrics", "--out", str(out)]
     start = time.perf_counter()
     proc = subprocess.run(cmd, cwd=workdir, env=_subprocess_env(), capture_output=True,
                           text=True, timeout=600)
     wall = time.perf_counter() - start
     metrics = [ln for ln in proc.stderr.splitlines() if ln.startswith("{")]
     print(f"phase 9a cli: python -m cuda_raytracer_tpu_torch torus.scene --spp {CLI_SPP} "
-          f"--cull-hier {CLI_GATE} --metrics rc={proc.returncode} wall_seconds={wall:.2f}")
+          f"--metrics rc={proc.returncode} wall_seconds={wall:.2f}")
     if proc.returncode != 0 or not out.exists() or "paths/s" not in proc.stderr or not metrics:
         print(proc.stderr[-4000:], file=sys.stderr)
         raise SystemExit("phase 9a failed: the CLI did not render the torus")
@@ -1154,11 +1403,12 @@ def phase_cli_subprocess(scenes: dict, workdir: Path) -> bytes:
 
 
 def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> None:
-    """9b: ``cli.main`` with fused1's super-box gate (``--cull-hier 16``)
-    and without it (``--cull-hier -1``), in turns (gated, flat, flat,
-    gated), each run's launch counts set to 0 just before it and read just
-    after: fused1 and the bounce kernel launch in every run, no other packet
-    kernel, and every PNG equals phase 9a's byte for byte."""
+    """9b: ``cli.main`` with the gated cull (``--cull-hier 16``) and with
+    the flat one (``--cull-hier -1``), in turns (gated, flat, flat, gated),
+    each run's launch counts set to 0 just before it and read just after:
+    the "auto" regime's and the forward kernels launch in every run, the
+    gated cull in the gated runs only, no other kernel, and every PNG equals
+    phase 9a's byte for byte."""
     import contextlib
     import io
 
@@ -1181,8 +1431,9 @@ def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> 
         m = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
         render = m["phases"]["render_accelerator"]
         seconds[label].append(render)
-        ok = ok and all(counts[k] > 0 for k in CLI_KERNELS) and not any(
-            v for k, v in counts.items() if k not in CLI_KERNELS)
+        expected = CLI_KERNELS + (("cull_gated",) if label == "gated" else ())
+        ok = ok and all(counts[k] > 0 for k in expected) and not any(
+            v for k, v in counts.items() if k not in expected)
         pngs.append(out.read_bytes())
         print(f"phase 9b cli.main: torus spp={CLI_SPP} turn={turn} {label} "
               f"--cull-hier {gate} rc={rc} load_scene_seconds={m['phases']['load_scene']:.3f} "
@@ -1216,7 +1467,7 @@ def phase_gated_render(full) -> int:
         launches.append(counts["cull_gated"])
         print(f"phase 9c gated render: torus spp={CLI_SPP} turn={turn} {label} "
               f"seconds={secs:.4f} launches={json.dumps(counts)}")
-        if (counts["cull_gated"] > 0) != (label == "gated") or not counts["shade_bounce"]:
+        if (counts["cull_gated"] > 0) != (label == "gated") or not counts["shade_rows"]:
             raise SystemExit(f"phase 9c failed: launches of the {label} render")
     same = all(np.array_equal(img, images[0]) for img in images)
     print(f"phase 9c gated render: seconds gated={seconds['gated']} flat={seconds['flat']} "
@@ -1316,8 +1567,7 @@ def phase_gated_cull(full) -> dict:
                 result = dict(ms=ms, kernel_ms=kernel_ms, prepass_ms=prepass_ms,
                               flat_ms=flat_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-        state, _ = wavefront.process_rays(scene, state, seed, bounce)
-        state = wavefront.reorder_rays(scene, state)
+        state = _next_state(scene, state, seed, bounce)
     result["max_abs_err"] = worst
     return result
 
@@ -1539,8 +1789,7 @@ def phase_sweep(full) -> dict:
             if bounce == 1:  # the kernel table reports the sorted bounced block
                 result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, fused_ms=fused_ms,
                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
-        state, _ = wavefront.process_rays(scene, state, seed, bounce)
-        state = wavefront.reorder_rays(scene, state)
+        state = _next_state(scene, state, seed, bounce)
     result["max_abs_err"] = worst
     return result
 
@@ -1605,6 +1854,9 @@ def phase_train(full) -> dict:
                                                        packet_cap=_pallas_cap(base))}
     engine_kernels = {"auto": ("cull_tiles", "fused_closest_hit"),
                       "pallas": ("cull_tiles", "sweep_pairs")}
+    # A step's other kernels: the reorder's sort keys and the torch shading's
+    # PCG draws (recomputed in the backward pass with checkpointing).
+    step_kernels = ("ray_keys", "pcg_draws")
     results = {}
     for backend, checkpoint in (("auto", True), ("pallas", True), ("auto", False),
                                 ("pallas", False)):
@@ -1648,7 +1900,8 @@ def phase_train(full) -> dict:
         median = statistics.median(seconds)
         kernels = engine_kernels[backend]
         ok_launches = all(per_step[k] == forward[k] > 0 for k in kernels) and all(
-            counts[k] == 0 for k in counts if k not in kernels)
+            counts[k] > 0 for k in step_kernels) and all(
+            counts[k] == 0 for k in counts if k not in kernels + step_kernels)
         falling = losses[-1] < losses[0] and all(map(lambda x: x == x, losses))
         print(f"phase 10c train step: torus packet_backend={backend} "
               f"checkpoint_bounces={checkpoint} seconds_per_step={median:.4f} "
@@ -1664,6 +1917,7 @@ def phase_train(full) -> dict:
         results[(backend, checkpoint)] = dict(seconds=median, launches=counts, peak=peak)
         if checkpoint:  # where one step's time goes
             _, wall_ms, rows = _profiled(lambda: step(params, target, TRAIN_SEED))
+            results[(backend, checkpoint)]["device_kernels"] = sum(r[1] for r in rows)
             busy_ms = sum(r[0] for r in rows)
             closest_ms = sum(r[0] for r in rows if any(
                 k in r[2] for k in ("cull_kernel", "fused_kernel", "sweep_kernel")))
@@ -1754,6 +2008,7 @@ def phase_diff(full, device) -> dict:
     train = phase_train(full)
     phase_example(device)
     result["launches"] = train[("pallas", True)]["launches"]["sweep_pairs"]
+    result["train_launches"] = train[("auto", True)]["launches"]
     return result
 
 
@@ -1825,8 +2080,7 @@ def phase_pack_vs_plain(packed, half) -> float:
         if any(b for _, b, _ in cases):
             raise SystemExit(f"phase 11a failed: bounce {bounce}")
         worst = max([worst] + [e for _, _, e in cases])
-        state, _ = wavefront.process_rays(scene, state, 3, bounce)
-        state = wavefront.reorder_rays(scene, state)
+        state = _next_state(scene, state, 3, bounce)
     return worst
 
 
@@ -1844,7 +2098,7 @@ def phase_pack_timing(packed, full) -> dict:
     block_lo, block = _centre_block(scene, rpp)
     ray_id = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
     state0 = wavefront.make_initial_state(scene, ray_id, rpp, seed)
-    state1 = wavefront.reorder_rays(scene, wavefront.process_rays(scene, state0, seed, 0)[0])
+    state1 = _next_state(scene, state0, seed, 0)
     K, C, tile = scene.num_clusters, scene.cluster_tris, scene.config.packet_tile
     cmin, cmax = scene.cluster_min, scene.cluster_max
     aabb = cull.box_table(cmin, cmax)
@@ -1916,7 +2170,8 @@ def phase_pack_main_path(packed, full, reference_fb) -> int:
 
     pack2, pack1 = ("fused1_closest_hit_pack2",), ("fused1_closest_hit",)
     scenes = {"packed": packed.with_config(rays_per_pixel=MESH_FULL_SPP),
-              "unpacked": full.with_config(rays_per_pixel=MESH_FULL_SPP)}
+              "unpacked": full.with_config(rays_per_pixel=MESH_FULL_SPP,
+                                           packet_backend="fused1")}
     order = ("packed", "unpacked", "unpacked", "packed")
     seconds, fbs, _, counts = _render_turns([(label, scenes[label]) for label in order],
                                             {"packed": pack2, "unpacked": pack1}, "11c",
@@ -1958,7 +2213,7 @@ def phase_mesh_cli(plain_cli: dict) -> None:
         scenes = _write_scenes(workdir)
         out = workdir / "mesh1.png"
         cmd = [sys.executable, "-c", entry, str(scenes["torus"]),
-               "--spp", str(CLI_SPP), "--cull-hier", str(CLI_GATE), "--mesh", "1",
+               "--spp", str(CLI_SPP), "--mesh", "1",
                "--metrics", "--out", str(out)]
         start = time.perf_counter()
         proc = subprocess.run(cmd, cwd=workdir, env=_subprocess_env(), capture_output=True,
@@ -2092,10 +2347,8 @@ def phase_two_ranks() -> None:
         print(f"phase 12b gradients {name}: " + " ".join(
             f"{k}:max|g|={sc:.4g},max|d|={d:.3g},over_gate={lit:.3g}"
             for k, sc, d, lit in leaves))
-        # The torus renders through fused1 and the bounce kernel, and trains
-        # through cull + fused.
-        kernels = (("fused1_closest_hit", "shade_bounce", "cull_tiles", "fused_closest_hit")
-                   if name == "torus" else ("shade_trace",))
+        # The torus renders and trains through cull + fused.
+        kernels = AUTO_KERNELS + FORWARD_KERNELS if name == "torus" else ("shade_trace",)
         launched = all(r["launches"][k] > 0 for r in (r0, r1) for k in kernels)
         print(f"phase 12b two gloo ranks on cuda:0: {name} {TRAIN['width']}x{TRAIN['height']} "
               f"spp={TRAIN['rays_per_pixel']} bounces={TRAIN['bounces']} "
@@ -2141,7 +2394,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from cuda_raytracer_tpu_torch.ops.kernels import (
-        bounce, build, cull, fused, fused1, shade, sweep)
+        bounce, build, cull, fused, fused1, rays, shade, sweep)
 
     device = torch.device("cuda")
     smi = _smi()
@@ -2151,7 +2404,7 @@ def main() -> int:
 
     start = time.perf_counter()
     built = build.load_all(KERNEL_SOURCES)
-    for module in (shade, cull, fused, fused1, sweep, bounce):
+    for module in (shade, cull, fused, fused1, sweep, bounce, rays):
         module.library()  # bind the argument types
     for name, b in built.items():
         regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
@@ -2169,6 +2422,7 @@ def main() -> int:
     scenes = {name: _mesh_scene(name, device) for name in ("torus", "glass_torus")}
     worst = phase_packet_vs_plain(scenes)
     bounce_check = phase_bounce_vs_plain(scenes, device)
+    row_kernels = phase_row_kernels(scenes["torus"])
     mesh_launches, framebuffer_100 = phase_mesh_main_path(scenes["torus"])
     mesh_timing = phase_packet_timing(scenes["torus"])
     phase_mesh_profile(scenes["torus"])
@@ -2212,21 +2466,28 @@ def main() -> int:
             "bound_by": t["bound_by"],
             "library_ms": None,
             # fused1: the centre block's bounces 2-9 at S = 1 and at the split;
-            # fused: its bounces 0-9, and the train step's pass.
+            # fused (and the cull): its bounces 0-9, and the train step's pass.
             **({"tail": t["tail"]} if "tail" in t else {}),
             **({"train_tail": diff_result["train_tail"]}
                if name == "fused_closest_hit" else {}),
+            **({"tail": [dict(bounce=r["bounce"], ms=r["cull_ms"], bound_ms=r["cull_bound_ms"])
+                         for r in mesh_timing["fused_closest_hit"]["tail"]],
+                "train_tail": [dict(bounce=r["bounce"], ms=r["cull_ms"],
+                                    bound_ms=r["cull_bound_ms"])
+                               for r in diff_result["train_tail"]]}
+               if name == "cull_tiles" else {}),
         })
-    b = mesh_timing["shade_bounce"]
+    b = mesh_timing["shade_rows"]
     kernels.append({
-        "name": "shade_bounce",
+        "name": "shade_rows",
         "route": "cuda",
         "source": "cuda_raytracer_tpu_torch/csrc/bounce.cu",
         # No TPU kernel: the JAX package's process_rays, fused by XLA.
         "replaces": "cuda_raytracer_tpu/render/wavefront.py:275",
-        # The 100-spp torus render of phase 7 ("auto", the fused1 regime).
-        "launches": mesh_launches["shade_bounce"],
-        "max_abs_err": max(bounce_check["max_abs_err"], b["max_abs_err"]),
+        # The 100-spp torus render of phase 7 through "auto".
+        "launches": mesh_launches["shade_rows"],
+        "max_abs_err": max(bounce_check["max_abs_err"], b["max_abs_err"],
+                           row_kernels["bounce_max_abs_err"]),
         "agreement": b["agreement"],
         "tolerance": f"max |d| < {AGREE_TOL} on >= {AGREE_MIN} of rays",
         "ms": b["ms"],
@@ -2235,6 +2496,33 @@ def main() -> int:
         "bound_by": b["bound_by"],
         "library_ms": None,
     })
+    for name, replaces, launches in (
+            # JAX closest_hit (its sphere part and the packet path's ray tiles),
+            # morton.ray_sort_keys, rng.uniforms: not TPU kernels, XLA ops.
+            ("rays_setup", "cuda_raytracer_tpu/render/wavefront.py:75",
+             mesh_launches["rays_setup"]),
+            ("ray_keys", "cuda_raytracer_tpu/ops/morton.py:51", mesh_launches["ray_keys"]),
+            # The camera's jitter in every trace; the torch shading's five
+            # draws a bounce in training.
+            ("pcg_draws", "cuda_raytracer_tpu/ops/rng.py:121", mesh_launches["pcg_draws"])):
+        r = row_kernels[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "cuda_raytracer_tpu_torch/csrc/rays.cu",
+            "replaces": replaces,
+            "launches": launches,
+            "max_abs_err": r["max_abs_err"],
+            "tolerance": "bit-equal",
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            # rays_setup: torch.stack of its ray tiles' rows, the packing only.
+            "library_ms": r["library_ms"],
+            **({"train_step_launches": diff_result["train_launches"]["pcg_draws"]}
+               if name == "pcg_draws" else {}),
+        })
     kernels.append({
         "name": "cull_gated",
         "route": "cuda",

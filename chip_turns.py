@@ -9,11 +9,20 @@ directory) and prints one JSON line with NAME, the card and its power limit:
 - ``cornell_s``: a 1000×1000, 100-spp, 10-bounce Cornell render (five
   20-spp passes through the brute-scene megakernel), after one untimed
   render; host clock around work ending in ``torch.cuda.synchronize``;
+- ``torus_s``, ``torus_fb_sha256``: the 126,000-triangle torus at 1000×1000,
+  100 spp, 10 bounces (the mesh main path, packet backend "auto"), after a
+  128×128 warm-up, and a hash of its framebuffer's bytes (two trees that
+  trace the same bits print the same hash);
+- ``block_wall_ms``, ``block_busy_ms``, ``block_idle_share``,
+  ``block_kernels``: the torus's centre 2^18-ray block of a 20-spp pass
+  (10 bounces, packet backend "auto") under torch.profiler: wall time,
+  device busy time, the device's idle share and the device kernels it ran;
 - ``train_s``: the median of 5 inverse-rendering train steps ("auto"
   engine, per-bounce checkpointing, Adam) on the 126,000-triangle torus at
   256×256 × 2 spp × 10 bounces, after 2 untimed steps: phase 10c's shape;
-- ``train_busy_ms``, ``train_wall_ms``: one more step under torch.profiler,
-  the device's busy time (device-side events only) and the wall time.
+- ``train_busy_ms``, ``train_wall_ms``, ``train_kernels``: one more step
+  under torch.profiler (after one more untimed step), the device's busy
+  time (device-side events only), the wall time and the device kernels.
 
 Only APIs that every tree since the train step (``render/diff.py``) has are
 used, so an older tree unpacked with ``git archive`` runs it as it is. Run
@@ -24,6 +33,7 @@ process, so both see one card and one host.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -70,6 +80,47 @@ def main() -> int:
 
     full = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus"), device=device)
     cam = full.camera
+    small = full.replace(camera=precompute_camera(
+        cam.position.cpu().numpy(), cam.forward.cpu().numpy(), cam.up.cpu().numpy(),
+        cam.vertical_fov, 128, 128, device=device)).with_config(width=128, height=128)
+    pipeline.render_framebuffer(small.with_config(rays_per_pixel=20))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    torus_fb = pipeline.render_framebuffer(full.with_config(rays_per_pixel=100))
+    torch.cuda.synchronize()
+    torus_s = time.perf_counter() - start
+    torus_sha = hashlib.sha256(torus_fb.cpu().numpy().tobytes()).hexdigest()
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def profiled(fn):
+        """(wall ms, device busy ms, device kernels) of one call of fn."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            start = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - start) * 1e3
+        busy, kernels = 0.0, 0
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CPU:
+                busy += getattr(e, "self_device_time_total", 0.0) / 1e3
+                kernels += e.count
+        return wall, busy, kernels
+
+    # The pass block that holds the image centre, rendered as render_pass
+    # renders it (the tree's regime for "auto"): one block of whole pixels.
+    rpp = 20
+    block = (pipeline.RAY_BLOCK // rpp) * rpp
+    centre = (full.config.height // 2 * full.config.width + full.config.width // 2) * rpp
+    px_lo = centre // block * block // rpp
+    framebuffer = torch.zeros((full.num_pixels, 3), device=device)
+    block_wall, block_busy, block_kernels = profiled(lambda: pipeline.render_pass(
+        full, framebuffer, 80, rpp, full.config.bounces, True,
+        pixels=(px_lo, px_lo + block // rpp)))
+
     camera = precompute_camera(cam.position.cpu().numpy(), cam.forward.cpu().numpy(),
                                cam.up.cpu().numpy(), cam.vertical_fov, TRAIN["width"],
                                TRAIN["height"], device=device)
@@ -95,21 +146,14 @@ def main() -> int:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start = time.perf_counter()
-        step(params, target, SEED)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - start) * 1e3
-    busy_ms = 0.0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CPU:
-            busy_ms += getattr(e, "self_device_time_total", 0.0) / 1e3
-    print(json.dumps(dict(label=args.label, card=smi, cornell_s=cornell_s,
+    wall_ms, busy_ms, train_kernels = profiled(lambda: step(params, target, SEED))
+    print(json.dumps(dict(label=args.label, card=smi, cornell_s=cornell_s, torus_s=torus_s,
+                          torus_fb_sha256=torus_sha, block_wall_ms=block_wall,
+                          block_busy_ms=block_busy, block_idle_share=1 - block_busy / block_wall,
+                          block_kernels=block_kernels,
                           train_s=statistics.median(seconds), train_steps_s=seconds,
-                          train_busy_ms=busy_ms, train_wall_ms=wall_ms)))
+                          train_busy_ms=busy_ms, train_wall_ms=wall_ms,
+                          train_kernels=train_kernels)))
     return 0
 
 

@@ -1,29 +1,30 @@
-// One bounce's shading of a whole wavefront: one CUDA thread per ray.
+// One bounce's shading of a packed wavefront, in place: one CUDA thread per
+// ray.
 //
 // Replaces no TPU kernel: the JAX package runs this step as one jitted XLA
 // program per bounce (cuda_raytracer_tpu/render/wavefront.py::process_rays,
 // which XLA fuses). The port's plain version is some 600 PyTorch ops per
 // bounce (the bit-exact PCG on int64-held 32-bit limbs alone about 400),
-// each a kernel the host issues, so the device idled most of a mesh block.
-// This kernel does all of it in one launch: given each ray's state and
-// closest hit, it gathers the hit's material row and geometric normal, draws
-// the bounce's five PCG numbers, fetches the environment on a miss and
-// writes the next state. The arithmetic is rt::shade_bounce_ray in
+// each a kernel the host issues. This kernel does all of it in one launch:
+// given each ray's packed state row, its sphere hit and the packet kernel's
+// raw triangle hit, it folds the two hits (packet_intersect._finalize),
+// gathers the hit's material row and geometric normal, draws the bounce's
+// five PCG numbers, fetches the environment on a miss and writes the next
+// state over the row. The arithmetic is rt::shade_packed_row in
 // shading.cuh, shared with the host build the CPU tests run.
 //
-// What bounds it: bytes. A ray reads 4 x 12 B of state, its id, its hit
-// distance and its hit index (60 B) and writes 48 B; the arithmetic is ~100
-// FP32 operations and 5 64-bit LCG steps per live hit ray, far below the
-// card's rate for those bytes. The scene tables are gathered per hit (a
-// material row, a normal) and stay in L2.
+// What bounds it: bytes. A ray reads its 64-byte row (four 16-byte loads),
+// its sphere hit and its triangle hit (16 B), and a live ray writes 48 B
+// (the ray id and pad words are never written); the arithmetic is ~100 FP32
+// operations and 5 64-bit LCG steps per live hit ray, far below the card's
+// rate for those bytes. The scene tables are gathered per hit (a material
+// row, a normal) and stay in L2.
 //
-// What the design does about that bound: every state row is read and
-// written once, with no intermediate in device memory (the plain version
-// writes and rereads dozens of (R,) and (R, 3) temporaries). Dead rays are
-// copied through without touching the tables, misses skip the PCG chain,
-// and the next state is written as one (R, 12) buffer so the wrapper
-// allocates once. Rows may be strided (a column slice of the Morton
-// reorder's packed state is read in place).
+// What the design does about that bound: the state is one (R, 16) buffer,
+// so a row is four aligned vector loads and three vector stores, not twelve
+// strided scalar loads from four leaves and a separate (R, 12) output; the
+// update is in place, so a dead ray costs its row's read and no write, and
+// nothing is allocated per bounce. Misses skip the PCG chain.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,44 +36,38 @@ namespace {
 constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads)
-bounce_kernel(rt::BounceTables tb, rt::Rows3 origin, rt::Rows3 direction,
-              rt::Rows3 transmitted, rt::Rows3 collected, const int* __restrict__ ray_id,
-              const float* __restrict__ t_hit, const int* __restrict__ hit, int n,
-              uint32_t pass_seed, uint32_t bounce, float* __restrict__ out) {
+bounce_rows_kernel(rt::BounceTables tb, float* __restrict__ rows, int n,
+                   const float* __restrict__ t_sph, const int* __restrict__ i_sph,
+                   const float* __restrict__ t_tri, const int* __restrict__ tri,
+                   uint32_t pass_seed, uint32_t bounce) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  rt::shade_bounce_row(tb, origin, direction, transmitted, collected, ray_id, t_hit, hit,
-                       pass_seed, bounce, i, out);
+  rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
 }
 
 }  // namespace
 
 extern "C" {
 
-// One bounce for n rays on `stream`; returns cudaGetLastError() (0 on
-// success). State rows: origin, direction, transmitted, collected, each
-// (n, 3) float32 with the given row strides (in floats) and unit column
-// stride; ray_id (n,) int32, t_hit (n,) float32, hit (n,) int32 (< 0 on a
-// miss). Tables as rt::BounceTables. out: (n, 12) float32 contiguous.
-int rt_shade_bounce(const float* origin, long long origin_stride, const float* direction,
-                    long long direction_stride, const float* transmitted,
-                    long long transmitted_stride, const float* collected,
-                    long long collected_stride, const int* ray_id, const float* t_hit,
-                    const int* hit, int n, const int* material_index, int n_prims,
-                    const float* sphere_center, const float* sphere_radius,
-                    int n_sphere_rows, int sphere_count, const float* tri_normal,
-                    int n_tri_rows, const float* materials, const float* env, int env_h,
-                    int env_w, unsigned int pass_seed, unsigned int bounce, float* out,
-                    void* stream) {
+// One bounce for the n rows of `rows` ((n, 16) float32, 16-byte aligned) on
+// `stream`, in place; returns cudaGetLastError() (0 on success). t_sph (n,)
+// float32 and i_sph (n,) int32: the sphere hit, -1 on a dead ray; t_tri (>= n,)
+// float32 and tri (>= n,) int32: the packet kernel's per-ray triangle hit, or
+// both null when t_sph / i_sph already hold the closest hit. Tables as
+// rt::BounceTables.
+int rt_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph,
+                   const float* t_tri, const int* tri, const int* material_index,
+                   int n_prims, const float* sphere_center, const float* sphere_radius,
+                   int n_sphere_rows, int sphere_count, const float* tri_normal,
+                   int n_tri_rows, const float* materials, const float* env, int env_h,
+                   int env_w, unsigned int pass_seed, unsigned int bounce, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
                             materials, env, env_h, env_w};
   const int blocks = (n + kThreads - 1) / kThreads;
-  bounce_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tb, rt::Rows3{origin, origin_stride}, rt::Rows3{direction, direction_stride},
-      rt::Rows3{transmitted, transmitted_stride}, rt::Rows3{collected, collected_stride},
-      ray_id, t_hit, hit, n, pass_seed, bounce, out);
+  bounce_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
   return (int)cudaGetLastError();
 }
 

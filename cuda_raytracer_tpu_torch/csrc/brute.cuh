@@ -109,6 +109,25 @@ RT_HD void camera_ray(const Scene& sc, int rid, int rays_per_pixel, int width,
   p.bounce = 0;
 }
 
+// One ray against one sphere (centre c, radius r): the nearer root of the
+// quarter-discriminant quadratic at or beyond kHitEps, else the farther one,
+// else kMiss (ops/intersect.intersect_spheres, expression for expression).
+// The mesh wavefront's set-up kernel (rays.cuh) runs it too.
+RT_HD float sphere_t(const float o[3], const float d[3], float cx, float cy, float cz,
+                     float r) {
+  const float offx = cx - o[0];
+  const float offy = cy - o[1];
+  const float offz = cz - o[2];
+  const float mhb = offx * d[0] + offy * d[1] + offz * d[2];
+  const float qc = offx * offx + offy * offy + offz * offz - r * r;
+  const float qd = mhb * mhb - qc;
+  const float hs = sqrtf(fmaxf(qd, 0.0f));
+  const float near = mhb - hs;
+  const float far = mhb + hs;
+  const float t = near >= kHitEps ? near : (far >= kHitEps ? far : kMiss);
+  return qd >= 0.0f ? t : kMiss;
+}
+
 // Closest hit: spheres, then triangles; strict < keeps the first minimum,
 // and a triangle must beat the best sphere strictly. kind: 0 miss, 1
 // sphere, 2 triangle; hit indexes its table.
@@ -119,17 +138,7 @@ RT_HD void closest_hit(const Scene& sc, const float o[3], const float d[3], floa
   hit = 0;
   for (int s = 0; s < sc.num_spheres; ++s) {
     const Quad c = load4(sc.sphere(s));
-    const float offx = c.x - o[0];
-    const float offy = c.y - o[1];
-    const float offz = c.z - o[2];
-    const float mhb = offx * d[0] + offy * d[1] + offz * d[2];
-    const float qc = offx * offx + offy * offy + offz * offz - c.w * c.w;
-    const float qd = mhb * mhb - qc;
-    const float hs = sqrtf(fmaxf(qd, 0.0f));
-    const float near = mhb - hs;
-    const float far = mhb + hs;
-    float t = near >= kHitEps ? near : (far >= kHitEps ? far : kMiss);
-    t = qd >= 0.0f ? t : kMiss;
+    const float t = sphere_t(o, d, c.x, c.y, c.z, c.w);
     if (t < best) {
       best = t;
       kind = 1;

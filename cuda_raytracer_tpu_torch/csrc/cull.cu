@@ -1,4 +1,4 @@
-// Packet-intersector tile cull: one block per (ray tile, 128-box chunk).
+// Packet-intersector tile cull: one block per (ray tile, span of boxes).
 //
 // Replaces the TPU kernels cuda_raytracer_tpu/ops/pallas/cull.py::_cull_kernel
 // (launched by cull_tiles) and ::_cull_kernel_gated (launched by
@@ -9,17 +9,26 @@
 // set, and writes the all-miss result elsewhere: the TPU kernel's 128-box
 // GATE_CHUNK is this grid's chunk, so the gate skips whole blocks.
 //
-// What bounds it: FP32 operations. Each (ray, box) test is ~24 FP32
-// operations and reads nothing new (the tile's rays and the box are in
-// shared memory and registers); the bytes are the ray tiles in, 4 B of entry
-// and 4 B per 32 rays of mask out per (tile, box).
+// What bounds it: FP32 operations. Each (ray, box) test needs 19 FP32
+// operations (6 sub, 6 mul, 6 min / max for the window, 1 min for the
+// entry's running minimum) and reads nothing new (the tile's rays are in shared memory, the
+// boxes in registers); the bytes are the ray tiles in, 4 B of entry and 4 B
+// per 32 rays of mask out per (tile, box).
 //
-// What the design does about that bound: a thread owns one box column and
-// loops over the tile's rays, which sit in shared memory with their safe
-// inverse directions computed once per ray, not once per (ray, box); its
-// entry and mask words are written once, coalesced across the block's
-// threads. The arithmetic itself is rt::cull_block in packet.cuh, shared with
-// the host build the CPU tests run.
+// What the design does about that bound (rt::cull_block in packet.cuh, shared
+// with the host build the CPU tests run): the first design gave each thread
+// one box and re-read a ray's seven words from shared memory for every test,
+// so the shared-memory pipe, a quarter of the FP32 pipes' issue rate, and the
+// compare-and-select chains of the NaN-propagating min / max set its pace.
+// Now a thread holds four boxes in registers and reads each ray once per four
+// tests as two 16-byte loads; the min / max are single min.NaN / max.NaN
+// instructions, with the plain rule's sign of a zero entry restored on the
+// rare hits whose entry is zero (rt::zero_entry). A flat cull block takes one
+// tile and an even share of the boxes (rt::cull_grid: 721 boxes are two
+// spans of 361 boxes on 96 threads, where 128-box chunks left 47 of the last
+// chunk's 128 threads idle); the gated cull keeps the gate's 128-box chunk,
+// on 32 threads. Entry and mask words are written once, coalesced across the
+// block's threads.
 
 #include <cuda_runtime.h>
 
@@ -27,24 +36,27 @@
 
 namespace {
 
-constexpr int kThreads = rt::kChunk;
+constexpr int kGatedThreads = rt::kChunk / rt::kCullBoxes;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(rt::kCullThreads)
     cull_kernel(const float* __restrict__ od8, const float* __restrict__ aabb,
-                int K, int tile, float* __restrict__ entry, int* __restrict__ mask) {
-  extern __shared__ float smem[];
+                int K, int tile, int span, float* __restrict__ entry, int* __restrict__ mask) {
+  extern __shared__ float4 smem4[];
   rt::DeviceExec ex;
-  rt::cull_block(ex, smem, od8, aabb, K, tile, blockIdx.x, blockIdx.y, entry, mask);
+  const int k_lo = blockIdx.y * span;
+  const int k_hi = k_lo + span < K ? k_lo + span : K;
+  rt::cull_block(ex, reinterpret_cast<float*>(smem4), od8, aabb, K, tile, blockIdx.x, k_lo,
+                 k_hi, entry, mask);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kGatedThreads)
     cull_gated_kernel(const float* __restrict__ od8, const float* __restrict__ aabb,
                       const int* __restrict__ gates, int Wg, int K, int tile,
                       float* __restrict__ entry, int* __restrict__ mask) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   rt::DeviceExec ex;
-  rt::cull_block_gated(ex, smem, od8, aabb, gates, Wg, K, tile, blockIdx.x, blockIdx.y,
-                       entry, mask);
+  rt::cull_block_gated(ex, reinterpret_cast<float*>(smem4), od8, aabb, gates, Wg, K, tile,
+                       blockIdx.x, blockIdx.y, entry, mask);
 }
 
 }  // namespace
@@ -57,10 +69,10 @@ extern "C" {
 int rt_cull_tiles(const float* od8, const float* aabb, float* entry, int* mask,
                   int T, int K, int tile, void* stream) {
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
-  const dim3 grid(T, (K + rt::kChunk - 1) / rt::kChunk);
-  const size_t smem = sizeof(float) * 12 * tile;
-  cull_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(od8, aabb, K, tile,
-                                                              entry, mask);
+  const rt::CullGrid g = rt::cull_grid(K);
+  const size_t smem = sizeof(float) * 8 * tile;
+  cull_kernel<<<dim3(T, g.spans), g.threads, smem, (cudaStream_t)stream>>>(
+      od8, aabb, K, tile, g.span, entry, mask);
   return (int)cudaGetLastError();
 }
 
@@ -72,8 +84,8 @@ int rt_cull_tiles_gated(const float* od8, const float* aabb, const int* gates,
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
   const int chunks = (K + rt::kChunk - 1) / rt::kChunk;
   const dim3 grid(T, chunks);
-  const size_t smem = sizeof(float) * 12 * tile;
-  cull_gated_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const size_t smem = sizeof(float) * 8 * tile;
+  cull_gated_kernel<<<grid, kGatedThreads, smem, (cudaStream_t)stream>>>(
       od8, aabb, gates, (chunks + 31) / 32, K, tile, entry, mask);
   return (int)cudaGetLastError();
 }

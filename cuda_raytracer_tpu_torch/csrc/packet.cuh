@@ -154,6 +154,20 @@ RT_HD float bits_float(uint32_t u) {
 #endif
 }
 
+// Four 16-byte aligned words: one vector load on the card.
+struct Words4 {
+  float x, y, z, w;
+};
+
+RT_HD Words4 load_words4(const float* p) {
+#ifdef __CUDA_ARCH__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+#else
+  return {p[0], p[1], p[2], p[3]};
+#endif
+}
+
 RT_HD int ctz32(uint32_t w) {
 #ifdef __CUDA_ARCH__
   return __ffs((int)w) - 1;
@@ -397,40 +411,209 @@ RT_HD void store_tile(const Exec& ex, const RayTile& rt, int t, int tile,
   }
 }
 
-// ---- cull: one (tile, 128-box chunk) per block ----------------------------------
+// ---- cull: one (tile, box span) per block, four boxes a thread -----------------
 //
 // entry[t, k] = min over the tile's rays of the slab entry (kMissEntry where
 // none hits); with mask, bit r % 32 of mask[t, r / 32, k] is set iff ray r
-// hits box k. aabb is (8, K): rows min xyz, max xyz. Shared: 12 * tile words.
+// hits box k. aabb is (8, K): rows min xyz, max xyz.
+//
+// A block takes one tile and the boxes [k_lo, k_hi). Each thread holds
+// kCullBoxes boxes in registers, group g being the boxes k_lo + g + q * G (q <
+// kCullBoxes, G = cull_groups(k_hi - k_lo)), so for each q the block's
+// threads read and write consecutive boxes; each ray's words are read from
+// shared memory once per kCullBoxes tests, as two 16-byte loads [o win] and
+// [inv signs]. Shared: 8 * tile words.
+//
+// The slab test is computed in a form with slab()'s values (slab_ordered):
+// per axis, the near and far plane distance of a box whose corners are
+// ordered (lo <= hi, or NaN), picked by the sign of the ray's inverse
+// direction, which all of a block's threads share (they test one ray against
+// different boxes), so the pick is a uniform branch; the window is then
+// max(0, near planes) and min(win, far planes): 6 min / max a test, where
+// slab() has 18, each one NaN-propagating min / max instruction (min_ieee).
+// The entry's running minimum is one more; a zero minimum's sign, where the
+// rules differ, is restored once per box after the rays (zero_entry).
+
+constexpr int kCullBoxes = 4;
+constexpr int kCullThreads = 128;  // the most threads of a flat cull block
+
+// IEEE 754-2019 minimum / maximum: NaN if either operand is NaN, -0 below
+// +0. On the card one min.NaN / max.NaN instruction; on the host the same
+// rule written out, so the host build runs the card's arithmetic.
+RT_HD float min_ieee(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  if (is_nan(a) || is_nan(b)) return a + b;
+  if (a != b) return a < b ? a : b;
+  return (float_bits(a) >> 31) ? a : b;
+#endif
+}
+RT_HD float max_ieee(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  if (is_nan(a) || is_nan(b)) return a + b;
+  if (a != b) return a < b ? b : a;
+  return (float_bits(a) >> 31) ? b : a;
+#endif
+}
+
+// slab()'s window in fewer operations, with slab()'s values. slab() narrows
+// [tmin, tmax] axis by axis as tmin = min(max(t1, tmin), max(t2, tmin)) and
+// tmax = max(min(t1, tmax), min(t2, tmax)), NaN winning and the first operand
+// winning ties. As values, with NaN propagating, those are max(tmin,
+// min(t1, t2)) and min(tmax, max(t1, t2)) (min and max distribute over each
+// other), and min(t1, t2) is t1 when the box's corners are ordered and the
+// inverse direction is not negative (the product is monotone), t2 when it
+// is negative. So tmin and tmax below have slab()'s values and NaN-ness:
+// the hit test agrees, and so does a nonzero entry; only the sign of a zero
+// entry can differ (the two rules order -0 and +0 differently), which
+// cull_block restores. SX / SY / SZ: the inverse direction's component is
+// not negative (the near plane is lo) or negative (hi).
+template <int SX, int SY, int SZ>
+RT_HD bool slab_ordered(const float o[3], const float inv[3], float win, const float lo[3],
+                        const float hi[3], float& entry) {
+  const float nx = ((SX ? lo[0] : hi[0]) - o[0]) * inv[0];
+  const float fx = ((SX ? hi[0] : lo[0]) - o[0]) * inv[0];
+  const float ny = ((SY ? lo[1] : hi[1]) - o[1]) * inv[1];
+  const float fy = ((SY ? hi[1] : lo[1]) - o[1]) * inv[1];
+  const float nz = ((SZ ? lo[2] : hi[2]) - o[2]) * inv[2];
+  const float fz = ((SZ ? hi[2] : lo[2]) - o[2]) * inv[2];
+  entry = max_ieee(max_ieee(max_ieee(0.0f, nx), ny), nz);
+  return entry <= min_ieee(min_ieee(min_ieee(win, fx), fy), fz);
+}
+
+// A box's corners are ordered (or NaN) on every axis: slab_ordered applies.
+RT_HD bool ordered_box(const float lo[3], const float hi[3]) {
+  bool ok = true;
+  for (int a = 0; a < 3; ++a) ok = ok && !(lo[a] > hi[a]);
+  return ok;
+}
+
+// One ray against a thread's ordered boxes: each test folded into the box's
+// entry and hit bits. The entry's fold is min_nan(e_min, hit ? e : kMissEntry)
+// as a value (neither is NaN); the sign of a zero minimum is cull_block's.
+template <int SX, int SY, int SZ>
+RT_HD void cull_ray(const float o[3], const float inv[3], float win,
+                    const float (&lo)[kCullBoxes][3], const float (&hi)[kCullBoxes][3],
+                    uint32_t bit, float (&e_min)[kCullBoxes], uint32_t (&bits)[kCullBoxes]) {
+  for (int q = 0; q < kCullBoxes; ++q) {
+    float e;
+    const bool hit = slab_ordered<SX, SY, SZ>(o, inv, win, lo[q], hi[q], e);
+    e_min[q] = min_ieee(e_min[q], hit ? e : kMissEntry);
+    bits[q] |= hit ? bit : 0u;
+  }
+}
+
+// The plain rule's entry of box (lo, hi) over the tile's rays when its
+// minimum is zero: the sign of the first zero entry of a hit, in ray order
+// (later equal entries lose the tie), as slab() computes it.
+RT_HD float zero_entry(const float* smem, int tile, const float lo[3], const float hi[3]) {
+  for (int r = 0; r < tile; ++r) {
+    const float* ray = smem + 8 * r;
+    const float inv[3] = {ray[4], ray[5], ray[6]};
+    float e;
+    if (slab(ray, inv, ray[3], lo, hi, e) && e == 0.0f) return e;
+  }
+  return 0.0f;  // not reached: some ray's entry is zero
+}
+
+RT_HD int cull_groups(int boxes) { return (boxes + kCullBoxes - 1) / kCullBoxes; }
+
+// The flat cull's grid over K boxes: `spans` blocks a tile, each over `span`
+// consecutive boxes (the last over what is left) with `threads` threads,
+// spans as few as kCullThreads threads allow and then evened out, so the
+// last block is not mostly idle.
+struct CullGrid {
+  int spans, span, threads;
+};
+
+RT_HD CullGrid cull_grid(int K) {
+  const int most = kCullThreads * kCullBoxes;
+  const int spans = (K + most - 1) / most;
+  const int span = (K + spans - 1) / spans;
+  return {spans, span, (cull_groups(span) + 31) / 32 * 32};
+}
+
 template <class Exec>
 RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
-                      const float* aabb, int K, int tile, int t, int chunk,
+                      const float* aabb, int K, int tile, int t, int k_lo, int k_hi,
                       float* entry, int* mask) {
-  RayTile rt;
-  carve_rays(smem, tile, rt);
-  load_rays(ex, od8, t, tile, true, rt);
+  const float* src = od8 + (size_t)t * 8 * tile;
+  for (int r = ex.first(); r < tile; r += ex.step()) {
+    float* ray = smem + 8 * r;
+    int signs = 0;
+    for (int a = 0; a < 3; ++a) {
+      ray[a] = src[a * tile + r];
+      ray[4 + a] = safe_inv(src[(3 + a) * tile + r]);
+      signs |= (ray[4 + a] >= 0.0f ? 1 : 0) << a;
+    }
+    ray[3] = src[6 * tile + r];
+    ray[7] = bits_float((uint32_t)signs);
+  }
   ex.sync();
   const int words = (tile + 31) / 32;
-  for (int j = ex.first(); j < kChunk; j += ex.step()) {
-    const int k = chunk * kChunk + j;
-    if (k >= K) continue;
-    const float lo[3] = {aabb[0 * K + k], aabb[1 * K + k], aabb[2 * K + k]};
-    const float hi[3] = {aabb[3 * K + k], aabb[4 * K + k], aabb[5 * K + k]};
-    float e_min = kMissEntry;
+  const int G = cull_groups(k_hi - k_lo);
+  for (int g = ex.first(); g < G; g += ex.step()) {
+    float lo[kCullBoxes][3], hi[kCullBoxes][3], e_min[kCullBoxes];
+    bool ordered = true;
+    for (int q = 0; q < kCullBoxes; ++q) {
+      const int k = k_lo + g + q * G;
+      for (int a = 0; a < 3; ++a) {
+        // A box past the span is a NaN box, which no ray hits; it is not written.
+        lo[q][a] = k < k_hi ? aabb[a * K + k] : bits_float(0x7fc00000u);
+        hi[q][a] = k < k_hi ? aabb[(3 + a) * K + k] : bits_float(0x7fc00000u);
+      }
+      ordered = ordered && ordered_box(lo[q], hi[q]);
+      e_min[q] = kMissEntry;
+    }
     for (int w = 0; w < words; ++w) {
-      uint32_t bits = 0;
+      uint32_t bits[kCullBoxes] = {};
       const int r_hi = (w + 1) * 32 < tile ? (w + 1) * 32 : tile;
       for (int r = w * 32; r < r_hi; ++r) {
-        const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
-        const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
-        float e;
-        const bool hit = slab(o, inv, rt.win[r], lo, hi, e);
-        e_min = min_nan(e_min, hit ? e : kMissEntry);
-        if (hit) bits |= 1u << (r - w * 32);
+        const Words4 ow = load_words4(smem + 8 * r);
+        const Words4 iv = load_words4(smem + 8 * r + 4);
+        const float o[3] = {ow.x, ow.y, ow.z};
+        const float inv[3] = {iv.x, iv.y, iv.z};
+        const uint32_t bit = 1u << (r - w * 32);
+        if (!ordered) {  // slab() itself: a table no cluster cut writes
+          for (int q = 0; q < kCullBoxes; ++q) {
+            float e;
+            const bool hit = slab(o, inv, ow.w, lo[q], hi[q], e);
+            e_min[q] = min_ieee(e_min[q], hit ? e : kMissEntry);
+            bits[q] |= hit ? bit : 0u;
+          }
+          continue;
+        }
+        switch (float_bits(iv.w)) {  // the same for every thread of the block
+          case 0: cull_ray<0, 0, 0>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          case 1: cull_ray<1, 0, 0>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          case 2: cull_ray<0, 1, 0>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          case 3: cull_ray<1, 1, 0>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          case 4: cull_ray<0, 0, 1>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          case 5: cull_ray<1, 0, 1>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          case 6: cull_ray<0, 1, 1>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+          default: cull_ray<1, 1, 1>(o, inv, ow.w, lo, hi, bit, e_min, bits); break;
+        }
       }
-      if (mask) mask[((size_t)t * words + w) * K + k] = (int)bits;
+      if (mask)
+        for (int q = 0; q < kCullBoxes; ++q) {
+          const int k = k_lo + g + q * G;
+          if (k < k_hi) mask[((size_t)t * words + w) * K + k] = (int)bits[q];
+        }
     }
-    entry[(size_t)t * K + k] = e_min;
+    for (int q = 0; q < kCullBoxes; ++q) {
+      const int k = k_lo + g + q * G;
+      // A zero minimum has the value of the plain rule's, not its sign: the
+      // sign of the first zero entry, found again (boxes holding a ray's origin).
+      if (e_min[q] == 0.0f) e_min[q] = zero_entry(smem, tile, lo[q], hi[q]);
+      if (k < k_hi) entry[(size_t)t * K + k] = e_min[q];
+    }
   }
 }
 
@@ -438,24 +621,24 @@ RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
 //
 // gates (T * Wg) int32, Wg = ceil(ceil(K / kChunk) / 32): bit chunk % 32 of
 // gates[t * Wg + chunk / 32] is set when some ray of tile t may hit a box of
-// the chunk (the caller's super-box pre-pass). A set bit runs cull_block
-// unchanged, so live chunks are bit-equal to the flat cull; a clear bit
-// writes kMissEntry and zero words, which is what the flat cull computes
+// the chunk (the caller's super-box pre-pass). A set bit runs cull_block on
+// the chunk's boxes, so live chunks are bit-equal to the flat cull; a clear
+// bit writes kMissEntry and zero words, which is what the flat cull computes
 // for a chunk no ray hits. The bit is the same for every thread of the
-// block, so the block returns as one. Shared: 12 * tile words.
+// block, so the block returns as one. Shared: 8 * tile words.
 template <class Exec>
 RT_HD void cull_block_gated(const Exec& ex, float* smem, const float* od8,
                             const float* aabb, const int* gates, int Wg, int K,
                             int tile, int t, int chunk, float* entry, int* mask) {
+  const int k_lo = chunk * kChunk;
+  const int k_hi = k_lo + kChunk < K ? k_lo + kChunk : K;
   const uint32_t word = (uint32_t)gates[(size_t)t * Wg + chunk / 32];
   if ((word >> (chunk % 32)) & 1u) {
-    cull_block(ex, smem, od8, aabb, K, tile, t, chunk, entry, mask);
+    cull_block(ex, smem, od8, aabb, K, tile, t, k_lo, k_hi, entry, mask);
     return;
   }
   const int words = (tile + 31) / 32;
-  for (int j = ex.first(); j < kChunk; j += ex.step()) {
-    const int k = chunk * kChunk + j;
-    if (k >= K) continue;
+  for (int k = k_lo + ex.first(); k < k_hi; k += ex.step()) {
     if (mask)
       for (int w = 0; w < words; ++w) mask[((size_t)t * words + w) * K + k] = 0;
     entry[(size_t)t * K + k] = kMissEntry;

@@ -13,17 +13,20 @@ extern "C" {
 
 int rt_host_cull_tiles(const float* od8, const float* aabb, float* entry, int* mask,
                        int T, int K, int tile) {
-  std::vector<float> smem(12 * tile);
+  std::vector<float> smem(8 * tile);
   rt::HostExec ex;
+  const rt::CullGrid g = rt::cull_grid(K);
   for (int t = 0; t < T; ++t)
-    for (int c = 0; c < (K + rt::kChunk - 1) / rt::kChunk; ++c)
-      rt::cull_block(ex, smem.data(), od8, aabb, K, tile, t, c, entry, mask);
+    for (int s = 0; s < g.spans; ++s) {
+      const int k_hi = (s + 1) * g.span < K ? (s + 1) * g.span : K;
+      rt::cull_block(ex, smem.data(), od8, aabb, K, tile, t, s * g.span, k_hi, entry, mask);
+    }
   return 0;
 }
 
 int rt_host_cull_tiles_gated(const float* od8, const float* aabb, const int* gates,
                              float* entry, int* mask, int T, int K, int tile) {
-  std::vector<float> smem(12 * tile);
+  std::vector<float> smem(8 * tile);
   rt::HostExec ex;
   const int chunks = (K + rt::kChunk - 1) / rt::kChunk;
   for (int t = 0; t < T; ++t)

@@ -1,0 +1,136 @@
+// Per-ray bodies of the mesh wavefront's set-up, sort-key and draw kernels
+// (rays.cu), compiled twice: by nvcc for the card and by the host C++
+// compiler for the CPU tests (bounce_host.cpp).
+//
+// They read the packed wavefront of render/wavefront.py, (R, 16) float32 rows
+// [origin direction transmitted collected ray_id pad] (shading.cuh, Row4):
+//
+//   - setup_ray: a row's alive bit, its closest sphere hit (t, index) with
+//     t = -1 on a dead ray, and its column of the packet kernels' (T, 8, tile)
+//     ray tiles [ox oy oz dx dy dz window 0] (padding rays: origin 0,
+//     direction 1, window -1), which is what the port's closest hit computed
+//     from the row with torch (closest_hit's alive mask and
+//     intersect_spheres, packet_intersect._pad_rays, cull.make_od8);
+//   - ray_key: a row's Morton sort key (ops/morton.ray_sort_keys), reduced to
+//     the "count" engine's clamped bucket when asked, with its sort chunk's
+//     index in the high 32 bits, so one flat stable sort orders every chunk
+//     on its own;
+//   - pcg_draws_ray: the first raw draws of a ray's PCG stream seeded with
+//     ray_id * ray_mult + seed_add (mod 2^32): the camera's jitter
+//     (ops/camera.initial_ray_seeds, two draws) and a bounce's shading
+//     (wavefront.bounce_seeds, five), rng.uniforms of those seeds.
+//
+// Numerics follow the plain PyTorch versions expression for expression
+// (nvcc -fmad=false, g++ -ffp-contract=off); the sphere test is the brute
+// megakernel's own (brute::sphere_t).
+
+#pragma once
+
+#include "brute.cuh"
+
+namespace rt {
+
+// Ray i of the n rows (i < T * tile, the padded count when od8 is not
+// null): alive[i], t[i], index[i] for i < n, and ray i's column of od8.
+RT_HD void setup_ray(const float* rows, int n, int tile, const float* sphere_center,
+                     const float* sphere_radius, int n_spheres, int i, unsigned char* alive,
+                     float* t, int* index, float* od8) {
+  float o[3] = {0.0f, 0.0f, 0.0f};
+  float d[3] = {1.0f, 1.0f, 1.0f};
+  float window = -1.0f;
+  if (i < n) {
+    const float* row = rows + kRowWords * (size_t)i;
+    const Row4 a = load_row4(row);
+    const Row4 b = load_row4(row + 4);
+    const Row4 c = load_row4(row + 8);
+    o[0] = a.x;
+    o[1] = a.y;
+    o[2] = a.z;
+    d[0] = a.w;
+    d[1] = b.x;
+    d[2] = b.y;
+    const bool live = row_alive(b, c);
+    float best = brute::kMiss;
+    int best_i = -1;
+    for (int s = 0; s < n_spheres; ++s) {
+      const float* cs = sphere_center + 3 * (size_t)s;
+      const float ts = brute::sphere_t(o, d, cs[0], cs[1], cs[2], sphere_radius[s]);
+      if (ts < best) {
+        best = ts;
+        best_i = s;
+      }
+    }
+    window = live ? best : -1.0f;
+    alive[i] = live ? 1 : 0;
+    t[i] = window;
+    index[i] = best_i;
+  }
+  if (od8) {
+    float* col = od8 + (size_t)(i / tile) * 8 * tile + i % tile;
+    col[0 * tile] = o[0];
+    col[1 * tile] = o[1];
+    col[2 * tile] = o[2];
+    col[3 * tile] = d[0];
+    col[4 * tile] = d[1];
+    col[5 * tile] = d[2];
+    col[6 * tile] = window;
+    col[7 * tile] = 0.0f;
+  }
+}
+
+// ops/morton.interleave_5: the low 5 bits of x spread to every third bit.
+RT_HD uint32_t interleave5(uint32_t x) {
+  x &= 0x1Fu;
+  x = (x | (x << 8)) & 0x100Fu;
+  x = (x | (x << 4)) & 0x10C3u;
+  x = (x | (x << 2)) & 0x1249u;
+  return x;
+}
+
+// ops/morton.morton_code of one point of [0, 1]^3: (int64)(v * 31.99) per
+// axis (truncation; only its low 5 bits are kept).
+RT_HD uint32_t morton15(float x, float y, float z) {
+  const uint32_t qx = (uint32_t)(long long)(x * 31.99f);
+  const uint32_t qy = (uint32_t)(long long)(y * 31.99f);
+  const uint32_t qz = (uint32_t)(long long)(z * 31.99f);
+  return interleave5(qx) | (interleave5(qy) << 1) | (interleave5(qz) << 2);
+}
+
+// torch.clamp(x, 0, 1): NaN stays NaN.
+RT_HD float clamp01_nan(float x) { return x < 0.0f ? 0.0f : (x > 1.0f ? 1.0f : x); }
+
+constexpr uint32_t kDeadRayKey = 0xFFFFFFFFu;
+constexpr int kCountShift = 23;    // the count engine's bucket: the key's top bits
+constexpr uint32_t kCountDead = 255u;  // its dead-ray bucket; live ones clamp to 254
+
+// Row i's sort key: the 32-bit Morton key (kDeadRayKey for a dead ray), or
+// with `count` its bucket, plus (i / chunk) << 32. Sets `live`.
+RT_HD unsigned long long ray_key(const float* rows, int i, const float* min_coord,
+                                 const float* inv_extent, bool count, int chunk, bool& live) {
+  const float* row = rows + kRowWords * (size_t)i;
+  const Row4 a = load_row4(row);
+  const Row4 b = load_row4(row + 4);
+  const Row4 c = load_row4(row + 8);
+  live = row_alive(b, c);
+  const uint32_t code_o = morton15(clamp01_nan((a.x - min_coord[0]) * inv_extent[0]),
+                                   clamp01_nan((a.y - min_coord[1]) * inv_extent[1]),
+                                   clamp01_nan((a.z - min_coord[2]) * inv_extent[2]));
+  const uint32_t code_d =
+      morton15(0.5f * (a.w + 1.0f), 0.5f * (b.x + 1.0f), 0.5f * (b.y + 1.0f));
+  uint32_t key = live ? (code_o << 16) | code_d : kDeadRayKey;
+  if (count) {
+    const uint32_t bucket = key >> kCountShift;
+    key = live ? (bucket < kCountDead - 1 ? bucket : kCountDead - 1) : kCountDead;
+  }
+  return ((unsigned long long)(uint32_t)(i / chunk) << 32) | key;
+}
+
+// Ray i's first n_draws raw PCG draws → draws[k * n_rays + i] (int64
+// holding the uint32 draw).
+RT_HD void pcg_draws_ray(const int* ray_id, int n_rays, uint32_t ray_mult, uint32_t seed_add,
+                         int n_draws, int i, long long* draws) {
+  uint64_t st = pcg_seed((uint32_t)ray_id[i] * ray_mult + seed_add);
+  for (int k = 0; k < n_draws; ++k) draws[(size_t)k * n_rays + i] = (long long)pcg_next(st);
+}
+
+}  // namespace rt

@@ -5,7 +5,9 @@
 //
 // rt::shade_bounce_ray takes one ray's state and its closest hit and returns
 // its next state: what render/wavefront.py's hit record gathers (material
-// row, geometric normal) and wavefront.shade compute with reparam=False.
+// row, geometric normal) and wavefront.shade compute with reparam=False;
+// rt::shade_packed_row runs it on a row of the packed forward wavefront, in
+// place.
 // Its draws (bounce_draws) and its scatter at a hit (scatter_hit) are the
 // megakernel's too, which finds the normal and material row in its own
 // staged tables.
@@ -164,17 +166,20 @@ struct BounceDraws {
   float branch_u;
 };
 
-RT_HD void bounce_draws(int ray_id, uint32_t pass_seed, uint32_t bounce, BounceDraws& dr) {
+// The five raw 32-bit draws of one (ray, bounce): rng.uniforms(
+// wavefront.bounce_seeds(ray_id, pass_seed, bounce), 5).
+RT_HD void bounce_bits(int ray_id, uint32_t pass_seed, uint32_t bounce, uint32_t bits[5]) {
   uint64_t st = pcg_seed((uint32_t)ray_id * kBounceRayMult +
                          kBounceSeedMult * (pass_seed * kPassStride + bounce));
-  const uint32_t d0 = pcg_next(st);
-  const uint32_t d1 = pcg_next(st);
-  const uint32_t d2 = pcg_next(st);
-  const uint32_t d3 = pcg_next(st);
-  const uint32_t d4 = pcg_next(st);
-  on_sphere(d0, d1, dr.sa);
-  on_sphere(d3, d4, dr.sb);
-  dr.branch_u = (float)d2 * kOneInv;
+  for (int k = 0; k < 5; ++k) bits[k] = pcg_next(st);
+}
+
+RT_HD void bounce_draws(int ray_id, uint32_t pass_seed, uint32_t bounce, BounceDraws& dr) {
+  uint32_t bits[5];
+  bounce_bits(ray_id, pass_seed, bounce, bits);
+  on_sphere(bits[0], bits[1], dr.sa);
+  on_sphere(bits[3], bits[4], dr.sb);
+  dr.branch_u = (float)bits[2] * kOneInv;
 }
 
 // The scatter of a live ray at its hit point hp: geometric normal n (turned
@@ -280,33 +285,85 @@ RT_HD void shade_bounce_ray(const BounceTables& tb, const float o[3], const floa
   scatter_hit(mt, n, hp, d, tr, co, dr, no, nd, ntr, nco);
 }
 
-// Strided (R, 3) float32 rows: row i starts at base + i * stride.
-struct Rows3 {
-  const float* base;
-  long long stride;
-  RT_HD void load(int i, float v[3]) const {
-    const float* p = base + (size_t)i * (size_t)stride;
-    v[0] = p[0];
-    v[1] = p[1];
-    v[2] = p[2];
-  }
+// A packed wavefront row: 16 float32 words [origin direction transmitted
+// collected ray_id pad], the ray id's int32 bits in word 12 (the layout of
+// render/wavefront.pack_rows). Rows are 64 bytes, so a row is four aligned
+// 16-byte words.
+constexpr int kRowWords = 16;
+
+struct Row4 {
+  float x, y, z, w;
 };
 
-// Ray i of a wavefront: the four state rows in, the next state out as one
-// (R, 12) row [origin direction transmitted collected].
-RT_HD void shade_bounce_row(const BounceTables& tb, const Rows3& origin,
-                            const Rows3& direction, const Rows3& transmitted,
-                            const Rows3& collected, const int* ray_id, const float* t_hit,
-                            const int* hit, uint32_t pass_seed, uint32_t bounce, int i,
-                            float* out) {
-  float o[3], d[3], tr[3], co[3];
-  origin.load(i, o);
-  direction.load(i, d);
-  transmitted.load(i, tr);
-  collected.load(i, co);
-  float* row = out + 12 * (size_t)i;
-  shade_bounce_ray(tb, o, d, tr, co, ray_id[i], t_hit[i], hit[i], pass_seed, bounce, row,
-                   row + 3, row + 6, row + 9);
+RT_HD Row4 load_row4(const float* p) {
+#ifdef __CUDA_ARCH__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  return {v.x, v.y, v.z, v.w};
+#else
+  return {p[0], p[1], p[2], p[3]};
+#endif
+}
+
+RT_HD void store_row4(float* p, float x, float y, float z, float w) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<float4*>(p) = make_float4(x, y, z, w);
+#else
+  p[0] = x;
+  p[1] = y;
+  p[2] = z;
+  p[3] = w;
+#endif
+}
+
+RT_HD int float_as_int(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_int(x);
+#else
+  int i;
+  __builtin_memcpy(&i, &x, sizeof i);
+  return i;
+#endif
+}
+
+RT_HD bool row_alive(const Row4& b, const Row4& c) {
+  return b.z != 0.0f || b.w != 0.0f || c.x != 0.0f;  // transmitted = (b.z, b.w, c.x)
+}
+
+// Row i of a packed wavefront, shaded in place: its state, its sphere hit
+// (t_sph, i_sph; -1 on a dead ray) and, unless t_tri is null, the packet
+// kernel's raw triangle hit (t_tri, tri; tri < 0 on a miss), folded as
+// ops/packet_intersect._finalize folds it: the triangle wins when it is
+// strictly nearer, and its index follows the spheres'. A dead row is left
+// as it is, without reading its hit.
+RT_HD void shade_packed_row(const BounceTables& tb, float* rows, int i, const float* t_sph,
+                            const int* i_sph, const float* t_tri, const int* tri,
+                            uint32_t pass_seed, uint32_t bounce) {
+  float* row = rows + kRowWords * (size_t)i;
+  const Row4 b = load_row4(row + 4);
+  const Row4 c = load_row4(row + 8);
+  if (!row_alive(b, c)) return;
+  const Row4 a = load_row4(row);
+  const Row4 e = load_row4(row + 12);
+  float t = t_sph[i];
+  int hit = i_sph[i];
+  if (t_tri) {
+    const float tt = t_tri[i];
+    const int tj = tri[i];
+    if (tt < t && tj >= 0) {
+      t = tt;
+      hit = tb.sphere_count + tj;
+    }
+  }
+  const float o[3] = {a.x, a.y, a.z};
+  const float d[3] = {a.w, b.x, b.y};
+  const float tr[3] = {b.z, b.w, c.x};
+  const float co[3] = {c.y, c.z, c.w};
+  float no[3], nd[3], ntr[3], nco[3];
+  shade_bounce_ray(tb, o, d, tr, co, float_as_int(e.x), t, hit, pass_seed, bounce, no, nd,
+                   ntr, nco);
+  store_row4(row, no[0], no[1], no[2], nd[0]);
+  store_row4(row + 4, nd[1], nd[2], ntr[0], ntr[1]);
+  store_row4(row + 8, ntr[2], nco[0], nco[1], nco[2]);
 }
 
 }  // namespace rt

@@ -2,17 +2,19 @@
 
 Counterpart of the shading half of ``cuda_raytracer_tpu/render/wavefront.py``
 (``process_rays``, which XLA fuses into one program per bounce; there is no
-Pallas kernel). ``shade_bounce`` takes a wavefront's state and its closest
-hit (``t``, ``hit_index``) and returns the next state: the hit record's
-material and normal gathers plus ``wavefront.shade`` with ``reparam=False``
-(PCG draws, environment fetch on a miss, emission, rough normal, metallicity
-coin or Schlick + total internal reflection, scatter, merge; dead rays
-unchanged). ``wavefront.process_rays`` takes it for every forward bounce
-that builds no autograd graph; training shades with torch.
+Pallas kernel). ``shade_rows`` shades a packed wavefront (rows ``[origin
+direction transmitted collected ray_id pad]``, ``wavefront.pack_rows``) in
+place, given each row's sphere hit and, optionally, the packet kernel's raw
+triangle hit, which it folds as ``packet_intersect._finalize`` does: the hit
+record's material and normal gathers plus ``wavefront.shade`` with
+``reparam=False`` (PCG draws, environment fetch on a miss, emission, rough
+normal, metallicity coin or Schlick + total internal reflection, scatter;
+dead rays unchanged). ``wavefront.trace_packed`` takes it for every forward
+bounce. Training shades with torch (``wavefront.process_rays``).
 
 - On a CUDA tensor it launches the hand-written kernel, one thread per ray,
   and counts the launch in ``LAUNCHES``. It never falls back.
-- On a CPU tensor it runs ``plain_shade_bounce``, the torch shading. The two
+- On a CPU tensor it runs the plain version, the torch shading. The two
   agree to the shade kernel's gate (libm sin / cos / atan differ by ulps);
   on the card every path shades through the kernel, so regimes, packings,
   resumes and ranks keep identical bits there.
@@ -25,6 +27,7 @@ import ctypes
 import torch
 
 from cuda_raytracer_tpu_torch.models.scene import Scene, derived
+from cuda_raytracer_tpu_torch.ops import packet_intersect
 from cuda_raytracer_tpu_torch.ops.kernels import build
 from cuda_raytracer_tpu_torch.ops.kernels.cull import device_kind, raise_on_error
 
@@ -32,7 +35,7 @@ MATERIAL_FIELDS = ("diffuse_albedo", "specular_albedo", "emitted", "metallicity"
                    "roughness", "index_of_refraction")
 MAT_WORDS = 12  # a material row of the kernel's table (rt::kMatWords)
 
-# Kernel launches made by shade_bounce in this process (CUDA tensors only).
+# Kernel launches made by shade_rows in this process (CUDA tensors only).
 LAUNCHES = 0
 
 
@@ -52,62 +55,81 @@ def material_table(scene: Scene) -> torch.Tensor:
 
 def plain_shade_bounce(scene: Scene, state, t: torch.Tensor, hit_index: torch.Tensor,
                        pass_seed, bounce: int):
-    """The kernel's plain PyTorch version: the hit record's gathers, then
-    ``wavefront.shade``."""
+    """The kernel's plain PyTorch version on a ``RayState``: the hit record's
+    gathers, then ``wavefront.shade`` with the torch PCG."""
     from cuda_raytracer_tpu_torch.render import wavefront
 
     alive = torch.any(state.transmitted != 0.0, dim=-1)
     hit = wavefront.gather_hit(scene, state, alive, t, hit_index)
-    return wavefront.shade(scene, state, hit, pass_seed, bounce)
+    return wavefront.shade(scene, state, hit, pass_seed, bounce, plain_draws=True)
 
 
-def _check(scene: Scene, state, t: torch.Tensor, hit_index: torch.Tensor) -> None:
-    rays = state.origin.shape[0]
-    for name, leaf in zip(("origin", "direction", "transmitted", "collected"), state[:4]):
-        if leaf.dtype != torch.float32 or leaf.shape != (rays, 3):
-            raise ValueError(f"{name} must be ({rays}, 3) float32, got {leaf.dtype} "
-                             f"{tuple(leaf.shape)}")
-        if rays and leaf.stride(1) != 1:
-            raise ValueError(f"{name} rows must have unit column stride")
-    for name, x, dtype in (("ray_id", state.ray_id, torch.int32), ("t", t, torch.float32),
-                           ("hit_index", hit_index, torch.int32)):
-        if x.dtype != dtype or x.shape != (rays,) or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({rays},) {dtype}, got "
+def plain_shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
+                     pass_seed, bounce: int, t_tri: torch.Tensor = None,
+                     tri: torch.Tensor = None) -> None:
+    """The kernel's plain PyTorch version on packed rows, in place: the
+    packet hit's fold (``packet_intersect._finalize``), then
+    ``plain_shade_bounce``."""
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    n = rows.shape[0]
+    if t_tri is not None:
+        t, index, _ = packet_intersect._finalize(scene, t_tri, tri, None, t, index, n, 1)
+    state = plain_shade_bounce(scene, wavefront.unpack_rows(rows), t, index, pass_seed, bounce)
+    rows[:, 0:12] = torch.cat(list(state[:4]), dim=1)
+
+
+def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
+           t_tri: torch.Tensor, tri: torch.Tensor) -> None:
+    if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 16:
+        raise ValueError(f"rows must be (n, 16) float32, got {rows.dtype} {tuple(rows.shape)}")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+    if rows.device != scene.device:
+        raise ValueError(f"rows lie on {rows.device}, the scene on {scene.device}")
+    n = rows.shape[0]
+    hits = (("t", t, torch.float32, n), ("hit_index", index, torch.int32, n))
+    if (t_tri is None) != (tri is None):
+        raise ValueError("t_tri and tri come together")
+    if t_tri is not None:
+        hits += (("t_tri", t_tri, torch.float32, None), ("tri", tri, torch.int32, None))
+    for name, x, dtype, size in hits:
+        if x.dtype != dtype or not x.is_contiguous() or (
+                x.numel() < n if size is None else x.shape != (n,)):
+            raise ValueError(f"{name} must be a contiguous {dtype} of {n} rays, got "
                              f"{x.dtype} {tuple(x.shape)}")
-    for x in (*state, t, hit_index):
         if x.device != scene.device:
-            raise ValueError(f"an input lies on {x.device}, the scene on {scene.device}")
+            raise ValueError(f"{name} lies on {x.device}, the scene on {scene.device}")
 
 
 def library() -> build.Built:
     """Build (at first use) and bind ``csrc/bounce.cu``."""
     built = build.load("bounce")
-    p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    fn = built.lib.rt_shade_bounce
-    fn.argtypes = ([p, ll] * 4 + [p] * 3 + [i] + [p, i, p, p, i, i, p, i, p, p, i, i]
-                   + [u, u, p, p])
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    fn = built.lib.rt_bounce_rows
+    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p]
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
     return built
 
 
-def kernel_args(scene: Scene, state, t: torch.Tensor, hit_index: torch.Tensor,
-                pass_seed, bounce: int, out: torch.Tensor) -> list:
-    """The arguments of ``rt_shade_bounce`` (and of its host build) for one
-    call, without the stream; ``out`` is the (R, 12) float32 result."""
-    rows = []
-    for leaf in state[:4]:
-        rows += [leaf.data_ptr(), leaf.stride(0)]
+def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
+                pass_seed, bounce: int, t_tri: torch.Tensor = None,
+                tri: torch.Tensor = None) -> list:
+    """The arguments of ``rt_bounce_rows`` (and of its host build) for one
+    call, without the stream."""
     env = scene.environment_map
-    return rows + [
-        state.ray_id.data_ptr(), t.data_ptr(), hit_index.data_ptr(), state.origin.shape[0],
+    return [
+        rows.data_ptr(), rows.shape[0], t.data_ptr(), index.data_ptr(),
+        t_tri.data_ptr() if t_tri is not None else None,
+        tri.data_ptr() if tri is not None else None,
         scene.material_index.data_ptr(), scene.material_index.shape[0],
         scene.sphere_center.data_ptr(), scene.sphere_radius.data_ptr(),
         scene.sphere_center.shape[0], scene.sphere_count,
         scene.tri_normal.data_ptr(), scene.tri_normal.shape[0],
         material_table(scene).data_ptr(), env.data_ptr(), env.shape[0], env.shape[1],
-        int(pass_seed) & 0xFFFFFFFF, int(bounce), out.data_ptr(),
+        int(pass_seed) & 0xFFFFFFFF, int(bounce),
     ]
 
 
@@ -120,29 +142,25 @@ def _check_tables(scene: Scene) -> None:
         raise ValueError("scene.material_index must be int32")
 
 
-def state_from_rows(state, out: torch.Tensor):
-    """The next state as column views of the (R, 12) kernel output."""
-    return state._replace(origin=out[:, 0:3], direction=out[:, 3:6],
-                          transmitted=out[:, 6:9], collected=out[:, 9:12])
-
-
-def shade_bounce(scene: Scene, state, t: torch.Tensor, hit_index: torch.Tensor,
-                 pass_seed, bounce: int):
-    """One bounce's shading of ``state`` (a ``wavefront.RayState``) given its
-    closest hit → the next state (ray ids unchanged)."""
+def shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
+               pass_seed, bounce: int, t_tri: torch.Tensor = None,
+               tri: torch.Tensor = None) -> None:
+    """Shade the (n, 16) packed rows in place, given each row's sphere hit
+    (``t``, -1 on a dead ray; ``index``, -1 on a miss) and, unless None, the
+    packet kernel's per-ray triangle hit (``t_tri``, ``tri``: at least n
+    values, (T, tile) as the kernel returns them)."""
     global LAUNCHES
-    _check(scene, state, t, hit_index)
-    if device_kind(state.origin, "shade_bounce") == "cpu":
-        return plain_shade_bounce(scene, state, t, hit_index, pass_seed, bounce)
+    _check(scene, rows, t, index, t_tri, tri)
+    if device_kind(rows, "shade_rows") == "cpu":
+        plain_shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri)
+        return
     _check_tables(scene)
-    out = torch.empty((state.origin.shape[0], 12), dtype=torch.float32,
-                      device=state.origin.device)
     lib = library().lib
-    with torch.cuda.device(out.device):
-        err = lib.rt_shade_bounce(
-            *kernel_args(scene, state, t, hit_index, pass_seed, bounce, out),
-            torch.cuda.current_stream(out.device).cuda_stream,
+    with torch.cuda.device(rows.device):
+        err = lib.rt_bounce_rows(
+            *kernel_args(scene, rows, t, index, pass_seed, bounce, t_tri, tri),
+            torch.cuda.current_stream(rows.device).cuda_stream,
         )
     raise_on_error(lib, err, "bounce")
     LAUNCHES += 1
-    return state_from_rows(state, out)
+

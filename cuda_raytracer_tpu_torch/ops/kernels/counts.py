@@ -9,14 +9,17 @@ from __future__ import annotations
 
 
 def _counters():
-    from cuda_raytracer_tpu_torch.ops.kernels import bounce, cull, fused, fused1, shade, sweep
+    from cuda_raytracer_tpu_torch.ops.kernels import (
+        bounce, cull, fused, fused1, rays, shade, sweep)
 
     return {"shade_trace": (shade, "LAUNCHES"), "cull_tiles": (cull, "LAUNCHES"),
             "cull_gated": (cull, "LAUNCHES_GATED"),
             "fused_closest_hit": (fused, "LAUNCHES"),
             "fused1_closest_hit": (fused1, "LAUNCHES"),
             "fused1_closest_hit_pack2": (fused1, "LAUNCHES_PACK2"),
-            "sweep_pairs": (sweep, "LAUNCHES"), "shade_bounce": (bounce, "LAUNCHES")}
+            "sweep_pairs": (sweep, "LAUNCHES"), "shade_rows": (bounce, "LAUNCHES"),
+            "rays_setup": (rays, "LAUNCHES_SETUP"), "ray_keys": (rays, "LAUNCHES_KEYS"),
+            "pcg_draws": (rays, "LAUNCHES_DRAWS")}
 
 
 def launch_counts() -> dict:

@@ -1,0 +1,255 @@
+"""The mesh wavefront's per-ray set-up, sort-key and draw kernels: wrappers of ``csrc/rays.cu``.
+
+The forward mesh bounce (``render/wavefront.trace_packed``) holds its
+wavefront as one (R, 16) float32 buffer of rows ``[origin direction
+transmitted collected ray_id pad]`` (``wavefront.pack_rows``). Around its
+closest-hit and shading kernels it used to issue a few dozen torch ops a
+bounce; three kernels take their place:
+
+- ``rays_setup``: each row's alive bit, its closest sphere hit with ``t =
+  -1`` on a dead ray (``wavefront.closest_hit``'s sphere part; JAX
+  ``render/wavefront.py`` ``closest_hit``) and, for the packet kernels, the
+  (T, 8, tile) ray tiles (``packet_intersect._pad_rays`` + ``cull.make_od8``;
+  JAX ``ops/pallas/cull.py``'s ray tiles).
+- ``ray_keys``: each row's Morton sort key (``morton.ray_sort_keys``; JAX
+  ``ops/morton.py`` ``ray_sort_keys``), the "count" engine's clamped bucket
+  where asked, its sort chunk's index in the high 32 bits (one flat stable
+  sort then orders each chunk on its own), and the live count as one int32.
+- ``pcg_draws``: each ray's first raw PCG draws, (n, R) int64 holding
+  uint32, its stream seeded with ``ray_id * ray_mult + seed_add`` mod 2^32
+  (``rng.uniforms``; JAX ``ops/rng.py`` ``uniforms``): the camera's jitter
+  (``camera.generate_rays``, two) and the training shading's five draws a
+  bounce (``bounce_draws``: ``rng.uniforms(bounce_seeds(...), 5)``).
+
+Each is one thread per ray and counts its launches (``LAUNCHES_SETUP``,
+``LAUNCHES_KEYS``, ``LAUNCHES_DRAWS``). On a CUDA tensor it launches its
+kernel or raises; on a CPU tensor it runs its plain PyTorch version, the
+torch code it replaced, with the same outputs bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from cuda_raytracer_tpu_torch.ops import intersect, morton, rng
+from cuda_raytracer_tpu_torch.ops.kernels import build
+from cuda_raytracer_tpu_torch.ops.kernels.cull import device_kind, make_od8, raise_on_error
+
+ROW_WORDS = 16  # a packed wavefront row (rt::kRowWords)
+COUNT_BUCKET_SHIFT = 23  # the count engine: the key's top bits (rt::kCountShift)
+COUNT_BUCKETS = 256  # ... bucket 255 for dead rays, live ones clamped to 254
+CHUNK_SHIFT = 32  # the sort chunk's index sits above the 32-bit key
+
+# Kernel launches made in this process (CUDA tensors only).
+LAUNCHES_SETUP = 0
+LAUNCHES_KEYS = 0
+LAUNCHES_DRAWS = 0
+
+
+def rows_alive(rows: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: a row is alive while its transmitted weight is nonzero."""
+    return torch.any(rows[:, 6:9] != 0.0, dim=-1)
+
+
+def _check_rows(rows: torch.Tensor) -> None:
+    if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != ROW_WORDS:
+        raise ValueError(f"rows must be (n, {ROW_WORDS}) float32, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if not rows.is_contiguous() or rows.data_ptr() % 16:
+        raise ValueError("rows must be contiguous and 16-byte aligned")
+
+
+def library() -> build.Built:
+    """Build (at first use) and bind ``csrc/rays.cu``."""
+    built = build.load("rays")
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
+    built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
+    built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
+    for name in ("rt_rays_setup", "rt_ray_keys", "rt_pcg_draws"):
+        getattr(built.lib, name).restype = ctypes.c_int
+    built.lib.rt_error_string.argtypes = [ctypes.c_int]
+    built.lib.rt_error_string.restype = ctypes.c_char_p
+    return built
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# ---- rays_setup ------------------------------------------------------------
+
+
+def plain_rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor,
+                     sphere_radius: torch.Tensor, tile: int = 0):
+    """The set-up kernel's plain PyTorch version → (alive, t, index, od8):
+    the torch code of the port's closest hit (alive mask,
+    ``intersect_spheres``, ``t = -1`` where dead, ``_pad_rays`` +
+    ``make_od8``); ``od8`` is None when ``tile`` is 0."""
+    origin, direction = rows[:, 0:3], rows[:, 3:6]
+    alive = rows_alive(rows)
+    t, index = intersect.intersect_spheres(origin, direction, sphere_center, sphere_radius)
+    t = torch.where(alive, t, -1.0)
+    od8 = None
+    if tile:
+        pad = (-rows.shape[0]) % tile
+        od8 = make_od8(torch.nn.functional.pad(origin, (0, 0, 0, pad)),
+                       torch.nn.functional.pad(direction, (0, 0, 0, pad), value=1.0),
+                       torch.nn.functional.pad(t, (0, pad), value=-1.0), tile)
+    return alive, t, index, od8
+
+
+def setup_args(rows, sphere_center, sphere_radius, tile, alive, t, index, od8) -> list:
+    """The arguments of ``rt_rays_setup`` (and of its host build), without the stream."""
+    n = rows.shape[0]
+    total = od8.shape[0] * tile if od8 is not None else n
+    return [rows.data_ptr(), n, max(tile, 1), total, sphere_center.data_ptr(),
+            sphere_radius.data_ptr(), sphere_center.shape[0], alive.data_ptr(),
+            t.data_ptr(), index.data_ptr(), od8.data_ptr() if od8 is not None else None]
+
+
+def setup_outputs(rows: torch.Tensor, tile: int):
+    """Empty (alive, t, index, od8) for ``n`` rows (od8 None without a tile)."""
+    n, dev = rows.shape[0], rows.device
+    od8 = (torch.empty((-(-n // tile), 8, tile), dtype=torch.float32, device=dev)
+           if tile else None)
+    return (torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev), od8)
+
+
+def rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor, sphere_radius: torch.Tensor,
+               tile: int = 0):
+    """(n, 16) packed rows → (alive (n,) bool, t (n,) float32 with -1 on dead
+    rays, sphere index (n,) int32 with -1 on a miss, and with ``tile`` > 0 the
+    (ceil(n / tile), 8, tile) ray tiles, else None)."""
+    global LAUNCHES_SETUP
+    _check_rows(rows)
+    if sphere_center.shape != (sphere_radius.shape[0], 3) or not (
+            sphere_center.is_contiguous() and sphere_radius.is_contiguous()):
+        raise ValueError("sphere tables must be contiguous (S, 3) and (S,)")
+    if device_kind(rows, "rays_setup") == "cpu":
+        return plain_rays_setup(rows, sphere_center, sphere_radius, tile)
+    outs = setup_outputs(rows, tile)
+    lib = library().lib
+    with torch.cuda.device(rows.device):
+        err = lib.rt_rays_setup(*setup_args(rows, sphere_center, sphere_radius, tile, *outs),
+                                _stream(rows))
+    raise_on_error(lib, err, "rays_setup")
+    LAUNCHES_SETUP += 1
+    return outs
+
+
+# ---- ray_keys --------------------------------------------------------------
+
+
+def plain_ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torch.Tensor,
+                   count: bool, chunk: int):
+    """The key kernel's plain PyTorch version → (keys (n,) int64, live count
+    (1,) int32): ``morton.ray_sort_keys``, the count engine's bucket where
+    ``count``, plus ``(i // chunk) << 32``."""
+    alive = rows_alive(rows)
+    keys = morton.ray_sort_keys(rows[:, 0:3], rows[:, 3:6], alive, min_coord, inv_extent)
+    if count:
+        keys = torch.where(alive, torch.clamp(keys >> COUNT_BUCKET_SHIFT,
+                                              max=COUNT_BUCKETS - 2), COUNT_BUCKETS - 1)
+    chunks = torch.arange(rows.shape[0], device=rows.device) // chunk
+    return keys | (chunks << CHUNK_SHIFT), alive.sum().to(torch.int32).reshape(1)
+
+
+def keys_args(rows, min_coord, inv_extent, count, chunk, keys, live) -> list:
+    """The arguments of ``rt_ray_keys`` (and of its host build), without the stream."""
+    return [rows.data_ptr(), rows.shape[0], min_coord.data_ptr(), inv_extent.data_ptr(),
+            int(bool(count)), chunk, keys.data_ptr(), live.data_ptr()]
+
+
+def ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torch.Tensor,
+             count: bool, chunk: int):
+    """(n, 16) packed rows → (keys (n,) int64, live rows (1,) int32). A key
+    is row i's Morton key (``morton.DEAD_RAY_KEY`` on a dead row), or with
+    ``count`` its bucket (live: min(key >> 23, 254); dead: 255), plus
+    ``(i // chunk) << 32``."""
+    global LAUNCHES_KEYS
+    _check_rows(rows)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    for name, x in (("min_coord", min_coord), ("inv_extent", inv_extent)):
+        if x.dtype != torch.float32 or x.shape != (3,) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous (3,) float32")
+    if device_kind(rows, "ray_keys") == "cpu":
+        return plain_ray_keys(rows, min_coord, inv_extent, count, chunk)
+    keys = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
+    live = torch.empty(1, dtype=torch.int32, device=rows.device)
+    lib = library().lib
+    with torch.cuda.device(rows.device):
+        err = lib.rt_ray_keys(*keys_args(rows, min_coord, inv_extent, count, chunk, keys, live),
+                              _stream(rows))
+    raise_on_error(lib, err, "ray_keys")
+    LAUNCHES_KEYS += 1
+    return keys, live
+
+
+# ---- pcg_draws -------------------------------------------------------------
+
+BOUNCE_RAY_MULT = 4137874753  # a bounce's per-ray seed (raytracing.cu:89):
+BOUNCE_SEED_MULT = 279220567  # ray_id * 4137874753 + 279220567 * (pass_seed * 20 + bounce)
+PASS_STRIDE = 20
+
+
+def bounce_seed_add(pass_seed, bounce: int) -> int:
+    """The per-bounce term of a bounce's seeds, ``279220567 * (pass_seed *
+    20 + bounce)`` mod 2^32."""
+    scalar = ((int(pass_seed) & rng.MASK32) * PASS_STRIDE + bounce) & rng.MASK32
+    return (BOUNCE_SEED_MULT * scalar) & rng.MASK32
+
+
+def bounce_seeds(ray_id: torch.Tensor, pass_seed, bounce: int) -> torch.Tensor:
+    """Per-ray 32-bit seeds of one bounce (int64 holding uint32 values):
+    ``ray_id * 4137874753 + 279220567 * (pass_seed * 20 + bounce)`` mod 2^32."""
+    return (rng.mul32(rng.as_u32(ray_id), BOUNCE_RAY_MULT)
+            + bounce_seed_add(pass_seed, bounce)) & rng.MASK32
+
+
+def plain_pcg_draws(ray_id: torch.Tensor, ray_mult: int, seed_add: int, n: int) -> torch.Tensor:
+    """The draw kernel's plain PyTorch version: the 32-bit-limb PCG of the
+    seeds ``ray_id * ray_mult + seed_add`` mod 2^32."""
+    seeds = (rng.mul32(rng.as_u32(ray_id), ray_mult) + seed_add) & rng.MASK32
+    return rng.uniforms(seeds, n)
+
+
+def draws_args(ray_id, ray_mult, seed_add, n, draws) -> list:
+    """The arguments of ``rt_pcg_draws`` (and of its host build), without the stream."""
+    return [ray_id.data_ptr(), ray_id.shape[0], int(ray_mult) & rng.MASK32,
+            int(seed_add) & rng.MASK32, n, draws.data_ptr()]
+
+
+def pcg_draws(ray_id: torch.Tensor, ray_mult: int, seed_add: int, n: int) -> torch.Tensor:
+    """(R,) int32 ray ids → the (n, R) int64 first raw draws of each ray's
+    PCG stream seeded with ``ray_id * ray_mult + seed_add`` mod 2^32
+    (``rng.uniforms`` of those seeds)."""
+    global LAUNCHES_DRAWS
+    if ray_id.dtype != torch.int32 or ray_id.dim() != 1 or not ray_id.is_contiguous():
+        raise ValueError(f"ray_id must be a contiguous (R,) int32, got {ray_id.dtype} "
+                         f"{tuple(ray_id.shape)}")
+    if device_kind(ray_id, "pcg_draws") == "cpu":
+        return plain_pcg_draws(ray_id, ray_mult, seed_add, n)
+    draws = torch.empty((n, ray_id.shape[0]), dtype=torch.int64, device=ray_id.device)
+    lib = library().lib
+    with torch.cuda.device(ray_id.device):
+        err = lib.rt_pcg_draws(*draws_args(ray_id, ray_mult, seed_add, n, draws),
+                               _stream(ray_id))
+    raise_on_error(lib, err, "pcg_draws")
+    LAUNCHES_DRAWS += 1
+    return draws
+
+
+def bounce_draws(ray_id: torch.Tensor, pass_seed, bounce: int) -> torch.Tensor:
+    """The five raw draws of ``bounce`` per ray, (5, R) int64:
+    ``rng.uniforms(bounce_seeds(ray_id, pass_seed, bounce), 5)``."""
+    return pcg_draws(ray_id, BOUNCE_RAY_MULT, bounce_seed_add(pass_seed, bounce), 5)
+
+
+def plain_bounce_draws(ray_id: torch.Tensor, pass_seed, bounce: int) -> torch.Tensor:
+    return plain_pcg_draws(ray_id, BOUNCE_RAY_MULT, bounce_seed_add(pass_seed, bounce), 5)

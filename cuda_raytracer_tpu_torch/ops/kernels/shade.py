@@ -11,9 +11,10 @@ closest hit and shading, the PCG chain) and returns the collected radiance
   never falls back. ``trace_on_grid`` launches it on another grid, with the
   same bits.
 - On a CPU tensor it runs the kernel's plain version: the wavefront path
-  (``make_initial_state`` → ``trace_wavefront(sort_rays=False)`` →
-  ``collected``), which the JAX package holds its own megakernel to
-  bit-identity with.
+  (``make_initial_state`` → ``trace_packed(sort_rays=False)`` →
+  ``collected``) with torch's camera draws, set-up and shading on any
+  device (``plain=True``), which the JAX package holds its own megakernel
+  to bit-identity with.
 """
 
 from __future__ import annotations
@@ -106,11 +107,12 @@ def pack_table(scene: Scene) -> torch.Tensor:
 def plain_trace(
     scene: Scene, ray_id: torch.Tensor, rays_per_pixel: int, pass_seed, bounces: int
 ) -> torch.Tensor:
-    """The kernel's plain PyTorch version: the wavefront brute path."""
-    state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
-    state, _ = wavefront.trace_wavefront(
-        scene, state, pass_seed, bounces, sort_rays=False
-    )
+    """The kernel's plain PyTorch version: the wavefront brute path, on
+    torch alone on every device (the camera's PCG, the sphere and triangle
+    tests, the shading), so it shares no device code with the kernel."""
+    state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed, plain=True)
+    state, _ = wavefront.trace_packed(scene, state, pass_seed, bounces, sort_rays=False,
+                                      plain=True)
     return state.collected
 
 

@@ -67,8 +67,11 @@ BACKENDS = ("auto", "xla", "fused", "fused1", "pallas")
 
 def resolve_backend(backend: str, device: torch.device, pack: int = 1) -> str:
     """``"auto"`` → ``"fused1"`` for a paired table (``pack`` > 1), else
-    ``"fused"`` on CUDA and ``"xla"`` elsewhere; unknown names raise
-    ValueError."""
+    ``"fused"`` (cull + fused) on CUDA and ``"xla"`` elsewhere; unknown
+    names raise ValueError. On an H100, renders of the 126,000-triangle
+    torus through cull + fused beat fused1 at 8 and at 100 rays per pixel in
+    every turn of two runs (PERF.md), so fused1 runs only when asked for or
+    for a paired table."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown packet backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":
@@ -161,47 +164,7 @@ def closest_hit_packet(
                               R, T, tile, cap, S, two_round)
     if backend in ("fused", "fused1"):
         od8 = cull.make_od8(origin_p, direction_p, closest_p, tile)
-        if backend == "fused1":
-            if S != 1:
-                raise ValueError("fused1 backend requires cull_split == 1")
-            # cull_hier == 0 means G = 16 here; negative forces the flat cull.
-            G = scene.config.cull_hier or 16
-            G = max(G, 0)
-            if G and fused1.CHUNK % G:
-                raise ValueError(f"cull_hier={G} must divide {fused1.CHUNK}")
-            gate = G if (G and K > fused1.CHUNK) else 0
-            # The supers stay over sub-cluster boxes; a paired table has
-            # K / pack blocks.
-            t_tile, tri_tile = fused1.fused1_closest_hit(
-                od8, box_table(scene), scene.cluster_blocks[:K // pack].contiguous(),
-                sup=super_table(scene, gate) if gate else None, gate_g=gate, pack=pack,
-            )
-        else:
-            blocks = scene.cluster_blocks[:K].contiguous()
-
-            def fused_sweep(select, entry, maskw):
-                return fused.fused_closest_hit(
-                    od8, blocks, fused.pack_words(select),
-                    entry=entry.contiguous() if skip else None,
-                    hitmask=maskw.contiguous() if skip else None,
-                )
-
-            entry, maskw = _block_cull(scene, od8, S, skip)
-            hit = entry < HIT_THRESH
-            if not two_round or K <= 1:
-                t_tile, tri_tile = fused_sweep(hit, entry, maskw)
-            else:
-                # Front to back: round 1 sweeps each tile's nearest-entry
-                # cluster(s); round 2 re-culls with each ray's window
-                # tightened to its round-1 hit (a box whose [0, t_best] slab
-                # misses cannot hold a closer hit) and sweeps the rest.
-                sel1 = hit & (entry <= entry.amin(dim=1, keepdim=True))
-                t1, tri1 = fused_sweep(sel1, entry, maskw)
-                window2 = torch.minimum(closest_p.reshape(T, tile), t1).reshape(-1)
-                entry2, maskw2 = _block_cull(
-                    scene, cull.make_od8(origin_p, direction_p, window2, tile), S, skip)
-                t2, tri2 = fused_sweep((entry2 < HIT_THRESH) & ~sel1, entry2, maskw2)
-                t_tile, tri_tile = _merge((t1, tri1), t2, tri2)
+        t_tile, tri_tile = packet_tiles(scene, od8, backend, two_round, skip)
         return _finalize(scene, t_tile, tri_tile, None, closest, hit_index, R, tile)
 
     inv_dir = _safe_inv_dir(direction_p)
@@ -255,6 +218,58 @@ def closest_hit_packet(
         t_tile = torch.full((T, tile), MISS, dtype=torch.float32, device=origin.device)
         tri_tile = torch.full((T, tile), -1, dtype=torch.int32, device=origin.device)
     return _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile)
+
+
+def packet_tiles(scene: Scene, od8: torch.Tensor, backend: str, two_round: bool = False,
+                 skip: bool = False):
+    """The fused or fused1 engine on (T, 8, tile) ray tiles (``cull.make_od8``,
+    or the set-up kernel's, ``rays.rays_setup``) → each ray's raw (t, tri) as
+    (T, tile), (``MISS``, -1) where no triangle lies inside its window; the
+    caller folds them over its sphere hits (``_finalize``)."""
+    pack = scene.config.cluster_pack
+    if pack > 1 and backend != "fused1":
+        raise ValueError(f"cluster_pack > 1 requires the fused1 backend, got {backend!r}")
+    K = scene.num_clusters
+    S = scene.cluster_min.shape[0] // max(K, 1)  # cull_split sub-boxes per cluster
+    if backend == "fused1":
+        if S != 1:
+            raise ValueError("fused1 backend requires cull_split == 1")
+        # cull_hier == 0 means G = 16 here; negative forces the flat cull.
+        G = scene.config.cull_hier or 16
+        G = max(G, 0)
+        if G and fused1.CHUNK % G:
+            raise ValueError(f"cull_hier={G} must divide {fused1.CHUNK}")
+        gate = G if (G and K > fused1.CHUNK) else 0
+        # The supers stay over sub-cluster boxes; a paired table has
+        # K / pack blocks.
+        return fused1.fused1_closest_hit(
+            od8, box_table(scene), scene.cluster_blocks[:K // pack].contiguous(),
+            sup=super_table(scene, gate) if gate else None, gate_g=gate, pack=pack,
+        )
+    blocks = scene.cluster_blocks[:K].contiguous()
+
+    def fused_sweep(select, entry, maskw):
+        return fused.fused_closest_hit(
+            od8, blocks, fused.pack_words(select),
+            entry=entry.contiguous() if skip else None,
+            hitmask=maskw.contiguous() if skip else None,
+        )
+
+    entry, maskw = _block_cull(scene, od8, S, skip)
+    hit = entry < HIT_THRESH
+    if not two_round or K <= 1:
+        return fused_sweep(hit, entry, maskw)
+    # Front to back: round 1 sweeps each tile's nearest-entry cluster(s);
+    # round 2 re-culls with each ray's window tightened to its round-1 hit (a
+    # box whose [0, t_best] slab misses cannot hold a closer hit) and sweeps
+    # the rest.
+    sel1 = hit & (entry <= entry.amin(dim=1, keepdim=True))
+    t1, tri1 = fused_sweep(sel1, entry, maskw)
+    window2 = od8.clone()
+    window2[:, 6] = torch.minimum(od8[:, 6], t1)
+    entry2, maskw2 = _block_cull(scene, window2, S, skip)
+    t2, tri2 = fused_sweep((entry2 < HIT_THRESH) & ~sel1, entry2, maskw2)
+    return _merge((t1, tri1), t2, tri2)
 
 
 def box_table(scene: Scene) -> torch.Tensor:

@@ -35,27 +35,6 @@ from cuda_raytracer_tpu_torch.utils import checkpoint as ckpt
 # compaction (wavefront.bounce_on_live_prefix) is active; it also bounds the
 # (rays × prims) intermediates of the brute intersector.
 RAY_BLOCK = 1 << 18
-# Largest cluster-block table the fused1 regime takes (16 MB).
-FUSED1_TABLE_BYTES = 16 << 20
-
-
-def _regime_scene(scene: Scene) -> Scene:
-    """Resolve packet_backend "auto" on a CUDA device: a table of at most
-    16 MB with cull_split 1 goes to the single fused1 kernel at every sample
-    count (on an H100 its renders of the 126,000-triangle torus beat cull +
-    fused at both 8 and 100 rays per pixel, timed in turns: PERF.md); larger
-    tables and split boxes keep the cull + fused kernels. Explicit
-    packet_backend values are never overridden."""
-    cfg = scene.config
-    table_bytes = scene.cluster_blocks.numel() * scene.cluster_blocks.element_size()
-    if (
-        cfg.packet_backend == "auto"
-        and cfg.cull_split == 1
-        and table_bytes <= FUSED1_TABLE_BYTES
-        and scene.device.type == "cuda"
-    ):
-        return scene.with_config(packet_backend="fused1")
-    return scene
 
 
 def _render_block(
@@ -113,7 +92,6 @@ def render_pass(
         raise ValueError(f"{total} rays in one pass exceed the int32 ray ids")
     px_lo, px_hi = pixels if pixels is not None else (0, framebuffer.shape[0])
     first, end = px_lo * rays_per_pixel, px_hi * rays_per_pixel
-    scene = _regime_scene(scene)
     if shade.megakernel_eligible(scene, reparam):
         block = max(1, end - first)
     else:

@@ -1,9 +1,9 @@
 """The mesh bounce's shading kernel (``csrc/bounce.cu``) against the torch shading and JAX.
 
 ``bounce.cu`` runs only on the GPU, where ``chip_smoke.py`` holds it against
-its plain version. Its per-ray body is ``rt::shade_bounce_ray`` in
+its plain version. Its per-ray body is ``rt::shade_packed_row`` in
 ``csrc/shading.cuh``; ``csrc/bounce_host.cpp`` runs the same body over the
-rays on the host. This test builds that file with the host C++ compiler
+rows of a packed wavefront on the host. This test builds that file with the host C++ compiler
 (``-ffp-contract=off``, like the GPU build's ``-fmad=false``) and holds the
 next state it writes against:
 
@@ -11,7 +11,8 @@ next state it writes against:
   ``wavefront.shade``) on the same state and closest hit, for the small
   torus, the glass torus (refraction and total internal reflection) and a
   sphere scene under the substitute sky (brute intersector, texel fetches),
-  entering bounces 0-3, the state strided as the Morton reorder leaves it;
+  entering bounces 0-3, the state packed into rows as the forward trace
+  holds it;
 - JAX's ``process_rays`` for one bounce on the same inputs, on the rays
   whose closest hits agree (JAX's CPU floats carry FMA contraction, so hit
   distances agree to rtol 1e-4 and indices exactly).
@@ -60,10 +61,10 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True,
     )
     lib = ctypes.CDLL(str(lib_path))
-    p, i, ll, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint
-    lib.rt_host_shade_bounce.argtypes = (
-        [p, ll] * 4 + [p] * 3 + [i] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p])
-    lib.rt_host_shade_bounce.restype = ctypes.c_int
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.rt_host_bounce_rows.argtypes = (
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u])
+    lib.rt_host_bounce_rows.restype = ctypes.c_int
     return lib
 
 
@@ -73,11 +74,12 @@ def scenes():
 
 
 def host_bounce(lib, scene, state, t, hit_index, pass_seed, bnc):
-    """The host build of the kernel on one wavefront → the next RayState."""
-    out = torch.empty((state.origin.shape[0], 12), dtype=torch.float32)
-    assert lib.rt_host_shade_bounce(
-        *bounce.kernel_args(scene, state, t, hit_index, pass_seed, bnc, out)) == 0
-    return bounce.state_from_rows(state, out)
+    """The host build of the kernel on one wavefront, packed into rows and
+    shaded in place → the next RayState."""
+    rows = wavefront.pack_rows(state)
+    assert lib.rt_host_bounce_rows(
+        *bounce.kernel_args(scene, rows, t, hit_index, pass_seed, bnc)) == 0
+    return wavefront.unpack_rows(rows)
 
 
 def assert_states_agree(got, ref, rows=None):
@@ -174,15 +176,15 @@ def test_wrapper_runs_plain_on_cpu_and_checks_inputs(scenes):
     state = wavefront.make_initial_state(scene, torch.arange(256, dtype=torch.int32), 4, 1)
     _, t, hit_index, _ = wavefront.closest_hit_of(scene, state, 0)
     launches = bounce.LAUNCHES
-    got = bounce.shade_bounce(scene, state, t, hit_index, 1, 0)
+    got = wavefront.pack_rows(state)
+    bounce.shade_rows(scene, got, t, hit_index, 1, 0)
     ref = bounce.plain_shade_bounce(scene, state, t, hit_index, 1, 0)
-    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    assert all(torch.equal(a, b) for a, b in zip(wavefront.unpack_rows(got), ref))
     assert bounce.LAUNCHES == launches  # CPU tensors never launch
     with pytest.raises(ValueError, match="hit_index"):
-        bounce.shade_bounce(scene, state, t, hit_index.long(), 1, 0)
-    with pytest.raises(ValueError, match="origin"):
-        bounce.shade_bounce(scene, state._replace(origin=state.origin.double()), t,
-                            hit_index, 1, 0)
+        bounce.shade_rows(scene, got, t, hit_index.long(), 1, 0)
+    with pytest.raises(ValueError, match="rows"):
+        bounce.shade_rows(scene, got.double(), t, hit_index, 1, 0)
 
 
 def test_material_table_built_once_and_rebuilt_after_update(scenes):

@@ -307,7 +307,9 @@ def test_bounce_kernel_matches_plain_and_runs_forward_only(cuda, name):
     for b, state in enumerate(_states(scene, bounces=4)):
         _, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
         before = bounce.LAUNCHES
-        got = bounce.shade_bounce(scene, state, t, hit_index, 3, b)
+        rows = wavefront.pack_rows(state)
+        bounce.shade_rows(scene, rows, t, hit_index, 3, b)
+        got = wavefront.unpack_rows(rows)
         assert bounce.LAUNCHES == before + 1
         ref = bounce.plain_shade_bounce(scene, state, t, hit_index, 3, b)
         a, r = torch.cat(list(got[:4]), dim=1), torch.cat(list(ref[:4]), dim=1)

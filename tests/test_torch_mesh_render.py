@@ -20,6 +20,7 @@ import jax.numpy as jnp
 from cuda_raytracer_tpu.render import pipeline as jpipeline
 from cuda_raytracer_tpu.render import wavefront as jwavefront
 from cuda_raytracer_tpu_torch.models import builtin_scenes
+from cuda_raytracer_tpu_torch.ops import packet_intersect
 from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 
 from test_torch_packet import build_mesh_both
@@ -102,7 +103,9 @@ def test_certificate_retries_then_raises():
 
 def test_regime_and_unported_paths():
     _, ts = _both("torus")
-    assert pipeline._regime_scene(ts) is ts  # fused1 is keyed on a CUDA device
+    # "auto" is the plain xla engine on the CPU and cull + fused on the card.
+    assert packet_intersect.resolve_backend("auto", ts.device) == "xla"
+    assert packet_intersect.resolve_backend("auto", torch.device("cuda")) == "fused"
     for key in ("cullhit", "auto"):
         state = wavefront.make_initial_state(ts, torch.arange(64, dtype=torch.int32), 4, 0)
         with pytest.raises(NotImplementedError, match="cullhit"):

@@ -122,19 +122,17 @@ def test_packed_render_bit_equal_unpacked(tables):
     assert packed_fb.abs().sum() > 0
 
 
-def test_packed_backend_rules(tables, monkeypatch):
+def test_packed_backend_rules(tables):
     (_, ts), _ = tables["cloud"]
     rays = [torch.from_numpy(a) for a in _rays(256)]
     for name in ("xla", "fused", "pallas"):
         with pytest.raises(ValueError, match="cluster_pack"):
             packet_intersect.closest_hit_packet(ts, *rays, backend=name)
-    # "auto" means fused1 on a packed table on every device, so a packed
-    # table past the fused1 regime's byte limit still reaches it.
+    # "auto" means fused1 on a packed table on every device.
     for device in ("cpu", "cuda"):
         assert packet_intersect.resolve_backend("auto", torch.device(device), 2) == "fused1"
-    monkeypatch.setattr(pipeline, "FUSED1_TABLE_BYTES", 0)
     scene = ts.with_config(width=8, height=8, rays_per_pixel=12, bounces=2)
-    assert pipeline._regime_scene(scene).config.packet_backend == "auto"
+    assert scene.config.packet_backend == "auto"
     assert torch.isfinite(pipeline.render_framebuffer(scene)).all()
     with pytest.raises(ValueError, match="pack=3"):
         fused1.fused1_closest_hit(cull.make_od8(*rays[:3], 64),

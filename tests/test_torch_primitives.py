@@ -24,7 +24,7 @@ from cuda_raytracer_tpu.utils import png as jpng
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.models import scene_dsl as tdsl
 from cuda_raytracer_tpu_torch.ops import bloom, camera, envmap, intersect, rng, tonemap, vecmath
-from cuda_raytracer_tpu_torch.render import wavefront
+from cuda_raytracer_tpu_torch.ops.kernels import rays
 from cuda_raytracer_tpu_torch.utils import png
 
 
@@ -75,7 +75,7 @@ def test_ray_and_bounce_seeds_bit_equal(pass_seed):
     )
     for bounce in (0, 3, 14):
         np.testing.assert_array_equal(
-            wavefront.bounce_seeds(torch.from_numpy(ids), pass_seed, bounce).numpy(),
+            rays.bounce_seeds(torch.from_numpy(ids), pass_seed, bounce).numpy(),
             np.asarray(jwavefront.bounce_seeds(jnp.asarray(ids), pass_seed, bounce)),
         )
 

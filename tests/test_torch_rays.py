@@ -1,0 +1,478 @@
+"""The forward mesh bounce's row kernels and the redesigned cull, as host builds, against their plain versions and JAX.
+
+``csrc/rays.cu`` (set-up, sort keys, draws), ``csrc/bounce.cu`` (the packed
+bounce) and ``csrc/cull.cu`` run only on the GPU, where ``chip_smoke.py``
+holds them against their plain versions. Their per-ray and per-block bodies
+are ``csrc/rays.cuh``, ``csrc/shading.cuh`` and ``csrc/packet.cuh``, which
+``csrc/bounce_host.cpp`` and ``csrc/packet_host.cpp`` run on the host; this
+file builds those two with the host C++ compiler (``-ffp-contract=off``, like
+the GPU build's ``-fmad=false``) and holds, on seeded inputs:
+
+- ``rays_setup`` (alive bit, sphere hit, ray tiles) BIT-EQUAL to
+  ``intersect_spheres`` + ``make_od8`` with torch.sqrt correctly rounded, as
+  on the card (this build's CPU torch.sqrt is not), and its sphere hit to
+  JAX's
+  ``render/wavefront.py`` ``closest_hit`` on a sphere scene (indices equal,
+  distances within rtol 1e-4 / atol 1e-3: JAX's CPU floats carry FMA
+  contraction, which the quadratic's cancellation on the 10,000-radius
+  ground sphere magnifies);
+- ``ray_keys`` and the live count BIT-EQUAL to ``morton.ray_sort_keys`` (dead
+  rays, count buckets, chunk offsets) and the keys EQUAL to JAX
+  ``ops/morton.py`` ``ray_sort_keys``;
+- ``pcg_draws`` BIT-EQUAL to ``rng.uniforms`` and to JAX ``ops/rng.py``
+  ``uniforms``, seeded as a bounce's shading (``rays.bounce_seeds``)
+  and as the camera's jitter (``camera.initial_ray_seeds``);
+- the packed bounce's fold of the packet kernel's raw hit BIT-EQUAL to the
+  bounce on ``packet_intersect._finalize``'s hit (the body against the torch
+  shading and JAX's ``process_rays`` is ``tests/test_torch_bounce.py``);
+- the redesigned cull (flat, and gated through the same body) EQUAL to
+  ``plain_cull`` (0 mismatched entry and mask elements) and BIT-EQUAL to the
+  entries of ``csrc/packet.cuh``'s tie rule on edge rays: axis-parallel
+  directions (inverse ±1e30, signed zeros), origins on box faces, window -1,
+  NaN boxes and a box whose corners are out of order (torch's minimum leaves the sign of a ±0 tie unspecified, so the
+  sign of a zero entry is held to the header's rule);
+
+and end to end, the packed forward trace (``wavefront.trace_packed``) gives
+the ``RayState`` trace's bits (``trace_rays``, the path every forward
+render took before) on the small torus (every packet engine, the live
+schedule) and on Cornell; ``tests/test_torch_mesh_render.py``
+holds its renders, packed now, to the JAX package's.
+"""
+
+import ctypes
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from cuda_raytracer_tpu.ops import camera as jcamera
+from cuda_raytracer_tpu.ops import morton as jmorton
+from cuda_raytracer_tpu.ops import rng as jrng
+from cuda_raytracer_tpu.render import wavefront as jwavefront
+from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+from cuda_raytracer_tpu_torch.ops import camera, packet_intersect, rng
+from cuda_raytracer_tpu_torch.ops.kernels import bounce, build, cull, rays, shade
+from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
+from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+
+from test_torch_packet import build_mesh_both
+
+SIZE = dict(width=16, height=16, rays_per_pixel=4, bounces=5)
+AGREE_TOL = 1e-3
+
+
+def _compile(tmp_path_factory, source: str):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    lib_path = tmp_path_factory.mktemp("host") / f"lib{source}.so"
+    subprocess.run(
+        [cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC",
+         "-o", str(lib_path), str(build.CSRC_DIR / f"{source}.cpp")],
+        check=True, capture_output=True,
+    )
+    return ctypes.CDLL(str(lib_path))
+
+
+@pytest.fixture(scope="module")
+def host(tmp_path_factory):
+    lib = _compile(tmp_path_factory, "bounce_host")
+    p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+    lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p]
+    lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p]
+    lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
+    lib.rt_host_bounce_rows.argtypes = (
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u])
+    return lib
+
+
+@pytest.fixture(scope="module")
+def packet_host(tmp_path_factory):
+    lib = _compile(tmp_path_factory, "packet_host")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
+    lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
+    return lib
+
+
+@pytest.fixture(scope="module")
+def spheres():
+    return build_mesh_both(builtin_scenes.SPHERES, SIZE)
+
+
+@pytest.fixture(scope="module")
+def boxes():
+    """A torus cut into more than 512 clusters of <= 16 triangles: two spans
+    of the flat cull's grid, five gate chunks."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    scene = scene_dsl.assemble_scene(parsed, config_overrides=dict(width=8, height=8),
+                                     prefer_native_bvh=False, cluster_tris=16, device="cpu")
+    assert scene.num_clusters > 4 * cull.GATE_CHUNK
+    return scene
+
+
+@pytest.fixture(scope="module")
+def torus():
+    return build_mesh_both(builtin_scenes.torus(builtin_scenes.SMALL), SIZE, sky=True)
+
+
+def _state(n: int, seed: int, dead_every: int = 5) -> wavefront.RayState:
+    """Seeded rays around the scene: origins in [-3, 3]^3 (y in [0.1, 2.5]),
+    unit directions, every ``dead_every``-th ray dead, ids not in row order."""
+    rng = np.random.default_rng(seed)
+    origin = rng.uniform(-3, 3, (n, 3)).astype(np.float32)
+    origin[:, 1] = rng.uniform(0.1, 2.5, n)
+    direction = rng.normal(size=(n, 3)).astype(np.float32)
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    transmitted = rng.uniform(0.1, 1.0, (n, 3)).astype(np.float32)
+    transmitted[::dead_every] = 0.0
+    collected = rng.uniform(0.0, 2.0, (n, 3)).astype(np.float32)
+    ids = rng.permutation(n).astype(np.int32) * 3 + 11
+    return wavefront.RayState(*(torch.from_numpy(a) for a in
+                                (origin, direction, transmitted, collected, ids)))
+
+
+def _bits(x: torch.Tensor) -> torch.Tensor:
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _ieee_setup(monkeypatch, rows, scene, tile):
+    """``plain_rays_setup`` with torch.sqrt correctly rounded, as it is on the
+    card: this build's torch.sqrt is a vectorised approximation (it gives
+    sqrt(204394.015625) one ulp low, which the sphere quadratic's
+    cancellation turns into thousands of ulps of t). A float32 square root
+    taken in float64 and rounded once is correctly rounded."""
+    sqrt = torch.sqrt
+    with monkeypatch.context() as m:
+        m.setattr(torch, "sqrt", lambda x: sqrt(x.double()).float())
+        return rays.plain_rays_setup(rows, scene.sphere_center, scene.sphere_radius, tile)
+
+
+def _assert_bit_equal(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(_bits(g), _bits(w))
+
+
+# ---- rays_setup -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,tile", [(1000, 64), (333, 32), (250, 0)])
+def test_rays_setup_host_bit_equal_plain_and_jax(host, spheres, monkeypatch, n, tile):
+    js, ts = spheres
+    state = _state(n, seed=n)
+    rows = wavefront.pack_rows(state)
+    want = _ieee_setup(monkeypatch, rows, ts, tile)
+    got = rays.setup_outputs(rows, tile)
+    assert host.rt_host_rays_setup(
+        *rays.setup_args(rows, ts.sphere_center, ts.sphere_radius, tile, *got)) == 0
+    assert (got[3] is None) == (tile == 0)
+    if tile:
+        assert got[3].shape == (-(-n // tile), 8, tile)
+    _assert_bit_equal(got[:3] + got[3:] * bool(tile), want[:3] + want[3:] * bool(tile))
+    plain = rays.plain_rays_setup(rows, ts.sphere_center, ts.sphere_radius, tile)
+    assert torch.equal(plain[2], want[2])
+    np.testing.assert_allclose(plain[1].numpy(), want[1].numpy(), rtol=1e-4, atol=AGREE_TOL)
+    alive, t, index = want[:3]
+    assert (~alive).any() and (index >= 0).any() and (alive & (index < 0)).any()
+    # JAX's closest hit on the sphere scene (no triangles): its sphere part.
+    jt, jindex, _ = jwavefront.closest_hit(js, jnp.asarray(state.origin.numpy()),
+                                           jnp.asarray(state.direction.numpy()),
+                                           jnp.asarray(alive.numpy()))
+    assert np.array_equal(np.asarray(jindex), index.numpy())
+    np.testing.assert_allclose(np.asarray(jt), t.numpy(), rtol=1e-4, atol=AGREE_TOL)
+
+
+# ---- ray_keys ---------------------------------------------------------------
+
+
+@pytest.mark.parametrize("count", [False, True])
+@pytest.mark.parametrize("chunk", [1000, 96])
+def test_ray_keys_host_bit_equal_plain_and_jax(host, torus, count, chunk):
+    js, ts = torus
+    n = 1000
+    state = _state(n, seed=3)
+    rows = wavefront.pack_rows(state)
+    want_keys, want_live = rays.plain_ray_keys(rows, ts.min_coord, ts.inv_extent, count, chunk)
+    keys = torch.empty(n, dtype=torch.int64)
+    live = torch.empty(1, dtype=torch.int32)
+    assert host.rt_host_ray_keys(
+        *rays.keys_args(rows, ts.min_coord, ts.inv_extent, count, chunk, keys, live)) == 0
+    assert torch.equal(keys, want_keys) and torch.equal(live, want_live)
+    alive = np.any(state.transmitted.numpy() != 0, axis=1)
+    assert int(live) == alive.sum() < n
+    jkeys = np.asarray(jmorton.ray_sort_keys(
+        jnp.asarray(state.origin.numpy()), jnp.asarray(state.direction.numpy()),
+        jnp.asarray(alive), js.min_coord, js.inv_extent)).astype(np.int64) & 0xFFFFFFFF
+    if count:
+        jkeys = np.where(alive, np.minimum(jkeys >> rays.COUNT_BUCKET_SHIFT, 254), 255)
+    assert np.array_equal(keys.numpy() & 0xFFFFFFFF, jkeys)
+    assert np.array_equal(keys.numpy() >> 32, np.arange(n) // chunk)
+    # One flat stable sort is the per-chunk stable sort: dead rays last in
+    # every chunk, no ray leaves its chunk.
+    order = torch.argsort(keys, stable=True).numpy()
+    assert np.array_equal(order // chunk, np.arange(n) // chunk)
+    for lo in range(0, n, chunk):
+        per_chunk = lo + np.argsort(jkeys[lo:lo + chunk], kind="stable")
+        assert np.array_equal(order[lo:lo + chunk], per_chunk)
+
+
+# ---- pcg_draws ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("pass_seed,bnc", [(0, 0), (19, 3), (77, 9)])
+def test_pcg_draws_host_bit_equal_plain_and_jax(host, pass_seed, bnc):
+    """The draws of a bounce's shading and of the camera's jitter."""
+    ids = np.random.default_rng(pass_seed).integers(0, 2**31 - 1, 4096).astype(np.int32)
+    ids[:2] = (0, 2**31 - 1)
+    tids = torch.from_numpy(ids)
+    seedings = {
+        "bounce": (rays.BOUNCE_RAY_MULT, rays.bounce_seed_add(pass_seed, bnc), 5,
+                   jwavefront.bounce_seeds(jnp.asarray(ids), pass_seed, bnc)),
+        "camera": (camera.RAY_SEED_MULT, camera._seed_add(pass_seed), 2,
+                   jcamera.initial_ray_seeds(jnp.asarray(ids), pass_seed)),
+    }
+    for mult, add, n, jseeds in seedings.values():
+        want = rays.plain_pcg_draws(tids, mult, add, n)
+        got = torch.empty((n, ids.shape[0]), dtype=torch.int64)
+        assert host.rt_host_pcg_draws(*rays.draws_args(tids, mult, add, n, got)) == 0
+        assert torch.equal(got, want)
+        jwant = np.asarray(jrng.uniforms(jseeds, n)).astype(np.int64)
+        assert np.array_equal(jwant, want.numpy())
+    assert torch.equal(rays.plain_bounce_draws(tids, pass_seed, bnc),
+                       rng.uniforms(rays.bounce_seeds(tids, pass_seed, bnc), 5))
+    launches = rays.LAUNCHES_DRAWS
+    assert torch.equal(rays.bounce_draws(tids, pass_seed, bnc),
+                       rays.plain_bounce_draws(tids, pass_seed, bnc))
+    assert rays.LAUNCHES_DRAWS == launches  # CPU tensors never launch
+    with pytest.raises(ValueError, match="ray_id"):
+        rays.bounce_draws(tids.long(), pass_seed, bnc)
+
+
+def test_row_wrappers_run_plain_on_cpu_and_check_inputs(torus):
+    _, ts = torus
+    rows = wavefront.pack_rows(_state(300, seed=1))
+    before = (rays.LAUNCHES_SETUP, rays.LAUNCHES_KEYS)
+    _assert_bit_equal(rays.rays_setup(rows, ts.sphere_center, ts.sphere_radius, 64),
+                      rays.plain_rays_setup(rows, ts.sphere_center, ts.sphere_radius, 64))
+    _assert_bit_equal(rays.ray_keys(rows, ts.min_coord, ts.inv_extent, True, 300),
+                      rays.plain_ray_keys(rows, ts.min_coord, ts.inv_extent, True, 300))
+    assert (rays.LAUNCHES_SETUP, rays.LAUNCHES_KEYS) == before
+    with pytest.raises(ValueError, match="rows"):
+        rays.rays_setup(rows[:, :12], ts.sphere_center, ts.sphere_radius, 64)
+    with pytest.raises(ValueError, match="rows"):
+        rays.ray_keys(rows[::2], ts.min_coord, ts.inv_extent, True, 300)
+
+
+# ---- the packed bounce's fold -----------------------------------------------
+
+
+def test_host_bounce_folds_the_packet_hit(host, torus):
+    """The bounce kernel given the set-up kernel's sphere hit and fused1's raw
+    triangle hit writes the bits it writes given the finalised closest hit;
+    dead rows and the ray-id column are untouched; the torch shading agrees
+    to the shade gate."""
+    _, ts = torus
+    ts = ts.with_config(packet_backend="fused1")
+    n, tile, seed, bnc = 1500, ts.config.packet_tile, 4, 1
+    state = wavefront.make_initial_state(ts, torch.arange(n, dtype=torch.int32), 4, seed)
+    state, _ = wavefront.process_rays(ts, state, seed, 0)
+    rows = wavefront.pack_rows(state)
+    alive, t, index, od8 = rays.plain_rays_setup(rows, ts.sphere_center, ts.sphere_radius, tile)
+    t_tri, tri = packet_intersect.packet_tiles(ts, od8, "fused1")
+    t_fin, i_fin, _ = packet_intersect._finalize(ts, t_tri, tri, None, t, index, n, tile)
+    assert (~alive).any() and (alive & (i_fin >= 0)).any() and (alive & (i_fin < 0)).any()
+    folded, finalised = rows.clone(), rows.clone()
+    assert host.rt_host_bounce_rows(
+        *bounce.kernel_args(ts, folded, t, index, seed, bnc, t_tri, tri)) == 0
+    assert host.rt_host_bounce_rows(
+        *bounce.kernel_args(ts, finalised, t_fin, i_fin, seed, bnc)) == 0
+    assert torch.equal(_bits(folded), _bits(finalised))
+    assert torch.equal(_bits(folded[~alive]), _bits(rows[~alive]))
+    assert torch.equal(_bits(folded[:, 12:]), _bits(rows[:, 12:]))
+    plain = rows.clone()
+    bounce.plain_shade_rows(ts, plain, t, index, seed, bnc, t_tri, tri)
+    diff = (folded[:, :12] - plain[:, :12]).abs().amax(dim=1)
+    assert torch.isfinite(folded).all() and (diff < AGREE_TOL).float().mean() >= 0.999
+
+
+# ---- the redesigned cull on edge rays ------------------------------------------
+
+
+def _edge_od8(scene, tile: int, seed: int = 5):
+    """Ray tiles that hit the slab test's edges: origins inside a box with one
+    coordinate on a face (or on a corner), axis-parallel directions (some
+    with -0 components, so the safe inverse is ±1e30) and random ones, open,
+    finite and -1 windows. A ray leaving a box through the face its origin
+    lies on has entry -0 in the plain rule, one entering it +0."""
+    rng = np.random.default_rng(seed)
+    cmin, cmax = scene.cluster_min.numpy(), scene.cluster_max.numpy()
+    K = cmin.shape[0]
+    n = 8 * tile + 13
+    k = rng.integers(0, K, n)
+    origin = (cmin[k] + rng.uniform(0.1, 0.9, (n, 3)) * (cmax[k] - cmin[k])).astype(np.float32)
+    face = rng.integers(0, 3, n)
+    rows = np.arange(n)
+    origin[rows, face] = np.where(rng.random(n) < 0.5, cmin[k, face], cmax[k, face])
+    corner = rows % 7 == 0
+    origin[corner] = cmin[k[corner]]
+    axes = np.eye(3, dtype=np.float32)
+    direction = rng.normal(size=(n, 3)).astype(np.float32)
+    direction /= np.linalg.norm(direction, axis=1, keepdims=True)
+    parallel = rows % 2 == 0
+    sign = np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)
+    direction[parallel] = axes[face][parallel] * sign[parallel, None]
+    negzero = parallel & (rows % 4 == 0)
+    direction[negzero] = np.where(direction[negzero] == 0, np.float32(-0.0), direction[negzero])
+    window = np.full(n, 1e30, np.float32)
+    window[rows % 5 == 1] = rng.uniform(0.0, 2.0, (rows % 5 == 1).sum())
+    window[rows % 11 == 3] = -1.0
+    padded = packet_intersect._pad_rays(*(torch.from_numpy(a) for a in
+                                          (origin, direction, window)), tile)
+    return cull.make_od8(*padded, tile)
+
+
+def _min_nan(a, b):
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.where(b < a, b, a)))
+
+
+def _max_nan(a, b):
+    return np.where(np.isnan(a), a, np.where(np.isnan(b), b, np.where(a < b, b, a)))
+
+
+def _rule_cull(od8: torch.Tensor, aabb: torch.Tensor) -> np.ndarray:
+    """The cull's entries under packet.cuh's own rule, in numpy: the slab
+    test's min / max with NaN winning and the first operand winning ties, the
+    tile's minimum folded over its rays in order (an earlier ray's entry wins
+    a tie). It fixes the sign of a zero entry, which plain_cull's
+    torch.minimum / amin leave to their implementation."""
+    T, _, tile = od8.shape
+    o = od8[:, 0:3].permute(0, 2, 1).reshape(-1, 1, 3).numpy()
+    inv = _safe_inv_dir(od8[:, 3:6].permute(0, 2, 1).reshape(-1, 3)).numpy()[:, None]
+    win = od8[:, 6].reshape(-1, 1).numpy()
+    lo, hi = aabb[0:3].T.numpy()[None], aabb[3:6].T.numpy()[None]
+    with np.errstate(invalid="ignore", over="ignore"):
+        tmin = np.zeros((o.shape[0], lo.shape[1]), np.float32)
+        tmax = np.broadcast_to(win, tmin.shape)
+        for a in range(3):
+            t1 = (lo[..., a] - o[..., a]) * inv[..., a]
+            t2 = (hi[..., a] - o[..., a]) * inv[..., a]
+            tmin = _min_nan(_max_nan(t1, tmin), _max_nan(t2, tmin))
+            tmax = _max_nan(_min_nan(t1, tmax), _min_nan(t2, tmax))
+        e = np.where(tmin <= tmax, tmin, np.float32(cull.MISS_ENTRY)).reshape(T, tile, -1)
+    acc = np.full((T, e.shape[2]), cull.MISS_ENTRY, np.float32)
+    for r in range(tile):
+        acc = np.where(e[:, r] < acc, e[:, r], acc)
+    return acc
+
+
+@pytest.mark.parametrize("tile", [64, 40])
+def test_cull_host_bit_equal_plain_on_edge_rays(packet_host, boxes, tile):
+    """0 mismatched entry and mask elements against plain_cull, and the entry
+    bits of packet.cuh's rule (``_rule_cull``), -0 entries included: the
+    single-instruction min / max order -0 below +0, so the body restores the
+    rule's sign of every zero entry, and this case has both signs."""
+    od8 = _edge_od8(boxes, tile)
+    T = od8.shape[0]
+    aabb = cull.box_table(boxes.cluster_min, boxes.cluster_max)
+    aabb[:, 3] = float("nan")  # NaN boxes: every component, or one
+    aabb[4, 7] = float("nan")
+    aabb[[0, 3], 11] = aabb[[3, 0], 11]  # corners out of order on x
+    K = aabb.shape[1]
+    want_entry, want_mask = cull.plain_cull(od8, aabb, with_mask=True)
+    rule = torch.from_numpy(_rule_cull(od8, aabb))
+    zero = rule == 0
+    assert (zero & (rule.view(torch.int32) != 0)).any() and (rule.view(torch.int32) == 0).any()
+    assert (want_entry < cull.MISS_ENTRY).any() and (want_mask != 0).any()
+    entry, mask = torch.empty_like(want_entry), torch.empty_like(want_mask)
+    packet_host.rt_host_cull_tiles(od8.data_ptr(), aabb.data_ptr(), entry.data_ptr(),
+                                   mask.data_ptr(), T, K, tile)
+    assert torch.equal(entry, want_entry) and torch.equal(mask, want_mask)
+    assert torch.equal(_bits(entry), _bits(rule))
+    # The gated cull, all gates open, over the table padded to whole chunks.
+    Kp = -(-K // cull.GATE_CHUNK) * cull.GATE_CHUNK
+    far = torch.full((8, Kp - K), 1e17)
+    far[6:] = 0.0
+    aabb_p = torch.cat([aabb, far], dim=1).contiguous()
+    gates = torch.full((T * cull.gate_words(Kp // cull.GATE_CHUNK),), -1, dtype=torch.int32)
+    entry_g = torch.empty((T, Kp))
+    mask_g = torch.empty((T, want_mask.shape[1], Kp), dtype=torch.int32)
+    packet_host.rt_host_cull_tiles_gated(od8.data_ptr(), aabb_p.data_ptr(), gates.data_ptr(),
+                                         entry_g.data_ptr(), mask_g.data_ptr(), T, Kp, tile)
+    assert torch.equal(_bits(entry_g[:, :K]), _bits(entry))
+    assert torch.equal(mask_g[:, :, :K], want_mask)
+
+
+# ---- the packed forward trace, end to end ---------------------------------------
+
+
+def _traces(scene, n: int = 512, seed: int = 6, bounces: int = 5):
+    """``trace_packed`` and ``trace_rays`` of one forward wavefront → the two
+    (state, suspect) results."""
+    ids = torch.arange(n, dtype=torch.int32)
+    state = wavefront.make_initial_state(scene, ids, SIZE["rays_per_pixel"], seed)
+    return (wavefront.trace_packed(scene, state, seed, bounces, True),
+            wavefront.trace_rays(scene, state, seed, bounces, True))
+
+
+@pytest.mark.parametrize("backend", ["auto", "fused", "fused1", "pallas"])
+def test_packed_trace_gives_the_ray_state_bits(torus, backend):
+    """Every packet engine: the set-up kernel's ray tiles for fused and fused1
+    (fused with its skip test), triangle_hit for the xla ("auto" on the CPU)
+    and pallas engines."""
+    _, ts = torus
+    scene = ts.with_config(packet_backend=backend, packet_skip=backend == "fused")
+    (got, got_suspect), (want, want_suspect) = _traces(scene)
+    _assert_bit_equal(got, want)
+    assert got_suspect == want_suspect == 0
+    assert not torch.equal(got.ray_id, want.ray_id.sort().values)  # it was sorted
+
+
+def test_packed_render_gives_the_ray_state_framebuffer(torus, monkeypatch):
+    """The pass loop's framebuffer, bit for bit, on the small torus and on
+    Cornell (brute intersector). tests/test_torch_mesh_render.py holds the
+    same renders, packed since they trace forward, to the JAX package."""
+    _, ts = torus
+    cornell = build_mesh_both(builtin_scenes.CORNELL, dict(SIZE, width=8, height=8))[1]
+    scenes = (ts.with_config(width=8, height=8), cornell)
+    got = [pipeline.render_framebuffer(scene) for scene in scenes]
+    monkeypatch.setattr(wavefront, "trace_wavefront", wavefront.trace_rays)
+    for fb, scene in zip(got, scenes):
+        assert torch.equal(fb, pipeline.render_framebuffer(scene))
+
+
+def test_plain_trace_calls_no_kernel_wrapper(monkeypatch):
+    """``shade.plain_trace``, the brute megakernel's plain version, traces
+    with ``plain=True``: the forward trace's bits on Cornell, and no row
+    kernel's wrapper called, so on the card it shares no device code with
+    the kernel it checks."""
+    cornell = build_mesh_both(builtin_scenes.CORNELL, dict(SIZE, width=8, height=8))[1]
+    rpp = SIZE["rays_per_pixel"]
+    ids = torch.arange(8 * 8 * rpp, dtype=torch.int32)
+    state = wavefront.make_initial_state(cornell, ids, rpp, 4)
+    want = wavefront.trace_wavefront(cornell, state, 4, 3, sort_rays=False)[0].collected
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a kernel wrapper was called")
+
+    for module, name in ((rays, "rays_setup"), (rays, "pcg_draws"), (rays, "ray_keys"),
+                         (bounce, "shade_rows")):
+        monkeypatch.setattr(module, name, refuse)
+    assert torch.equal(shade.plain_trace(cornell, ids, rpp, 4, 3), want)
+
+
+def test_packed_trace_schedule_keeps_the_bits(torus):
+    """A static live schedule, its certificate included: the packed trace's
+    state, ids and suspect count equal the RayState trace's. (Chunk-local
+    sorts of a wavefront larger than the sort chunk, where no live prefix
+    runs, are tests/test_torch_mesh_render.py's
+    test_sort_blocks_and_chunks_do_not_change_bits, packed now.)"""
+    _, ts = torus
+    for schedule, suspect in (((1,), False), ((1, 64), True)):
+        (got, got_suspect), (want, want_suspect) = _traces(
+            ts.with_config(packet_backend="fused1", live_schedule=schedule))
+        _assert_bit_equal(got, want)
+        assert got_suspect == want_suspect and (want_suspect > 0) == suspect
