@@ -88,16 +88,23 @@ checks them all. Phases, one line each:
    metrics line, whose launch counters must show the cull, fused and
    forward kernels); (b) ``cli.main`` in process on the same render with
    the gated cull (``--cull-hier 16``) and the flat one (``--cull-hier
-   -1``), in turns (gated, flat, flat, gated): those kernels launch in every
-   run, the gated cull in the gated ones, every PNG is byte-identical to
-   9a's, and each run's render seconds are printed; (c) the gated cull kernel's
-   path: the 8-spp torus through cull + fused with ``cull_hier=16`` and with
-   the flat cull, in turns: the gated cull launches in every gated render
-   and in no flat one, every image identical; then the gated cull against
-   its plain version on the torus centre block at bounces 0-3, with and
-   without hit words, at an unaligned ray count and at the full block (0
-   mismatched elements), and its time with its super pre-pass against the
-   flat cull on bounces 0 and 1; (d) a 128×128 render stopped after two
+   -1``), in turns (gated, flat, flat, gated): fused and the forward
+   kernels launch in every run, the gated cull (one launch a cull) in the
+   gated ones and the flat cull in the flat ones only, every PNG is
+   byte-identical to 9a's, and each run's render seconds are printed; (c)
+   the gated cull kernel's path: the 8-spp torus through cull + fused with
+   ``cull_hier=16`` and with the flat cull, in turns: the gated cull
+   launches in every gated render and the flat cull in none (not even for
+   the super boxes), the reverse in the flat renders, every image
+   identical; then the one-launch hierarchical cull (the super boxes tested
+   in the kernel) against the flat cull and against the plain gated cull
+   behind the super-box pre-pass, and the gate-word form against its plain
+   version, on the torus centre block at bounces 0-3, with and without hit
+   words, at an unaligned ray count and at the full block (0 mismatched
+   elements); its time on bounces 0 and 1 beside the two-step form
+   (pre-pass + gate-word kernel) and the flat cull; and the centre block's
+   profile through cull + fused with ``cull_hier=16`` (device kernels per
+   bounce); (d) a 128×128 render stopped after two
    passes and resumed from its checkpoint, bit-identical to an
    uninterrupted one; (e) ``cli.main`` with the ``cpu`` flag on the Cornell
    scene at 64×64: the GPU and CPU images agree within 1 per channel on >=
@@ -105,7 +112,11 @@ checks them all. Phases, one line each:
 10. differentiable rendering: (a) the pair sweep kernel against its plain
    version on the torus centre block entering bounces 0-3, at an unaligned
    ray count and at the full block: one-round, both rounds of the two-round
-   sweep and an overflowing pair budget, bit-equal in rows [:T]; then the
+   sweep and an overflowing pair budget, bit-equal in rows [:T]; the
+   one-round list at the kernel's own range count, at one range per pair
+   and at SWEEP_CUT_RANGES ranges (which cut tiles' runs of pairs),
+   tile-major and shuffled, there and on the train step's pass entering
+   bounces 0-3, bit-equal; then the
    "pallas" engine's closest hit against the "fused" engine's, bit-equal;
    (b) the sweep's time on bounces 0 and 1 with its bound and plain time,
    beside the fused kernel on the same rays; the cull (held to plain_cull)
@@ -214,13 +225,22 @@ CAMERA_OPS = 29
 #                 window and 3 far planes 3, the entry's running
 #                 minimum 1                                          = 19
 #                 (the safe inverse, 3 per ray, is amortised over K)
-#   Möller–Trumbore (rt::mt_t) per (live ray, real triangle of a swept
-#                 cluster; padding slots excluded): h 6 mul + 3 sub,
-#                 det 3 mul + 2 add, f 3 sub, ud 5, q 9, vd 5, td 5,
-#                 |det| 1, us vs ts 3 mul, us+vs 1, eps·|det| 1      = 47
+#   super-box slab test of the one-launch gated cull (rt::slab_signed)
+#                 per (live ray, super box): 3 axes × (2 sub, 2 mul),
+#                 the entry's max 3, the exit's min 3, no running
+#                 minimum                                            = 18
+#   Möller–Trumbore terms (rt::mt_terms) per (live ray, real triangle of
+#                 a swept cluster; padding slots excluded): h 6 mul +
+#                 3 sub, det 3 mul + 2 add, f 3 sub, ud 5, q 9, vd 5,
+#                 td 5                                               = 41
+#     fused, fused1 (rt::mt_t's sign-folded acceptance): |det| 1,
+#                 us vs ts 3 mul, us+vs 1, eps·|det| 1               = 47
+#     the sweep (rt::mt_accept_terms): ud+vd 1, eps·det 1            = 43
 #                 (+1 division per accepted hit, not counted)
 SLAB_OPS = 19
+SUPER_SLAB_OPS = 18
 MT_OPS = 47
+SWEEP_MT_OPS = 43
 MESH_FULL_SPP = 100
 MESH_FEW_SPP = 8  # one pass: the sparse-sample render
 MESH_SMALL_RPP = 4
@@ -244,7 +264,13 @@ FORWARD_KERNELS = ("pcg_draws", "rays_setup", "shade_rows", "ray_keys")
 # (packet_intersect.resolve_backend): cull + fused.
 AUTO_KERNELS = ("cull_tiles", "fused_closest_hit")
 CLI_KERNELS = AUTO_KERNELS + FORWARD_KERNELS
+# ... and with --cull-hier 16 (cull_hier, phases 9b-c): the gated cull in one
+# launch a cull, no flat cull (not even of the super boxes).
+GATED_KERNELS = ("cull_gated", "fused_closest_hit") + FORWARD_KERNELS
 CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
+# Phase 10a: a pair-range count of the sweep whose ranges cut tiles' runs of
+# pairs (the tile-major list has a few pairs a tile).
+SWEEP_CUT_RANGES = 97
 BLOCK_ROWS = 10  # rows of a (16, C) cluster block the sweep reads (rt::kBlockRows)
 BOX_ROWS = 6  # rows of the (8, K) box table the slab test reads
 
@@ -1406,9 +1432,10 @@ def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> 
     """9b: ``cli.main`` with the gated cull (``--cull-hier 16``) and with
     the flat one (``--cull-hier -1``), in turns (gated, flat, flat, gated),
     each run's launch counts set to 0 just before it and read just after:
-    the "auto" regime's and the forward kernels launch in every run, the
-    gated cull in the gated runs only, no other kernel, and every PNG equals
-    phase 9a's byte for byte."""
+    the forward kernels and fused launch in every run, the gated cull (one
+    launch a cull, its super boxes tested inside it) in the gated runs and
+    the flat cull in the flat ones only, no other kernel, and every PNG
+    equals phase 9a's byte for byte."""
     import contextlib
     import io
 
@@ -1431,7 +1458,7 @@ def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> 
         m = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
         render = m["phases"]["render_accelerator"]
         seconds[label].append(render)
-        expected = CLI_KERNELS + (("cull_gated",) if label == "gated" else ())
+        expected = GATED_KERNELS if label == "gated" else CLI_KERNELS
         ok = ok and all(counts[k] > 0 for k in expected) and not any(
             v for k, v in counts.items() if k not in expected)
         pngs.append(out.read_bytes())
@@ -1451,8 +1478,10 @@ def phase_gated_render(full) -> int:
     """9c, the main path of the gated cull kernel: the torus at 1000×1000
     and 8 spp through cull + fused (``packet_backend="fused"``) with
     ``cull_hier=16`` and with the flat cull, in turns (gated, flat, flat,
-    gated): the gated cull launches in every gated render and in no flat
-    one, every image identical → the first gated render's launches."""
+    gated): the gated cull launches in every gated render and the flat cull
+    in none (the super boxes are tested inside the gated kernel), the flat
+    cull in every flat render and the gated one in none, every image
+    identical → the first gated render's launches."""
     import numpy as np
 
     images, seconds, launches = [], {"gated": [], "flat": []}, []
@@ -1467,7 +1496,9 @@ def phase_gated_render(full) -> int:
         launches.append(counts["cull_gated"])
         print(f"phase 9c gated render: torus spp={CLI_SPP} turn={turn} {label} "
               f"seconds={secs:.4f} launches={json.dumps(counts)}")
-        if (counts["cull_gated"] > 0) != (label == "gated") or not counts["shade_rows"]:
+        expected = GATED_KERNELS if label == "gated" else CLI_KERNELS
+        if not (all(counts[k] > 0 for k in expected)
+                and not any(v for k, v in counts.items() if k not in expected)):
             raise SystemExit(f"phase 9c failed: launches of the {label} render")
     same = all(np.array_equal(img, images[0]) for img in images)
     print(f"phase 9c gated render: seconds gated={seconds['gated']} flat={seconds['flat']} "
@@ -1478,7 +1509,13 @@ def phase_gated_render(full) -> int:
 
 
 def phase_gated_cull(full) -> dict:
-    """9c: the gated cull kernel against its plain version, and its time."""
+    """9c: the hierarchical cull in one launch (``cull.cull_tiles_hier``, the
+    gates computed in the kernel from the super boxes) against the flat cull
+    and against the plain gated cull behind the super-box pre-pass
+    (``plain_cull_gated`` of ``hier_gates``' words), the gate-word form
+    (``cull_tiles_gated``) against its plain version, their times beside the
+    two-step path (pre-pass + gate-word kernel) and the flat cull, and the
+    centre block's profile through cull + fused with ``cull_hier=16``."""
     import torch
     from cuda_raytracer_tpu_torch.ops import packet_intersect
     from cuda_raytracer_tpu_torch.ops.kernels import cull
@@ -1494,6 +1531,7 @@ def phase_gated_cull(full) -> dict:
     Kp, n_sup = aabb_p.shape[1], sup_aabb.shape[1]
     n_chunks = Kp // cull.GATE_CHUNK
     aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    K = aabb.shape[1]
     f4 = 4
     state = wavefront.make_initial_state(scene, ray_id, rpp, seed)
     worst, result = 0.0, None
@@ -1502,22 +1540,30 @@ def phase_gated_cull(full) -> dict:
             cut = wavefront.RayState(*(leaf[:n] for leaf in state))
             od8 = _packet_rays(scene, cut, tile)
             gates = packet_intersect.hier_gates(od8, sup_aabb, n_chunks)
-            bad, err = 0, 0.0
+            bad = {"one_launch": 0, "gate_words": 0, "vs_flat": 0}
+            err = 0.0
             for with_mask in (False, True):
-                got = cull.cull_tiles_gated(od8, aabb_p, gates, with_mask=with_mask)
                 want = cull.plain_cull_gated(od8, aabb_p, gates, with_mask=with_mask)
-                got, want = (got, want) if with_mask else ((got,), (want,))
+                flat = cull.cull_tiles(od8, aabb, with_mask=with_mask)
+                one = cull.cull_tiles_hier(od8, aabb_p, sup_aabb, with_mask=with_mask)
+                words = cull.cull_tiles_gated(od8, aabb_p, gates, with_mask=with_mask)
+                want, flat, one, words = ((x if with_mask else (x,))
+                                          for x in (want, flat, one, words))
                 torch.cuda.synchronize()
-                bad += sum(int((g != w).sum()) for g, w in zip(got, want))
-                err = max([err] + [float((g.double() - w.double()).abs().max())
-                                   for g, w in zip(got, want)])
+                for label, got in (("one_launch", one), ("gate_words", words)):
+                    b, e = _mismatch(got, want)
+                    bad[label] += b
+                    err = max(err, e)
+                bad["vs_flat"] += _mismatch((one[0][:, :K],) + tuple(m[:, :, :K] for m in one[1:]),
+                                            flat)[0]
             live_chunks = int(cull.unpack_gates(gates, od8.shape[0], n_chunks).sum())
             print(f"phase 9c gated vs plain: torus block lo={block_lo} bounce={bounce} "
                   f"rays={n} tiles={od8.shape[0]} gated_on_chunks={live_chunks} of "
-                  f"{od8.shape[0] * n_chunks} mismatched={bad} max_abs_err={err:.3g}")
-            if bad:
-                raise SystemExit(f"phase 9c failed: gated cull differs from its plain "
-                                 f"version (bounce {bounce}, {n} rays)")
+                  f"{od8.shape[0] * n_chunks} mismatched={json.dumps(bad)} "
+                  f"max_abs_err={err:.3g}")
+            if any(bad.values()):
+                raise SystemExit(f"phase 9c failed: the gated cull differs from its plain "
+                                 f"version or the flat cull (bounce {bounce}, {n} rays)")
             worst = max(worst, err)
         if bounce <= 1:
             od8 = _packet_rays(scene, state, tile)
@@ -1527,48 +1573,40 @@ def phase_gated_cull(full) -> dict:
             live_tile = (od8[:, 6, :] >= 0).sum(dim=1)
             gated_slabs = int((on.sum(dim=1) * live_tile).sum()) * cull.GATE_CHUNK
             super_slabs = int(live_tile.sum()) * n_sup
-            flat_slabs = int(live_tile.sum()) * aabb.shape[1]
+            flat_slabs = int(live_tile.sum()) * K
             W = -(-tile // 32)
-
-            def hier():
-                return cull.cull_tiles_gated(
-                    od8, aabb_p, packet_intersect.hier_gates(od8, sup_aabb, n_chunks),
-                    with_mask=True)
-
-            def plain_hier():
-                sup_hit = cull.plain_cull(od8, sup_aabb) < cull.MISS_ENTRY * 0.5
-                words = cull.pack_bits(sup_hit.reshape(T, n_chunks, -1).any(dim=2)[:, :, None])
-                return cull.plain_cull_gated(od8, aabb_p, words.reshape(-1), with_mask=True)
-
-            ms = _cuda_ms(hier)
+            ms = _cuda_ms(lambda: cull.cull_tiles_hier(od8, aabb_p, sup_aabb, with_mask=True))
             kernel_ms = _cuda_ms(lambda: cull.cull_tiles_gated(od8, aabb_p, gates, True))
             prepass_ms = _cuda_ms(lambda: packet_intersect.hier_gates(od8, sup_aabb, n_chunks))
             flat_ms = _cuda_ms(lambda: cull.cull_tiles(od8, aabb, with_mask=True))
-            plain_ms = _plain_ms(plain_hier)
-            ops_ms = (gated_slabs + super_slabs) * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
-            nbytes = (od8.numel() + BOX_ROWS * (Kp + n_sup) + T * n_sup + gates.numel()
-                      + T * Kp * (1 + W)) * f4
+            plain_ms = _plain_ms(
+                lambda: cull.plain_cull_hier(od8, aabb_p, sup_aabb, with_mask=True))
+            # The slab tests this run's gates need: every live ray against the
+            # supers, and against the 128 boxes of each chunk gated on.
+            ops_ms = ((gated_slabs * SLAB_OPS + super_slabs * SUPER_SLAB_OPS)
+                      / PEAK_FP32_FLOPS * 1e3)
+            nbytes = (od8.numel() + BOX_ROWS * (Kp + n_sup) + T * Kp * (1 + W)) * f4
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             bound_ms = max(ops_ms, bytes_ms)
             flat_bound_ms = flat_slabs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
-            kernel_bound_ms = gated_slabs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
-            prepass_bound_ms = super_slabs * SLAB_OPS / PEAK_FP32_FLOPS * 1e3
             print(f"phase 9c timing: torus block lo={block_lo} rays={block} bounce={bounce} "
-                  f"hier_cull_ms={ms:.3f} (gated_kernel_ms={kernel_ms:.3f} "
-                  f"bound_ms={kernel_bound_ms:.4f} share={kernel_bound_ms / kernel_ms:.3f}; "
-                  f"prepass_ms={prepass_ms:.3f} bound_ms={prepass_bound_ms:.4f} "
-                  f"share={prepass_bound_ms / prepass_ms:.3f}) flat_cull_ms={flat_ms:.3f} "
-                  f"plain_hier_ms={plain_ms:.1f} gated_on_chunks={int(on.sum())} of "
-                  f"{T * n_chunks} slab_tests gated={gated_slabs} super={super_slabs} "
-                  f"flat={flat_slabs} ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
-                  f"bound_share={bound_ms / ms:.3f} flat_bound_ms={flat_bound_ms:.4f} "
-                  f"flat_bound_share={flat_bound_ms / flat_ms:.3f}")
+                  f"hier_cull_ms={ms:.4f} (one launch; bound_ms={bound_ms:.4f} "
+                  f"bound_by={'operations' if ops_ms >= bytes_ms else 'bytes'} "
+                  f"share={bound_ms / ms:.3f}) two_step_ms={kernel_ms + prepass_ms:.4f} "
+                  f"(gate_words_kernel_ms={kernel_ms:.4f} prepass_ms={prepass_ms:.4f}) "
+                  f"flat_cull_ms={flat_ms:.4f} (bound_ms={flat_bound_ms:.4f} "
+                  f"share={flat_bound_ms / flat_ms:.3f}) plain_hier_ms={plain_ms:.1f} "
+                  f"gated_on_chunks={int(on.sum())} of {T * n_chunks} slab_tests "
+                  f"gated={gated_slabs} super={super_slabs} flat={flat_slabs} "
+                  f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f}")
             if bounce == 1:  # the kernel table reports the sorted bounced block
                 result = dict(ms=ms, kernel_ms=kernel_ms, prepass_ms=prepass_ms,
                               flat_ms=flat_ms, plain_ms=plain_ms, bound_ms=bound_ms,
                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         state = _next_state(scene, state, seed, bounce)
     result["max_abs_err"] = worst
+    _profile_block(scene.with_config(packet_backend="fused", cull_hier=CLI_GATE),
+                   "fused cull_hier=16", ("cull_gated_kernel", "fused_kernel"), phase="9c")
     return result
 
 
@@ -1698,6 +1736,64 @@ def _sweep_rounds(scene, od8, rays_tiles, window, cap: int):
     return out
 
 
+def _sweep_ranges(scene, od8, rays_tiles, cap: int, label: str) -> float:
+    """10a: the one-round pair list of a ray batch through the sweep kernel
+    at its own range count, at one range per pair and at SWEEP_CUT_RANGES
+    (whose ranges cut tiles' runs of pairs), tile-major and shuffled, against
+    plain_sweep → the worst |Δ|; any mismatched element fails the run."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import packet_intersect as pi
+    from cuda_raytracer_tpu_torch.ops.kernels import sweep
+
+    T, _, tile = od8.shape
+    blocks = scene.cluster_blocks.contiguous()
+    entry = pi._block_cull(scene, od8, 1, False)[0]
+    pairs, total, _ = pi.extract_pairs(entry < pi.HIT_THRESH, T * cap)
+    k = int(total)
+    gen = torch.Generator(device=od8.device).manual_seed(k)
+    shuffled = pairs.clone()
+    shuffled[:, :k] = pairs[:, torch.randperm(k, device=od8.device, generator=gen)]
+    cut = (k * torch.arange(1, SWEEP_CUT_RANGES, device=od8.device)) // SWEEP_CUT_RANGES
+    cut = cut[(cut > 0) & (cut < k)]
+    cuts_runs = bool((pairs[0, cut - 1] == pairs[0, cut]).any()) if cut.numel() else False
+    want = sweep.plain_sweep(rays_tiles, blocks, pairs, total, tile)
+    bad, worst = {}, 0.0
+    for order, pair_list in (("tile_major", pairs), ("shuffled", shuffled)):
+        for name, ranges in (("kernel_choice", None), ("one_per_pair", max(k, 1)),
+                             (f"cut{SWEEP_CUT_RANGES}", SWEEP_CUT_RANGES)):
+            got = sweep.sweep_pairs(rays_tiles, blocks, pair_list, total, tile, ranges=ranges)
+            torch.cuda.synchronize()
+            bad[f"{order}:{name}"], err = _mismatch(got, want)
+            worst = max(worst, err)
+    print(f"phase 10a sweep ranges: {label} tiles={T} pairs={k} "
+          f"cuts_tile_runs_at_{SWEEP_CUT_RANGES}={cuts_runs} mismatched={json.dumps(bad)}")
+    if any(bad.values()) or (k > 2 * SWEEP_CUT_RANGES and not cuts_runs):
+        raise SystemExit(f"phase 10a failed: the sweep at a range count or order differs "
+                         f"from its plain version ({label})")
+    return worst
+
+
+def _train_sweep_ranges(full) -> float:
+    """10a: ``_sweep_ranges`` on the train step's pass (the torus at 256×256
+    × 2 spp, 131,072 rays) entering bounces 0-3."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    base = _resized(full, TRAIN["width"], TRAIN["height"]).with_config(**TRAIN)
+    rpp = TRAIN["rays_per_pixel"]
+    n = base.num_pixels * rpp
+    ids = torch.arange(n, dtype=torch.int32, device=base.device)
+    state = wavefront.make_initial_state(base, ids, rpp, TRAIN_SEED)
+    cap = min(base.config.packet_cap, base.num_clusters)
+    worst = 0.0
+    for bounce in range(4):
+        od8, rays_tiles, _ = _pallas_inputs(base, state, n)
+        worst = max(worst, _sweep_ranges(base, od8, rays_tiles, cap,
+                                         f"train step pass bounce={bounce} rays={n}"))
+        state = _next_state(base, state, TRAIN_SEED, bounce)
+    return worst
+
+
 def phase_sweep(full) -> dict:
     """10a and 10b: the pair sweep kernel against its plain version, the
     pallas engine against the fused one, and the sweep's time."""
@@ -1749,6 +1845,8 @@ def phase_sweep(full) -> dict:
                 suspects.append(int(got[2]))
             over = packet_intersect.closest_hit_packet(*args, tile=scene.config.packet_tile,
                                                        cap=1, backend="pallas")
+            err = max(err, _sweep_ranges(scene, od8, rays_tiles, cap,
+                                         f"torus block lo={block_lo} bounce={bounce} rays={n}"))
             print(f"phase 10a sweep vs plain: torus block lo={block_lo} bounce={bounce} "
                   f"rays={n} tiles={T} mismatched={bad} max_abs_err={err:.3g} "
                   f"{' '.join(counts)} | pallas_vs_fused mismatched={engine_bad} "
@@ -1778,7 +1876,7 @@ def phase_sweep(full) -> dict:
             extract_ms = _cuda_ms(lambda: packet_intersect.extract_pairs(select, T * cap))
             nbytes = (rays_tiles.numel() + 2 * k + 1 + T * tile * 2
                       + int(torch.unique(pc).numel()) * BLOCK_ROWS * C) * f4
-            ops_ms = mts * MT_OPS / PEAK_FP32_FLOPS * 1e3
+            ops_ms = mts * SWEEP_MT_OPS / PEAK_FP32_FLOPS * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             bound_ms = max(ops_ms, bytes_ms)
             print(f"phase 10b sweep timing: torus block lo={block_lo} rays={block} "
@@ -1790,7 +1888,7 @@ def phase_sweep(full) -> dict:
                 result = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, fused_ms=fused_ms,
                               bound_by="operations" if ops_ms >= bytes_ms else "bytes")
         state = _next_state(scene, state, seed, bounce)
-    result["max_abs_err"] = worst
+    result["max_abs_err"] = max(worst, _train_sweep_ranges(full))
     return result
 
 
@@ -2531,10 +2629,13 @@ def main() -> int:
         "launches": gated["launches"],
         "max_abs_err": gated["max_abs_err"],
         "tolerance": "bit-equal",
-        # The hierarchical cull as the path runs it: the super-box pre-pass
-        # (a flat cull of the super boxes, gate words) and the gated kernel.
+        # The hierarchical cull as the path runs it: one launch, the super
+        # boxes tested in the kernel; beside it the two-step form (the
+        # super-box pre-pass's ops, then the kernel reading gate words) and
+        # the flat cull on the same rays.
         "ms": gated["ms"],
-        "kernel_ms": gated["kernel_ms"],
+        "two_step_ms": gated["kernel_ms"] + gated["prepass_ms"],
+        "gate_words_kernel_ms": gated["kernel_ms"],
         "prepass_ms": gated["prepass_ms"],
         "flat_cull_ms": gated["flat_ms"],
         "plain_ms": gated["plain_ms"],

@@ -22,7 +22,15 @@ directory) and prints one JSON line with NAME, the card and its power limit:
   256×256 × 2 spp × 10 bounces, after 2 untimed steps: phase 10c's shape;
 - ``train_busy_ms``, ``train_wall_ms``, ``train_kernels``: one more step
   under torch.profiler (after one more untimed step), the device's busy
-  time (device-side events only), the wall time and the device kernels.
+  time (device-side events only), the wall time and the device kernels;
+- ``pallas_*``: the same step through packet backend "pallas" (cull, pair
+  extraction and the pair sweep kernel), its ``packet_cap`` doubled from
+  the config's until the audit of one pass finds no suspect ray
+  (``pallas_cap``): ``pallas_s`` (median of 5), ``pallas_busy_ms``,
+  ``pallas_wall_ms``, ``pallas_idle_share``, ``pallas_kernels``;
+- ``gated_block_*``: the centre block as ``block_*`` is profiled, through
+  cull + fused with the hierarchical cull (``cull_hier=16``): wall, busy,
+  idle share and device kernels.
 
 Only APIs that every tree since the train step (``render/diff.py``) has are
 used, so an older tree unpacked with ``git archive`` runs it as it is. Run
@@ -120,6 +128,10 @@ def main() -> int:
     block_wall, block_busy, block_kernels = profiled(lambda: pipeline.render_pass(
         full, framebuffer, 80, rpp, full.config.bounces, True,
         pixels=(px_lo, px_lo + block // rpp)))
+    gated = full.with_config(packet_backend="fused", cull_hier=16)
+    gated_wall, gated_busy, gated_kernels = profiled(lambda: pipeline.render_pass(
+        gated, framebuffer, 80, rpp, gated.config.bounces, True,
+        pixels=(px_lo, px_lo + block // rpp)))
 
     camera = precompute_camera(cam.position.cpu().numpy(), cam.forward.cpu().numpy(),
                                cam.up.cpu().numpy(), cam.vertical_fov, TRAIN["width"],
@@ -132,28 +144,46 @@ def main() -> int:
     start_params = diff.params_to_numpy(true_params)
     start_params["materials.diffuse_albedo"][:] = 0.5
     schedule = diff.calibrate_live_schedule(scene, seeds=(SEED, SEED + 1))
-    params = diff.params_from_numpy(start_params, device, requires_grad=True)
-    optimizer = torch.optim.Adam(diff.param_leaves(params), lr=2e-2)
-    step = diff.make_train_step(scene, optimizer, rpp, bounces, live_schedule=schedule,
-                                checkpoint_bounces=True)
-    for _ in range(2):
-        step(params, target, SEED)
-    torch.cuda.synchronize()
-    seconds = []
-    for _ in range(STEPS):
-        start = time.perf_counter()
-        step(params, target, SEED)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - start)
 
-    wall_ms, busy_ms, train_kernels = profiled(lambda: step(params, target, SEED))
+    def train(step_scene):
+        """(median step seconds, the steps' seconds, profiled wall ms, busy ms,
+        device kernels) of the checkpointed Adam step on ``step_scene``."""
+        params = diff.params_from_numpy(start_params, device, requires_grad=True)
+        optimizer = torch.optim.Adam(diff.param_leaves(params), lr=2e-2)
+        step = diff.make_train_step(step_scene, optimizer, rpp, bounces,
+                                    live_schedule=schedule, checkpoint_bounces=True)
+        for _ in range(2):
+            step(params, target, SEED)
+        torch.cuda.synchronize()
+        seconds = []
+        for _ in range(STEPS):
+            start = time.perf_counter()
+            step(params, target, SEED)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start)
+        return (statistics.median(seconds), seconds,
+                *profiled(lambda: step(params, target, SEED)))
+
+    train_s, steps_s, wall_ms, busy_ms, train_kernels = train(scene)
+    cap = scene.config.packet_cap
+    while diff.check_radiance_exact(scene.with_config(packet_backend="pallas", packet_cap=cap),
+                                    pass_seed=SEED) and cap < scene.num_clusters:
+        cap = min(2 * cap, scene.num_clusters)
+    pallas_s, pallas_steps, p_wall, p_busy, p_kernels = train(
+        scene.with_config(packet_backend="pallas", packet_cap=cap))
     print(json.dumps(dict(label=args.label, card=smi, cornell_s=cornell_s, torus_s=torus_s,
                           torus_fb_sha256=torus_sha, block_wall_ms=block_wall,
                           block_busy_ms=block_busy, block_idle_share=1 - block_busy / block_wall,
-                          block_kernels=block_kernels,
-                          train_s=statistics.median(seconds), train_steps_s=seconds,
+                          block_kernels=block_kernels, gated_block_wall_ms=gated_wall,
+                          gated_block_busy_ms=gated_busy,
+                          gated_block_idle_share=1 - gated_busy / gated_wall,
+                          gated_block_kernels=gated_kernels,
+                          train_s=train_s, train_steps_s=steps_s,
                           train_busy_ms=busy_ms, train_wall_ms=wall_ms,
-                          train_kernels=train_kernels)))
+                          train_kernels=train_kernels, pallas_cap=cap, pallas_s=pallas_s,
+                          pallas_steps_s=pallas_steps, pallas_busy_ms=p_busy,
+                          pallas_wall_ms=p_wall, pallas_idle_share=1 - p_busy / p_wall,
+                          pallas_kernels=p_kernels)))
     return 0
 
 

@@ -5,9 +5,12 @@
 // cull_tiles_gated). For every ray tile and cluster box it computes the
 // tile-min slab entry over the windowed Tavian slab test (1e30 where no ray
 // hits), and optionally the per-ray hit bits, 32 rays to an int32 word. The
-// gated kernel does so only for the (tile, chunk) blocks whose gate bit is
+// gated kernel does so only for the (tile, 128-box chunk) pairs whose gate is
 // set, and writes the all-miss result elsewhere: the TPU kernel's 128-box
-// GATE_CHUNK is this grid's chunk, so the gate skips whole blocks.
+// GATE_CHUNK is this grid's chunk, so the gate skips whole chunks. Its gate
+// is either read from gate words (the TPU kernel's form) or computed in the
+// kernel from the chunk's super boxes (the hierarchical cull, cull_hier, in
+// one launch).
 //
 // What bounds it: FP32 operations. Each (ray, box) test needs 19 FP32
 // operations (6 sub, 6 mul, 6 min / max for the window, 1 min for the
@@ -26,17 +29,33 @@
 // rare hits whose entry is zero (rt::zero_entry). A flat cull block takes one
 // tile and an even share of the boxes (rt::cull_grid: 721 boxes are two
 // spans of 361 boxes on 96 threads, where 128-box chunks left 47 of the last
-// chunk's 128 threads idle); the gated cull keeps the gate's 128-box chunk,
-// on 32 threads. Entry and mask words are written once, coalesced across the
-// block's threads.
+// chunk's 128 threads idle). Entry and mask words are written once, coalesced
+// across the block's threads.
+//
+// The gated cull (rt::cull_chunk_gated). The hierarchical cull was a flat
+// cull of the super boxes, a compare, an any over each chunk's supers and a
+// bit packing, about ten host-issued ops a bounce, before the gated kernel.
+// Now the gated kernel tests the supers itself, so it is one launch: a
+// one-warp block per (tile, chunk) stages the tile's rays, its lanes test
+// their live rays against the chunk's super boxes (8 at cull_hier=16; each
+// super loaded once; slab_signed, the ray's direction signs as values) and
+// the warp votes (__syncthreads_or of one warp); a chunk some ray may hit is
+// culled, four boxes a lane, as the flat cull culls, and the others get the
+// all-miss result. The block shape stayed one warp a (tile, chunk): in
+// probes on the card (not kept) one block of a warp a chunk for all of a
+// tile's chunks, and one warp walking two, three or all of a tile's chunks,
+// were all slower. A block holds its resources until its slowest warp ends,
+// and a tile's gated-on chunks are few, so its other warps idled; and
+// 4,096 tile-long warps are little more than one wave of the 28 one-warp
+// blocks that fit an SM at 72 registers, so the last part of the wave ran
+// on a nearly idle card, where 24,576 chunk-long blocks are many short
+// waves.
 
 #include <cuda_runtime.h>
 
 #include "packet.cuh"
 
 namespace {
-
-constexpr int kGatedThreads = rt::kChunk / rt::kCullBoxes;
 
 __global__ void __launch_bounds__(rt::kCullThreads)
     cull_kernel(const float* __restrict__ od8, const float* __restrict__ aabb,
@@ -49,14 +68,20 @@ __global__ void __launch_bounds__(rt::kCullThreads)
                  k_hi, entry, mask);
 }
 
-__global__ void __launch_bounds__(kGatedThreads)
+// Block (t, chunk) of the gated cull, one warp; gates null means the gate is
+// computed from sup (rt::chunk_gate).
+__global__ void __launch_bounds__(32)
     cull_gated_kernel(const float* __restrict__ od8, const float* __restrict__ aabb,
-                      const int* __restrict__ gates, int Wg, int K, int tile,
-                      float* __restrict__ entry, int* __restrict__ mask) {
+                      const int* __restrict__ gates, const float* __restrict__ sup,
+                      int n_sup, int K, int tile, float* __restrict__ entry,
+                      int* __restrict__ mask) {
   extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   rt::DeviceExec ex;
-  rt::cull_block_gated(ex, reinterpret_cast<float*>(smem4), od8, aabb, gates, Wg, K, tile,
-                       blockIdx.x, blockIdx.y, entry, mask);
+  rt::stage_cull_rays(ex, smem, od8, tile, blockIdx.x);
+  ex.sync();
+  rt::cull_chunk_gated(ex, smem, aabb, gates, sup, n_sup, K, tile, blockIdx.x, blockIdx.y,
+                       entry, mask);
 }
 
 }  // namespace
@@ -76,17 +101,20 @@ int rt_cull_tiles(const float* od8, const float* aabb, float* entry, int* mask,
   return (int)cudaGetLastError();
 }
 
-// As rt_cull_tiles, with gates (T * Wg) int32, Wg = ceil(ceil(K / 128) / 32):
-// chunk c of tile t is culled only when bit c % 32 of gates[t * Wg + c / 32]
-// is set.
+// As rt_cull_tiles over a table of whole 128-box chunks, each chunk of a
+// tile culled only when its gate is set: with gates (T * Wg) int32, Wg =
+// ceil(chunks / 32), bit c % 32 of gates[t * Wg + c / 32]; with gates null,
+// computed from sup, the (8, n_sup) super-box table (n_sup a multiple of the
+// chunks, n_sup / chunks supers a chunk): set when some ray of the tile hits
+// one of the chunk's supers.
 int rt_cull_tiles_gated(const float* od8, const float* aabb, const int* gates,
-                        float* entry, int* mask, int T, int K, int tile, void* stream) {
+                        const float* sup, int n_sup, float* entry, int* mask, int T, int K,
+                        int tile, void* stream) {
   if (T <= 0 || K <= 0) return (int)cudaGetLastError();
   const int chunks = (K + rt::kChunk - 1) / rt::kChunk;
-  const dim3 grid(T, chunks);
   const size_t smem = sizeof(float) * 8 * tile;
-  cull_gated_kernel<<<grid, kGatedThreads, smem, (cudaStream_t)stream>>>(
-      od8, aabb, gates, (chunks + 31) / 32, K, tile, entry, mask);
+  cull_gated_kernel<<<dim3(T, chunks), 32, smem, (cudaStream_t)stream>>>(
+      od8, aabb, gates, sup, n_sup, K, tile, entry, mask);
   return (int)cudaGetLastError();
 }
 

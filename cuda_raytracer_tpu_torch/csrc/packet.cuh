@@ -20,7 +20,10 @@
 //
 // Per-ray state that must survive a synchronisation lives in arrays in
 // shared memory (on the host: a plain buffer), indexed by ray row, so the
-// same driver code is correct under both executors.
+// same driver code is correct under both executors; the sweep keeps its
+// rays in lane states instead, one a thread, which the executor hands out
+// (lanes() / lane(): on the card the thread's own, in registers; on the host
+// every thread's in turn).
 //
 // Numerics follow the plain PyTorch versions (ops/kernels/cull.py,
 // fused.py, fused1.py, sweep.py) expression for expression: left-to-right sums,
@@ -38,6 +41,12 @@
 #define RT_HD __host__ __device__ __forceinline__
 #else
 #define RT_HD inline
+#endif
+// Full unrolling of a loop over a lane's registers, on the card.
+#ifdef __CUDA_ARCH__
+#define RT_UNROLL _Pragma("unroll")
+#else
+#define RT_UNROLL
 #endif
 
 namespace rt {
@@ -88,38 +97,67 @@ RT_HD bool slab(const float o[3], const float inv[3], float win,
   return tmin <= tmax;
 }
 
-// The Moller-Trumbore t-plane of ops/pallas/sweep._mt_t_plane: the accepted
-// hit distance, or kMiss. Division-free sign-folded acceptance, then one
-// IEEE division for the reported t.
-RT_HD float mt_t(float ox, float oy, float oz, float dx, float dy, float dz,
-                 float p1x, float p1y, float p1z, float e1x, float e1y,
-                 float e1z, float e2x, float e2y, float e2z) {
+// The Moller-Trumbore terms of ops/pallas/sweep._mt_t_plane: the
+// barycentric numerators ud, vd, the distance numerator td and the
+// determinant det.
+RT_HD void mt_terms(float ox, float oy, float oz, float dx, float dy, float dz, float p1x,
+                    float p1y, float p1z, float e1x, float e1y, float e1z, float e2x,
+                    float e2y, float e2z, float& ud, float& vd, float& td, float& det) {
   const float hx = dy * e2z - dz * e2y;
   const float hy = dz * e2x - dx * e2z;
   const float hz = dx * e2y - dy * e2x;
-  const float det = hx * e1x + hy * e1y + hz * e1z;
+  det = hx * e1x + hy * e1y + hz * e1z;
   const float fx = ox - p1x;
   const float fy = oy - p1y;
   const float fz = oz - p1z;
-  const float ud = fx * hx + fy * hy + fz * hz;
+  ud = fx * hx + fy * hy + fz * hz;
   const float qx = fy * e1z - fz * e1y;
   const float qy = fz * e1x - fx * e1z;
   const float qz = fx * e1y - fy * e1x;
-  const float vd = dx * qx + dy * qy + dz * qz;
-  const float td = e2x * qx + e2y * qy + e2z * qz;
+  vd = dx * qx + dy * qy + dz * qz;
+  td = e2x * qx + e2y * qy + e2z * qz;
+}
+
+// The plain version's division-free sign-folded acceptance of the terms.
+RT_HD bool mt_accept_folded(float ud, float vd, float td, float det) {
   const float s = det > 0.0f ? 1.0f : (det < 0.0f ? -1.0f : 0.0f);
   const float ad = det < 0.0f ? -det : det;
   const float us = ud * s;
   const float vs = vd * s;
   const float ts = td * s;
-  const bool ok = (det != 0.0f) && (us >= 0.0f) && (us <= ad) && (vs >= 0.0f) &&
-                  (us + vs <= ad) && (ts >= kHitEps * ad);
-  return ok ? td / det : kMiss;
+  return (det != 0.0f) && (us >= 0.0f) && (us <= ad) && (vs >= 0.0f) && (us + vs <= ad) &&
+         (ts >= kHitEps * ad);
+}
+
+// The t-plane: the accepted hit distance, or kMiss. The sign-folded
+// acceptance, then one IEEE division for the reported t.
+RT_HD float mt_t(float ox, float oy, float oz, float dx, float dy, float dz,
+                 float p1x, float p1y, float p1z, float e1x, float e1y,
+                 float e1z, float e2x, float e2y, float e2z) {
+  float ud, vd, td, det;
+  mt_terms(ox, oy, oz, dx, dy, dz, p1x, p1y, p1z, e1x, e1y, e1z, e2x, e2y, e2z, ud, vd, td,
+           det);
+  return mt_accept_folded(ud, vd, td, det) ? td / det : kMiss;
+}
+
+// The sign-folded acceptance without the sign-folding multiplies:
+// for det > 0 the folded terms are the terms, for det < 0 their negations,
+// and negation is exact and rounds symmetrically (-a + -b = -(a + b),
+// kHitEps * -det = -(kHitEps * det)), so each comparison of a folded term is
+// one of the term itself, the other way round; det = 0 or NaN is rejected by
+// both. The same answer as mt_accept_folded's on every input.
+RT_HD bool mt_accept_terms(float ud, float vd, float td, float det) {
+  const float uv = ud + vd;
+  const float e = kHitEps * det;
+  if (det > 0.0f) return ud >= 0.0f && ud <= det && vd >= 0.0f && uv <= det && td >= e;
+  return det < 0.0f && ud <= 0.0f && ud >= det && vd <= 0.0f && uv >= det && td <= e;
 }
 
 // The closest-hit fold: smaller t wins, equal t goes to the larger triangle
-// id. Order-independent, so pairs may be swept in any order.
-RT_HD void fold(float t, int tri, float& best, int& best_tri) {
+// id. Order-independent, so pairs may be swept in any order. The id is an
+// int, or the block's float id row as it is (exact integers, the same order).
+template <class Id>
+RT_HD void fold(float t, Id tri, float& best, Id& best_tri) {
   if (t < kMiss && (t < best || (t == best && tri > best_tri))) {
     best = t;
     best_tri = tri;
@@ -300,12 +338,18 @@ struct DeviceExec {
       asm volatile("cp.async.wait_group 1;\n" ::);
 #endif
   }
+  // Lanes (per-thread register state) of an n-thread block that the caller
+  // plays: its own alone, lane 0 being thread threadIdx.x.
+  RT_HD int lanes(int) const { return 1; }
+  RT_HD int lane(int) const { return first(); }
 };
 #endif
 
 struct HostExec {
   int first() const { return 0; }
   int step() const { return 1; }
+  int lanes(int n) const { return n; }
+  int lane(int l) const { return l; }
   bool leader() const { return true; }
   bool any(bool v) const { return v; }
   void sync() const {}
@@ -488,6 +532,21 @@ RT_HD bool slab_ordered(const float o[3], const float inv[3], float win, const f
   return entry <= min_ieee(min_ieee(min_ieee(win, fx), fy), fz);
 }
 
+// slab_ordered with the inverse direction's signs as values (bit a of
+// signs set: inv[a] is not negative), for threads that test different rays:
+// the same hit test.
+RT_HD bool slab_signed(const float o[3], const float inv[3], uint32_t signs, float win,
+                       const float lo[3], const float hi[3]) {
+  float entry = 0.0f;
+  float exit = win;
+  for (int a = 0; a < 3; ++a) {
+    const bool pos = (signs >> a) & 1u;
+    entry = max_ieee(entry, ((pos ? lo[a] : hi[a]) - o[a]) * inv[a]);
+    exit = min_ieee(exit, ((pos ? hi[a] : lo[a]) - o[a]) * inv[a]);
+  }
+  return entry <= exit;
+}
+
 // A box's corners are ordered (or NaN) on every axis: slab_ordered applies.
 RT_HD bool ordered_box(const float lo[3], const float hi[3]) {
   bool ok = true;
@@ -540,10 +599,10 @@ RT_HD CullGrid cull_grid(int K) {
   return {spans, span, (cull_groups(span) + 31) / 32 * 32};
 }
 
+// Stage tile t's rays for the cull: row r of smem is [o xyz, win, inv xyz,
+// the inverse direction's sign bits].
 template <class Exec>
-RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
-                      const float* aabb, int K, int tile, int t, int k_lo, int k_hi,
-                      float* entry, int* mask) {
+RT_HD void stage_cull_rays(const Exec& ex, float* smem, const float* od8, int tile, int t) {
   const float* src = od8 + (size_t)t * 8 * tile;
   for (int r = ex.first(); r < tile; r += ex.step()) {
     float* ray = smem + 8 * r;
@@ -556,7 +615,12 @@ RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
     ray[3] = src[6 * tile + r];
     ray[7] = bits_float((uint32_t)signs);
   }
-  ex.sync();
+}
+
+// The boxes [k_lo, k_hi) against the staged rays of tile t.
+template <class Exec>
+RT_HD void cull_boxes(const Exec& ex, const float* smem, const float* aabb, int K, int tile,
+                      int t, int k_lo, int k_hi, float* entry, int* mask) {
   const int words = (tile + 31) / 32;
   const int G = cull_groups(k_hi - k_lo);
   for (int g = ex.first(); g < G; g += ex.step()) {
@@ -617,24 +681,68 @@ RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
   }
 }
 
-// ---- gated cull: cull_block behind a per-(tile, chunk) gate bit -----------------
-//
-// gates (T * Wg) int32, Wg = ceil(ceil(K / kChunk) / 32): bit chunk % 32 of
-// gates[t * Wg + chunk / 32] is set when some ray of tile t may hit a box of
-// the chunk (the caller's super-box pre-pass). A set bit runs cull_block on
-// the chunk's boxes, so live chunks are bit-equal to the flat cull; a clear
-// bit writes kMissEntry and zero words, which is what the flat cull computes
-// for a chunk no ray hits. The bit is the same for every thread of the
-// block, so the block returns as one. Shared: 8 * tile words.
+// One block of the flat cull: tile t against the boxes [k_lo, k_hi).
 template <class Exec>
-RT_HD void cull_block_gated(const Exec& ex, float* smem, const float* od8,
-                            const float* aabb, const int* gates, int Wg, int K,
+RT_HD void cull_block(const Exec& ex, float* smem, const float* od8,
+                      const float* aabb, int K, int tile, int t, int k_lo, int k_hi,
+                      float* entry, int* mask) {
+  stage_cull_rays(ex, smem, od8, tile, t);
+  ex.sync();
+  cull_boxes(ex, smem, aabb, K, tile, t, k_lo, k_hi, entry, mask);
+}
+
+// ---- gated cull: cull_boxes behind a per-(tile, chunk) gate --------------------
+//
+// The table is padded to whole kChunk-box chunks. Chunk c of tile t is culled
+// (cull_boxes over its boxes, so bit-equal to the flat cull) only when its
+// gate is set; a clear gate writes kMissEntry and zero words, which is what
+// the flat cull computes for a chunk no ray hits. The gate is either read or
+// computed in the kernel:
+//   - gates (T * Wg) int32, Wg = ceil(chunks / 32): bit c % 32 of
+//     gates[t * Wg + c / 32];
+//   - else sup, the (8, n_sup) table of super boxes (rows min xyz, max xyz),
+//     n_sup / chunks of them per chunk, each over consecutive boxes of the
+//     chunk: set when some ray of the tile hits one of the chunk's supers
+//     under slab() (slab_signed for an ordered super box, the same test).
+//     A box hit implies a hit on a super box holding it (each plane
+//     distance is monotone in the plane), so the gate is conservative and
+//     the output the flat cull's.
+// The gate is the same for every thread of the block, so it returns as one.
+// The tile's rays are staged beforehand (stage_cull_rays).
+template <class Exec>
+RT_HD bool chunk_gate(const Exec& ex, const float* smem, int tile, const int* gates,
+                      const float* sup, int n_sup, int chunks, int t, int chunk) {
+  if (gates != nullptr)
+    return ((uint32_t)gates[(size_t)t * ((chunks + 31) / 32) + chunk / 32] >> (chunk % 32)) & 1u;
+  // Each super box is read once; every test is made (no early exit), so
+  // the loads do not wait on the tests. A dead ray (negative window) hits
+  // nothing and is not tested.
+  const int per = n_sup / chunks;
+  bool hit = false;
+  for (int s = chunk * per; s < (chunk + 1) * per; ++s) {
+    const float lo[3] = {sup[s], sup[n_sup + s], sup[2 * n_sup + s]};
+    const float hi[3] = {sup[3 * n_sup + s], sup[4 * n_sup + s], sup[5 * n_sup + s]};
+    const bool ordered = ordered_box(lo, hi);
+    for (int r = ex.first(); r < tile; r += ex.step()) {
+      const float* ray = smem + 8 * r;
+      if (ray[3] < 0.0f) continue;
+      const float inv[3] = {ray[4], ray[5], ray[6]};
+      float e;
+      hit = (ordered ? slab_signed(ray, inv, float_bits(ray[7]), ray[3], lo, hi)
+                     : slab(ray, inv, ray[3], lo, hi, e)) || hit;
+    }
+  }
+  return ex.any(hit);
+}
+
+template <class Exec>
+RT_HD void cull_chunk_gated(const Exec& ex, const float* smem, const float* aabb,
+                            const int* gates, const float* sup, int n_sup, int K,
                             int tile, int t, int chunk, float* entry, int* mask) {
   const int k_lo = chunk * kChunk;
   const int k_hi = k_lo + kChunk < K ? k_lo + kChunk : K;
-  const uint32_t word = (uint32_t)gates[(size_t)t * Wg + chunk / 32];
-  if ((word >> (chunk % 32)) & 1u) {
-    cull_block(ex, smem, od8, aabb, K, tile, t, k_lo, k_hi, entry, mask);
+  if (chunk_gate(ex, smem, tile, gates, sup, n_sup, (K + kChunk - 1) / kChunk, t, chunk)) {
+    cull_boxes(ex, smem, aabb, K, tile, t, k_lo, k_hi, entry, mask);
     return;
   }
   const int words = (tile + 31) / 32;
@@ -976,34 +1084,191 @@ RT_HD void fused1_split_block(const Exec& ex, float* smem, const float* od8,
                (int)lo, k_hi, chunk, nullptr, nullptr, keys, stats);
 }
 
-// ---- sweep: one (tile, cluster) pair of an extracted pair list, no window -------
+// ---- sweep: contiguous ranges of an extracted pair list, no window -------------
 //
-// Each pair's best (t, tri) is min_u64ed into the ray's key (sweep_key).
+// Pair i of pairs (2, P) int32 ([tile; cluster]) sweeps every ray of its tile
+// (rays (T1, 8, L), rows o xyz, d xyz) against the cluster's block, with no
+// window; a pair whose ids lie outside the inputs is skipped. Each ray's best
+// (t, tri) over its tile's pairs is min_u64ed into keys (T1, tile) as a
+// sweep_key, so the result is the fold's in any pair order.
 //
-// Pair i of pairs (2, P) int32 ([tile; cluster]): stage the cluster's block,
-// sweep every ray of the tile (rays_tiles (T1, 8, L), rows o xyz, d xyz)
-// against it and min its best (t, tri) into keys (T1, tile). A pair whose
-// ids lie outside the inputs is skipped (the same for every thread of the
-// block). Shared: kBlockRows * C words.
-template <class Exec>
-RT_HD void sweep_pair_block(const Exec& ex, float* blk, const float* rays, int T1,
-                            int L, int tile, const float* blocks, int K, int C,
-                            const int* pairs, int P, int i,
-                            unsigned long long* keys) {
-  const int pt = pairs[i];
-  const int pc = pairs[P + i];
-  if (pt < 0 || pt >= T1 || pc < 0 || pc >= K) return;
-  stage_block(ex, blocks, pc, C, blk);
-  ex.sync();
-  const float* src = rays + (size_t)pt * 8 * L;
-  for (int r = ex.first(); r < tile; r += ex.step()) {
-    float best = kMiss;
-    int best_tri = -1;
-    sweep_ray(blk, C, src[r], src[L + r], src[2 * L + r], src[3 * L + r],
-              src[4 * L + r], src[5 * L + r], best, best_tri);
-    if (best < kMiss) ex.min_u64(&keys[(size_t)pt * tile + r], sweep_key(best, best_tri));
+// A block takes the pairs [lo, hi) of its range in turn (sweep_range_block).
+// Its threads are `groups` groups of `lanes` ray lanes (sweep_shape): lane s
+// of group g holds rays s, s + lanes, ... (kSweepRays of them) in registers,
+// with their running best, and sweeps them against the block's quads (four
+// triangles) g, g + groups, ..., each (10, 4) quad read as ten 16-byte loads
+// (C % 4 == 0; else triangle by triangle). A triangle whose first edge is
+// zero is never accepted (det = h . e1 is zero, or NaN and every comparison
+// false), so a quad of four such, as the table's padding slots are, is
+// skipped: the interleaved quads spread a cluster's padding tail over the
+// groups. A lane folds its
+// running best into the keys only when the pair's tile differs from the last
+// one (the list is tile-major, so a tile's pairs are mostly one run of a
+// range) and at the range's end: one atomic a (ray, group) with a hit per
+// run, where the old kernel did one per (pair, ray). The next pair's block is
+// copied into the other half of a double buffer (Exec::copy_async) while
+// the current one is swept; a hit distance is divided out only for an
+// accepted triangle. Shared: sweep_smem_words.
+constexpr int kSweepRays = 2;       // rays a lane holds
+constexpr int kSweepThreads = 128;  // threads of a block, unless a tile needs more lanes
+
+struct SweepShape {
+  int lanes, groups, threads;
+};
+
+// lanes: enough for the tile at kSweepRays a lane, in whole warps; groups:
+// as many as kSweepThreads threads hold (at least one).
+RT_HD SweepShape sweep_shape(int tile) {
+  const int lanes = ((tile + kSweepRays - 1) / kSweepRays + 31) / 32 * 32;
+  const int groups = lanes < kSweepThreads ? kSweepThreads / lanes : 1;
+  return {lanes, groups, lanes * groups};
+}
+
+RT_HD size_t sweep_smem_words(int C) { return 2 * (size_t)kBlockRows * C; }
+
+// A lane's rays (origin, direction) and their running best; a float id row
+// value stands for the triangle id until the fold.
+struct SweepLane {
+  float o[kSweepRays][3], d[kSweepRays][3];
+  float best[kSweepRays], best_tri[kSweepRays];
+};
+
+// Range r of R over the first n pairs: [n r / R, n (r + 1) / R).
+RT_HD void sweep_range(long long n, int r, int R, int& lo, int& hi) {
+  lo = (int)(n * r / R);
+  hi = (int)(n * (r + 1) / R);
+}
+
+// The first pair at or after i (below hi) whose ids lie inside the inputs,
+// or -1.
+RT_HD int next_pair(const int* pairs, int P, int T1, int K, int i, int hi) {
+  for (; i < hi; ++i) {
+    const int pt = pairs[i];
+    const int pc = pairs[P + i];
+    if (pt >= 0 && pt < T1 && pc >= 0 && pc < K) return i;
   }
-  ex.sync();  // the next pair restages blk
+  return -1;
+}
+
+// Lane `slot`'s rays of tile pt, their bests reset. A slot past the tile
+// holds a zero direction, which no triangle accepts.
+RT_HD void load_lane(SweepLane& ln, const float* rays, int L, int tile, int pt, int slot,
+                     int lanes) {
+  const float* src = rays + (size_t)pt * 8 * L;
+  RT_UNROLL for (int k = 0; k < kSweepRays; ++k) {
+    const int r = slot + k * lanes;
+    RT_UNROLL for (int a = 0; a < 3; ++a) {
+      ln.o[k][a] = r < tile ? src[a * L + r] : 0.0f;
+      ln.d[k][a] = r < tile ? src[(3 + a) * L + r] : 0.0f;
+    }
+    ln.best[k] = kMiss;
+    ln.best_tri[k] = -1.0f;
+  }
+}
+
+template <class Exec>
+RT_HD void fold_lane(const Exec& ex, const SweepLane& ln, int tile, int pt, int slot,
+                     int lanes, unsigned long long* keys) {
+  RT_UNROLL for (int k = 0; k < kSweepRays; ++k) {
+    const int r = slot + k * lanes;
+    if (r < tile && ln.best[k] < kMiss)
+      ex.min_u64(&keys[(size_t)pt * tile + r], sweep_key(ln.best[k], (int)ln.best_tri[k]));
+  }
+}
+
+// One triangle (column j of a staged (kBlockRows, C) block, its values v)
+// against a lane's rays.
+RT_HD void sweep_lane_tri(SweepLane& ln, const float (&v)[kBlockRows]) {
+  RT_UNROLL for (int k = 0; k < kSweepRays; ++k) {
+    float ud, vd, td, det;
+    mt_terms(ln.o[k][0], ln.o[k][1], ln.o[k][2], ln.d[k][0], ln.d[k][1], ln.d[k][2], v[0],
+             v[1], v[2], v[3], v[4], v[5], v[6], v[7], v[8], ud, vd, td, det);
+    if (mt_accept_terms(ud, vd, td, det)) fold(td / det, v[9], ln.best[k], ln.best_tri[k]);
+  }
+}
+
+// A triangle (rows 0-8 of its column v) that no ray can hit: a zero first
+// edge.
+RT_HD bool zero_edge(const float (&v)[kBlockRows]) {
+  return v[3] == 0.0f && v[4] == 0.0f && v[5] == 0.0f;
+}
+
+// Group g of G's quads (g, g + G, ...) of a staged block of width C, C % 4
+// == 0, against a lane's rays. kC > 0 is C known when compiled, so the ten
+// rows' loads take immediate offsets.
+template <int kC>
+RT_HD void sweep_lane_quads(SweepLane& ln, const float* blk, int C, int g, int G) {
+  const int width = kC > 0 ? kC : C;
+  for (int q = g; q < width / 4; q += G) {
+    float v[4][kBlockRows];
+    RT_UNROLL for (int a = 0; a < kBlockRows; ++a) {
+      const Words4 w = load_words4(blk + a * width + 4 * q);
+      v[0][a] = w.x;
+      v[1][a] = w.y;
+      v[2][a] = w.z;
+      v[3][a] = w.w;
+    }
+    // The same quad for the whole group: a uniform branch.
+    if (zero_edge(v[0]) && zero_edge(v[1]) && zero_edge(v[2]) && zero_edge(v[3])) continue;
+    RT_UNROLL for (int m = 0; m < 4; ++m) sweep_lane_tri(ln, v[m]);
+  }
+}
+
+// Group g of G's triangles of a staged block (quads, or for C % 4 != 0
+// triangles, g, g + G, ...) against a lane's rays; C = 256, the default
+// cluster width, compiled for its own.
+RT_HD void sweep_lane(SweepLane& ln, const float* blk, int C, int g, int G) {
+  if (C == 256) {
+    sweep_lane_quads<256>(ln, blk, C, g, G);
+  } else if (C % 4 == 0) {
+    sweep_lane_quads<0>(ln, blk, C, g, G);
+  } else {
+    for (int j = g; j < C; j += G) {
+      float v[kBlockRows];
+      RT_UNROLL for (int a = 0; a < kBlockRows; ++a) v[a] = blk[a * C + j];
+      if (!zero_edge(v)) sweep_lane_tri(ln, v);
+    }
+  }
+}
+
+// The pairs [lo, hi) of one range. lanes holds Exec::lanes(threads) lane
+// states (on the card the thread's own, in registers).
+template <class Exec>
+RT_HD void sweep_range_block(const Exec& ex, float* smem, SweepLane* lanes,
+                             const float* rays, int T1, int L, int tile,
+                             const float* blocks, int K, int C, const int* pairs, int P,
+                             int lo, int hi, unsigned long long* keys) {
+  const SweepShape sh = sweep_shape(tile);
+  float* cur = smem;  // the two staging buffers
+  float* other = smem + kBlockRows * C;
+  int i = next_pair(pairs, P, T1, K, lo, hi);
+  if (i < 0) return;  // the same for every thread of the block
+  ex.copy_async(cur, blocks + (size_t)pairs[P + i] * 16 * C, kBlockRows * C);
+  int run = -1;  // the tile whose rays the lanes hold
+  while (i >= 0) {
+    const int next = next_pair(pairs, P, T1, K, i + 1, hi);
+    if (next >= 0)
+      ex.copy_async(other, blocks + (size_t)pairs[P + next] * 16 * C, kBlockRows * C);
+    ex.wait_copies(next >= 0 ? 1 : 0);  // pair i's block has landed
+    ex.sync();
+    const int pt = pairs[i];
+    for (int l = 0; l < ex.lanes(sh.threads); ++l) {
+      const int v = ex.lane(l);
+      if (pt != run) {
+        if (run >= 0) fold_lane(ex, lanes[l], tile, run, v % sh.lanes, sh.lanes, keys);
+        load_lane(lanes[l], rays, L, tile, pt, v % sh.lanes, sh.lanes);
+      }
+      sweep_lane(lanes[l], cur, C, v / sh.lanes, sh.groups);
+    }
+    run = pt;
+    ex.sync();  // cur is free for the copy after next
+    float* swap = cur;
+    cur = other;
+    other = swap;
+    i = next;
+  }
+  for (int l = 0; l < ex.lanes(sh.threads); ++l)
+    fold_lane(ex, lanes[l], tile, run, ex.lane(l) % sh.lanes, sh.lanes, keys);
 }
 
 }  // namespace rt

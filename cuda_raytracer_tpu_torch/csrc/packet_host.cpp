@@ -1,6 +1,7 @@
 // Host build of the packet kernels, for the CPU tests: the grids of
-// cull.cu (flat and gated), fused.cu and fused1.cu (unsplit and split) and
-// sweep.cu as loops over blocks, each block run by rt::HostExec through the
+// cull.cu (flat and gated, the gate read from words or computed from super
+// boxes), fused.cu and fused1.cu (unsplit and split) and sweep.cu (its
+// ranges) as loops over blocks, each block run by rt::HostExec through the
 // same drivers in packet.cuh the card runs.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libpacket_host.so packet_host.cpp
@@ -24,15 +25,20 @@ int rt_host_cull_tiles(const float* od8, const float* aabb, float* entry, int* m
   return 0;
 }
 
+// gates (T * Wg) words, or null: each chunk's gate computed from the (8,
+// n_sup) super-box table sup.
 int rt_host_cull_tiles_gated(const float* od8, const float* aabb, const int* gates,
-                             float* entry, int* mask, int T, int K, int tile) {
+                             const float* sup, int n_sup, float* entry, int* mask, int T,
+                             int K, int tile) {
   std::vector<float> smem(8 * tile);
   rt::HostExec ex;
   const int chunks = (K + rt::kChunk - 1) / rt::kChunk;
-  for (int t = 0; t < T; ++t)
+  for (int t = 0; t < T; ++t) {
+    rt::stage_cull_rays(ex, smem.data(), od8, tile, t);
     for (int c = 0; c < chunks; ++c)
-      rt::cull_block_gated(ex, smem.data(), od8, aabb, gates, (chunks + 31) / 32, K, tile,
-                           t, c, entry, mask);
+      rt::cull_chunk_gated(ex, smem.data(), aabb, gates, sup, n_sup, K, tile, t, c, entry,
+                           mask);
+  }
   return 0;
 }
 
@@ -86,17 +92,37 @@ int rt_host_fused1_closest_hit(const float* od8, const float* aabb, const float*
   return 0;
 }
 
+// ranges > 0 contiguous ranges of the first min(total, P) pairs, run in
+// order, each by one block of rt::sweep_shape(tile).threads lanes.
 int rt_host_sweep_pairs(const float* rays, int T1, int L, int tile, const float* blocks,
-                        int K, int C, const int* pairs, int P, const int* total,
+                        int K, int C, const int* pairs, int P, const int* total, int ranges,
                         unsigned long long* keys, float* t_out, int* tri_out) {
-  std::vector<float> blk(rt::kBlockRows * C);
+  if (ranges < 1) return 1;
+  std::vector<float> smem(rt::sweep_smem_words(C));
+  std::vector<rt::SweepLane> lanes(rt::sweep_shape(tile).threads);
   rt::HostExec ex;
-  const int n = T1 * tile;
-  for (int i = 0; i < n; ++i) keys[i] = rt::kMissKey;
-  const int pairs_swept = *total < P ? *total : P;
-  for (int i = 0; i < pairs_swept; ++i)
-    rt::sweep_pair_block(ex, blk.data(), rays, T1, L, tile, blocks, K, C, pairs, P, i, keys);
-  for (int i = 0; i < n; ++i) rt::sweep_unkey(keys[i], t_out[i], tri_out[i]);
+  const int n_keys = T1 * tile;
+  for (int i = 0; i < n_keys; ++i) keys[i] = rt::kMissKey;
+  const long long n = *total < P ? (*total > 0 ? *total : 0) : P;
+  for (int r = 0; r < ranges; ++r) {
+    int lo, hi;
+    rt::sweep_range(n, r, ranges, lo, hi);
+    rt::sweep_range_block(ex, smem.data(), lanes.data(), rays, T1, L, tile, blocks, K, C,
+                          pairs, P, lo, hi, keys);
+  }
+  for (int i = 0; i < n_keys; ++i) rt::sweep_unkey(keys[i], t_out[i], tri_out[i]);
+  return 0;
+}
+
+// Both Moller-Trumbore acceptances of n term quadruples (ud, vd, td, det):
+// the plain version's sign-folded one (as fused and fused1 run it) into
+// folded, the sweep's into terms.
+int rt_host_mt_accept(const float* ud, const float* vd, const float* td, const float* det,
+                      int n, int* folded, int* terms) {
+  for (int i = 0; i < n; ++i) {
+    folded[i] = rt::mt_accept_folded(ud[i], vd[i], td[i], det[i]);
+    terms[i] = rt::mt_accept_terms(ud[i], vd[i], td[i], det[i]);
+  }
   return 0;
 }
 

@@ -1,8 +1,11 @@
 """Packet-intersector tile cull: wrapper of ``csrc/cull.cu``.
 
 Counterpart of ``cuda_raytracer_tpu/ops/pallas/cull.py`` (``cull_tiles``,
-``cull_tiles_gated``). ``cull_tiles`` slab-tests every ray tile against every
-cluster box with the windowed Tavian test and returns the (T, K) tile-min
+``cull_tiles_gated``), and of the JAX package's hierarchical cull
+(``packet_intersect._cull`` with ``cull_hier``: a super-box pre-pass, then the
+gated kernel) as the one launch ``cull_tiles_hier``. ``cull_tiles``
+slab-tests every ray tile against every cluster box with the windowed
+Tavian test and returns the (T, K) tile-min
 entry distance (``MISS_ENTRY`` where no ray of the tile hits) and, with
 ``with_mask``, the (T, W, K) per-ray hit bits (bit r of word w: ray 32 w + r
 hits). ``cull_tiles_gated`` does the same over a table padded to whole
@@ -10,15 +13,19 @@ hits). ``cull_tiles_gated`` does the same over a table padded to whole
 is set (bit i % 32 of word ``t * Wg + i // 32``); a gated-off chunk reads
 ``MISS_ENTRY`` and zero words, which is what the flat cull gives for a chunk
 no ray hits, so a conservative gate leaves the output bit-equal.
+``cull_tiles_hier`` is the gated cull with each chunk's gate computed in the
+kernel: set when some ray of the tile slab-hits one of the chunk's super
+boxes (tight boxes over consecutive boxes, so a box hit implies its super's).
 
 Ray layout (``make_od8``): (T, 8, tile) float32 component rows
 ``[ox oy oz dx dy dz window 0]``, the per-ray search window in row 6. Dead
 and padded rays carry a negative window and hit no box.
 
 - On a CUDA tensor each launches its hand-written kernel and counts the
-  launch (``LAUNCHES``, ``LAUNCHES_GATED``). Neither falls back.
-- On a CPU tensor they run ``plain_cull`` and ``plain_cull_gated``, the same
-  expression tree in PyTorch.
+  launch (``LAUNCHES``; ``LAUNCHES_GATED`` for both gated forms). None falls
+  back.
+- On a CPU tensor they run ``plain_cull``, ``plain_cull_gated`` and
+  ``plain_cull_hier``, the same expression tree in PyTorch.
 """
 
 from __future__ import annotations
@@ -36,8 +43,8 @@ GATE_CHUNK = 128
 # Rays per step of the plain version: bounds its (rays, K) slab matrices.
 PLAIN_ROWS = 1 << 13
 
-# Kernel launches made by cull_tiles and cull_tiles_gated in this process
-# (CUDA tensors only).
+# Kernel launches made by cull_tiles, and by cull_tiles_gated and
+# cull_tiles_hier, in this process (CUDA tensors only).
 LAUNCHES = 0
 LAUNCHES_GATED = 0
 
@@ -156,6 +163,19 @@ def plain_cull_gated(od8: torch.Tensor, aabb: torch.Tensor, gates: torch.Tensor,
     return (entry, mask) if with_mask else entry
 
 
+def plain_cull_hier(od8: torch.Tensor, aabb: torch.Tensor, sup: torch.Tensor,
+                    with_mask: bool = False):
+    """The one-launch hierarchical cull's plain version: the plain gated cull
+    behind the plain super-box pre-pass (bit i of tile t's gate words set
+    when some ray of the tile hits one of chunk i's super boxes of the
+    (8, n_sup) table ``sup``)."""
+    T = od8.shape[0]
+    n_chunks = aabb.shape[1] // GATE_CHUNK
+    hit = plain_cull(od8, sup) < MISS_ENTRY * 0.5
+    gates = pack_bits(hit.reshape(T, n_chunks, -1).any(dim=2)[:, :, None]).reshape(-1)
+    return plain_cull_gated(od8, aabb, gates, with_mask)
+
+
 def check_rays(od8: torch.Tensor) -> None:
     if od8.dtype != torch.float32 or od8.dim() != 3 or od8.shape[1] != 8:
         raise ValueError(f"od8 must be (T, 8, tile) float32, got {od8.dtype} "
@@ -195,7 +215,8 @@ def library() -> build.Built:
     fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = built.lib.rt_cull_tiles_gated
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -228,6 +249,35 @@ def cull_tiles(od8: torch.Tensor, aabb: torch.Tensor, with_mask: bool = False):
     return (entry, mask) if with_mask else entry
 
 
+def _chunks(aabb: torch.Tensor) -> int:
+    Kp = aabb.shape[1]
+    if Kp % GATE_CHUNK:
+        raise ValueError(f"gated cull table width {Kp} % {GATE_CHUNK} != 0")
+    return Kp // GATE_CHUNK
+
+
+def _launch_gated(od8, aabb, gates, sup, with_mask):
+    """One launch of the gated kernel, its gate read from ``gates`` or (gates
+    None) computed from ``sup``."""
+    global LAUNCHES_GATED
+    T, _, tile = od8.shape
+    Kp = aabb.shape[1]
+    entry = torch.empty((T, Kp), dtype=torch.float32, device=od8.device)
+    mask = (torch.empty((T, -(-tile // 32), Kp), dtype=torch.int32, device=od8.device)
+            if with_mask else None)
+    lib = library().lib
+    with torch.cuda.device(od8.device):
+        err = lib.rt_cull_tiles_gated(
+            od8.data_ptr(), aabb.data_ptr(), None if gates is None else gates.data_ptr(),
+            None if sup is None else sup.data_ptr(), 0 if sup is None else sup.shape[1],
+            entry.data_ptr(), mask.data_ptr() if with_mask else None, T, Kp, tile,
+            torch.cuda.current_stream(od8.device).cuda_stream,
+        )
+    raise_on_error(lib, err, "cull_gated")
+    LAUNCHES_GATED += 1
+    return (entry, mask) if with_mask else entry
+
+
 def cull_tiles_gated(od8: torch.Tensor, aabb: torch.Tensor, gates: torch.Tensor,
                      with_mask: bool = False):
     """The cull over a (8, Kp) table, Kp a multiple of ``GATE_CHUNK``, with
@@ -235,14 +285,10 @@ def cull_tiles_gated(od8: torch.Tensor, aabb: torch.Tensor, gates: torch.Tensor,
     32]`` is set (gates (T * Wg,) int32, Wg = ceil(Kp / GATE_CHUNK / 32)) →
     (T, Kp) entry, and with ``with_mask`` (entry, (T, ceil(tile / 32), Kp)
     words); gated-off chunks read ``MISS_ENTRY`` and zero words."""
-    global LAUNCHES_GATED
     check_rays(od8)
     check_boxes(aabb, od8)
-    T, _, tile = od8.shape
-    Kp = aabb.shape[1]
-    if Kp % GATE_CHUNK:
-        raise ValueError(f"gated cull table width {Kp} % {GATE_CHUNK} != 0")
-    Wg = gate_words(Kp // GATE_CHUNK)
+    T = od8.shape[0]
+    Wg = gate_words(_chunks(aabb))
     if gates.dtype != torch.int32 or gates.shape != (T * Wg,):
         raise ValueError(f"gates must be flat (T * Wg,) = ({T} * {Wg},) int32 words, got "
                          f"{gates.dtype} {tuple(gates.shape)}")
@@ -250,16 +296,23 @@ def cull_tiles_gated(od8: torch.Tensor, aabb: torch.Tensor, gates: torch.Tensor,
         raise ValueError(f"gates must be contiguous on {od8.device}")
     if device_kind(od8, "cull_tiles_gated") == "cpu":
         return plain_cull_gated(od8, aabb, gates, with_mask)
-    entry = torch.empty((T, Kp), dtype=torch.float32, device=od8.device)
-    mask = (torch.empty((T, -(-tile // 32), Kp), dtype=torch.int32, device=od8.device)
-            if with_mask else None)
-    lib = library().lib
-    with torch.cuda.device(od8.device):
-        err = lib.rt_cull_tiles_gated(
-            od8.data_ptr(), aabb.data_ptr(), gates.data_ptr(), entry.data_ptr(),
-            mask.data_ptr() if with_mask else None, T, Kp, tile,
-            torch.cuda.current_stream(od8.device).cuda_stream,
-        )
-    raise_on_error(lib, err, "cull_gated")
-    LAUNCHES_GATED += 1
-    return (entry, mask) if with_mask else entry
+    return _launch_gated(od8, aabb, gates, None, with_mask)
+
+
+def cull_tiles_hier(od8: torch.Tensor, aabb: torch.Tensor, sup: torch.Tensor,
+                    with_mask: bool = False):
+    """The hierarchical cull in one launch: ``cull_tiles_gated`` over the (8,
+    Kp) table with each chunk's gate set when some ray of the tile hits one
+    of its super boxes, ``sup`` an (8, n_sup) box table of n_sup / (Kp /
+    GATE_CHUNK) supers a chunk, each over consecutive boxes of its chunk (a
+    box's hit must imply its super's: ``packet_intersect.hier_tables``)."""
+    check_rays(od8)
+    check_boxes(aabb, od8)
+    check_boxes(sup, od8)
+    n_chunks = _chunks(aabb)
+    if sup.shape[1] == 0 or sup.shape[1] % n_chunks:
+        raise ValueError(f"{sup.shape[1]} super boxes do not split evenly over "
+                         f"{n_chunks} chunks")
+    if device_kind(od8, "cull_tiles_hier") == "cpu":
+        return plain_cull_hier(od8, aabb, sup, with_mask)
+    return _launch_gated(od8, aabb, None, sup, with_mask)

@@ -18,6 +18,10 @@ of ``packet_intersect.extract_pairs``), and neither is a pair whose tile or
 cluster id lies outside the inputs. Row T, the dummy tile, then reads
 (``MISS``, -1); callers slice it off.
 
+The kernel cuts the first ``min(total, P)`` pairs into ``ranges`` contiguous,
+equal ranges, one block's work each (``None``: one range per block of a
+full wave on the card); the result does not depend on the count.
+
 - On a CUDA tensor it launches the hand-written kernel and counts the launch
   in ``LAUNCHES``. It never falls back.
 - On a CPU tensor it runs ``plain_sweep``: the pair-list sweep of
@@ -95,7 +99,8 @@ def library() -> build.Built:
     fn = built.lib.rt_sweep_pairs
     fn.argtypes = (
         [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 2
-        + [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int]
+        + [ctypes.c_void_p] * 4
     )
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
@@ -109,12 +114,15 @@ def sweep_pairs(
     pairs: torch.Tensor,  # (2, P) int32 — [pair tile; pair cluster]
     total: torch.Tensor,  # () int32 — number of valid pairs, may exceed P
     tile: int = None,  # rays per tile (L may be padded past it)
+    ranges: int = None,  # contiguous pair ranges; None: one per block of a full wave
 ):
     """→ (t (T + 1, tile) float32, tri (T + 1, tile) int32): every ray's
     closest hit over the swept pairs of its tile, no window."""
     global LAUNCHES
     tile = rays_tiles.shape[2] if tile is None else tile
     _check(rays_tiles, blocks, pairs, total, tile)
+    if ranges is not None and ranges < 1:
+        raise ValueError(f"ranges must be >= 1, got {ranges}")
     if device_kind(rays_tiles, "sweep_pairs") == "cpu":
         return plain_sweep(rays_tiles, blocks, pairs, total, tile)
     T1, _, L = rays_tiles.shape
@@ -127,7 +135,7 @@ def sweep_pairs(
     with torch.cuda.device(rays_tiles.device):
         err = lib.rt_sweep_pairs(
             rays_tiles.data_ptr(), T1, L, tile, blocks.data_ptr(), K, C,
-            pairs.data_ptr(), pairs.shape[1], total.data_ptr(), keys.data_ptr(),
+            pairs.data_ptr(), pairs.shape[1], total.data_ptr(), ranges or 0, keys.data_ptr(),
             t_out.data_ptr(), tri_out.data_ptr(),
             torch.cuda.current_stream(rays_tiles.device).cuda_stream,
         )

@@ -15,7 +15,7 @@ space: scene.cu:134-241). Four engines, picked by ``backend``:
   (``ops/kernels/cull.py``, ``ops/kernels/fused.py``), exact by
   construction (suspect ≡ 0). ``skip`` enables the slab-entry early-out;
   ``config.cull_hier`` > 0 makes the cull hierarchical (``_cull``: super
-  boxes gate the chunks of the gated cull kernel).
+  boxes gate the chunks of the gated cull kernel, in one launch).
 - ``"fused1"``: the single cull + walk + sweep kernel
   (``ops/kernels/fused1.py``), exact by construction.
 - ``"pallas"``: the cull kernel, a cumsum extraction of the culled (tile,
@@ -366,12 +366,13 @@ def _cull(scene: Scene, od8: torch.Tensor, S: int, with_mask: bool):
     and, with ``with_mask``, (T, W, K * S) per-ray hit words (else None).
 
     With ``config.cull_hier`` = G > 0 and at least two gate chunks of boxes,
-    the cull is hierarchical: a flat cull of tight super boxes, one per G * S
-    consecutive sub-boxes (the cluster cut's order keeps BVH siblings
-    adjacent), gates the 128-box chunks of the main cull, which then tests a
-    tile against only the chunks one of its super boxes is hit in. A
-    sub-box hit implies its super box's, so the result is bit-equal to the
-    flat cull's."""
+    the cull is hierarchical: tight super boxes, one per G * S consecutive
+    sub-boxes (the cluster cut's order keeps BVH siblings adjacent), gate the
+    128-box chunks of the main cull, which tests a tile against only the
+    chunks one of its super boxes is hit in; the gated kernel tests the
+    supers itself (``cull.cull_tiles_hier``), so it is one launch. A sub-box
+    hit implies its super box's, so the result is bit-equal to the flat
+    cull's."""
     box_min, box_max = scene.cluster_min, scene.cluster_max
     KS = box_min.shape[0]
     G = scene.config.cull_hier
@@ -382,8 +383,7 @@ def _cull(scene: Scene, od8: torch.Tensor, S: int, with_mask: bool):
         return cull.cull_tiles(od8, aabb), None
     aabb_p, sup_aabb = derived(("hier_tables", G * S), (box_min, box_max),
                                lambda: hier_tables(box_min, box_max, G * S))
-    gates = hier_gates(od8, sup_aabb, aabb_p.shape[1] // cull.GATE_CHUNK)
-    out = cull.cull_tiles_gated(od8, aabb_p, gates, with_mask=with_mask)
+    out = cull.cull_tiles_hier(od8, aabb_p, sup_aabb, with_mask=with_mask)
     if with_mask:
         return out[0][:, :KS], out[1][:, :, :KS]
     return out[:, :KS], None
@@ -405,13 +405,13 @@ def hier_tables(box_min: torch.Tensor, box_max: torch.Tensor, group: int):
 
 
 def hier_gates(od8: torch.Tensor, sup_aabb: torch.Tensor, n_chunks: int) -> torch.Tensor:
-    """The super-box pre-pass: a flat cull of the super boxes → the (T * Wg,)
-    int32 gate words of ``cull.cull_tiles_gated``, bit i of tile t's words
-    set when some ray of the tile hits a super box of chunk i."""
+    """The super-box pre-pass as its own ops (the JAX package's form): a flat
+    cull of the super boxes (``cull.cull_tiles``) → the (T * Wg,) int32 gate
+    words of ``cull.cull_tiles_gated``, bit i of tile t's words set when some
+    ray of the tile hits a super box of chunk i."""
     T = od8.shape[0]
-    hit_sup = cull.cull_tiles(od8, sup_aabb) < HIT_THRESH
-    live = hit_sup.reshape(T, n_chunks, -1).any(dim=2)
-    return cull.pack_bits(live[:, :, None]).reshape(-1)
+    hit = cull.cull_tiles(od8, sup_aabb) < cull.MISS_ENTRY * 0.5
+    return cull.pack_bits(hit.reshape(T, n_chunks, -1).any(dim=2)[:, :, None]).reshape(-1)
 
 
 def _finalize(scene, t_tile, tri_tile, cutoff, closest, hit_index, R, tile):

@@ -7,13 +7,15 @@ which has no JAX, run them without the suite's JAX conftest:
 
 Each kernel is held BIT-EQUAL to its plain version on real wavefront states
 of the small torus at 32×32 (coherent primary rays and Morton-sorted
-bounced ones); a two-pass render ("auto": fused1 for both its 10- and its
-2-rays-per-pixel pass) is held to the agreement gate against the same
-render with the xla engine, and bit-equal to it through cull + fused. The
+bounced ones); a two-pass render ("auto": cull + fused for both its 10-
+and its 2-rays-per-pixel pass) is held to the agreement gate against the
+same render with the xla engine, and bit-equal to it through fused1. The
 gated cull is held bit-equal to its plain version with all-ones, real and
-all-zero gates, and the hierarchical cull engine to the flat one. The pair
-sweep is held bit-equal to its plain version (tile-major and shuffled
-pairs, a budget that holds and one that overflows), the "pallas" engine to
+all-zero gates and in its one-launch form (gates from the super boxes), and
+the hierarchical cull engine to the flat one. The pair sweep is held
+bit-equal to its plain version (tile-major and shuffled pairs, a budget that
+holds and one that overflows, at the kernel's range count and at 1, 7, one
+per pair and more ranges than pairs), the "pallas" engine to
 the "fused" one, and a differentiable render through each engine launches
 its closest-hit kernels in the forward pass and none in the backward pass.
 The pack-2 fused1 kernel (paired sub-cluster tables, ``cluster_pack=2``) is
@@ -114,12 +116,12 @@ def test_render_goes_through_kernels_and_matches_xla(cuda):
     scene = _scene(cuda, rays_per_pixel=12, bounces=4, max_rays_per_pixel_per_pass=10)
     counts = lambda: (cull.LAUNCHES, fused.LAUNCHES, fused1.LAUNCHES, shade.LAUNCHES)
     before = counts()
-    fb = pipeline.render_framebuffer(scene)  # passes of 10 and 2, both through fused1
+    fb = pipeline.render_framebuffer(scene)  # passes of 10 and 2, both through cull + fused
     after = counts()
-    assert after[2] > before[2] and after[:2] == before[:2] and after[3] == before[3]
-    fused_fb = pipeline.render_framebuffer(scene.with_config(packet_backend="fused"))
-    assert all(a > b for a, b in zip(counts()[:2], after[:2]))  # cull + fused
-    assert torch.equal(fused_fb, fb)
+    assert all(a > b for a, b in zip(after[:2], before[:2])) and after[2:] == before[2:]
+    fused1_fb = pipeline.render_framebuffer(scene.with_config(packet_backend="fused1"))
+    assert counts()[2] > after[2] and counts()[:2] == after[:2]  # fused1 alone
+    assert torch.equal(fused1_fb, fb)
     after = counts()
     plain = pipeline.render_framebuffer(scene.with_config(packet_backend="xla"))
     assert counts() == after  # the xla engine launches no kernel
@@ -133,7 +135,10 @@ def test_render_goes_through_kernels_and_matches_xla(cuda):
 def test_gated_cull_bit_equal_plain(cuda):
     """A torus cut into ~580 sub-boxes (five gate chunks): the gated kernel
     against its plain version with all-ones, real and all-zero gates, with
-    and without hit words; the hierarchical engine against the flat one."""
+    and without hit words; its one-launch form (gates computed from the
+    super boxes) against ``plain_cull_hier`` and the flat cull; the
+    hierarchical engine against the flat one, launching the gated kernel
+    and no flat cull of the super boxes."""
     parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
     scene = scene_dsl.assemble_scene(
         parsed, config_overrides=dict(width=32, height=32, cull_split=2),
@@ -162,20 +167,37 @@ def test_gated_cull_bit_equal_plain(cuda):
             assert torch.equal(cull.cull_tiles_gated(od8, aabb, gates), ref[0])
             if gate.any():
                 assert torch.equal(ref[0], flat[0]) and torch.equal(ref[1], flat[1])
+        _, sup = packet_intersect.hier_tables(scene.cluster_min, scene.cluster_max, 32)
+        ref = cull.plain_cull_hier(od8, aabb, sup, with_mask=True)
+        assert torch.equal(ref[0], flat[0]) and torch.equal(ref[1], flat[1])
+        got = cull.cull_tiles_hier(od8, aabb, sup, with_mask=True)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+        assert torch.equal(cull.cull_tiles_hier(od8, aabb, sup), ref[0])
         torch.cuda.synchronize()
-        assert cull.LAUNCHES_GATED == before + 6
+        assert cull.LAUNCHES_GATED == before + 8
     t = torch.where(alive, 1e30, -1.0)
     index = torch.full_like(alive, -1, dtype=torch.int32)
     for skip in (False, True):
         args = (state.origin, state.direction, t, index)
         ref = packet_intersect.closest_hit_packet(scene, *args, backend="fused", skip=skip)
+        flat_launches, gated_launches = cull.LAUNCHES, cull.LAUNCHES_GATED
         got = packet_intersect.closest_hit_packet(scene.with_config(cull_hier=16), *args,
                                                   backend="fused", skip=skip)
+        assert (cull.LAUNCHES, cull.LAUNCHES_GATED) == (flat_launches, gated_launches + 1)
         assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
 
 
-def test_sweep_kernel_bit_equal_plain(cuda):
-    scene = _scene(cuda)
+@pytest.mark.parametrize("width", [None, 30])
+def test_sweep_kernel_bit_equal_plain(cuda, width):
+    """The sweep at the default cluster width and at 30, no multiple of 4
+    (triangle by triangle, its second staging buffer not 16-byte aligned)."""
+    if width is None:
+        scene = _scene(cuda)
+    else:
+        parsed = builtin_scenes.parse_mesh_scene("torus", builtin_scenes.SMALL)
+        scene = scene_dsl.assemble_scene(parsed, config_overrides=dict(width=32, height=32),
+                                         cluster_tris=width, device=cuda)
+        assert scene.cluster_tris == width
     K = scene.num_clusters
     aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
     for state in _states(scene):
@@ -194,11 +216,16 @@ def test_sweep_kernel_bit_equal_plain(cuda):
             shuffled[:, :k] = pairs[:, torch.randperm(k, device=cuda)]
             ref = sweep.plain_sweep(rays_tiles, scene.cluster_blocks, pairs, total, 64)
             before = sweep.LAUNCHES
+            # The kernel's range count, one range, ranges that cut a tile's
+            # run of pairs, one range per pair and more ranges than pairs.
+            counts = (None, 1, 7, max(k, 1), P + 3)
             for pair_list in (pairs, shuffled):
-                got = sweep.sweep_pairs(rays_tiles, scene.cluster_blocks, pair_list, total, 64)
-                assert torch.equal(got[0][:T], ref[0][:T]) and torch.equal(got[1][:T], ref[1][:T])
+                for ranges in counts:
+                    got = sweep.sweep_pairs(rays_tiles, scene.cluster_blocks, pair_list, total,
+                                            64, ranges=ranges)
+                    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), ranges
             torch.cuda.synchronize()
-            assert sweep.LAUNCHES == before + 2 and (ref[1] >= 0).any()
+            assert sweep.LAUNCHES == before + 2 * len(counts) and (ref[1] >= 0).any()
 
 
 def test_pallas_engine_bit_equal_fused(cuda):

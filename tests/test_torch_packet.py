@@ -464,3 +464,71 @@ def test_hier_cull_bit_equal_flat_and_matches_jax(cloud_hier, skip):
     with pytest.raises(ValueError, match="must divide 128"):
         packet_intersect.closest_hit_packet(ts.with_config(cull_hier=3), *rays, tile=64,
                                             backend="fused")
+
+
+def _jax_super_table(js, GS):
+    """The JAX package's pre-pass tables (``closest_hit_packet``'s
+    hierarchical cull, written out in jnp): the (8, Kp) box table padded with
+    far point boxes, and the (8, Kp / GS) tight super boxes over GS
+    consecutive boxes."""
+    KS = js.cluster_min.shape[0]
+    Kp = -(-KS // jcull.GATE_CHUNK) * jcull.GATE_CHUNK
+    pad = jnp.full((3, Kp - KS), 1e17, jnp.float32)
+    aabb_p = jnp.concatenate([jnp.concatenate([js.cluster_min.T, pad], axis=1),
+                              jnp.concatenate([js.cluster_max.T, pad], axis=1),
+                              jnp.zeros((2, Kp), jnp.float32)])
+    smin, smax = aabb_p[0:3].T, aabb_p[3:6].T
+    is_pad = smin[:, 0] >= 1e16
+    gmin = jnp.where(is_pad[:, None], jnp.inf, smin).reshape(-1, GS, 3).min(axis=1)
+    gmax = jnp.where(is_pad[:, None], -jnp.inf, smax).reshape(-1, GS, 3).max(axis=1)
+    empty = jnp.all(is_pad.reshape(-1, GS), axis=1)[:, None]
+    gmin, gmax = jnp.where(empty, 1e17, gmin), jnp.where(empty, 1e17, gmax)
+    sup = jnp.concatenate([gmin.T, gmax.T, jnp.zeros((2, gmin.shape[0]), jnp.float32)])
+    return aabb_p, sup
+
+
+@pytest.mark.parametrize("with_mask", [False, True])
+def test_hier_cull_one_launch_matches_jax_gated(cloud_hier, with_mask):
+    """The fused engine's hierarchical cull (``_cull``: the one-launch
+    ``cull.cull_tiles_hier``, its plain version on the CPU) BIT-EQUAL to the
+    JAX ``cull_tiles_gated`` in interpret mode behind the JAX package's own
+    pre-pass (its flat ``cull_tiles`` of the super boxes in interpret mode,
+    the any over each chunk's supers, the gate words), on coherent ray tiles
+    that leave some chunks gated off; and to the flat cull."""
+    js, ts = cloud_hier
+    S, tile = 2, 64
+    rng = np.random.default_rng(8)
+    T = 6
+    o = np.repeat(rng.uniform(-6, 6, (T, 3)), tile, axis=0) + rng.normal(0, 0.05, (T * tile, 3))
+    d = np.repeat(rng.normal(size=(T, 3)), tile, axis=0) + rng.normal(0, 0.05, (T * tile, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    w = np.full(T * tile, 1e30)
+    w[::7] = rng.uniform(1.0, 8.0, w[::7].shape)
+    w[5:9] = -1.0
+    od8 = cull.make_od8(*(torch.from_numpy(a.astype(np.float32)) for a in (o, d, w)), tile)
+    KS = ts.cluster_min.shape[0]
+    launches = cull.LAUNCHES_GATED
+    got = packet_intersect._cull(ts, od8, S, with_mask)
+    assert cull.LAUNCHES_GATED == launches  # the plain version on the CPU
+    aabb_p, sup = _jax_super_table(js, 16 * S)
+    n_chunks = aabb_p.shape[1] // jcull.GATE_CHUNK
+    j_od8 = jnp.pad(jnp.asarray(od8.numpy()), ((0, 1), (0, 0), (0, 128 - tile)))
+    hit_sup = jcull.cull_tiles(j_od8, sup, tile=tile, interpret=True)[:T] < jcull.MISS_ENTRY * 0.5
+    gate = np.asarray(hit_sup).reshape(T, n_chunks, -1).any(axis=2)
+    assert gate.any() and not gate.all()
+    gates = _gates(gate)
+    ref = jcull.cull_tiles_gated(j_od8, aabb_p, jnp.asarray(gates), tile=tile,
+                                 interpret=True, with_mask=True)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0])[:T, :KS])
+    flat = cull.plain_cull(od8, cull.box_table(ts.cluster_min, ts.cluster_max), with_mask=True)
+    assert torch.equal(got[0], flat[0])
+    if with_mask:
+        np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref[1])[:T, :, :KS])
+        assert torch.equal(got[1], flat[1])
+    else:
+        assert got[1] is None
+    # The port's own pre-pass gives the JAX words.
+    gates_port = packet_intersect.hier_gates(od8, cull.box_table(
+        torch.from_numpy(np.array(sup[0:3].T)), torch.from_numpy(np.array(sup[3:6].T))),
+        n_chunks)
+    np.testing.assert_array_equal(gates_port.numpy(), gates)

@@ -19,7 +19,12 @@ fused1 (a tile's boxes over several blocks, folded through 64-bit keys) and
 the split fused (a tile's selected clusters over several blocks, the same
 fold; its staging double-buffered, which the host build copies at once) are
 held to the same bits at every split, with and without fused's skip test,
-and their unsplit counters to a PyTorch recount of the kernel's walk.
+and their unsplit counters to a PyTorch recount of the kernel's walk. The
+sweep's contiguous pair ranges are held to the same bits at several range
+counts, pair orders and cluster widths, its sign-free Möller–Trumbore
+acceptance to the sign-folded one on edge values, and the one-launch
+hierarchical cull (each chunk's gate computed from its super boxes) to the
+flat cull and the plain two-step form.
 """
 
 import ctypes
@@ -53,10 +58,11 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
-    lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
+    lib.rt_host_cull_tiles_gated.argtypes = [p] * 4 + [i] + [p] * 2 + [i] * 3
     lib.rt_host_fused_closest_hit.argtypes = [p] * 3 + [i] + [p] * 2 + [i] * 5 + [p] * 3
     lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 7 + [p] * 3
-    lib.rt_host_sweep_pairs.argtypes = [p] + [i] * 3 + [p] + [i] * 2 + [p, i] + [p] * 4
+    lib.rt_host_sweep_pairs.argtypes = [p] + [i] * 3 + [p] + [i] * 2 + [p, i, p, i] + [p] * 3
+    lib.rt_host_mt_accept.argtypes = [p] * 4 + [i] + [p] * 2
     return lib
 
 
@@ -80,6 +86,27 @@ def _od8(n, tile, seed):
     w[: n // 4] = rng.uniform(0.3, 3.0, n // 4)
     w[n // 4: n // 4 + 9] = -1.0
     rays = packet_intersect._pad_rays(*(torch.from_numpy(a) for a in (o, d, w)), tile)
+    return cull.make_od8(*rays, tile)
+
+
+def _coherent_od8(n, tile, seed):
+    """Rays in coherent tiles, as a camera or a sorted bounce gives them:
+    each tile's rays leave from near one point in a narrow cone, so a tile
+    hits a few clusters; finite windows and dead rays as ``_od8``."""
+    rng = np.random.default_rng(seed)
+    T = -(-n // tile)
+    o = np.repeat(rng.uniform(-2.5, 2.5, (T, 3)), tile, axis=0)[:n]
+    o[:, 1] = np.repeat(rng.uniform(0.5, 2.0, T), tile)[:n]
+    o += rng.normal(scale=0.02, size=(n, 3))
+    d = np.repeat(rng.normal(size=(T, 3)), tile, axis=0)[:n]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    d += rng.normal(scale=0.05, size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    w = np.full(n, 1e30)
+    w[: n // 4] = rng.uniform(0.3, 3.0, n // 4)
+    w[n // 4: n // 4 + 9] = -1.0
+    rays = packet_intersect._pad_rays(
+        *(torch.from_numpy(a.astype(np.float32)) for a in (o, d, w)), tile)
     return cull.make_od8(*rays, tile)
 
 
@@ -154,13 +181,13 @@ def test_host_gated_cull_bit_equal_plain(host_lib, scene, n, tile):
         gates = cull.pack_bits(gate[:, :, None]).reshape(-1)
         ref = cull.plain_cull_gated(od8, aabb, gates, with_mask=True)
         entry, mask = torch.empty_like(ref[0]), torch.empty_like(ref[1])
-        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb), _ptr(gates), _ptr(entry),
-                                          _ptr(mask), T, Kp, tile)
+        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb), _ptr(gates), None, 0,
+                                          _ptr(entry), _ptr(mask), T, Kp, tile)
         assert torch.equal(entry, ref[0]) and torch.equal(mask, ref[1])
         if gate is not checker:
             assert torch.equal(entry, flat[0]) and torch.equal(mask, flat[1])
         entry_only = torch.empty_like(ref[0])
-        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb), _ptr(gates),
+        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb), _ptr(gates), None, 0,
                                           _ptr(entry_only), None, T, Kp, tile)
         assert torch.equal(entry_only, ref[0])
     assert not torch.equal(checker, live)
@@ -194,8 +221,159 @@ def test_host_sweep_bit_equal_plain(host_lib, scene, n, tile):
         t, tri = torch.empty_like(ref[0]), torch.empty_like(ref[1])
         host_lib.rt_host_sweep_pairs(_ptr(rays), T + 1, rays.shape[2], tile, _ptr(blocks),
                                      K, C, _ptr(pair_list), pair_list.shape[1], _ptr(total),
-                                     _ptr(keys), _ptr(t), _ptr(tri))
+                                     1, _ptr(keys), _ptr(t), _ptr(tri))
         assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1])
+
+
+def _host_sweep(host_lib, rays, blocks, pairs, total, tile, ranges):
+    T1 = rays.shape[0]
+    K, _, C = blocks.shape
+    keys = torch.empty((T1, tile), dtype=torch.int64)
+    t = torch.empty((T1, tile), dtype=torch.float32)
+    tri = torch.empty((T1, tile), dtype=torch.int32)
+    assert host_lib.rt_host_sweep_pairs(_ptr(rays), T1, rays.shape[2], tile, _ptr(blocks), K,
+                                        C, _ptr(pairs), pairs.shape[1], _ptr(total), ranges,
+                                        _ptr(keys), _ptr(t), _ptr(tri)) == 0
+    return t, tri
+
+
+def _cuts_a_run(pairs, n, ranges):
+    """Some range boundary of ``ranges`` over the first n pairs falls between
+    two pairs of one tile."""
+    return any(0 < n * r // ranges < n and int(pairs[0, n * r // ranges - 1])
+               == int(pairs[0, n * r // ranges]) for r in range(1, ranges))
+
+
+@pytest.fixture(scope="module")
+def wide_scene():
+    """The test torus in clusters of 256, the default width, which the
+    sweep compiles for its own (padded: 27 clusters of ~256)."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    return scene_dsl.assemble_scene(parsed, config_overrides=dict(width=8, height=8),
+                                    prefer_native_bvh=False, cluster_tris=256, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def odd_scene():
+    """The test torus in clusters of 30: a width that is no multiple of 4,
+    which the sweep takes triangle by triangle."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    return scene_dsl.assemble_scene(parsed, config_overrides=dict(width=8, height=8),
+                                    prefer_native_bvh=False, cluster_tris=30, device="cpu")
+
+
+@pytest.mark.parametrize("width", [32, 256, 30])
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_sweep_ranges_bit_equal_plain(host_lib, scene, wide_scene, odd_scene, width, n,
+                                           tile):
+    """The redesigned sweep driver (contiguous ranges of the pair list, each
+    lane's running best folded into the keys when the tile changes and at a
+    range's end) bit-equal to ``plain_sweep`` at 1 and 3 ranges, at a count
+    whose ranges cut a tile's run of pairs and at one range per pair (and
+    more ranges than pairs), over the tile-major list, a shuffled one and
+    one whose total stops short of the selected pairs (the rest are
+    sentinels and unswept pairs past ``total``); over clusters of 32, of
+    256 triangles (the width compiled for its own) and of 30 (triangle by
+    triangle), all with padding, and with each block's slots reversed."""
+    scene = {32: scene, 256: wide_scene, 30: odd_scene}[width]
+    assert scene.cluster_tris == width
+    assert int((scene.cluster_blocks[:, 9, :] < 0).sum(dim=1).max()) >= 4  # padded quads
+    od8 = _od8(n, tile, seed=n + 6)
+    T = od8.shape[0]
+    select = cull.plain_cull(od8, cull.box_table(scene.cluster_min, scene.cluster_max))
+    select = select < cull.MISS_ENTRY * 0.5
+    count = int(select.sum())
+    pairs, total, _ = packet_intersect.extract_pairs(select, count + 40)
+    origin = od8[:, 0:3].permute(0, 2, 1).reshape(-1, 3)
+    direction = od8[:, 3:6].permute(0, 2, 1).reshape(-1, 3)
+    rays = sweep.make_rays_tiles(origin, direction, tile)
+    blocks = scene.cluster_blocks
+    shuffled = pairs.clone()
+    shuffled[:, :count] = pairs[:, torch.from_numpy(np.random.default_rng(n).permutation(count))]
+    short = torch.tensor(count * 2 // 3, dtype=torch.int32)
+    cutting = 7
+    assert _cuts_a_run(pairs, count, cutting)
+    # Each block's slots reversed (a fold is order-free): padding first, real
+    # triangles in the last quads.
+    flipped = blocks.flip(dims=[2]).contiguous()
+    for pair_list, tot in ((pairs, total), (shuffled, total), (pairs, short)):
+        ref = sweep.plain_sweep(rays, blocks, pair_list, tot, tile)
+        assert (ref[1][:T] >= 0).sum() > n // 10
+        for ranges in (1, 3, cutting, int(tot), pair_list.shape[1] + 5):
+            for table in (blocks, flipped):
+                t, tri = _host_sweep(host_lib, rays, table, pair_list, tot, tile, ranges)
+                assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1]), (int(tot), ranges)
+    assert not torch.equal(sweep.plain_sweep(rays, blocks, pairs, short, tile)[1],
+                           sweep.plain_sweep(rays, blocks, pairs, total, tile)[1])
+
+
+def test_host_mt_acceptances_agree(host_lib):
+    """The sweep's Möller–Trumbore acceptance (comparisons of the terms
+    themselves, the other way round for det < 0) and the plain version's
+    sign-folded one give the same answer on every quadruple of terms drawn
+    from signed zeros, infinities, NaN, the bounds' own values and their
+    neighbours (each ulp away), and on random terms around them."""
+    eps = np.float32(0.005)
+    base = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1.0, -1.0, 2.0, -2.0, 0.5, -0.5,
+                     eps, -eps, 3e-38, -3e-38, 1e-45, -1e-45], np.float32)
+    base = np.concatenate([base, np.nextafter(base, np.float32(np.inf)),
+                           np.nextafter(base, np.float32(-np.inf)), eps * base])
+    rng = np.random.default_rng(9)
+    grid = np.stack(np.meshgrid(base, base, base, np.array([0.0, -0.0, 1.0, -1.0, 2.0, -2.0,
+                                                            np.inf, -np.inf, np.nan],
+                                                           np.float32)), -1).reshape(-1, 4)
+    det = rng.choice([-1.0, 1.0], 200000).astype(np.float32) * rng.uniform(1e-3, 4, 200000)
+    rand = np.stack([rng.uniform(-0.2, 1.2, 200000) * det, rng.uniform(-0.2, 1.2, 200000) * det,
+                     rng.uniform(0.0, 0.02, 200000) * det, det], -1).astype(np.float32)
+    terms = torch.from_numpy(np.concatenate([grid, rand]).astype(np.float32).T.copy())
+    n = terms.shape[1]
+    folded, fast = torch.empty(n, dtype=torch.int32), torch.empty(n, dtype=torch.int32)
+    host_lib.rt_host_mt_accept(*(_ptr(terms[i]) for i in range(4)), n, _ptr(folded), _ptr(fast))
+    assert torch.equal(folded, fast)
+    assert int(folded.sum()) > 10000 and int((folded == 0).sum()) > 10000  # both answers
+
+
+@pytest.fixture(scope="module")
+def split_scene():
+    """The test torus with two sub-boxes a cluster (cull_split 2)."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
+    return scene_dsl.assemble_scene(parsed,
+                                    config_overrides=dict(width=8, height=8, cull_split=2),
+                                    prefer_native_bvh=False, cluster_tris=32, device="cpu")
+
+
+@pytest.mark.parametrize("split", [1, 2])
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
+def test_host_hier_cull_bit_equal_flat_and_gated(host_lib, scene, split_scene, split, n, tile):
+    """The one-launch hierarchical cull (each chunk's gate computed in the
+    driver from its super boxes) in the host build, at cull_split 1 and 2
+    (G = 16 boxes, G * S sub-boxes a super): bit-equal, with and without the
+    hit words, to the flat ``plain_cull`` over the padded table, to
+    ``plain_cull_gated`` behind ``hier_gates``' words and to
+    ``plain_cull_hier``; and the gate skips chunks."""
+    table = scene if split == 1 else split_scene
+    od8 = _coherent_od8(n, tile, seed=n + 7)
+    T = od8.shape[0]
+    aabb_p, sup = packet_intersect.hier_tables(table.cluster_min, table.cluster_max, 16 * split)
+    Kp = aabb_p.shape[1]
+    n_chunks = Kp // cull.GATE_CHUNK
+    assert n_chunks >= 3 and sup.shape[1] == Kp // (16 * split)
+    flat = cull.plain_cull(od8, aabb_p, with_mask=True)
+    gates = packet_intersect.hier_gates(od8, sup, n_chunks)
+    gated = cull.plain_cull_gated(od8, aabb_p, gates, with_mask=True)
+    on = int(cull.unpack_gates(gates, T, n_chunks).sum())
+    assert 0 < on < T * n_chunks  # some chunks gated off, some on
+    assert torch.equal(gated[0], flat[0]) and torch.equal(gated[1], flat[1])
+    hier = cull.plain_cull_hier(od8, aabb_p, sup, with_mask=True)
+    assert torch.equal(hier[0], flat[0]) and torch.equal(hier[1], flat[1])
+    for with_mask in (True, False):
+        entry = torch.empty_like(flat[0])
+        mask = torch.empty_like(flat[1]) if with_mask else None
+        host_lib.rt_host_cull_tiles_gated(_ptr(od8), _ptr(aabb_p), None, _ptr(sup),
+                                          sup.shape[1], _ptr(entry), _ptr(mask), T, Kp, tile)
+        assert torch.equal(entry, flat[0]), with_mask
+        if with_mask:
+            assert torch.equal(mask, flat[1])
 
 
 @pytest.fixture(scope="module")

@@ -94,7 +94,7 @@ def packet_host(tmp_path_factory):
     lib = _compile(tmp_path_factory, "packet_host")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.rt_host_cull_tiles.argtypes = [p] * 4 + [i] * 3
-    lib.rt_host_cull_tiles_gated.argtypes = [p] * 5 + [i] * 3
+    lib.rt_host_cull_tiles_gated.argtypes = [p] * 4 + [i] + [p] * 2 + [i] * 3
     return lib
 
 
@@ -401,7 +401,8 @@ def test_cull_host_bit_equal_plain_on_edge_rays(packet_host, boxes, tile):
     entry_g = torch.empty((T, Kp))
     mask_g = torch.empty((T, want_mask.shape[1], Kp), dtype=torch.int32)
     packet_host.rt_host_cull_tiles_gated(od8.data_ptr(), aabb_p.data_ptr(), gates.data_ptr(),
-                                         entry_g.data_ptr(), mask_g.data_ptr(), T, Kp, tile)
+                                         None, 0, entry_g.data_ptr(), mask_g.data_ptr(), T,
+                                         Kp, tile)
     assert torch.equal(_bits(entry_g[:, :K]), _bits(entry))
     assert torch.equal(mask_g[:, :, :K], want_mask)
 

@@ -2,7 +2,8 @@
 
 ``ops/kernels/sweep.plain_sweep`` is held against the Pallas
 ``_sweep_kernel`` in interpret mode (``sweep_pairs(..., interpret=True)``)
-on the same rays, blocks and pair list, and the port's ``"pallas"`` engine
+on the same rays, blocks and pair list (also the lists the kernel's
+range-split cases use), and the port's ``"pallas"`` engine
 against JAX's ``"pallas_interpret"`` engine, one-round, two-round and with a
 pair budget that overflows. Triangle ids and overflow counts are EXACT; hit
 distances are held to rtol 1e-4, because XLA's CPU backend contracts
@@ -113,6 +114,36 @@ def test_sweep_sentinels_budget_and_checks(cloud):
         sweep.sweep_pairs(rays_tiles, blocks, pairs, total, 256)
     with pytest.raises(ValueError, match="total"):
         sweep.sweep_pairs(rays_tiles, blocks, pairs, total.long(), 64)
+
+
+@pytest.mark.parametrize("scene_name,n,tile", [("cloud", 200, 64), ("torus", 150, 32)])
+def test_range_split_lists_match_jax_interpret(cloud, torus, scene_name, n, tile):
+    """The pair lists the range-split cases of the kernel's host build use
+    (test_torch_packet_host.py): tile-major, shuffled, and a total that stops
+    short of the selected pairs, each swept by the port (the plain version
+    on the CPU, whatever ``ranges`` asks) and by JAX's kernel in interpret
+    mode: ids exact, t within rtol 1e-4 (XLA's CPU FMA contraction); a
+    range count below 1 is refused. The short list carries (T, 0) sentinels
+    past its total, as ``extract_pairs`` writes them: JAX's kernel may sweep
+    a sentinel (the dummy tile), the port never sweeps past the total."""
+    _, ts = {"cloud": cloud, "torus": torus}[scene_name]
+    rays_tiles, pairs, total, T = _pair_inputs(ts, n, tile, seed=n + 1)
+    blocks = ts.cluster_blocks
+    k = int(total)
+    shuffled = pairs.clone()
+    shuffled[:, :k] = pairs[:, torch.from_numpy(np.random.default_rng(n + 1).permutation(k))]
+    short = torch.tensor(k * 2 // 3, dtype=torch.int32)
+    cut = pairs.clone()
+    cut[0, int(short):], cut[1, int(short):] = T, 0
+    for pair_list, tot in ((pairs, total), (shuffled, total), (cut, short)):
+        t_ref, tri_ref = _jax_sweep(rays_tiles, blocks, pair_list, tot, tile)
+        for ranges in (None, 1, 3, 7, int(tot)):
+            t, tri = sweep.sweep_pairs(rays_tiles, blocks, pair_list, tot, tile, ranges=ranges)
+            np.testing.assert_array_equal(tri[:T].numpy(), tri_ref[:T])
+            np.testing.assert_allclose(t[:T].numpy(), t_ref[:T], rtol=1e-4, atol=0)
+        assert (tri[:T] >= 0).sum() > n // 8
+    with pytest.raises(ValueError, match="ranges"):
+        sweep.sweep_pairs(rays_tiles, blocks, pairs, total, tile, ranges=0)
 
 
 def test_extract_pairs_layout():
