@@ -13,13 +13,15 @@ sort-key kernels), the command-line renderer, the
 inverse-rendering train step on that mesh at the JAX package's
 forward+backward shape (256×256, 2 rays per pixel, 10 bounces) through both
 packet engines that reach a TPU kernel (cull + fused, and cull + the pair
-sweep), and sharded rendering and training over torch.distributed, and
+sweep), sharded rendering and training over torch.distributed, and the
+same render and train step through the BVH intersector (a per-ray walk
+kernel) and the render reordered by the "cullhit" key (a key kernel), and
 checks them all. Phases, one line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
-   ``fused.cu``, ``fused1.cu``, ``sweep.cu``, ``bounce.cu`` and ``rays.cu``
-   with nvcc, all seven at once, and the native BVH builder with g++; print
+   ``fused.cu``, ``fused1.cu``, ``sweep.cu``, ``bounce.cu``, ``rays.cu`` and
+   ``traverse.cu`` with nvcc, all eight at once, and the native BVH builder with g++; print
    seconds and registers;
 3. kernel vs plain: each built-in scene at 64×64, 4 rays per pixel and 10
    bounces, plus an unaligned block (ray ids 100..359): per-ray agreement
@@ -163,7 +165,32 @@ checks them all. Phases, one line each:
    sharded train step's loss (the same bits on both ranks) against the
    single-device loss, the summed gradients against
    ``diff.render_and_grad``'s, and packet kernel launches in both ranks;
-   (c) ``scaling_report`` on the size-1 mesh.
+   (c) ``scaling_report`` on the size-1 mesh;
+13. the BVH intersector (``intersector="bvh"``, the walk kernel of
+   ``csrc/traverse.cu``) and the "cullhit" sort key (the key kernel of
+   ``csrc/rays.cu``): (a) the walk against its plain version (the lockstep
+   walk) on the torus's centre 2^18-ray block of a 20-spp pass, traced
+   through the BVH as a render traces it, at bounces 0, 1 and 3, and on the
+   glass torus's at bounces 0-3: t and index bit-equal; its time, the plain
+   walk's, the pops, slab tests and triangle tests per live ray (its
+   counting variant), the bound they imply and its share; (b) the walk
+   against the packet engine ("auto": cull + fused) on the same rays: t
+   within rtol / atol 1e-5 and under 1 % of live rays on another triangle
+   (JAX's BVH-against-scan standard), the mismatches and how many are
+   equal-distance ties; (c) the torus at 1000×1000 × 10 bounces through the
+   BVH and through "auto" in turns (bvh, auto, auto, bvh) at 100 and at 8
+   spp: seconds, Mrays/s, the walk launching in the BVH renders and no
+   packet kernel, the mean display value, the images' mean |Δ| and share of
+   bytes within ±1 (printed, not gated: tie rays take other paths); then
+   the centre block's profile through the BVH; (d) the train step at phase
+   10c's shape, checkpointed, through the BVH and through "auto" in turns:
+   seconds per step, a falling loss, finite gradients, the walk's launches
+   per step equal to the forward pass's; (e) the cullhit key against its
+   plain version on the centre block's bounces 0-3 (traced with that key),
+   keys and live count bit-equal in both count modes, its time beside
+   ``ray_keys``' and its bound; then the torus at 1000×1000 × 8 spp with
+   ``sort_key="cullhit"`` and with the Morton key in turns (morton,
+   cullhit, cullhit, morton): framebuffers bit-identical.
 
 Then one line per kernel, ranked by launches × (ms − bound ms), one JSON
 line per the kernel table, and as the last line
@@ -303,7 +330,26 @@ BOUNCE_HIT_BYTES = 16 + 52 + 48
 ROW_STATE_BYTES = 48
 KEY_OPS = 18
 
-KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep", "bounce", "rays")
+# Phase 13: FP32 operations per test of the BVH walk (csrc/traverse.cuh),
+# counted at the least the function needs, not at the kernel's form:
+#   slab test per child box, in the sign-picked form (as SUPER_SLAB_OPS):
+#                 3 axes × (2 sub, 2 mul), the entry's max over 0 and 3
+#                 near planes 3, the exit's min over the window and 3 far
+#                 planes 3 (rt::slab's own form has 18 min / max)      = 18
+#   Möller–Trumbore (ops/intersect.moller_trumbore's form) per triangle:
+#                 rt::mt_terms 41, 1 / det 1, u, v, t scaled 3, u+v 1  = 46
+#   (the safe inverse direction, 3 per live ray, counted once per ray)
+# and per box the cullhit key's unwindowed test (rt::first2_hit's values):
+# 3 axes × (2 sub, 2 mul), the entry's max over 0 and 3 near planes 3, the
+# exit's min over 3 far planes 2 = 17.
+BVH_SLAB_OPS = 18
+BVH_MT_OPS = 46
+CULLHIT_BOX_OPS = 17
+# Closest-hit kernels of the packet engines and the brute megakernel: none
+# may launch in a BVH render (phase 13c).
+PACKET_LAUNCH_NAMES = ("cull_tiles", "fused_closest_hit", "fused1_closest_hit",
+                       "fused1_closest_hit_pack2", "cull_gated", "sweep_pairs", "shade_trace")
+KERNEL_SOURCES = ("shade", "cull", "fused", "fused1", "sweep", "bounce", "rays", "traverse")
 # Device kernels of one fused1 call in a profile: the unsplit and the split
 # kernel (fused1_kernel, fused1_split_kernel), the split's key set-up and
 # finishing pass.
@@ -722,39 +768,52 @@ def _timed_framebuffer(scene):
     return framebuffer, pipeline.render_image(scene, framebuffer=framebuffer), seconds
 
 
-def _render_turns(label_scenes, regimes, phase: str, tag: str):
-    """Render each (label, scene) in order, launch counts set to 0 just before
-    each and read just after → ({label: [seconds]}, and in order the
-    framebuffers, the images and the launch counts). Every render must launch its regime's kernels and the
-    bounce kernel, no other packet kernel, and give a finite framebuffer and
-    a sane image."""
+def _turns(turns, must: dict, must_not: dict, phase: str, tag: str) -> list:
+    """Render each (label, scene) in order, launch counts set to 0 just
+    before each and read just after → [(label, framebuffer, image, seconds,
+    counts)]. A render must launch the kernels of ``must[label]`` and none of
+    ``must_not[label]``, and give a finite framebuffer and a sane image."""
     import torch
 
-    seconds, framebuffers, images, launches = {}, [], [], []
-    for turn, (label, scene) in enumerate(label_scenes):
+    out = []
+    for turn, (label, scene) in enumerate(turns):
         _zero_launch_counts()
         framebuffer, image, secs = _timed_framebuffer(scene)
         counts = _launch_counts()
         finite = bool(torch.isfinite(framebuffer).all())
         mean = float(image.mean())
         rays = scene.num_pixels * scene.config.rays_per_pixel
-        regime = regimes[label]
         print(f"phase {phase} {tag}: torus {scene.config.width}x{scene.config.height} "
               f"spp={scene.config.rays_per_pixel} bounces={scene.config.bounces} turn={turn} "
-              f"{label} regime={'+'.join(regime)} seconds={secs:.4f} "
-              f"Mrays/s={rays / secs / 1e6:.2f} launches={json.dumps(counts)} "
-              f"finite={finite} mean_display={mean:.2f}")
-        packet = ("cull_tiles", "fused_closest_hit", "fused1_closest_hit",
-                  "fused1_closest_hit_pack2", "cull_gated", "sweep_pairs", "shade_trace")
-        ok = all(counts[k] > 0 for k in regime + FORWARD_KERNELS) and all(
-            counts[k] == 0 for k in packet if k not in regime)
+              f"{label} seconds={secs:.4f} Mrays/s={rays / secs / 1e6:.2f} "
+              f"launches={json.dumps(counts)} finite={finite} mean_display={mean:.2f}")
+        ok = all(counts[k] > 0 for k in must[label]) and all(
+            counts[k] == 0 for k in must_not[label])
         if not (ok and finite and 20.0 <= mean <= 235.0):
             raise SystemExit(f"phase {phase} failed: {label} render, turn {turn}")
+        out.append((label, framebuffer, image, secs, counts))
+    return out
+
+
+def _seconds_by_label(out) -> dict:
+    """{label: [seconds of its turns]} of ``_turns``' renders."""
+    seconds = {}
+    for label, _, _, secs, _ in out:
         seconds.setdefault(label, []).append(secs)
-        framebuffers.append(framebuffer)
-        images.append(image)
-        launches.append(counts)
-    return seconds, framebuffers, images, launches
+    return seconds
+
+
+def _render_turns(label_scenes, regimes, phase: str, tag: str):
+    """``_turns`` of packet-regime renders → ({label: [seconds]}, and in
+    order the framebuffers, the images and the launch counts). Every render
+    must launch its regime's kernels and the forward kernels, and no other
+    closest-hit kernel."""
+    must = {label: regime + FORWARD_KERNELS for label, regime in regimes.items()}
+    must_not = {label: tuple(k for k in PACKET_LAUNCH_NAMES if k not in regime)
+                for label, regime in regimes.items()}
+    out = _turns(label_scenes, must, must_not, phase, tag)
+    return (_seconds_by_label(out), [o[1] for o in out], [o[2] for o in out],
+            [o[4] for o in out])
 
 
 def phase_mesh_main_path(full) -> tuple:
@@ -2484,6 +2543,310 @@ def phase_sharding(full, plain_cli: dict) -> None:
     phase_scaling(full)
 
 
+def _walk_inputs(scene, rows):
+    """The BVH walk's inputs from packed rows, as ``wavefront.bounce_rows``
+    hands them over: the origin and direction columns (strided views) and
+    the set-up kernel's sphere hit (-1 on a dead ray)."""
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    alive, t, index, _ = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, 0)
+    return rows[:, 0:3], rows[:, 3:6], t, index, alive
+
+
+def _walk_check(scene, rows, label: str, b: int, timed: bool) -> dict:
+    """13a: the walk kernel against its plain version on ``rows`` (0
+    mismatched bits) and, when ``timed``, both times, the counted work and
+    the bound it implies."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import traverse
+    from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
+
+    o, d, t0, i0, alive = _walk_inputs(scene, rows)
+    got = traverse.bvh_closest_hit(scene, o, d, t0, i0)
+    want = traverse.plain_bvh_closest_hit(scene, o, d, t0, i0)
+    bad, err = _bit_mismatch(got, want)
+    n, live = rows.shape[0], int(alive.sum())
+    line = (f"phase 13a walk vs plain: {label} bounce={b} rays={n} live={live} "
+            f"mismatched={bad} max_abs_err={err:.3g}")
+    if bad:
+        print(line)
+        raise SystemExit(f"phase 13a failed: the BVH walk kernel differs from its plain "
+                         f"version ({label}, bounce {b})")
+    if not timed:
+        print(line)
+        return dict(max_abs_err=err)
+    stats = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    traverse_kernel.bvh_walk(scene, o, d, t0, i0, stats=stats)
+    pops, slabs, mts = (int(x) for x in stats)
+    ms = _cuda_ms(lambda: traverse_kernel.bvh_walk(scene, o, d, t0, i0))
+    plain_ms = _plain_ms(lambda: traverse.plain_bvh_closest_hit(scene, o, d, t0, i0), runs=1)
+    nodes, tris = scene.bvh_min.shape[0], scene.tri_p1.shape[0]
+    # Each ray's origin and direction, hit in and hit out; the tables once.
+    nbytes = n * (24 + 8 + 8) + nodes * (24 + 8) + tris * 36
+    ops_ms = (live * 3 + slabs * BVH_SLAB_OPS + mts * BVH_MT_OPS) / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    per = max(live, 1)
+    print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.1f} pops_per_live_ray={pops / per:.2f} "
+          f"slab_tests_per_live_ray={slabs / per:.2f} mt_tests_per_live_ray={mts / per:.2f} "
+          f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
+          f"bound_share={bound_ms / ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                pops=pops, slabs=slabs, mts=mts, live=live)
+
+
+def _walk_vs_packet(scene, packet_scene, rows, b: int) -> None:
+    """13b: the walk against the packet engine ("auto": cull + fused on the
+    card) on the same rays, at JAX's BVH-against-scan standard: t within
+    rtol / atol 1e-5, under 1 % of live rays on another triangle. A
+    mismatch is a tie when the two triangles' Möller–Trumbore distances
+    for the ray agree within 1e-5 relative."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops import intersect
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    o, d, _, _, alive = _walk_inputs(scene, rows)
+    t_bvh, i_bvh, _ = wavefront.closest_hit(scene, o, d, alive)
+    t_pk, i_pk, suspect = wavefront.closest_hit(packet_scene, o, d, alive)
+    close = torch.isclose(t_bvh, t_pk, rtol=1e-5, atol=1e-5)
+    differ = i_bvh != i_pk
+    live = int(alive.sum())
+    ties = 0
+    if bool(differ.any()):
+        rays_ = differ.nonzero()[:, 0]
+        t_of = []
+        for idx in (i_bvh[rays_], i_pk[rays_]):
+            tri = torch.clamp(idx - scene.sphere_count, min=0).long()
+            t_of.append(intersect.moller_trumbore(o[rays_], d[rays_], scene.tri_p1[tri],
+                                                  scene.tri_e1[tri], scene.tri_e2[tri]))
+        both_tri = (i_bvh[rays_] >= scene.sphere_count) & (i_pk[rays_] >= scene.sphere_count)
+        ties = int((both_tri & ((t_of[0] - t_of[1]).abs() <= 1e-5 * t_of[0].abs())).sum())
+    bad_t, mism = int((~close).sum()), int(differ.sum())
+    print(f"phase 13b walk vs packet: torus centre block bounce={b} rays={rows.shape[0]} "
+          f"live={live} t_outside_rtol_1e-5={bad_t} index_mismatches={mism} "
+          f"mismatch_share_of_live={mism / max(live, 1):.2e} ties_among_mismatches={ties} "
+          f"packet_suspect={int(suspect)}")
+    if bad_t or mism >= 0.01 * live or int(suspect):
+        raise SystemExit(f"phase 13b failed: the BVH walk and the packet engine disagree "
+                         f"(bounce {b})")
+
+
+def _image_gap(a, b) -> str:
+    """Mean |Δ| of two uint8 images' display values, and the share of bytes
+    within ±1."""
+    import numpy as np
+
+    diff = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    return f"mean_abs_display_diff={diff.mean():.4f} share_within_1={(diff <= 1).mean():.6f}"
+
+
+def phase_bvh_render(full) -> int:
+    """13c: the torus at 1000×1000 × 10 bounces through ``intersector="bvh"``
+    and through "auto", in turns (bvh, auto, auto, bvh), at 100 and 8 spp;
+    then the centre block's profile through the BVH → the walk's launches in
+    the first 100-spp BVH render."""
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    bvh = full.with_config(intersector="bvh")
+    pipeline.render_framebuffer(_resized(bvh, 128, 128).with_config(rays_per_pixel=20))
+    packet = PACKET_LAUNCH_NAMES
+    must = {"bvh": ("bvh_walk",) + FORWARD_KERNELS, "auto": AUTO_KERNELS + FORWARD_KERNELS}
+    must_not = {"bvh": packet, "auto": ("bvh_walk",)}
+    launches = None
+    for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
+        scenes = {"bvh": bvh.with_config(rays_per_pixel=spp),
+                  "auto": full.with_config(rays_per_pixel=spp)}
+        out = _turns([(label, scenes[label]) for label in ("bvh", "auto", "auto", "bvh")],
+                     must, must_not, "13c", "bvh render")
+        seconds = _seconds_by_label(out)
+        print(f"phase 13c bvh render: spp={spp} seconds {json.dumps(seconds)} "
+              f"bvh vs auto images: {_image_gap(out[0][2], out[1][2])}")
+        if spp == MESH_FULL_SPP:
+            launches = out[0][4]["bvh_walk"]
+    _profile_block(bvh.with_config(rays_per_pixel=20), "bvh", ("bvh_walk_kernel",), "13c")
+    return launches
+
+
+def phase_bvh_train(full) -> None:
+    """13d: the train step (256×256 × 2 spp × 10 bounces, checkpointed, phase
+    10c's shape) through ``intersector="bvh"`` and through "auto", in turns
+    (bvh, auto, auto, bvh): 5 timed steps each after 2 warm-ups; the loss
+    must fall, every gradient be finite, and the walk's launches per step
+    equal the forward pass's (the backward pass walks no BVH)."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import diff
+
+    base = _resized(full, TRAIN["width"], TRAIN["height"]).with_config(**TRAIN)
+    rpp, bounces = TRAIN["rays_per_pixel"], TRAIN["bounces"]
+    true_params, _ = diff.split_params(base)
+    with torch.no_grad():
+        target = diff.render_radiance(true_params, base, TRAIN_SEED, rpp, bounces)
+    start = diff.params_to_numpy(true_params)
+    start["materials.diffuse_albedo"][:] = 0.5
+    scenes = {"bvh": base.with_config(intersector="bvh"), "auto": base}
+    walk = {"bvh": ("bvh_walk",), "auto": ("cull_tiles", "fused_closest_hit")}
+    medians = {}
+    for turn, label in enumerate(("bvh", "auto", "auto", "bvh")):
+        scene = scenes[label]
+        schedule = diff.calibrate_live_schedule(scene, seeds=(TRAIN_SEED, TRAIN_SEED + 1))
+        params = diff.params_from_numpy(start, base.device, requires_grad=True)
+        optimizer = torch.optim.Adam(diff.param_leaves(params), lr=TRAIN_LR)
+        step = diff.make_train_step(scene, optimizer, rpp, bounces, live_schedule=schedule,
+                                    checkpoint_bounces=True)
+        with torch.no_grad():
+            _zero_launch_counts()
+            diff.render_radiance(params, step.scene, TRAIN_SEED, rpp, bounces)
+            forward = _launch_counts()
+        for _ in range(TRAIN_WARMUP):
+            step(params, target, TRAIN_SEED)
+        torch.cuda.synchronize()
+        seconds, losses = [], []
+        _zero_launch_counts()
+        for _ in range(TRAIN_STEPS):
+            start_t = time.perf_counter()
+            loss = step(params, target, TRAIN_SEED)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - start_t)
+            losses.append(float(loss))
+        counts = _launch_counts()
+        finite = all(bool(torch.isfinite(p).all()) and bool(torch.isfinite(p.grad).all())
+                     for p in diff.param_leaves(params))
+        per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
+        ok_launches = all(per_step[k] == forward[k] > 0 for k in walk[label]) and all(
+            counts[k] == 0 for k in walk["auto" if label == "bvh" else "bvh"])
+        falling = losses[-1] < losses[0] and all(x == x for x in losses)
+        median = statistics.median(seconds)
+        medians.setdefault(label, []).append(round(median, 4))
+        print(f"phase 13d train step: torus intersector={label} turn={turn} "
+              f"checkpoint_bounces=True seconds_per_step={median:.4f} "
+              f"steps={[round(x, 4) for x in seconds]} "
+              f"paths_per_s={base.num_pixels * rpp / median:.6g} "
+              f"losses={[f'{x:.6g}' for x in losses]} "
+              f"launches_per_step={json.dumps(per_step)} "
+              f"forward_launches={json.dumps(forward)} finite={finite} "
+              f"loss_falling={falling} walk_launches_equal_forward={ok_launches}")
+        if not (finite and falling and ok_launches):
+            raise SystemExit(f"phase 13d failed: the {label} train step, turn {turn}")
+    print(f"phase 13d train step: median seconds per step {json.dumps(medians)}")
+
+
+def _key_check(scene, rows, b: int, timed: bool) -> dict:
+    """13e: the cullhit key kernel against its plain version on ``rows``
+    (keys and live count, both count modes, 0 mismatched bits) and, when
+    ``timed``, its time beside ray_keys' on the same rows, its plain time,
+    the boxes its rays tested and its bound."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    n, K, S = rows.shape[0], scene.num_clusters, scene.config.cull_split
+    boxes = (scene.cluster_min, scene.cluster_max, K, S)
+    bad, err = 0, 0.0
+    for count in (False, True):
+        got = rays.cullhit_keys(rows, *boxes, count, n)
+        want = rays.plain_cullhit_keys(rows, *boxes, count, n)
+        m, e = _bit_mismatch(got, want)
+        bad, err = bad + m, max(err, e)
+    live = int(rays.rows_alive(rows).sum())
+    line = (f"phase 13e cullhit keys vs plain: torus centre block bounce={b} rays={n} "
+            f"live={live} mismatched={bad}")
+    if bad:
+        print(line)
+        raise SystemExit(f"phase 13e failed: the cullhit key kernel differs from its plain "
+                         f"version (bounce {b})")
+    if not timed:
+        print(line)
+        return dict(max_abs_err=err)
+    tests = torch.zeros(1, dtype=torch.int64, device=rows.device)
+    rays.cullhit_keys(rows, *boxes, False, n, tests=tests)
+    ms = _cuda_ms(lambda: rays.cullhit_keys(rows, *boxes, False, n))
+    morton_ms = _cuda_ms(lambda: rays.ray_keys(rows, scene.min_coord, scene.inv_extent,
+                                               False, n))
+    plain_ms = _plain_ms(lambda: rays.plain_cullhit_keys(rows, *boxes, False, n))
+    nbytes = n * ROW_STATE_BYTES + n * 8 + 4 + K * S * 24
+    ops_ms = int(tests) * CULLHIT_BOX_OPS / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    print(f"{line} ms={ms:.4f} ray_keys_ms={morton_ms:.4f} plain_ms={plain_ms:.2f} "
+          f"box_tests_per_live_ray={int(tests) / max(live, 1):.2f} boxes={K * S} "
+          f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
+          f"bound_share={bound_ms / ms:.3f}")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ray_keys_ms=morton_ms)
+
+
+def phase_cullhit(full) -> tuple:
+    """13e: the cullhit key on the centre block's bounces 0-3 (traced as a
+    cullhit render traces it), then the torus at 1000×1000 × 8 spp with
+    ``sort_key="cullhit"`` and with the Morton key, in turns (morton,
+    cullhit, cullhit, morton): every framebuffer bit-identical → (the key
+    kernel's result at bounce 1, its launches in the first cullhit
+    render)."""
+    import torch
+
+    rpp, seed = 20, 80
+    scene = full.with_config(rays_per_pixel=rpp, sort_key="cullhit")
+    block_lo, block = _centre_block(scene, rpp)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    result = {}
+    for b, rows in _traced_rows(scene, ids, rpp, seed):
+        if b > 3:
+            break
+        r = _key_check(scene, rows, b, timed=b == 1)
+        result = r if b == 1 else result
+        result["max_abs_err"] = max(result.get("max_abs_err", 0.0), r["max_abs_err"])
+    scenes = {"morton": full.with_config(rays_per_pixel=MESH_FEW_SPP),
+              "cullhit": full.with_config(rays_per_pixel=MESH_FEW_SPP, sort_key="cullhit")}
+    must = {"morton": AUTO_KERNELS + FORWARD_KERNELS,
+            "cullhit": AUTO_KERNELS + ("cullhit_keys", "pcg_draws", "rays_setup",
+                                       "shade_rows")}
+    must_not = {"morton": ("cullhit_keys", "bvh_walk"), "cullhit": ("ray_keys", "bvh_walk")}
+    out = _turns([(label, scenes[label]) for label in ("morton", "cullhit", "cullhit",
+                                                       "morton")],
+                 must, must_not, "13e", "cullhit render")
+    same = all(torch.equal(fb, out[0][1]) for _, fb, _, _, _ in out)
+    seconds = _seconds_by_label(out)
+    print(f"phase 13e cullhit render: spp={MESH_FEW_SPP} seconds {json.dumps(seconds)} "
+          f"framebuffers_bit_identical={same}")
+    if not same:
+        raise SystemExit("phase 13e failed: the cullhit render differs from the Morton render")
+    return result, out[1][4]["cullhit_keys"]
+
+
+def phase_bvh(scenes) -> dict:
+    """Phase 13: the BVH intersector and the cullhit sort key."""
+    import torch
+
+    rpp, seed = 20, 80
+    full = scenes["torus"]
+    # 13a-b: the torus's centre block at bounces 0, 1 and 3 (timed, and
+    # against the packet engine), the glass torus's at bounces 0-3.
+    checked = {"torus": (0, 1, 3), "glass_torus": (0, 1, 2, 3)}
+    result, worst = {}, 0.0
+    for name, bounces in checked.items():
+        scene = scenes[name].with_config(rays_per_pixel=rpp, intersector="bvh")
+        block_lo, block = _centre_block(scene, rpp)
+        ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+        for b, rows in _traced_rows(scene, ids, rpp, seed):
+            if b > max(bounces):
+                break
+            if b not in bounces:
+                continue
+            timed = name == "torus"
+            r = _walk_check(scene, rows, f"{name} centre block lo={block_lo}", b, timed)
+            worst = max(worst, r["max_abs_err"])
+            if timed:
+                _walk_vs_packet(scene, scene.with_config(intersector="auto"), rows, b)
+            if timed and b == 1:  # the kernel table: the sorted bounced block
+                result = r
+    result["max_abs_err"] = worst
+    result["launches"] = phase_bvh_render(full)
+    phase_bvh_train(full)
+    key, key_launches = phase_cullhit(full)
+    return {"bvh_walk": result, "cullhit_keys": dict(key, launches=key_launches)}
+
+
 def main() -> int:
     import torch
 
@@ -2492,7 +2855,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     from cuda_raytracer_tpu_torch.ops.kernels import (
-        bounce, build, cull, fused, fused1, rays, shade, sweep)
+        bounce, build, cull, fused, fused1, rays, shade, sweep, traverse)
 
     device = torch.device("cuda")
     smi = _smi()
@@ -2502,7 +2865,7 @@ def main() -> int:
 
     start = time.perf_counter()
     built = build.load_all(KERNEL_SOURCES)
-    for module in (shade, cull, fused, fused1, sweep, bounce, rays):
+    for module in (shade, cull, fused, fused1, sweep, bounce, rays, traverse):
         module.library()  # bind the argument types
     for name, b in built.items():
         regs = [ln.strip() for ln in b.log.splitlines() if "registers" in ln]
@@ -2530,6 +2893,7 @@ def main() -> int:
     pack_launches = phase_pack_main_path(packed, scenes["torus"], framebuffer_100)
     del packed, framebuffer_100
     phase_sharding(scenes["torus"], gated["plain_cli"])
+    bvh = phase_bvh(scenes)
 
     kernels = [{
         "name": "shade_trace",
@@ -2676,6 +3040,32 @@ def main() -> int:
         "bound_by": pack_result["bound_by"],
         "library_ms": None,
     })
+    for name, source, replaces, note in (
+            # JAX's lockstep while_loop walk, not a TPU kernel; launches: the
+            # 100-spp torus render through intersector="bvh" (phase 13c).
+            ("bvh_walk", "cuda_raytracer_tpu_torch/csrc/traverse.cu",
+             "cuda_raytracer_tpu/ops/traverse.py:52", "bounce 1 of the centre block"),
+            # JAX first2_cluster_keys, plain XLA; launches: the 8-spp torus
+            # render with sort_key="cullhit" (phase 13e).
+            ("cullhit_keys", "cuda_raytracer_tpu_torch/csrc/rays.cu",
+             "cuda_raytracer_tpu/ops/morton.py:79", "bounce 1 of the centre block")):
+        r = bvh[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": r["launches"],
+            "max_abs_err": r["max_abs_err"],
+            "tolerance": "bit-equal",
+            "ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": None,
+            "timed_on": note,
+            **({"ray_keys_same_rows_ms": r["ray_keys_ms"]} if name == "cullhit_keys" else {}),
+        })
     # Each kernel's launches on its path beside its time and bound, ranked by
     # the device time a path loses to it: launches x (ms - bound_ms).
     for row in sorted(kernels, key=lambda r: -r["launches"] * (r["ms"] - r["bound_ms"])):

@@ -1,7 +1,7 @@
 // Host build of bounce.cu and rays.cu, for the CPU tests: each grid as a
 // loop over rays, each ray run through the same bodies the card runs
-// (rt::shade_packed_row in shading.cuh; rt::setup_ray, rt::ray_key and
-// rt::pcg_draws_ray in rays.cuh).
+// (rt::shade_packed_row in shading.cuh; rt::setup_ray, rt::ray_key, the
+// cullhit key's rt::first2_* and rt::pcg_draws_ray in rays.cuh).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libbounce_host.so bounce_host.cpp
 
@@ -44,6 +44,23 @@ int rt_host_ray_keys(const float* rows, int n, const float* min_coord,
     keys[i] = (long long)rt::ray_key(rows, i, min_coord, inv_extent, count != 0, chunk, live);
     *live_count += live ? 1 : 0;
   }
+  return 0;
+}
+
+// rt_cullhit_keys's arguments, without the stream: the whole box table as one
+// chunk.
+int rt_host_cullhit_keys(const float* rows, int n, const float* box_min, const float* box_max,
+                         int n_boxes, int split, int K, int count, int chunk, long long* keys,
+                         int* live_count, unsigned long long* tests) {
+  *live_count = 0;
+  unsigned long long done_tests = 0;
+  for (int i = 0; i < n; ++i) {
+    rt::First2 f = rt::first2_begin(rows, i, K);
+    rt::first2_scan(f, box_min, box_max, 0, n_boxes, split, done_tests);
+    keys[i] = (long long)rt::first2_key(f, K, count != 0, i, chunk);
+    *live_count += f.live ? 1 : 0;
+  }
+  if (tests) *tests += done_tests;
   return 0;
 }
 

@@ -15,6 +15,10 @@
 //     the "count" engine's clamped bucket when asked, with its sort chunk's
 //     index in the high 32 bits, so one flat stable sort orders every chunk
 //     on its own;
+//   - first2_begin / first2_scan / first2_key: a row's "cullhit" sort key
+//     (ops/morton.first2_cluster_keys), its first two distinct slab-hit
+//     cluster ids packed fh << 21 | sh << 10, with ray_key's count bucket and
+//     chunk index;
 //   - pcg_draws_ray: the first raw draws of a ray's PCG stream seeded with
 //     ray_id * ray_mult + seed_add (mod 2^32): the camera's jitter
 //     (ops/camera.initial_ray_seeds, two draws) and a bounce's shading
@@ -103,6 +107,16 @@ constexpr uint32_t kDeadRayKey = 0xFFFFFFFFu;
 constexpr int kCountShift = 23;    // the count engine's bucket: the key's top bits
 constexpr uint32_t kCountDead = 255u;  // its dead-ray bucket; live ones clamp to 254
 
+// Finishes a 32-bit key as ray_key does: with `count` the count engine's
+// bucket (live: min(key >> 23, 254); dead: 255), then (i / chunk) << 32.
+RT_HD unsigned long long finish_key(uint32_t key, bool live, bool count, int i, int chunk) {
+  if (count) {
+    const uint32_t bucket = key >> kCountShift;
+    key = live ? (bucket < kCountDead - 1 ? bucket : kCountDead - 1) : kCountDead;
+  }
+  return ((unsigned long long)(uint32_t)(i / chunk) << 32) | key;
+}
+
 // Row i's sort key: the 32-bit Morton key (kDeadRayKey for a dead ray), or
 // with `count` its bucket, plus (i / chunk) << 32. Sets `live`.
 RT_HD unsigned long long ray_key(const float* rows, int i, const float* min_coord,
@@ -117,12 +131,92 @@ RT_HD unsigned long long ray_key(const float* rows, int i, const float* min_coor
                                    clamp01_nan((a.z - min_coord[2]) * inv_extent[2]));
   const uint32_t code_d =
       morton15(0.5f * (a.w + 1.0f), 0.5f * (b.x + 1.0f), 0.5f * (b.y + 1.0f));
-  uint32_t key = live ? (code_o << 16) | code_d : kDeadRayKey;
-  if (count) {
-    const uint32_t bucket = key >> kCountShift;
-    key = live ? (bucket < kCountDead - 1 ? bucket : kCountDead - 1) : kCountDead;
+  return finish_key(live ? (code_o << 16) | code_d : kDeadRayKey, live, count, i, chunk);
+}
+
+// A ray's search for its first two distinct slab-hit cluster ids (fh, sh),
+// K meaning "none"; done once both are found, or from the start for a dead
+// ray.
+struct First2 {
+  float o[3];
+  float inv[3];
+  int fh;
+  int sh;
+  bool live;
+  bool done;
+};
+
+// Row i's origin, direction (as first2_cluster_keys inverts it: 1 / d, with
+// d == 0 read as 1e-30) and alive bit.
+RT_HD First2 first2_begin(const float* rows, int i, int K) {
+  const float* row = rows + kRowWords * (size_t)i;
+  const Row4 a = load_row4(row);
+  const Row4 b = load_row4(row + 4);
+  const Row4 c = load_row4(row + 8);
+  First2 f;
+  const float d[3] = {a.w, b.x, b.y};
+  f.o[0] = a.x;
+  f.o[1] = a.y;
+  f.o[2] = a.z;
+  for (int k = 0; k < 3; ++k) f.inv[k] = 1.0f / (d[k] == 0.0f ? 1e-30f : d[k]);
+  f.fh = K;
+  f.sh = K;
+  f.live = row_alive(b, c);
+  f.done = !f.live;
+  return f;
+}
+
+// first2_cluster_keys' unwindowed slab test of one box: entry (floored at 0)
+// <= exit. torch's min / max propagate NaN, so any NaN plane parameter is a
+// miss; without one, the order and the sign of a zero tie cannot change the
+// comparison.
+RT_HD bool first2_hit(const float o[3], const float inv[3], const float* lo, const float* hi) {
+  float near = 0.0f;
+  float far = 0.0f;
+  bool nan = false;
+  for (int a = 0; a < 3; ++a) {
+    const float t1 = (lo[a] - o[a]) * inv[a];
+    const float t2 = (hi[a] - o[a]) * inv[a];
+    nan = nan || t1 != t1 || t2 != t2;
+    const float mn = t1 < t2 ? t1 : t2;
+    const float mx = t1 < t2 ? t2 : t1;
+    near = a == 0 || mn > near ? mn : near;
+    far = a == 0 || mx < far ? mx : far;
   }
-  return ((unsigned long long)(uint32_t)(i / chunk) << 32) | key;
+  return !nan && (near > 0.0f ? near : 0.0f) <= far;
+}
+
+// Boxes r0 .. r0 + m - 1 of the table (box_min, box_max: m rows of 3 floats
+// each, row r0 first), in ascending order: the first hit's id r / split is
+// fh, the next hit with another id is sh, and the search is done. Ids ascend
+// with rows, so this is first2_cluster_keys' chunked merge; its padding point
+// boxes (ids >= K) never change (fh, sh) and are not tested.
+RT_HD void first2_scan(First2& f, const float* box_min, const float* box_max, int r0, int m,
+                       int split, unsigned long long& tests) {
+  for (int j = 0; j < m && !f.done; ++j) {
+    ++tests;
+    if (!first2_hit(f.o, f.inv, box_min + 3 * j, box_max + 3 * j)) continue;
+    const int id = (r0 + j) / split;
+    if (f.fh == f.sh) {  // still K: nothing found yet
+      f.fh = id;
+    } else if (id != f.fh) {
+      f.sh = id;
+      f.done = true;
+    }
+  }
+}
+
+// The finished search's key: ids squeezed to 11 bits when K + 1 > 2048,
+// fh << 21 | sh << 10 (kDeadRayKey for a dead ray), then finish_key.
+RT_HD unsigned long long first2_key(const First2& f, int K, bool count, int i, int chunk) {
+  long long fh = f.fh;
+  long long sh = f.sh;
+  if (K + 1 > 2048) {
+    fh = fh * 2047 / K;
+    sh = sh * 2047 / K;
+  }
+  const uint32_t key = f.live ? ((uint32_t)fh << 21) | ((uint32_t)sh << 10) : kDeadRayKey;
+  return finish_key(key, f.live, count, i, chunk);
 }
 
 // Ray i's first n_draws raw PCG draws → draws[k * n_rays + i] (int64

@@ -103,9 +103,8 @@ class Camera:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Render settings. Every field and default of the JAX ``RenderConfig``
-    is kept, so a config carries across packages unchanged; the port reads
-    the ones its ported paths use and rejects the rest where they would
-    select a path it does not have yet."""
+    is kept, so a config carries across packages unchanged, and the port
+    selects its paths from them as the JAX package does."""
 
     width: int = 1920
     height: int = 1080
@@ -119,8 +118,8 @@ class RenderConfig:
     # Brute scenes never reorder, so the port's brute path ignores it.
     sort_rays: bool = True
     sort_depth: int = 5
-    # Triangle intersector: "auto", "brute", "packet" or "bvh". The port
-    # has the brute intersector only.
+    # Triangle intersector: "auto" (brute up to 512 triangles, packet
+    # above), "brute", "packet" or "bvh" (the per-ray BVH walk).
     intersector: str = "auto"
     packet_tile: int = 64
     packet_cap: int = 64
@@ -135,6 +134,8 @@ class RenderConfig:
     shade_engine: str = "auto"
     cluster_pack: int = 1
     sort_engine: str = "auto"
+    # Reorder key: "morton", or "cullhit" / "auto" (the first two slab-hit
+    # cluster ids on a packet scene, the Morton key otherwise).
     sort_key: str = "morton"
     live_schedule: tuple = ()
 

@@ -3,7 +3,7 @@
 Batched over a leading ray axis and vectorised over primitives as (rays x
 prims) tiles. Epsilons and acceptance rules match the reference: hit
 distance >= 0.005, strict closest-hit comparisons, first index wins ties.
-The slab test ``ray_aabb`` belongs to the mesh path and is not ported yet.
+``ray_aabb`` is the BVH walk's slab test (``ops/traverse.py``).
 """
 
 from __future__ import annotations
@@ -124,3 +124,25 @@ def intersect_triangles_brute(
         & (t >= HIT_EPS)
     )
     return _closest(torch.where(valid, t, MISS))
+
+
+def ray_aabb(
+    origin: torch.Tensor,  # (..., 3)
+    inv_direction: torch.Tensor,  # (..., 3)
+    box_min: torch.Tensor,  # (..., 3)
+    box_max: torch.Tensor,  # (..., 3)
+    tmax: torch.Tensor,  # (...)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Branchless Tavian slab test (scene.cu:107-132): per-axis near / far
+    planes folded into the window [0, tmax] with NaN-propagating
+    ``torch.minimum`` / ``torch.maximum``, in the JAX operand order, the entry
+    floored at 0. Returns (hit, tmin)."""
+    t1 = (box_min - origin) * inv_direction
+    t2 = (box_max - origin) * inv_direction
+    tmin = torch.zeros_like(tmax)
+    for axis in range(3):
+        a = t1[..., axis]
+        b = t2[..., axis]
+        tmin = torch.minimum(torch.maximum(a, tmin), torch.maximum(b, tmin))
+        tmax = torch.maximum(torch.minimum(a, tmax), torch.minimum(b, tmax))
+    return tmin <= tmax, tmin

@@ -10,7 +10,7 @@ from __future__ import annotations
 
 def _counters():
     from cuda_raytracer_tpu_torch.ops.kernels import (
-        bounce, cull, fused, fused1, rays, shade, sweep)
+        bounce, cull, fused, fused1, rays, shade, sweep, traverse)
 
     return {"shade_trace": (shade, "LAUNCHES"), "cull_tiles": (cull, "LAUNCHES"),
             "cull_gated": (cull, "LAUNCHES_GATED"),
@@ -19,7 +19,8 @@ def _counters():
             "fused1_closest_hit_pack2": (fused1, "LAUNCHES_PACK2"),
             "sweep_pairs": (sweep, "LAUNCHES"), "shade_rows": (bounce, "LAUNCHES"),
             "rays_setup": (rays, "LAUNCHES_SETUP"), "ray_keys": (rays, "LAUNCHES_KEYS"),
-            "pcg_draws": (rays, "LAUNCHES_DRAWS")}
+            "cullhit_keys": (rays, "LAUNCHES_CULLHIT"), "pcg_draws": (rays, "LAUNCHES_DRAWS"),
+            "bvh_walk": (traverse, "LAUNCHES")}
 
 
 def launch_counts() -> dict:

@@ -4,7 +4,8 @@ The forward mesh bounce (``render/wavefront.trace_packed``) holds its
 wavefront as one (R, 16) float32 buffer of rows ``[origin direction
 transmitted collected ray_id pad]`` (``wavefront.pack_rows``). Around its
 closest-hit and shading kernels it used to issue a few dozen torch ops a
-bounce; three kernels take their place:
+bounce; these kernels take their place (the cullhit key joins them for
+``sort_key="cullhit"``):
 
 - ``rays_setup``: each row's alive bit, its closest sphere hit with ``t =
   -1`` on a dead ray (``wavefront.closest_hit``'s sphere part; JAX
@@ -15,6 +16,9 @@ bounce; three kernels take their place:
   ``ops/morton.py`` ``ray_sort_keys``), the "count" engine's clamped bucket
   where asked, its sort chunk's index in the high 32 bits (one flat stable
   sort then orders each chunk on its own), and the live count as one int32.
+- ``cullhit_keys``: the same for the packet scenes' "cullhit" key, each
+  row's first two distinct slab-hit cluster ids (``morton.first2_cluster_keys``;
+  JAX ``ops/morton.py`` ``first2_cluster_keys``).
 - ``pcg_draws``: each ray's first raw PCG draws, (n, R) int64 holding
   uint32, its stream seeded with ``ray_id * ray_mult + seed_add`` mod 2^32
   (``rng.uniforms``; JAX ``ops/rng.py`` ``uniforms``): the camera's jitter
@@ -22,9 +26,9 @@ bounce; three kernels take their place:
   bounce (``bounce_draws``: ``rng.uniforms(bounce_seeds(...), 5)``).
 
 Each is one thread per ray and counts its launches (``LAUNCHES_SETUP``,
-``LAUNCHES_KEYS``, ``LAUNCHES_DRAWS``). On a CUDA tensor it launches its
-kernel or raises; on a CPU tensor it runs its plain PyTorch version, the
-torch code it replaced, with the same outputs bit for bit.
+``LAUNCHES_KEYS``, ``LAUNCHES_CULLHIT``, ``LAUNCHES_DRAWS``). On a CUDA
+tensor it launches its kernel or raises; on a CPU tensor it runs its plain
+PyTorch version, with the same outputs bit for bit.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ CHUNK_SHIFT = 32  # the sort chunk's index sits above the 32-bit key
 # Kernel launches made in this process (CUDA tensors only).
 LAUNCHES_SETUP = 0
 LAUNCHES_KEYS = 0
+LAUNCHES_CULLHIT = 0
 LAUNCHES_DRAWS = 0
 
 
@@ -67,8 +72,9 @@ def library() -> build.Built:
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
     built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
+    built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, p, p, p, p]
     built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
-    for name in ("rt_rays_setup", "rt_ray_keys", "rt_pcg_draws"):
+    for name in ("rt_rays_setup", "rt_ray_keys", "rt_cullhit_keys", "rt_pcg_draws"):
         getattr(built.lib, name).restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -152,10 +158,17 @@ def plain_ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torc
     ``count``, plus ``(i // chunk) << 32``."""
     alive = rows_alive(rows)
     keys = morton.ray_sort_keys(rows[:, 0:3], rows[:, 3:6], alive, min_coord, inv_extent)
+    return _finish_keys(keys, alive, count, chunk)
+
+
+def _finish_keys(keys: torch.Tensor, alive: torch.Tensor, count: bool, chunk: int):
+    """32-bit keys → the key kernels' outputs: with ``count`` the count
+    engine's bucket (live: min(key >> 23, 254); dead: 255), plus ``(i //
+    chunk) << 32``; and the live count, (1,) int32."""
     if count:
         keys = torch.where(alive, torch.clamp(keys >> COUNT_BUCKET_SHIFT,
                                               max=COUNT_BUCKETS - 2), COUNT_BUCKETS - 1)
-    chunks = torch.arange(rows.shape[0], device=rows.device) // chunk
+    chunks = torch.arange(keys.shape[0], device=keys.device) // chunk
     return keys | (chunks << CHUNK_SHIFT), alive.sum().to(torch.int32).reshape(1)
 
 
@@ -172,9 +185,7 @@ def ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torch.Tens
     ``count`` its bucket (live: min(key >> 23, 254); dead: 255), plus
     ``(i // chunk) << 32``."""
     global LAUNCHES_KEYS
-    _check_rows(rows)
-    if chunk < 1:
-        raise ValueError(f"chunk must be positive, got {chunk}")
+    _check_keys(rows, chunk)
     for name, x in (("min_coord", min_coord), ("inv_extent", inv_extent)):
         if x.dtype != torch.float32 or x.shape != (3,) or not x.is_contiguous():
             raise ValueError(f"{name} must be a contiguous (3,) float32")
@@ -188,6 +199,75 @@ def ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torch.Tens
                               _stream(rows))
     raise_on_error(lib, err, "ray_keys")
     LAUNCHES_KEYS += 1
+    return keys, live
+
+
+def _check_keys(rows: torch.Tensor, chunk: int) -> None:
+    _check_rows(rows)
+    if chunk < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+
+
+# ---- cullhit_keys ----------------------------------------------------------
+
+
+def plain_cullhit_keys(rows: torch.Tensor, box_min: torch.Tensor, box_max: torch.Tensor,
+                       num_clusters: int, cull_split: int, count: bool, chunk: int):
+    """The cullhit key kernel's plain PyTorch version → (keys (n,) int64,
+    live count (1,) int32): ``morton.first2_cluster_keys`` of the rows, the
+    count engine's bucket where ``count``, plus ``(i // chunk) << 32``."""
+    alive = rows_alive(rows)
+    keys = morton.first2_cluster_keys(rows[:, 0:3], rows[:, 3:6], alive, box_min, box_max,
+                                      num_clusters, cull_split)
+    return _finish_keys(keys, alive, count, chunk)
+
+
+def cullhit_args(rows, box_min, box_max, num_clusters, cull_split, count, chunk, keys, live,
+                 tests) -> list:
+    """The arguments of ``rt_cullhit_keys`` (and of its host build), without the stream."""
+    return [rows.data_ptr(), rows.shape[0], box_min.data_ptr(), box_max.data_ptr(),
+            num_clusters * cull_split, cull_split, num_clusters, int(bool(count)), chunk,
+            keys.data_ptr(), live.data_ptr(), tests.data_ptr() if tests is not None else None]
+
+
+def cullhit_keys(rows: torch.Tensor, box_min: torch.Tensor, box_max: torch.Tensor,
+                 num_clusters: int, cull_split: int, count: bool, chunk: int,
+                 tests: torch.Tensor = None):
+    """(n, 16) packed rows and the scene's cluster boxes (at least
+    ``num_clusters * cull_split`` rows of (3,) min and max corners) → (keys
+    (n,) int64, live rows (1,) int32). A key is row i's first two distinct
+    slab-hit cluster ids packed ``fh << 21 | sh << 10``
+    (``morton.DEAD_RAY_KEY`` on a dead row), or with ``count`` its bucket,
+    plus ``(i // chunk) << 32``. ``tests``, a (1,) int64 tensor on the card,
+    gets the boxes the rays tested added to it."""
+    global LAUNCHES_CULLHIT
+    _check_keys(rows, chunk)
+    n_boxes = num_clusters * cull_split
+    if num_clusters < 1 or cull_split < 1:
+        raise ValueError("num_clusters and cull_split must be positive")
+    box_min, box_max = box_min[:n_boxes], box_max[:n_boxes]
+    for name, x in (("box_min", box_min), ("box_max", box_max)):
+        if x.dtype != torch.float32 or x.shape != (n_boxes, 3) or not x.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous ({n_boxes}, 3) float32 (or longer)")
+        if x.device != rows.device:
+            raise ValueError(f"{name} is on {x.device}, the rows on {rows.device}")
+    if device_kind(rows, "cullhit_keys") == "cpu":
+        if tests is not None:
+            raise ValueError("tests counts the kernel's work: CUDA tensors only")
+        return plain_cullhit_keys(rows, box_min, box_max, num_clusters, cull_split, count,
+                                  chunk)
+    if tests is not None and (tests.dtype != torch.int64 or tests.shape != (1,)
+                              or tests.device != rows.device):
+        raise ValueError("tests must be a (1,) int64 tensor on the rows' device")
+    keys = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
+    live = torch.empty(1, dtype=torch.int32, device=rows.device)
+    lib = library().lib
+    with torch.cuda.device(rows.device):
+        err = lib.rt_cullhit_keys(*cullhit_args(rows, box_min, box_max, num_clusters,
+                                                cull_split, count, chunk, keys, live, tests),
+                                  _stream(rows))
+    raise_on_error(lib, err, "cullhit_keys")
+    LAUNCHES_CULLHIT += 1
     return keys, live
 
 

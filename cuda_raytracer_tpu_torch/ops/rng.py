@@ -147,6 +147,12 @@ def to_radians(bits: torch.Tensor) -> torch.Tensor:
     return bits.to(torch.float32) * TWO_PI_INV_UINT_MAX
 
 
+def random01(state: PcgState) -> Tuple[PcgState, torch.Tensor]:
+    """Advance once → (new state, the draw as a [0, 1] float32)."""
+    state, bits = pcg_next(state)
+    return state, to_01(bits)
+
+
 def on_sphere_from_bits(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
     """Uniform point on the unit sphere from two raw draws: r1 ∈ [0, 2π),
     r2 ∈ [0, 2], z = 1 - r2, ring radius sqrt(r2 * (2 - r2)). (..., 3)."""
@@ -154,3 +160,11 @@ def on_sphere_from_bits(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Ten
     r2 = to_02(bits_b)
     x = torch.sqrt(r2 * (2.0 - r2))
     return torch.stack([torch.cos(r1) * x, torch.sin(r1) * x, 1.0 - r2], dim=-1)
+
+
+def random_on_sphere(state: PcgState) -> Tuple[PcgState, torch.Tensor]:
+    """Advance twice → (new state, a uniform point on the unit sphere,
+    (..., 3)), as random.cuh:63-75 draws it."""
+    state, a = pcg_next(state)
+    state, b = pcg_next(state)
+    return state, on_sphere_from_bits(a, b)

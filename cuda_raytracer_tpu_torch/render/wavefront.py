@@ -16,12 +16,14 @@ CUDA device. A forward trace (no autograd graph to build) runs on packed
 rows (``trace_packed``): per bounce the set-up, closest-hit and bounce
 kernels (``ops/kernels/rays.py``, ``ops/kernels/bounce.py``) on a CUDA
 device, their plain versions (this module's torch shading) on the CPU. A
-trace that builds a graph shades with torch (``trace_rays``). Between
-bounces the wavefront is reordered by Morton key
-(chunk-local, see ``SORT_CHUNK``), and each bounce runs on the smallest
-static prefix that holds every live ray (dead-ray compaction); a final
-by-ray-id unsort restores pixel order. The BVH intersector belongs to a
-later slice; asking for it raises ``NotImplementedError``.
+trace that builds a graph shades with torch (``trace_rays``). With
+``intersector="bvh"`` the closest hit walks the BVH instead
+(``ops/traverse.py``: one thread per ray in ``csrc/traverse.cu`` on the
+card, the lockstep walk on the CPU). Between bounces the wavefront is
+reordered by Morton key, or for a packet scene by ``sort_key="cullhit"``'s
+first two slab-hit cluster ids (chunk-local, see ``SORT_CHUNK``), and each
+bounce runs on the smallest static prefix that holds every live ray
+(dead-ray compaction); a final by-ray-id unsort restores pixel order.
 
 Differentiation (``render/diff.py``): radiance is ``collected += emitted ⊙
 transmitted`` with ``transmitted`` a product of gathered albedos, so
@@ -48,15 +50,14 @@ import torch.utils.checkpoint
 
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops import camera as camera_ops
-from cuda_raytracer_tpu_torch.ops import envmap, intersect, packet_intersect, rng, vecmath
+from cuda_raytracer_tpu_torch.ops import (envmap, intersect, packet_intersect, rng, traverse,
+                                          vecmath)
 from cuda_raytracer_tpu_torch.ops.kernels import bounce as bounce_kernel
 from cuda_raytracer_tpu_torch.ops.kernels import rays as rays_kernel
 
 # Bounces whose closest hit uses the "pallas" engine's two-round sweep (the
 # wavefront is still large there but has lost primary-ray coherence).
 TWO_ROUND_BOUNCES = (1, 2)
-
-_LATER = "is not ported yet (see ROADMAP.md queue A)"
 
 
 class RayState(NamedTuple):
@@ -121,8 +122,9 @@ def triangle_hit(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
             two_round=two_round and cfg.packet_backend == "pallas",
             skip=cfg.packet_skip,
         )
-    if mode != "brute":
-        raise NotImplementedError(f"the {mode!r} intersector {_LATER}")
+    if mode == "bvh":
+        t, index = traverse.bvh_closest_hit(scene, origin, direction, t, index)
+        return t, index, 0
     t_tri, i_tri = intersect.intersect_triangles_brute(
         origin, direction, scene.tri_p1, scene.tri_e1, scene.tri_e2
     )
@@ -615,17 +617,23 @@ def unpack_rows(packed: torch.Tensor) -> RayState:
     )
 
 
+def sort_key_mode(scene: Scene) -> str:
+    """The reorder's key: "cullhit" (the first two slab-hit cluster ids) for a
+    packet scene with ``sort_key`` "cullhit" or "auto", else "morton", as
+    the JAX package resolves it."""
+    key_mode = scene.config.sort_key
+    if key_mode == "auto":
+        key_mode = "cullhit"
+    if key_mode == "cullhit" and resolved_intersector(scene) == "packet":
+        return "cullhit"
+    return "morton"
+
+
 def _sort_engine(scene: Scene, chunk: int) -> str:
-    """The sort engine of a ``chunk``-ray sort; rejects an unknown engine
-    and the unported "cullhit" key."""
+    """The sort engine of a ``chunk``-ray sort; rejects an unknown engine."""
     engine = scene.config.sort_engine
     if engine not in SORT_ENGINES:
         raise ValueError(f"unknown sort_engine {engine!r}; expected one of {SORT_ENGINES}")
-    key_mode = scene.config.sort_key
-    if key_mode == "auto":
-        key_mode = "cullhit" if resolved_intersector(scene) == "packet" else "morton"
-    if key_mode == "cullhit" and resolved_intersector(scene) == "packet":
-        raise NotImplementedError(f"the 'cullhit' sort key {_LATER}")
     if engine == "auto":
         engine = "count" if chunk <= 1 << 17 else "argsort"
     return engine
@@ -635,17 +643,25 @@ def sort_order(scene: Scene, rows: torch.Tensor, chunk: int):
     """The reorder's permutation of packed rows, ``chunk``-local → (order
     (n,) int64, live rows (1,) int32 on the device). Both of the JAX
     package's engines are stable sorts, so each one's permutation is one
-    stable torch sort: ``"argsort"`` on the whole Morton key, ``"count"`` on
-    the key's bucket (its matmul counting sort is a TPU device); the keys
-    (``rays.ray_keys``) carry the chunk index above the key, so one flat
-    sort keeps every ray in its chunk. Dead rays land last in every chunk."""
+    stable torch sort: ``"argsort"`` on the whole key, ``"count"`` on the
+    key's bucket (its matmul counting sort, ``ops/sort.py``, is a TPU
+    device); the keys (``rays.ray_keys`` for the Morton key,
+    ``rays.cullhit_keys`` for "cullhit") carry the chunk index above the key,
+    so one flat sort keeps every ray in its chunk. Dead rays land last in
+    every chunk."""
     count = _sort_engine(scene, chunk) == "count"
-    keys, live = rays_kernel.ray_keys(rows, scene.min_coord, scene.inv_extent, count, chunk)
+    if sort_key_mode(scene) == "cullhit":
+        keys, live = rays_kernel.cullhit_keys(rows, scene.cluster_min, scene.cluster_max,
+                                              scene.num_clusters, scene.config.cull_split,
+                                              count, chunk)
+    else:
+        keys, live = rays_kernel.ray_keys(rows, scene.min_coord, scene.inv_extent, count,
+                                          chunk)
     return torch.argsort(keys, stable=True), live
 
 
 def reorder_rays(scene: Scene, state: RayState, chunk_size: int = None) -> RayState:
-    """Morton-key sort of the wavefront (the reference's radix-sort step,
+    """Coherence-key sort of the wavefront (the reference's radix-sort step,
     raytracing.cu:238-247), chunk-local (``sort_order``); ``"auto"`` picks
     count up to 2^17-ray chunks, argsort above, as the JAX package does."""
     packed = pack_rows(state)

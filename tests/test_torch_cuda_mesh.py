@@ -26,6 +26,10 @@ and fused split over several blocks per tile are held bit-equal to their
 plain versions (fused with and without its skip test),
 and the bounce kernel to the torch shading under the shade gate; a forward
 render launches the bounce kernel and a graph-building pass does not.
+The BVH walk kernel (``intersector="bvh"``) and the "cullhit" key kernel
+are held bit-equal to their plain versions (dead rays, a ragged last block,
+the packed rows' strided columns), a BVH render and a cullhit render launch
+their kernels, and an unsupported input on the card raises.
 """
 
 import pytest
@@ -33,7 +37,9 @@ import torch
 
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import packet_intersect
-from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, shade, sweep
+from cuda_raytracer_tpu_torch.ops import intersect, traverse
+from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, rays, shade, sweep
+from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
 from cuda_raytracer_tpu_torch.render import diff, pipeline, wavefront
 
 pytestmark = pytest.mark.cuda
@@ -404,3 +410,76 @@ def test_fused_split_bit_equal_plain(cuda):
                                               mask if skip else None, splits=splits)
                 assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
                     skip, splits)
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+def test_bvh_walk_bit_equal_plain(cuda, name):
+    scene = _scene(cuda, name, intersector="bvh")
+    for state in _states(scene, bounces=3):
+        rows = wavefront.pack_rows(state)[:-5]  # a ragged last block of threads
+        alive = rays.rows_alive(rows)
+        t0, i0 = intersect.intersect_spheres(
+            rows[:, 0:3], rows[:, 3:6], scene.sphere_center, scene.sphere_radius)
+        t0 = torch.where(alive, t0, -1.0)  # dead rays: no work
+        before = traverse_kernel.LAUNCHES
+        got = traverse.bvh_closest_hit(scene, rows[:, 0:3], rows[:, 3:6], t0, i0)
+        assert traverse_kernel.LAUNCHES == before + 1
+        want = traverse.plain_bvh_closest_hit(scene, rows[:, 0:3], rows[:, 3:6], t0, i0)
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+        assert (got[0][~alive] == -1).all()
+
+
+def test_bvh_render_launches_the_walk_and_refuses_bad_inputs(cuda):
+    scene = _scene(cuda, intersector="bvh", rays_per_pixel=2, bounces=3)
+    before = (traverse_kernel.LAUNCHES, cull.LAUNCHES, fused.LAUNCHES)
+    fb = pipeline.render_framebuffer(scene)
+    assert torch.isfinite(fb).all()
+    assert traverse_kernel.LAUNCHES > before[0]
+    assert (cull.LAUNCHES, fused.LAUNCHES) == before[1:]
+    o = torch.zeros((8, 3), device=cuda)
+    t = torch.full((8,), 1e30, device=cuda)
+    i = torch.full((8,), -1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="int32"):
+        traverse.bvh_closest_hit(scene, o, o, t, i.long())
+    with pytest.raises(ValueError, match="unit column stride"):
+        traverse.bvh_closest_hit(scene, o, o.t().contiguous().t(), t, i)
+    # A chain of 31 inner nodes, each with a leaf child: one level deeper
+    # than the walk's stack holds.
+    depth = traverse.MAX_BVH_DEPTH + 1
+    child1 = [v for k in range(depth) for v in (2 * k + 1, 0)] + [1]
+    child2 = [v for k in range(depth) for v in (2 * k + 2, 0)] + [0]
+    box = torch.full((len(child1), 3), -10.0, device=cuda)
+    deep = scene.replace(bvh_min=box, bvh_max=-box,
+                         bvh_child1=torch.tensor(child1, dtype=torch.int32, device=cuda),
+                         bvh_child2=torch.tensor(child2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="MAX_BVH_DEPTH"):
+        traverse.bvh_closest_hit(deep, o, o, t, i)
+
+
+def test_cullhit_keys_bit_equal_plain(cuda):
+    scene = _scene(cuda, sort_key="cullhit")
+    K, S = scene.num_clusters, scene.config.cull_split
+    for state in _states(scene, bounces=3):
+        rows = wavefront.pack_rows(state)[:-3]
+        for count in (False, True):
+            for chunk in (rows.shape[0], 1000):
+                before = rays.LAUNCHES_CULLHIT
+                got = rays.cullhit_keys(rows, scene.cluster_min, scene.cluster_max, K, S,
+                                        count, chunk)
+                assert rays.LAUNCHES_CULLHIT == before + 1
+                want = rays.plain_cullhit_keys(rows, scene.cluster_min, scene.cluster_max,
+                                               K, S, count, chunk)
+                assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    with pytest.raises(ValueError, match="box_min"):
+        rays.cullhit_keys(rows, scene.cluster_min[:2], scene.cluster_max, K, S, False, 64)
+
+
+def test_cullhit_render_launches_its_keys_and_matches_morton(cuda):
+    scene = _scene(cuda, rays_per_pixel=4, bounces=4)
+    ref = pipeline.render_framebuffer(scene)
+    before = (rays.LAUNCHES_CULLHIT, rays.LAUNCHES_KEYS)
+    fb = pipeline.render_framebuffer(scene.with_config(sort_key="cullhit"))
+    assert rays.LAUNCHES_CULLHIT > before[0] and rays.LAUNCHES_KEYS == before[1]
+    assert torch.equal(fb, ref)

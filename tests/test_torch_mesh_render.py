@@ -102,15 +102,21 @@ def test_certificate_retries_then_raises():
 
 
 def test_regime_and_unported_paths():
+    """The paths once unported run: the "cullhit" and "auto" sort keys
+    reorder (a permutation of the rays) and render the Morton key's bits;
+    the BVH intersector renders the packet intersector's image at the
+    per-pixel gate (equal-distance ties may pick other triangles)."""
     _, ts = _both("torus")
     # "auto" is the plain xla engine on the CPU and cull + fused on the card.
     assert packet_intersect.resolve_backend("auto", ts.device) == "xla"
     assert packet_intersect.resolve_backend("auto", torch.device("cuda")) == "fused"
+    ref = pipeline.render_framebuffer(ts)
+    state = wavefront.make_initial_state(ts, torch.arange(64, dtype=torch.int32), 4, 0)
     for key in ("cullhit", "auto"):
-        state = wavefront.make_initial_state(ts, torch.arange(64, dtype=torch.int32), 4, 0)
-        with pytest.raises(NotImplementedError, match="cullhit"):
-            wavefront.reorder_rays(ts.with_config(sort_key=key), state)
+        reordered = wavefront.reorder_rays(ts.with_config(sort_key=key), state)
+        assert sorted(reordered.ray_id.tolist()) == list(range(64))
+        assert torch.equal(pipeline.render_framebuffer(ts.with_config(sort_key=key)), ref)
     with pytest.raises(ValueError, match="sort_engine"):
         wavefront.reorder_rays(ts.with_config(sort_engine="radix"), state)
-    with pytest.raises(NotImplementedError, match="bvh"):
-        pipeline.render_framebuffer(ts.with_config(intersector="bvh"))
+    bvh = pipeline.render_framebuffer(ts.with_config(intersector="bvh"))
+    assert_pixels_agree(bvh.numpy(), ref.numpy())

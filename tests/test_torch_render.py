@@ -126,11 +126,19 @@ def test_unported_paths_raise():
     _, ts = build_both(builtin_scenes.CORNELL, dict(width=4, height=4))
     state = wavefront.make_initial_state(ts, torch.arange(16, dtype=torch.int32), 1, 0)
     # The packet intersector and the Morton reorder are ported (see
-    # test_torch_mesh_render.py); the BVH walk is not, sorted or not.
+    # test_torch_mesh_render.py), and so is the BVH walk (see
+    # test_torch_traverse.py): a Cornell trace through it, sorted or not,
+    # gives JAX's BVH trace's radiance per ray at the agreement gate.
+    js, ts_bvh = build_both(builtin_scenes.CORNELL, dict(width=4, height=4,
+                                                         intersector="bvh"))
+    assert wavefront.resolved_intersector(ts_bvh) == "bvh"
     for sort_rays in (False, True):
-        with pytest.raises(NotImplementedError, match="bvh"):
-            wavefront.trace_wavefront(ts.with_config(intersector="bvh"), state, 0, 2,
-                                      sort_rays=sort_rays)
+        jstate = jwavefront.make_initial_state(js, jnp.arange(16, dtype=jnp.int32), 1, 0)
+        jstate, _ = jwavefront.trace_wavefront(js, jstate, 0, 2, sort_rays=sort_rays)
+        traced, suspect = wavefront.trace_wavefront(ts_bvh, state, 0, 2, sort_rays=sort_rays)
+        assert int(suspect) == 0
+        got = traced.collected[torch.argsort(traced.ray_id)].numpy()
+        assert_agree(got, np.asarray(jstate.collected)[np.argsort(np.asarray(jstate.ray_id))])
     traced, suspect = wavefront.trace_wavefront(ts.with_config(intersector="packet"),
                                                 state, 0, 2, sort_rays=True)
     assert int(suspect) == 0 and sorted(traced.ray_id.tolist()) == list(range(16))
