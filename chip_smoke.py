@@ -170,15 +170,22 @@ checks them all. Phases, one line each:
    ``csrc/traverse.cu``) and the "cullhit" sort key (the key kernel of
    ``csrc/rays.cu``): (a) the walk against its plain version (the lockstep
    walk) on the torus's centre 2^18-ray block of a 20-spp pass, traced
-   through the BVH as a render traces it, at bounces 0, 1 and 3, and on the
-   glass torus's at bounces 0-3: t and index bit-equal; its time, the plain
-   walk's, the pops, slab tests and triangle tests per live ray (its
-   counting variant), the bound they imply and its share; (b) the walk
-   against the packet engine ("auto": cull + fused) on the same rays: t
-   within rtol / atol 1e-5 and under 1 % of live rays on another triangle
-   (JAX's BVH-against-scan standard), the mismatches and how many are
-   equal-distance ties; (c) the torus at 1000×1000 × 10 bounces through the
-   BVH and through "auto" in turns (bvh, auto, auto, bvh) at 100 and at 8
+   through the BVH as a render traces it, at every bounce 0-9 (the live
+   prefix the render hands the walk), and on the glass torus's at bounces
+   0-3, at the rays a warp the kernel picks and at WALK_LANES: t and index
+   bit-equal; on each of these bounces each launch's time, the live count,
+   the mean and largest pops per live ray, the slab and triangle tests per
+   live ray (its counting variant), the bound they imply and its share,
+   and on the torus's bounce 1 the plain walk's time; then the lamp-scale
+   torus (LAMP_SIZE, 619,500 triangles): its set-up seconds, the walk
+   bit-equal on its centre block's bounces 0, 1 and 3, bounces 1 and 3
+   timed as above;
+   (b) the walk against the packet engine ("auto": cull + fused) on the
+   torus's bounces 0, 1 and 3: t within rtol / atol 1e-5 and under 1 % of
+   live rays on another triangle (JAX's BVH-against-scan standard), the
+   mismatches and how many are equal-distance ties; (c) the torus at
+   1000×1000 × 10 bounces through the BVH and through "auto" in turns
+   (bvh, auto, auto, bvh) at 100 and at 8
    spp: seconds, Mrays/s, the walk launching in the BVH renders and no
    packet kernel, the mean display value, the images' mean |Δ| and share of
    bytes within ±1 (printed, not gated: tie rays take other paths); then
@@ -345,6 +352,11 @@ KEY_OPS = 18
 BVH_SLAB_OPS = 18
 BVH_MT_OPS = 46
 CULLHIT_BOX_OPS = 17
+# 13a: the rays a warp timed beside the walk kernel's own pick (the fewest
+# that keep its grid within two waves), and the size of the lamp-scale torus
+# (segments around the ring and tube).
+WALK_LANES = (1, 32)
+LAMP_SIZE = (1239, 250)
 # Closest-hit kernels of the packet engines and the brute megakernel: none
 # may launch in a BVH render (phase 13c).
 PACKET_LAUNCH_NAMES = ("cull_tiles", "fused_closest_hit", "fused1_closest_hit",
@@ -2553,21 +2565,27 @@ def _walk_inputs(scene, rows):
     return rows[:, 0:3], rows[:, 3:6], t, index, alive
 
 
-def _walk_check(scene, rows, label: str, b: int, timed: bool) -> dict:
+def _walk_check(scene, rows, label: str, b: int, timed: bool, plain_timed: bool = False,
+                lanes=()) -> dict:
     """13a: the walk kernel against its plain version on ``rows`` (0
-    mismatched bits) and, when ``timed``, both times, the counted work and
-    the bound it implies."""
+    mismatched bits), at the rays a warp it picks and at each of ``lanes``;
+    when ``timed``, each launch's time, the counted work (with the most pops
+    of one ray) and the bound it implies, and with ``plain_timed`` the plain
+    version's time."""
     import torch
     from cuda_raytracer_tpu_torch.ops import traverse
     from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
 
     o, d, t0, i0, alive = _walk_inputs(scene, rows)
-    got = traverse.bvh_closest_hit(scene, o, d, t0, i0)
+    launches = {"default": 0, **{f"lanes={k}": k for k in lanes}}
     want = traverse.plain_bvh_closest_hit(scene, o, d, t0, i0)
-    bad, err = _bit_mismatch(got, want)
+    bad, err = 0, 0.0
+    for k in launches.values():
+        m, e = _bit_mismatch(traverse_kernel.bvh_walk(scene, o, d, t0, i0, lanes=k), want)
+        bad, err = bad + m, max(err, e)
     n, live = rows.shape[0], int(alive.sum())
     line = (f"phase 13a walk vs plain: {label} bounce={b} rays={n} live={live} "
-            f"mismatched={bad} max_abs_err={err:.3g}")
+            f"launches={len(launches)} mismatched={bad} max_abs_err={err:.3g}")
     if bad:
         print(line)
         raise SystemExit(f"phase 13a failed: the BVH walk kernel differs from its plain "
@@ -2575,25 +2593,35 @@ def _walk_check(scene, rows, label: str, b: int, timed: bool) -> dict:
     if not timed:
         print(line)
         return dict(max_abs_err=err)
-    stats = torch.zeros(3, dtype=torch.int64, device=rows.device)
+    stats = torch.zeros(4, dtype=torch.int64, device=rows.device)
     traverse_kernel.bvh_walk(scene, o, d, t0, i0, stats=stats)
-    pops, slabs, mts = (int(x) for x in stats)
-    ms = _cuda_ms(lambda: traverse_kernel.bvh_walk(scene, o, d, t0, i0))
-    plain_ms = _plain_ms(lambda: traverse.plain_bvh_closest_hit(scene, o, d, t0, i0), runs=1)
+    pops, slabs, mts, max_pops = (int(x) for x in stats)
+    ms = {name: _cuda_ms(lambda: traverse_kernel.bvh_walk(scene, o, d, t0, i0, lanes=k))
+          for name, k in launches.items()}
+    plain_ms = None
+    if plain_timed:
+        plain_ms = _plain_ms(lambda: traverse.plain_bvh_closest_hit(scene, o, d, t0, i0),
+                             runs=1)
     nodes, tris = scene.bvh_min.shape[0], scene.tri_p1.shape[0]
-    # Each ray's origin and direction, hit in and hit out; the tables once.
+    # The least the function needs, whatever the kernel's layout: each ray's
+    # origin and direction, hit in and hit out; the node boxes and children
+    # and the triangles once.
     nbytes = n * (24 + 8 + 8) + nodes * (24 + 8) + tris * 36
     ops_ms = (live * 3 + slabs * BVH_SLAB_OPS + mts * BVH_MT_OPS) / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
     per = max(live, 1)
-    print(f"{line} ms={ms:.4f} plain_ms={plain_ms:.1f} pops_per_live_ray={pops / per:.2f} "
+    print(f"{line} ms={ms['default']:.4f} "
+          + (f"plain_ms={plain_ms:.1f} " if plain_ms is not None else "")
+          + f"pops_per_live_ray={pops / per:.2f} max_pops={max_pops} "
           f"slab_tests_per_live_ray={slabs / per:.2f} mt_tests_per_live_ray={mts / per:.2f} "
           f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
-          f"bound_share={bound_ms / ms:.3f}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+          f"bound_share={bound_ms / ms['default']:.3f} lanes_ms="
+          + json.dumps({k: round(v, 4) for k, v in ms.items() if k != "default"}))
+    return dict(ms=ms["default"], plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                pops=pops, slabs=slabs, mts=mts, live=live)
+                pops=pops, slabs=slabs, mts=mts, max_pops=max_pops, live=live, rays=n,
+                lanes_ms={k: v for k, v in ms.items() if k != "default"})
 
 
 def _walk_vs_packet(scene, packet_scene, rows, b: int) -> None:
@@ -2814,16 +2842,54 @@ def phase_cullhit(full) -> tuple:
     return result, out[1][4]["cullhit_keys"]
 
 
+def phase_lamp_walk(device, lanes=WALK_LANES) -> dict:
+    """13a at the lamp's scale: the torus at LAMP_SIZE (619,500 triangles,
+    about the lamp's 619,350; its walk tables no longer sit easily in the
+    50 MB L2), set up and timed; the walk bit-equal to its plain version on
+    its centre block's bounces 0, 1 and 3, bounces 1 and 3 timed (also at
+    ``lanes`` rays a warp) → bounce 1's check."""
+    import torch
+    from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+    from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
+
+    rpp, seed = 20, 80
+    start = time.perf_counter()
+    scene = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus", LAMP_SIZE),
+                                     device=device)
+    setup = time.perf_counter() - start
+    start = time.perf_counter()
+    tb = traverse_kernel.walk_tables(scene)
+    tables = time.perf_counter() - start
+    mb = [x.numel() * x.element_size() / 1e6 for x in (tb.records, tb.triangles)]
+    print(f"phase 13a lamp-scale torus: size={LAMP_SIZE} triangles={scene.triangle_count} "
+          f"bvh_nodes={scene.bvh_node_count} setup_seconds={setup:.1f} "
+          f"walk_tables_seconds={tables:.2f} records_MB={mb[0]:.2f} triangles_MB={mb[1]:.2f}")
+    scene = scene.with_config(rays_per_pixel=rpp, intersector="bvh")
+    block_lo, block = _centre_block(scene, rpp)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    result, worst = {}, 0.0
+    for b, rows in _traced_rows(scene, ids, rpp, seed):
+        if b > 3:
+            break
+        if b in (0, 1, 3):
+            r = _walk_check(scene, rows, f"lamp-scale torus centre block lo={block_lo}", b,
+                            timed=b > 0, lanes=lanes if b > 0 else ())
+            worst = max(worst, r["max_abs_err"])
+            result = r if b == 1 else result
+    return dict(result, max_abs_err=worst, setup_seconds=setup)
+
+
 def phase_bvh(scenes) -> dict:
     """Phase 13: the BVH intersector and the cullhit sort key."""
     import torch
 
     rpp, seed = 20, 80
     full = scenes["torus"]
-    # 13a-b: the torus's centre block at bounces 0, 1 and 3 (timed, and
-    # against the packet engine), the glass torus's at bounces 0-3.
-    checked = {"torus": (0, 1, 3), "glass_torus": (0, 1, 2, 3)}
-    result, worst = {}, 0.0
+    # 13a-b: the torus's centre block at every bounce 0-9 (against the
+    # packet engine at 0, 1 and 3), the glass torus's at bounces 0-3, each
+    # timed at the kernel's pick of rays a warp and at WALK_LANES.
+    checked = {"torus": range(10), "glass_torus": (0, 1, 2, 3)}
+    result, worst, tail = {}, 0.0, []
     for name, bounces in checked.items():
         scene = scenes[name].with_config(rays_per_pixel=rpp, intersector="bvh")
         block_lo, block = _centre_block(scene, rpp)
@@ -2831,16 +2897,27 @@ def phase_bvh(scenes) -> dict:
         for b, rows in _traced_rows(scene, ids, rpp, seed):
             if b > max(bounces):
                 break
-            if b not in bounces:
-                continue
-            timed = name == "torus"
-            r = _walk_check(scene, rows, f"{name} centre block lo={block_lo}", b, timed)
+            torus = name == "torus"
+            r = _walk_check(scene, rows, f"{name} centre block lo={block_lo}", b, True,
+                            plain_timed=torus and b == 1, lanes=WALK_LANES)
             worst = max(worst, r["max_abs_err"])
-            if timed:
+            if torus:
+                tail.append(dict(bounce=b, rays=r["rays"], live=r["live"], ms=r["ms"],
+                                 bound_ms=r["bound_ms"], max_pops=r["max_pops"],
+                                 pops_per_live_ray=r["pops"] / max(r["live"], 1),
+                                 lanes_ms=r["lanes_ms"]))
+            if torus and b in (0, 1, 3):
                 _walk_vs_packet(scene, scene.with_config(intersector="auto"), rows, b)
-            if timed and b == 1:  # the kernel table: the sorted bounced block
+            if torus and b == 1:  # the kernel table: the sorted bounced block
                 result = r
-    result["max_abs_err"] = worst
+    print("phase 13a walk: torus centre block ms per bounce "
+          + " ".join(f"{r['ms']:.4f}" for r in tail)
+          + f" sum_ms={sum(r['ms'] for r in tail):.4f}")
+    lamp = phase_lamp_walk(full.device)
+    result = dict(result, max_abs_err=max(worst, lamp["max_abs_err"]), tail=tail,
+                  lamp_scale=dict(bounce=1, ms=lamp["ms"], bound_ms=lamp["bound_ms"],
+                                  max_pops=lamp["max_pops"],
+                                  setup_seconds=lamp["setup_seconds"]))
     result["launches"] = phase_bvh_render(full)
     phase_bvh_train(full)
     key, key_launches = phase_cullhit(full)
@@ -3065,6 +3142,10 @@ def main() -> int:
             "library_ms": None,
             "timed_on": note,
             **({"ray_keys_same_rows_ms": r["ray_keys_ms"]} if name == "cullhit_keys" else {}),
+            # The walk: every bounce of the centre block (also at
+            # WALK_LANES), and bounce 1 of the lamp-scale torus.
+            **({"tail": r["tail"], "lamp_scale": r["lamp_scale"]} if name == "bvh_walk"
+               else {}),
         })
     # Each kernel's launches on its path beside its time and bound, ranked by
     # the device time a path loses to it: launches x (ms - bound_ms).

@@ -1,38 +1,46 @@
-// Host build of traverse.cu, for the CPU tests: the grid as a loop over rays,
-// each ray run through the same walk the card runs (rt::walk_ray in
-// traverse.cuh).
+// Host build of traverse.cu, for the CPU tests: the grid as loops over its
+// blocks, warps and lanes, each lane taking its rays by the kernel's own
+// schedule (rt::for_each_ray) and walking each through the same walk the
+// card runs (rt::walk_row in traverse.cuh), its stack a column of a
+// block-wide host array standing in for the card's shared one.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libtraverse_host.so traverse_host.cpp
+
+#include <vector>
 
 #include "traverse.cuh"
 
 extern "C" {
 
-// rt_bvh_walk's arguments, without the stream.
+// rt_bvh_walk's arguments, without the stream, with the grid as `blocks`
+// blocks of rt::kWalkThreads threads taking `lanes` (1-32) rays a warp. A
+// ray no lane takes is not written.
 int rt_host_bvh_walk(const float* origin, int o_stride, const float* direction, int d_stride,
-                     const float* closest, const int* index, int n, const float* node_min,
-                     const float* node_max, const int* child1, const int* child2,
-                     const float* tri_p1, const float* tri_e1, const float* tri_e2,
-                     int leaf_span, int sphere_count, float* t_out, int* index_out,
+                     const float* closest, const int* index, int n, const void* records,
+                     const void* tris, int root_first, int root_second, int leaf_span,
+                     int sphere_count, int blocks, int lanes, float* t_out, int* index_out,
                      unsigned long long* stats) {
-  const rt::BvhTables tb{node_min, node_max, child1, child2, tri_p1,
-                         tri_e1,   tri_e2,   leaf_span, sphere_count};
-  rt::WalkCounts counts{0, 0, 0};
-  for (int i = 0; i < n; ++i) {
-    const float* op = origin + (size_t)o_stride * i;
-    const float* dp = direction + (size_t)d_stride * i;
-    const float o[3] = {op[0], op[1], op[2]};
-    const float d[3] = {dp[0], dp[1], dp[2]};
-    float t = closest[i];
-    int idx = index[i];
-    rt::walk_ray<true>(tb, o, d, t, idx, counts);
-    t_out[i] = t;
-    index_out[i] = idx;
-  }
+  const rt::WalkRays rays{origin, o_stride, direction, d_stride, closest, index, t_out,
+                          index_out};
+  const rt::WalkTables tb{static_cast<const rt::Words4*>(records),
+                          static_cast<const rt::Words4*>(tris), root_first, root_second,
+                          leaf_span, sphere_count};
+  rt::WalkCounts counts{0, 0, 0, 0};
+  const int threads = rt::kWalkThreads, warps = threads / 32;
+  std::vector<int> shared(3 * rt::kStackDepth * (size_t)threads);
+  for (int b = 0; b < blocks; ++b)
+    for (int w = 0; w < warps; ++w)
+      for (int lane = 0; lane < 32; ++lane) {
+        rt::Stack stack = rt::Stack::of(shared.data(), threads, 32 * w + lane);
+        rt::for_each_ray(n, blocks, warps, b, w, lane, lanes, [&](long long i) {
+          rt::walk_row<true>(tb, stack, rays, i, counts);
+        });
+      }
   if (stats) {
     stats[0] += counts.pops;
     stats[1] += counts.slabs;
     stats[2] += counts.mts;
+    if (counts.max_pops > stats[3]) stats[3] = counts.max_pops;
   }
   return 0;
 }

@@ -18,8 +18,9 @@ kernels (``ops/kernels/rays.py``, ``ops/kernels/bounce.py``) on a CUDA
 device, their plain versions (this module's torch shading) on the CPU. A
 trace that builds a graph shades with torch (``trace_rays``). With
 ``intersector="bvh"`` the closest hit walks the BVH instead
-(``ops/traverse.py``: one thread per ray in ``csrc/traverse.cu`` on the
-card, the lockstep walk on the CPU). Between bounces the wavefront is
+(``ops/kernels/traverse.bvh_walk``: one thread per ray in
+``csrc/traverse.cu`` on the card, ``ops/traverse.py``'s lockstep walk on the
+CPU). Between bounces the wavefront is
 reordered by Morton key, or for a packet scene by ``sort_key="cullhit"``'s
 first two slab-hit cluster ids (chunk-local, see ``SORT_CHUNK``), and each
 bounce runs on the smallest static prefix that holds every live ray
@@ -50,10 +51,10 @@ import torch.utils.checkpoint
 
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops import camera as camera_ops
-from cuda_raytracer_tpu_torch.ops import (envmap, intersect, packet_intersect, rng, traverse,
-                                          vecmath)
+from cuda_raytracer_tpu_torch.ops import envmap, intersect, packet_intersect, rng, vecmath
 from cuda_raytracer_tpu_torch.ops.kernels import bounce as bounce_kernel
 from cuda_raytracer_tpu_torch.ops.kernels import rays as rays_kernel
+from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
 
 # Bounces whose closest hit uses the "pallas" engine's two-round sweep (the
 # wavefront is still large there but has lost primary-ray coherence).
@@ -123,7 +124,7 @@ def triangle_hit(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
             skip=cfg.packet_skip,
         )
     if mode == "bvh":
-        t, index = traverse.bvh_closest_hit(scene, origin, direction, t, index)
+        t, index = traverse_kernel.bvh_walk(scene, origin, direction, t, index)
         return t, index, 0
     t_tri, i_tri = intersect.intersect_triangles_brute(
         origin, direction, scene.tri_p1, scene.tri_e1, scene.tri_e2

@@ -28,8 +28,10 @@ and the bounce kernel to the torch shading under the shade gate; a forward
 render launches the bounce kernel and a graph-building pass does not.
 The BVH walk kernel (``intersector="bvh"``) and the "cullhit" key kernel
 are held bit-equal to their plain versions (dead rays, a ragged last block,
-the packed rows' strided columns), a BVH render and a cullhit render launch
-their kernels, and an unsupported input on the card raises.
+the packed rows' strided columns; the walk also at 1, 31, 33 and 657 rays
+at 1, 5 and 32 rays a warp and the kernel's pick, one launch a call), a BVH render and a cullhit
+render launch their kernels, and an unsupported input on the card raises
+(a tree deeper than the walk's stack among them).
 """
 
 import pytest
@@ -422,13 +424,40 @@ def test_bvh_walk_bit_equal_plain(cuda, name):
             rows[:, 0:3], rows[:, 3:6], scene.sphere_center, scene.sphere_radius)
         t0 = torch.where(alive, t0, -1.0)  # dead rays: no work
         before = traverse_kernel.LAUNCHES
-        got = traverse.bvh_closest_hit(scene, rows[:, 0:3], rows[:, 3:6], t0, i0)
+        got = traverse_kernel.bvh_walk(scene, rows[:, 0:3], rows[:, 3:6], t0, i0)
         assert traverse_kernel.LAUNCHES == before + 1
         want = traverse.plain_bvh_closest_hit(scene, rows[:, 0:3], rows[:, 3:6], t0, i0)
         torch.cuda.synchronize()
         assert torch.equal(got[1], want[1])
         assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
         assert (got[0][~alive] == -1).all()
+
+
+@pytest.mark.parametrize("n", [1, 31, 33, 657])
+def test_bvh_walk_launches_bit_equal_plain(cuda, n):
+    """n rays of a bounced wavefront with the rays a warp the kernel picks
+    and at 1, 5 and 32: each one launch, bit-equal to the plain walk."""
+    scene = _scene(cuda, intersector="bvh")
+    state = list(_states(scene, bounces=2))[1]
+    rows = wavefront.pack_rows(state)[:n]
+    alive = rays.rows_alive(rows)
+    t0, i0 = intersect.intersect_spheres(
+        rows[:, 0:3], rows[:, 3:6], scene.sphere_center, scene.sphere_radius)
+    t0 = torch.where(alive, t0, -1.0)
+    o, d = rows[:, 0:3], rows[:, 3:6]
+    want = traverse.plain_bvh_closest_hit(scene, o, d, t0, i0)
+    for lanes in (0, 1, 5, 32):
+        before = traverse_kernel.LAUNCHES
+        got = traverse_kernel.bvh_walk(scene, o, d, t0, i0, lanes=lanes)
+        assert traverse_kernel.LAUNCHES == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(got[1], want[1]), lanes
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), lanes
+    stats = torch.zeros(4, dtype=torch.int64, device=cuda)
+    traverse_kernel.bvh_walk(scene, o, d, t0, i0, stats=stats)
+    assert int(stats[3]) >= 1 and int(stats[0]) >= n
+    with pytest.raises(ValueError, match="lanes"):
+        traverse_kernel.bvh_walk(scene, o, d, t0, i0, lanes=33)
 
 
 def test_bvh_render_launches_the_walk_and_refuses_bad_inputs(cuda):
@@ -442,9 +471,9 @@ def test_bvh_render_launches_the_walk_and_refuses_bad_inputs(cuda):
     t = torch.full((8,), 1e30, device=cuda)
     i = torch.full((8,), -1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="int32"):
-        traverse.bvh_closest_hit(scene, o, o, t, i.long())
+        traverse_kernel.bvh_walk(scene, o, o, t, i.long())
     with pytest.raises(ValueError, match="unit column stride"):
-        traverse.bvh_closest_hit(scene, o, o.t().contiguous().t(), t, i)
+        traverse_kernel.bvh_walk(scene, o, o.t().contiguous().t(), t, i)
     # A chain of 31 inner nodes, each with a leaf child: one level deeper
     # than the walk's stack holds.
     depth = traverse.MAX_BVH_DEPTH + 1
@@ -455,7 +484,7 @@ def test_bvh_render_launches_the_walk_and_refuses_bad_inputs(cuda):
                          bvh_child1=torch.tensor(child1, dtype=torch.int32, device=cuda),
                          bvh_child2=torch.tensor(child2, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="MAX_BVH_DEPTH"):
-        traverse.bvh_closest_hit(deep, o, o, t, i)
+        traverse_kernel.bvh_walk(deep, o, o, t, i)
 
 
 def test_cullhit_keys_bit_equal_plain(cuda):

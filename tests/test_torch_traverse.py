@@ -1,7 +1,8 @@
 """The BVH intersector (``intersector="bvh"``) of the port against the JAX package, on the CPU.
 
 ``csrc/traverse.cu`` runs only on the GPU, where ``chip_smoke.py`` (phase 13)
-holds it against its plain version. Its per-ray walk is
+holds it against its plain version. The walk's one dispatch point is
+``ops/kernels/traverse.bvh_walk`` (the plain version on a CPU tensor). Its per-ray walk is
 ``csrc/traverse.cuh``, which ``csrc/traverse_host.cpp`` runs on the host;
 this file builds that with the host C++ compiler (``-ffp-contract=off``,
 like the GPU build's ``-fmad=false``) and holds, on seeded inputs:
@@ -17,8 +18,13 @@ like the GPU build's ``-fmad=false``) and holds, on seeded inputs:
 - the walk against the port's brute scan at JAX's tests/test_bvh.py
   standard (t within rtol / atol 1e-5, under 1 % of indices different,
   on ties);
+- the walk tables (``ops/kernels/traverse.walk_tables``) against the node
+  arrays exactly: each record's boxes (bits) and words, the rows in
+  breadth-first order, every inner word naming its child's row;
 - the host build BIT-EQUAL to the plain walk (strided rows, dead rays,
-  finite windows), its counters against the walk's structure;
+  finite windows), its counters against the walk's structure, on grids of
+  32, 8, 5 and 1 rays a warp, and the max-pops counter equal to the
+  largest of one-ray calls' pop counts;
 - the wrapper refusing a tree deeper than MAX_BVH_DEPTH and bad inputs;
 - renders (16×16 × 4 spp × 4 bounces, torus and glass torus) through BVH
   against JAX's BVH at the render gate of tests/test_torch_mesh_render.py,
@@ -131,7 +137,7 @@ def test_plain_walk_matches_jax(scenes, name, kind, tile):
     js, ts = scenes[name]
     o, d, c, i = _rays(kind, js, ts)
     jt, ji = jtraverse.bvh_closest_hit(js, *map(jnp.asarray, (o, d, c, i)))
-    tt, ti = traverse.bvh_closest_hit(ts, *map(torch.from_numpy, (o, d, c, i)),
+    tt, ti = traverse_kernel.bvh_walk(ts, *map(torch.from_numpy, (o, d, c, i)),
                                       tile_size=tile)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=1e-6)
@@ -145,7 +151,7 @@ def test_walk_matches_brute_scan(scenes, name):
     o, d, _, _ = map(torch.from_numpy, _random_rays(ts, 1000, seed=9))
     t0 = torch.full((1000,), intersect.MISS)
     i0 = torch.full((1000,), -1, dtype=torch.int32)
-    t_bvh, i_bvh = traverse.bvh_closest_hit(ts, o, d, t0, i0)
+    t_bvh, i_bvh = traverse_kernel.bvh_walk(ts, o, d, t0, i0)
     t_brute, i_brute = intersect.intersect_triangles_brute(o, d, ts.tri_p1, ts.tri_e1,
                                                            ts.tri_e2)
     i_brute = torch.where(i_brute >= 0, ts.sphere_count + i_brute, i_brute)
@@ -158,31 +164,38 @@ def test_walk_matches_brute_scan(scenes, name):
 def host(tmp_path_factory):
     lib = _compile(tmp_path_factory, "traverse_host")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rt_host_bvh_walk.argtypes = [p, i, p, i, p, p, i] + [p] * 7 + [i, i, p, p, p]
+    lib.rt_host_bvh_walk.argtypes = [p, i, p, i, p, p, i, p, p] + [i] * 6 + [p, p, p]
     return lib
 
 
-def _host_walk(lib, ts, rows, closest, index):
-    """The host build on the origin and direction columns of (n, 16) rows."""
+def _host_walk(lib, ts, rows, closest, index, grid=(2, 32)):
+    """The host build on the origin and direction columns of (n, 16) rows,
+    on a grid of (blocks, lanes): blocks of the kernel's 128 threads taking
+    ``lanes`` rays a warp. Rays no lane takes come out NaN."""
     n = rows.shape[0]
-    t = torch.empty(n)
-    idx = torch.empty(n, dtype=torch.int32)
-    stats = torch.zeros(3, dtype=torch.int64)
+    tb = traverse_kernel.walk_tables(ts)
+    t = torch.full((n,), float("nan"))
+    idx = torch.full((n,), -7, dtype=torch.int32)
+    stats = torch.zeros(4, dtype=torch.int64)
     lib.rt_host_bvh_walk(
         rows.data_ptr(), rows.stride(0), rows[:, 3:].data_ptr(), rows.stride(0),
-        closest.data_ptr(), index.data_ptr(), n, ts.bvh_min.data_ptr(), ts.bvh_max.data_ptr(),
-        ts.bvh_child1.data_ptr(), ts.bvh_child2.data_ptr(), ts.tri_p1.data_ptr(),
-        ts.tri_e1.data_ptr(), ts.tri_e2.data_ptr(), max(ts.max_leaf_size, 1), ts.sphere_count,
-        t.data_ptr(), idx.data_ptr(), stats.data_ptr())
+        closest.data_ptr(), index.data_ptr(), n, tb.records.data_ptr(),
+        tb.triangles.data_ptr(), *tb.root, max(ts.max_leaf_size, 1), ts.sphere_count,
+        *grid, t.data_ptr(), idx.data_ptr(), stats.data_ptr())
     return t, idx, stats
+
+
+def _rows_of(o, d):
+    rows = torch.zeros((o.shape[0], 16))
+    rows[:, 0:3], rows[:, 3:6] = o, d
+    return rows
 
 
 @pytest.mark.parametrize("name", ["torus", "cloud"])
 def test_host_build_bit_equal_to_plain_walk(scenes, host, name):
     js, ts = scenes[name]
     o, d, c, i = map(torch.from_numpy, _random_rays(ts, 1000, seed=11))
-    rows = torch.zeros((1000, 16))
-    rows[:, 0:3], rows[:, 3:6] = o, d
+    rows = _rows_of(o, d)
     got_t, got_i, stats = _host_walk(host, ts, rows, c, i)
     want_t, want_i = traverse.plain_bvh_closest_hit(ts, rows[:, 0:3], rows[:, 3:6], c, i, 256)
     assert torch.equal(got_i, want_i)
@@ -191,8 +204,87 @@ def test_host_build_bit_equal_to_plain_walk(scenes, host, name):
     # test comes in a pair; every live ray pops at least the root.
     dead = c < 0
     _, _, dead_stats = _host_walk(host, ts, rows[dead], c[dead], i[dead])
-    assert dead_stats.tolist() == [int(dead.sum()), 0, 0]
+    assert dead_stats.tolist() == [int(dead.sum()), 0, 0, 1]
     assert stats[0] > 1000 and stats[1] % 2 == 0 and stats[2] > 0
+
+
+def _node_levels(ts):
+    """Each node's level below the root, walked one node at a time."""
+    c1, c2 = ts.bvh_child1.tolist(), ts.bvh_child2.tolist()
+    level, todo = {0: 0}, [0]
+    while todo:
+        node = todo.pop()
+        if c2[node] > c1[node]:
+            for child in (c1[node], c2[node]):
+                level[child] = level[node] + 1
+                todo.append(child)
+    return level
+
+
+@pytest.mark.parametrize("name", ["torus", "cloud"])
+def test_walk_tables_match_node_arrays(scenes, name):
+    """Every record against the node arrays, exactly: its row's node, both
+    children's boxes (bits) and words; the rows breadth-first, so the first
+    rows are the tree's top levels; every inner word naming its child's
+    row. Triangle records: p1, e1, e2 and zeros."""
+    _, ts = scenes[name]
+    tb = traverse_kernel.walk_tables(ts)
+    c1, c2 = ts.bvh_child1.long(), ts.bvh_child2.long()
+    inner = (c2 > c1).nonzero()[:, 0]
+    rec, nodes = tb.records, torch.from_numpy(tb.nodes)
+    assert rec.dtype == torch.int32 and rec.shape == (inner.numel(), 16)
+    assert torch.equal(nodes.sort().values, inner)  # each inner node once
+    level = _node_levels(ts)
+    levels = torch.tensor([level[n] for n in tb.nodes.tolist()])
+    assert nodes[0] == 0 and bool((levels[1:] >= levels[:-1]).all())
+    assert levels[-1] + 1 == traverse_kernel.tree_depth(ts.bvh_child1, ts.bvh_child2)
+    row = torch.full((c1.numel(),), -1, dtype=torch.long)
+    row[nodes] = torch.arange(nodes.numel())
+    bits = lambda x: x.view(torch.int32)  # noqa: E731
+    for k, child in enumerate((c1[nodes], c2[nodes])):
+        assert torch.equal(rec[:, 6 * k:6 * k + 3], bits(ts.bvh_min[child]))
+        assert torch.equal(rec[:, 6 * k + 3:6 * k + 6], bits(ts.bvh_max[child]))
+        first, second = rec[:, 12 + 2 * k].long(), rec[:, 13 + 2 * k].long()
+        leaf = c2[child] <= c1[child]
+        assert torch.equal(first[leaf], c1[child][leaf])
+        assert torch.equal(second[leaf], c2[child][leaf])
+        assert torch.equal(first[~leaf], row[child][~leaf])
+        assert bool((nodes[first[~leaf]] == child[~leaf]).all())
+        assert bool((second[~leaf] == traverse_kernel.INNER_WORD).all())
+    assert tb.root == (0, traverse_kernel.INNER_WORD)
+    assert torch.equal(tb.triangles, torch.cat([ts.tri_p1, ts.tri_e1, ts.tri_e2,
+                                                torch.zeros_like(ts.tri_p1)], dim=1))
+
+
+@pytest.mark.parametrize("name", ["torus", "cloud"])
+@pytest.mark.parametrize("grid", [(1, 32), (3, 5), (5, 1), (2, 8)])
+def test_host_build_grids_bit_equal(scenes, host, name, grid):
+    """The host build on grids that deal chunks of 32, 5, 1 and 8 rays a
+    warp round one to five blocks (each thread's stack a column of the
+    block's shared array): bit-equal to the plain walk, every ray written,
+    the same work counted as on the default grid."""
+    _, ts = scenes[name]
+    o, d, c, i = map(torch.from_numpy, _random_rays(ts, 700, seed=13))
+    rows = _rows_of(o, d)
+    want_t, want_i = traverse.plain_bvh_closest_hit(ts, rows[:, 0:3], rows[:, 3:6], c, i)
+    got_t, got_i, stats = _host_walk(host, ts, rows, c, i, grid)
+    assert torch.equal(got_i, want_i)
+    assert torch.equal(got_t.view(torch.int32), want_t.view(torch.int32))
+    _, _, default = _host_walk(host, ts, rows, c, i)
+    assert stats.tolist() == default.tolist()  # the same walk, entry for entry
+
+
+@pytest.mark.parametrize("name", ["torus", "cloud"])
+def test_max_pops_counter(scenes, host, name):
+    """The fourth counter is the largest per-ray pop count: equal to the
+    largest of one-ray calls' pop counts, and their sum to the batch's."""
+    _, ts = scenes[name]
+    o, d, c, i = map(torch.from_numpy, _random_rays(ts, 200, seed=17))
+    rows = _rows_of(o, d)
+    _, _, stats = _host_walk(host, ts, rows, c, i)
+    pops = [int(_host_walk(host, ts, rows[k:k + 1], c[k:k + 1], i[k:k + 1])[2][0])
+            for k in range(200)]
+    assert stats[3] == max(pops) > 1 and stats[0] == sum(pops)
 
 
 def _chain(depth):
@@ -218,21 +310,21 @@ def test_wrapper_refuses_deep_trees_and_bad_inputs(scenes):
     deep = dict(zip(("bvh_min", "bvh_max", "bvh_child1", "bvh_child2"),
                     _chain(MAX_BVH_DEPTH + 1)))
     assert traverse_kernel.tree_depth(ok["bvh_child1"], ok["bvh_child2"]) == MAX_BVH_DEPTH
-    t, idx = traverse.bvh_closest_hit(ts.replace(**ok), o, d, c, i)
+    t, idx = traverse_kernel.bvh_walk(ts.replace(**ok), o, d, c, i)
     assert t.shape == (64,)
     with pytest.raises(ValueError, match="MAX_BVH_DEPTH"):
-        traverse.bvh_closest_hit(ts.replace(**deep), o, d, c, i)
+        traverse_kernel.bvh_walk(ts.replace(**deep), o, d, c, i)
     with pytest.raises(ValueError, match="int32"):
-        traverse.bvh_closest_hit(ts, o, d, c, i.long())
+        traverse_kernel.bvh_walk(ts, o, d, c, i.long())
     with pytest.raises(ValueError, match="origin"):
-        traverse.bvh_closest_hit(ts, o.double(), d, c, i)
+        traverse_kernel.bvh_walk(ts, o.double(), d, c, i)
     with pytest.raises(ValueError, match="direction"):
-        traverse.bvh_closest_hit(ts, o, d.t().contiguous().t(), c, i)
+        traverse_kernel.bvh_walk(ts, o, d.t().contiguous().t(), c, i)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        traverse_kernel.bvh_walk(ts, o, d, c, i, stats=torch.zeros(3, dtype=torch.int64))
+        traverse_kernel.bvh_walk(ts, o, d, c, i, stats=torch.zeros(4, dtype=torch.int64))
     for child in ("bvh_child1", "bvh_child2"):  # children on another device than the rays
         with pytest.raises(ValueError, match="tensors on meta"):
-            traverse.bvh_closest_hit(ts.replace(**{child: getattr(ts, child).to("meta")}),
+            traverse_kernel.bvh_walk(ts.replace(**{child: getattr(ts, child).to("meta")}),
                                      o, d, c, i)
 
 
