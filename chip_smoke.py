@@ -53,9 +53,10 @@ checks them all. Phases, one line each:
    trace traces it, bounces 0-9: the set-up kernel (alive bit, sphere hit,
    ray tiles), the sort keys and live count (both engines, and the sorted
    permutation) and the PCG draws (a bounce's; the camera's at bounce 0)
-   bit-equal to their plain versions, the packed bounce kernel against the
-   torch shading at the shade gate; then their times (each call on rows out
-   of L2), plain times and bounds;
+   bit-equal to their plain versions, the live counts of three
+   back-to-back launches of each key kernel right, the packed bounce
+   kernel against the torch shading at the shade gate; then their times
+   (each call on rows out of L2), plain times and bounds;
 7. mesh main path: the torus at 1000×1000 and 10 bounces after small
    warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
    rays per pixel, each through fused1 and through cull + fused (fused1,
@@ -193,9 +194,12 @@ checks them all. Phases, one line each:
    10c's shape, checkpointed, through the BVH and through "auto" in turns:
    seconds per step, a falling loss, finite gradients, the walk's launches
    per step equal to the forward pass's; (e) the cullhit key against its
-   plain version on the centre block's bounces 0-3 (traced with that key),
-   keys and live count bit-equal in both count modes, its time beside
-   ``ray_keys``' and its bound; then the torus at 1000×1000 × 8 spp with
+   plain version on the centre block's bounces 0-3 (traced with that key)
+   and on the lamp-scale torus's bounce 1 (3,486 clusters: squeezed ids, a
+   table staged above 48 KB), keys and live count bit-equal in both count
+   modes, on each bounce 1 its time beside ``ray_keys``', the gates and
+   boxes it tested beside the box tests a flat scan needs, and its bound
+   (17 operations a test it made); then the torus at 1000×1000 × 8 spp with
    ``sort_key="cullhit"`` and with the Morton key in turns (morton,
    cullhit, cullhit, morton): framebuffers bit-identical.
 
@@ -346,9 +350,11 @@ KEY_OPS = 18
 #   Möller–Trumbore (ops/intersect.moller_trumbore's form) per triangle:
 #                 rt::mt_terms 41, 1 / det 1, u, v, t scaled 3, u+v 1  = 46
 #   (the safe inverse direction, 3 per live ray, counted once per ray)
-# and per box the cullhit key's unwindowed test (rt::first2_hit's values):
+# and per box the cullhit key's unwindowed test (rt::first2_span's values):
 # 3 axes × (2 sub, 2 mul), the entry's max over 0 and 3 near planes 3, the
-# exit's min over 3 far planes 2 = 17.
+# exit's min over 3 far planes 2 = 17, counted over the gates and boxes the
+# kernel's rays test (its counter); flat_bound_ms counts instead the boxes a
+# flat ascending scan tests (rays.flat_box_tests), for comparison.
 BVH_SLAB_OPS = 18
 BVH_MT_OPS = 46
 CULLHIT_BOX_OPS = 17
@@ -357,6 +363,8 @@ CULLHIT_BOX_OPS = 17
 # (segments around the ring and tube).
 WALK_LANES = (1, 32)
 LAMP_SIZE = (1239, 250)
+# 13e (and chip_keys.py): the traced block's samples a pixel and seed, as 6c's.
+KEY_RPP, KEY_SEED = 20, 80
 # Closest-hit kernels of the packet engines and the brute megakernel: none
 # may launch in a BVH render (phase 13c).
 PACKET_LAUNCH_NAMES = ("cull_tiles", "fused_closest_hit", "fused1_closest_hit",
@@ -1193,7 +1201,9 @@ def phase_row_kernels(full) -> dict:
     trace traces it, entering bounces 0-9: the set-up kernel (alive bit,
     sphere hit, ray tiles), the sort keys and live count (argsort and count
     engines; the sorted permutation too) and the PCG draws (a bounce's, and
-    at bounce 0 the camera's) bit-equal (0 mismatched bits), the packed
+    at bounce 0 the camera's) bit-equal (0 mismatched bits), the live count
+    of three back-to-back launches of each key kernel (Morton and cullhit)
+    right with no reset between them, the packed
     bounce kernel against the torch shading at the shade gate. Then their
     times at bounce 1 (the draws on the train step's 131,072 ray ids), each
     beside its bound and plain time."""
@@ -1219,6 +1229,15 @@ def phase_row_kernels(full) -> dict:
             want = rays.plain_ray_keys(rows, scene.min_coord, scene.inv_extent, count, n)
             checks["ray_keys"] += [_bit_mismatch(got, want), _bit_mismatch(
                 (torch.argsort(got[0], stable=True),), (torch.argsort(want[0], stable=True),))]
+        # Three back-to-back launches of each key kernel, no reset between
+        # them: each leaves its scratch zero for the next.
+        lives = [rays.ray_keys(rows, scene.min_coord, scene.inv_extent, False, n)[1]
+                 for _ in range(3)]
+        lives += [rays.cullhit_keys(rows, scene.cluster_min, scene.cluster_max,
+                                    scene.num_clusters, scene.config.cull_split, False, n)[1]
+                  for _ in range(3)]
+        want_live = int(rays.rows_alive(rows).sum())
+        bad_live = sum(int(x) != want_live for x in lives)
         rid = rows[:, 12].contiguous().view(torch.int32)
         checks["pcg_draws"].append(_bit_mismatch((rays.bounce_draws(rid, seed, b),),
                                                  (rays.plain_bounce_draws(rid, seed, b),)))
@@ -1240,10 +1259,12 @@ def phase_row_kernels(full) -> dict:
         print(f"phase 6c row kernels: torus centre block lo={block_lo} bounce={b} rays={n} "
               f"live={int(alive.sum())} rays_setup_mismatched={bad_setup} "
               f"ray_keys_mismatched={bad_keys} pcg_draws_mismatched={bad_draws} "
+              f"back_to_back_live_counts={json.dumps([int(x) for x in lives])} "
               f"max_abs_err={json.dumps({k: errs[k] for k in checks})} "
               f"bounce_agree={agree:.6f} bounce_max_abs_err={err:.3g} finite={finite} "
               f"id_columns_untouched={same_ids}")
-        if bad_setup or bad_keys or bad_draws or not (finite and same_ids) or agree < AGREE_MIN:
+        if (bad_setup or bad_keys or bad_draws or bad_live or not (finite and same_ids)
+                or agree < AGREE_MIN):
             raise SystemExit(f"phase 6c failed: a row kernel differs from its plain version "
                              f"(bounce {b})")
         worst = max(worst, err)
@@ -1254,6 +1275,16 @@ def phase_row_kernels(full) -> dict:
         out[name]["max_abs_err"] = err
     out["bounce_max_abs_err"] = worst
     return out
+
+
+def _cold_copies(rows):
+    """A function returning the next of four copies of ``rows`` in turn:
+    four being more than the 50 MB L2 holds, a kernel timed on them reads
+    its rows from device memory as a bounce's would (its rows were written
+    a bounce ago, with megabytes of tables read since)."""
+    copies = [rows.clone() for _ in range(4)]
+    calls = iter(range(10 ** 9))
+    return lambda: copies[next(calls) % len(copies)]
 
 
 def _row_timing(scene, rows) -> dict:
@@ -1268,16 +1299,7 @@ def _row_timing(scene, rows) -> dict:
 
     n, tile = rows.shape[0], scene.config.packet_tile
     n_pad = -(-n // tile) * tile
-    # Each call reads its own copy of the rows, four copies being more than
-    # the 50 MB L2 holds, so the rows come from device memory as a bounce's
-    # would (its rows were written a bounce ago, with megabytes of tables
-    # read since).
-    copies = [rows.clone() for _ in range(4)]
-    calls = iter(range(10 ** 9))
-
-    def cold():
-        return copies[next(calls) % len(copies)]
-
+    cold = _cold_copies(rows)
     spheres = scene.sphere_center.shape[0]
     live = int(rays.rows_alive(rows).sum())
     train_ids = torch.arange(TRAIN["width"] * TRAIN["height"] * TRAIN["rays_per_pixel"],
@@ -2759,12 +2781,25 @@ def phase_bvh_train(full) -> None:
     print(f"phase 13d train step: median seconds per step {json.dumps(medians)}")
 
 
-def _key_check(scene, rows, b: int, timed: bool) -> dict:
-    """13e: the cullhit key kernel against its plain version on ``rows``
-    (keys and live count, both count modes, 0 mismatched bits) and, when
-    ``timed``, its time beside ray_keys' on the same rows, its plain time,
-    the boxes its rays tested and its bound."""
+def _cullhit_rows(base, last: int):
+    """The centre 20-spp block of ``base`` traced as a render with
+    ``sort_key="cullhit"`` traces it → yields (scene, block_lo, bounce,
+    rows) for bounces 0..``last``; the caller must not change the rows."""
     import torch
+
+    scene = base.with_config(rays_per_pixel=KEY_RPP, sort_key="cullhit")
+    block_lo, block = _centre_block(scene, KEY_RPP)
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    for b, rows in _traced_rows(scene, ids, KEY_RPP, KEY_SEED):
+        if b > last:
+            return
+        yield scene, block_lo, b, rows
+
+
+def _key_check(scene, rows, label: str) -> float:
+    """13e: the cullhit key kernel against its plain version on ``rows``,
+    keys and live count in both count modes: 0 mismatched bits, else exit
+    → the largest |Δ| (0)."""
     from cuda_raytracer_tpu_torch.ops.kernels import rays
 
     n, K, S = rows.shape[0], scene.num_clusters, scene.config.cull_split
@@ -2775,55 +2810,86 @@ def _key_check(scene, rows, b: int, timed: bool) -> dict:
         want = rays.plain_cullhit_keys(rows, *boxes, count, n)
         m, e = _bit_mismatch(got, want)
         bad, err = bad + m, max(err, e)
-    live = int(rays.rows_alive(rows).sum())
-    line = (f"phase 13e cullhit keys vs plain: torus centre block bounce={b} rays={n} "
-            f"live={live} mismatched={bad}")
+    print(f"phase 13e cullhit keys vs plain: {label} rays={n} clusters={K} "
+          f"live={int(rays.rows_alive(rows).sum())} mismatched={bad}")
     if bad:
-        print(line)
         raise SystemExit(f"phase 13e failed: the cullhit key kernel differs from its plain "
-                         f"version (bounce {b})")
-    if not timed:
-        print(line)
-        return dict(max_abs_err=err)
+                         f"version ({label})")
+    return err
+
+
+def _key_times(scene, rows) -> dict:
+    """13e: the cullhit key kernel's ms on ``rows`` and ray_keys' on copies
+    of them out of L2 (as 6c times it)."""
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    n = rows.shape[0]
+    boxes = (scene.cluster_min, scene.cluster_max, scene.num_clusters, scene.config.cull_split)
+    cold = _cold_copies(rows)
+    return dict(ms=_cuda_ms(lambda: rays.cullhit_keys(rows, *boxes, False, n)),
+                ray_keys_ms=_cuda_ms(lambda: rays.ray_keys(cold(), scene.min_coord,
+                                                           scene.inv_extent, False, n)))
+
+
+def _key_timing(scene, rows, label: str) -> dict:
+    """13e: ``_key_times`` on ``rows``, the plain version's ms, the gates
+    and boxes the kernel's rays tested beside the box tests a flat
+    ascending scan needs, and the bound: bytes, or 17 operations a test
+    the kernel made (``flat_bound_ms`` counts the flat scan's tests)."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    n, K, S = rows.shape[0], scene.num_clusters, scene.config.cull_split
+    boxes = (scene.cluster_min, scene.cluster_max, K, S)
+    r = _key_times(scene, rows)
     tests = torch.zeros(1, dtype=torch.int64, device=rows.device)
     rays.cullhit_keys(rows, *boxes, False, n, tests=tests)
-    ms = _cuda_ms(lambda: rays.cullhit_keys(rows, *boxes, False, n))
-    morton_ms = _cuda_ms(lambda: rays.ray_keys(rows, scene.min_coord, scene.inv_extent,
-                                               False, n))
+    gated, flat = int(tests), rays.flat_box_tests(rows, *boxes)
+    live = int(rays.rows_alive(rows).sum())
     plain_ms = _plain_ms(lambda: rays.plain_cullhit_keys(rows, *boxes, False, n))
-    nbytes = n * ROW_STATE_BYTES + n * 8 + 4 + K * S * 24
-    ops_ms = int(tests) * CULLHIT_BOX_OPS / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bytes_ms = (n * ROW_STATE_BYTES + n * 8 + 4 + K * S * 24) / PEAK_BYTES * 1e3
+    ops_ms = gated * CULLHIT_BOX_OPS / PEAK_FP32_FLOPS * 1e3
     bound_ms = max(ops_ms, bytes_ms)
-    print(f"{line} ms={ms:.4f} ray_keys_ms={morton_ms:.4f} plain_ms={plain_ms:.2f} "
-          f"box_tests_per_live_ray={int(tests) / max(live, 1):.2f} boxes={K * S} "
+    flat_bound_ms = max(flat * CULLHIT_BOX_OPS / PEAK_FP32_FLOPS * 1e3, bytes_ms)
+    print(f"phase 13e cullhit key timing: {label} ms={r['ms']:.4f} "
+          f"ray_keys_ms={r['ray_keys_ms']:.4f} plain_ms={plain_ms:.2f} "
+          f"gated_tests_per_live_ray={gated / max(live, 1):.2f} "
+          f"flat_tests_per_live_ray={flat / max(live, 1):.2f} boxes={K * S} "
           f"ops_bound_ms={ops_ms:.4f} bytes_bound_ms={bytes_ms:.4f} "
-          f"bound_share={bound_ms / ms:.3f}")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, max_abs_err=err,
+          f"bound_share={bound_ms / r['ms']:.3f} flat_bound_ms={flat_bound_ms:.4f}")
+    return dict(r, plain_ms=plain_ms, bound_ms=bound_ms, flat_bound_ms=flat_bound_ms,
                 bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-                ray_keys_ms=morton_ms)
+                gated_tests=gated, flat_tests=flat, live=live)
 
 
-def phase_cullhit(full) -> tuple:
-    """13e: the cullhit key on the centre block's bounces 0-3 (traced as a
-    cullhit render traces it), then the torus at 1000×1000 × 8 spp with
+def phase_cullhit(full, lamp) -> tuple:
+    """13e: the cullhit key on the centre block's bounces 0-3 and the
+    lamp-scale torus's bounces 0-1 (``lamp``, 3,486 clusters: squeezed ids,
+    a table staged above 48 KB), each traced as a cullhit render traces it,
+    bounce 1 of each timed; then the torus at 1000×1000 × 8 spp with
     ``sort_key="cullhit"`` and with the Morton key, in turns (morton,
     cullhit, cullhit, morton): every framebuffer bit-identical → (the key
-    kernel's result at bounce 1, its launches in the first cullhit
-    render)."""
+    kernel's result at the torus's bounce 1 with the lamp-scale's beside
+    it, its launches in the first cullhit render)."""
     import torch
 
-    rpp, seed = 20, 80
-    scene = full.with_config(rays_per_pixel=rpp, sort_key="cullhit")
-    block_lo, block = _centre_block(scene, rpp)
-    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
-    result = {}
-    for b, rows in _traced_rows(scene, ids, rpp, seed):
-        if b > 3:
-            break
-        r = _key_check(scene, rows, b, timed=b == 1)
-        result = r if b == 1 else result
-        result["max_abs_err"] = max(result.get("max_abs_err", 0.0), r["max_abs_err"])
+    result, worst = {}, 0.0
+    for name, base, last in (("torus", full, 3), ("lamp-scale torus", lamp, 1)):
+        for scene, block_lo, b, rows in _cullhit_rows(base, last):
+            label = f"{name} centre block lo={block_lo} bounce={b}"
+            worst = max(worst, _key_check(scene, rows, label))
+            if b != 1:
+                continue
+            r = _key_timing(scene, rows, label)
+            if name == "torus":
+                result.update(r)
+            else:
+                result["lamp_scale"] = dict(
+                    bounce=1, clusters=scene.num_clusters,
+                    **{k: r[k] for k in ("ms", "bound_ms", "flat_bound_ms", "flat_tests",
+                                         "gated_tests", "live")})
+    result["max_abs_err"] = worst
+
     scenes = {"morton": full.with_config(rays_per_pixel=MESH_FEW_SPP),
               "cullhit": full.with_config(rays_per_pixel=MESH_FEW_SPP, sort_key="cullhit")}
     must = {"morton": AUTO_KERNELS + FORWARD_KERNELS,
@@ -2847,7 +2913,8 @@ def phase_lamp_walk(device, lanes=WALK_LANES) -> dict:
     about the lamp's 619,350; its walk tables no longer sit easily in the
     50 MB L2), set up and timed; the walk bit-equal to its plain version on
     its centre block's bounces 0, 1 and 3, bounces 1 and 3 timed (also at
-    ``lanes`` rays a warp) → bounce 1's check."""
+    ``lanes`` rays a warp) → bounce 1's check, with the scene as it was
+    set up (``scene``)."""
     import torch
     from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
     from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
@@ -2864,7 +2931,7 @@ def phase_lamp_walk(device, lanes=WALK_LANES) -> dict:
     print(f"phase 13a lamp-scale torus: size={LAMP_SIZE} triangles={scene.triangle_count} "
           f"bvh_nodes={scene.bvh_node_count} setup_seconds={setup:.1f} "
           f"walk_tables_seconds={tables:.2f} records_MB={mb[0]:.2f} triangles_MB={mb[1]:.2f}")
-    scene = scene.with_config(rays_per_pixel=rpp, intersector="bvh")
+    base, scene = scene, scene.with_config(rays_per_pixel=rpp, intersector="bvh")
     block_lo, block = _centre_block(scene, rpp)
     ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
     result, worst = {}, 0.0
@@ -2876,7 +2943,7 @@ def phase_lamp_walk(device, lanes=WALK_LANES) -> dict:
                             timed=b > 0, lanes=lanes if b > 0 else ())
             worst = max(worst, r["max_abs_err"])
             result = r if b == 1 else result
-    return dict(result, max_abs_err=worst, setup_seconds=setup)
+    return dict(result, max_abs_err=worst, setup_seconds=setup, scene=base)
 
 
 def phase_bvh(scenes) -> dict:
@@ -2920,7 +2987,7 @@ def phase_bvh(scenes) -> dict:
                                   setup_seconds=lamp["setup_seconds"]))
     result["launches"] = phase_bvh_render(full)
     phase_bvh_train(full)
-    key, key_launches = phase_cullhit(full)
+    key, key_launches = phase_cullhit(full, lamp["scene"])
     return {"bvh_walk": result, "cullhit_keys": dict(key, launches=key_launches)}
 
 
@@ -3141,7 +3208,12 @@ def main() -> int:
             "bound_by": r["bound_by"],
             "library_ms": None,
             "timed_on": note,
-            **({"ray_keys_same_rows_ms": r["ray_keys_ms"]} if name == "cullhit_keys" else {}),
+            # The cullhit key: its bound counts the gates and boxes its rays
+            # tested; flat_bound_ms the box tests of a flat ascending scan.
+            **({"ray_keys_same_rows_ms": r["ray_keys_ms"], "gated_tests": r["gated_tests"],
+                "flat_tests": r["flat_tests"], "flat_bound_ms": r["flat_bound_ms"],
+                "lamp_scale": r["lamp_scale"]}
+               if name == "cullhit_keys" else {}),
             # The walk: every bounce of the centre block (also at
             # WALK_LANES), and bounce 1 of the lamp-scale torus.
             **({"tail": r["tail"], "lamp_scale": r["lamp_scale"]} if name == "bvh_walk"

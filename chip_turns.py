@@ -13,6 +13,12 @@ directory) and prints one JSON line with NAME, the card and its power limit:
   100 spp, 10 bounces (the mesh main path, packet backend "auto"), after a
   128×128 warm-up, and a hash of its framebuffer's bytes (two trees that
   trace the same bits print the same hash);
+- ``cullhit_s``, ``cullhit_fb_sha256``, ``torus_again_s``: the same render
+  with ``sort_key="cullhit"`` (the reorder keyed by each ray's first two
+  slab-hit cluster ids), twice, then the default render once more, so the
+  two keys run in turns (Morton, cullhit, cullhit, Morton); the hash of
+  the cullhit framebuffer (any reorder renders the same bits, so it equals
+  ``torus_fb_sha256``). A tree whose config has no ``sort_key`` skips them;
 - ``block_wall_ms``, ``block_busy_ms``, ``block_idle_share``,
   ``block_kernels``: the torus's centre 2^18-ray block of a 20-spp pass
   (10 bounces, packet backend "auto") under torch.profiler: wall time,
@@ -30,7 +36,10 @@ directory) and prints one JSON line with NAME, the card and its power limit:
   ``pallas_wall_ms``, ``pallas_idle_share``, ``pallas_kernels``;
 - ``gated_block_*``: the centre block as ``block_*`` is profiled, through
   cull + fused with the hierarchical cull (``cull_hier=16``): wall, busy,
-  idle share and device kernels.
+  idle share and device kernels;
+- ``cullhit_block_*``: the centre block as ``block_*`` is profiled, with
+  ``sort_key="cullhit"`` (skipped as ``cullhit_s`` is). The device kernels
+  count every device operation the profiler sees, memsets included.
 
 Only APIs that every tree since the train step (``render/diff.py``) has are
 used, so an older tree unpacked with ``git archive`` runs it as it is. Run
@@ -41,6 +50,7 @@ process, so both see one card and one host.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import hashlib
 import json
 import statistics
@@ -99,6 +109,25 @@ def main() -> int:
     torus_s = time.perf_counter() - start
     torus_sha = hashlib.sha256(torus_fb.cpu().numpy().tobytes()).hexdigest()
 
+    def timed_render(scene):
+        """(seconds, framebuffer) of one render ending in a synchronise."""
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fb = pipeline.render_framebuffer(scene)
+        torch.cuda.synchronize()
+        return time.perf_counter() - start, fb
+
+    cullhit = {}
+    if "sort_key" in {f.name for f in dataclasses.fields(full.config)}:
+        keyed = full.with_config(rays_per_pixel=100, sort_key="cullhit")
+        turns = [timed_render(keyed) for _ in range(2)]
+        again_s, again_fb = timed_render(full.with_config(rays_per_pixel=100))
+        cullhit = dict(cullhit_s=[s for s, _ in turns], torus_again_s=again_s,
+                       cullhit_fb_sha256=hashlib.sha256(
+                           turns[0][1].cpu().numpy().tobytes()).hexdigest(),
+                       cullhit_fb_equal=all(torch.equal(fb, torus_fb) for _, fb in turns)
+                       and torch.equal(again_fb, torus_fb))
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -132,6 +161,13 @@ def main() -> int:
     gated_wall, gated_busy, gated_kernels = profiled(lambda: pipeline.render_pass(
         gated, framebuffer, 80, rpp, gated.config.bounces, True,
         pixels=(px_lo, px_lo + block // rpp)))
+    if cullhit:
+        keyed = full.with_config(sort_key="cullhit")
+        wall, busy, kernels = profiled(lambda: pipeline.render_pass(
+            keyed, framebuffer, 80, rpp, keyed.config.bounces, True,
+            pixels=(px_lo, px_lo + block // rpp)))
+        cullhit.update(cullhit_block_wall_ms=wall, cullhit_block_busy_ms=busy,
+                       cullhit_block_idle_share=1 - busy / wall, cullhit_block_kernels=kernels)
 
     camera = precompute_camera(cam.position.cpu().numpy(), cam.forward.cpu().numpy(),
                                cam.up.cpu().numpy(), cam.vertical_fov, TRAIN["width"],
@@ -183,7 +219,7 @@ def main() -> int:
                           train_kernels=train_kernels, pallas_cap=cap, pallas_s=pallas_s,
                           pallas_steps_s=pallas_steps, pallas_busy_ms=p_busy,
                           pallas_wall_ms=p_wall, pallas_idle_share=1 - p_busy / p_wall,
-                          pallas_kernels=p_kernels)))
+                          pallas_kernels=p_kernels, **cullhit)))
     return 0
 
 

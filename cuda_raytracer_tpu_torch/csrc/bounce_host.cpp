@@ -34,10 +34,10 @@ int rt_host_rays_setup(const float* rows, int n, int tile, int total,
   return 0;
 }
 
-// rt_ray_keys's arguments, without the stream.
+// rt_ray_keys's arguments, without the stream (scratch unused).
 int rt_host_ray_keys(const float* rows, int n, const float* min_coord,
                      const float* inv_extent, int count, int chunk, long long* keys,
-                     int* live_count) {
+                     int* live_count, unsigned int* /*scratch*/) {
   *live_count = 0;
   for (int i = 0; i < n; ++i) {
     bool live = false;
@@ -47,18 +47,63 @@ int rt_host_ray_keys(const float* rows, int n, const float* min_coord,
   return 0;
 }
 
-// rt_cullhit_keys's arguments, without the stream: the whole box table as one
-// chunk.
-int rt_host_cullhit_keys(const float* rows, int n, const float* box_min, const float* box_max,
-                         int n_boxes, int split, int K, int count, int chunk, long long* keys,
-                         int* live_count, unsigned long long* tests) {
+}  // extern "C"
+
+namespace {
+
+// rt::first2_scan's warp on the host: `n` lanes in lockstep.
+struct HostWarp {
+  rt::First2Lane* lanes;
+  int n;
+  template <class F>
+  bool any(F f) {
+    bool r = false;
+    for (int l = 0; l < n; ++l) r = f(lanes[l]) || r;
+    return r;
+  }
+  template <class F>
+  void each(F f) {
+    for (int l = 0; l < n; ++l) f(lanes[l]);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+// rt_cullhit_keys's arguments, without the stream (scratch unused), with
+// the rows taken `lanes` (1-32) at a time as one warp, each warp scanning the
+// table in steps of `staged` boxes (a multiple of rt::kGate; 0: the kernel's
+// rt::kMaxStaged).
+int rt_host_cullhit_keys(const float* rows, int n, const float* boxes, const float* gates,
+                         int n_boxes, int n_gates, int split, int K, int count, int chunk,
+                         long long* keys, int* live_count, unsigned int* /*scratch*/,
+                         unsigned long long* tests, int lanes, int staged) {
+  if (staged == 0) staged = rt::kMaxStaged;
+  if (n_boxes < 1 || n_gates != (n_boxes + rt::kGate - 1) / rt::kGate || lanes < 1 ||
+      lanes > 32 || staged < rt::kGate || staged % rt::kGate)
+    return 1;
   *live_count = 0;
   unsigned long long done_tests = 0;
-  for (int i = 0; i < n; ++i) {
-    rt::First2 f = rt::first2_begin(rows, i, K);
-    rt::first2_scan(f, box_min, box_max, 0, n_boxes, split, done_tests);
-    keys[i] = (long long)rt::first2_key(f, K, count != 0, i, chunk);
-    *live_count += f.live ? 1 : 0;
+  rt::First2Lane warp_lanes[32];
+  for (int w0 = 0; w0 < n; w0 += lanes) {
+    const int m = n - w0 < lanes ? n - w0 : lanes;
+    for (int l = 0; l < m; ++l) {
+      warp_lanes[l].f = rt::first2_begin(rows, w0 + l, K);
+      warp_lanes[l].tests = 0;
+      *live_count += warp_lanes[l].f.live ? 1 : 0;
+    }
+    HostWarp warp{warp_lanes, m};
+    for (int r0 = 0; r0 < n_boxes; r0 += staged) {
+      const int rows_here = n_boxes - r0 < staged ? n_boxes - r0 : staged;
+      rt::first2_scan<true>(warp, boxes + rt::kBoxWords * (size_t)r0,
+                            gates + rt::kBoxWords * (size_t)(r0 / rt::kGate), r0, rows_here,
+                            split);
+    }
+    for (int l = 0; l < m; ++l) {
+      keys[w0 + l] = (long long)rt::first2_key(warp_lanes[l].f, K, count != 0, w0 + l, chunk);
+      done_tests += warp_lanes[l].tests;
+    }
   }
   if (tests) *tests += done_tests;
   return 0;

@@ -26,30 +26,64 @@
 // The arithmetic is in rays.cuh and shading.cuh, shared with the host build
 // the CPU tests run.
 //
-// What bounds them: bytes. Set-up reads 48 B of a row and writes 41 B (alive,
-// t, index, 32 B of ray tile); the sphere tests are 21 FP32 operations per
-// sphere, nothing beside those bytes for the mesh scenes' few spheres. The
-// key reads 48 B and writes 8 B; the cullhit key the same, and 24 B per box
-// once, but its operations bound it: 21 FP32 operations per box tested, and
-// a ray tests boxes in ascending order until its second distinct hit. Its
-// block stages the box table in shared memory, kBoxChunk boxes at a time
-// (the torus's 721 boxes in two), and stops loading once every ray of the
-// block is done; the plain version tests every ray against every box and
-// materialises (R, 256, 3) intermediates. The draws read 4 B and write 8 B a draw,
-// one 64-bit LCG step each (and one to seed). The design: each row is read
-// with 16-byte vector loads, and every output is written once, coalesced
-// (the ray-tile columns of one tile are consecutive threads), where the
-// plain versions write and reread a dozen (R,) and (R, 3) temporaries, and
-// the plain PCG some 60 int64 ops a draw on 32-bit limbs.
+// What bounds them. Set-up: bytes; it reads 48 B of a row and writes 41 B
+// (alive, t, index, 32 B of ray tile); the sphere tests are 21 FP32
+// operations per sphere, nothing beside those bytes for the mesh scenes' few
+// spheres. The Morton key: bytes, 48 B read and 8 B written a row. The draws:
+// bytes, 4 B read and 8 B written a draw, one 64-bit LCG step each (and one
+// to seed). The cullhit key: the larger of the bytes (the Morton key's and
+// the box table's once) and 17 FP32 operations a test (3 axes of 2
+// subtractions and 2 multiplications, the entry's max over 0 and 3 near
+// planes, the exit's min over 3 far planes) times the gates and boxes its
+// rays test; a flat ascending scan, each ray until its second distinct hit
+// (every box when it has none), tests 7.7 to 17 times as many on the torus.
+//
+// The design. Each row is read with 16-byte vector loads, and every output
+// is written once, coalesced (the ray-tile columns of one tile are
+// consecutive threads), where the plain versions write and reread a dozen
+// (R,) and (R, 3) temporaries, and the plain PCG some 60 int64 ops a draw on
+// 32-bit limbs. The key kernels produce the live count themselves: each
+// block adds its count to a two-word scratch of the launch's stream, and the
+// last block to finish (a ticket taken after a fence) writes the total and
+// zeroes the scratch for the next launch, so no memset precedes them.
+//
+// The cullhit key is issue-bound: a flat scan tests 531 of the torus's 721
+// boxes a live ray. Its block stages the box table and its gates in shared
+// memory as 16-byte (lo, hi) words, the whole table in one step up to
+// rt::kMaxStaged boxes (above 48 KB through the dynamic shared-memory
+// opt-in, set once per device), rt::kMaxStaged at a time beyond; a box test
+// is two broadcast 16-byte loads and the slab arithmetic with the
+// hardware's NaN-propagating min / max. A warp
+// tests a gate over kGate boxes and skips them when none of its searching
+// rays hits it; it leaves as soon as all its rays are done, and only a table
+// staged in steps holds the block together at a step. The plain version
+// tests every ray against every box and materialises (R, 256, 3)
+// intermediates.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 #include "rays.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kKeyThreads = 512;  // a block of ray_keys_kernel
+constexpr int kKeyRows = 2;       // rows a thread of ray_keys_kernel
+
+// The key kernels' live count: thread 0 of each block adds the block's
+// live rows to scratch[0], and the block that takes the last ticket
+// (scratch[1]) moves the total to *live_count and leaves both words 0.
+__device__ void add_live(int block_live, unsigned int* scratch, int* live_count) {
+  if (block_live) atomicAdd(scratch, (unsigned int)block_live);
+  __threadfence();
+  if (atomicAdd(scratch + 1, 1u) == gridDim.x - 1) {
+    *live_count = (int)atomicExch(scratch, 0u);
+    atomicExch(scratch + 1, 0u);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads)
 rays_setup_kernel(const float* __restrict__ rows, int n, int tile, int total,
@@ -63,51 +97,84 @@ rays_setup_kernel(const float* __restrict__ rows, int n, int tile, int total,
                 od8);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kKeyThreads)
 ray_keys_kernel(const float* __restrict__ rows, int n, const float* __restrict__ min_coord,
                 const float* __restrict__ inv_extent, int count, int chunk,
-                long long* __restrict__ keys, int* __restrict__ live_count) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  bool live = false;
-  if (i < n)
-    keys[i] = (long long)rt::ray_key(rows, i, min_coord, inv_extent, count != 0, chunk, live);
-  const int block_live = __syncthreads_count(live);
-  if (threadIdx.x == 0 && block_live) atomicAdd(live_count, block_live);
+                long long* __restrict__ keys, int* __restrict__ live_count,
+                unsigned int* __restrict__ scratch) {
+  int block_live = 0;
+#pragma unroll
+  for (int k = 0; k < kKeyRows; ++k) {
+    const int i = (blockIdx.x * kKeyRows + k) * kKeyThreads + threadIdx.x;
+    bool live = false;
+    if (i < n)
+      keys[i] = (long long)rt::ray_key(rows, i, min_coord, inv_extent, count != 0, chunk, live);
+    block_live += __syncthreads_count(live);
+  }
+  if (threadIdx.x == 0) add_live(block_live, scratch, live_count);
 }
 
-constexpr int kBoxChunk = 512;  // boxes staged per step of cullhit_keys_kernel (12 KB)
+// The card's warp for rt::first2_scan: one lane a thread, votes over the
+// whole warp (every thread of a block runs the scan, rows past n as done).
+struct CardWarp {
+  rt::First2Lane lane;
+  template <class F>
+  __device__ bool any(F f) {
+    return __any_sync(0xffffffffu, f(lane));
+  }
+  template <class F>
+  __device__ void each(F f) {
+    f(lane);
+  }
+};
+
+// Copies box rows [r0, r0 + m) and their gates to shared memory.
+__device__ void stage_boxes(const float4* __restrict__ boxes, const float4* __restrict__ gates,
+                            int r0, int m, float4* sbox, float4* sgate) {
+  const int box_quads = 2 * m;
+  const int gate_quads = 2 * ((m + rt::kGate - 1) / rt::kGate);
+  const float4* src = boxes + 2 * (size_t)r0;
+  const float4* gsrc = gates + 2 * (size_t)(r0 / rt::kGate);
+  for (int q = threadIdx.x; q < box_quads; q += blockDim.x) sbox[q] = src[q];
+  for (int q = threadIdx.x; q < gate_quads; q += blockDim.x) sgate[q] = gsrc[q];
+}
 
 template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
-cullhit_keys_kernel(const float* __restrict__ rows, int n, const float* __restrict__ box_min,
-                    const float* __restrict__ box_max, int n_boxes, int split, int K, int count,
-                    int chunk, long long* __restrict__ keys, int* __restrict__ live_count,
+cullhit_keys_kernel(const float* __restrict__ rows, int n, const float4* __restrict__ boxes,
+                    const float4* __restrict__ gates, int n_boxes, int staged, int split,
+                    int K, int count, int chunk, long long* __restrict__ keys,
+                    int* __restrict__ live_count, unsigned int* __restrict__ scratch,
                     unsigned long long* __restrict__ tests) {
-  __shared__ float smin[kBoxChunk * 3];
-  __shared__ float smax[kBoxChunk * 3];
+  extern __shared__ float4 smem[];
+  float4* sbox = smem;                // 2 * staged quads
+  float4* sgate = smem + 2 * staged;  // 2 * staged / kGate quads
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  rt::First2 f;
-  f.done = true;
-  f.live = false;
-  if (i < n) f = rt::first2_begin(rows, i, K);
-  unsigned long long my_tests = 0;
-  for (int r0 = 0; r0 < n_boxes; r0 += kBoxChunk) {
-    // Also the barrier before the previous chunk's boxes are overwritten.
-    if (__syncthreads_and(f.done)) break;
-    const int m = n_boxes - r0 < kBoxChunk ? n_boxes - r0 : kBoxChunk;
-    for (int j = threadIdx.x; j < 3 * m; j += blockDim.x) {
-      smin[j] = box_min[3 * (size_t)r0 + j];
-      smax[j] = box_max[3 * (size_t)r0 + j];
-    }
+  CardWarp warp;
+  warp.lane.f.done = true;
+  warp.lane.f.live = false;
+  warp.lane.tests = 0;
+  if (i < n) warp.lane.f = rt::first2_begin(rows, i, K);
+  int r0 = 0;
+  int m = n_boxes < staged ? n_boxes : staged;
+  stage_boxes(boxes, gates, r0, m, sbox, sgate);
+  const int block_live = __syncthreads_count(warp.lane.f.live);
+  if (threadIdx.x == 0) add_live(block_live, scratch, live_count);
+  while (true) {
+    rt::first2_scan<kCount>(warp, reinterpret_cast<const float*>(sbox),
+                            reinterpret_cast<const float*>(sgate), r0, m, split);
+    r0 += m;
+    // Also the barrier before the step's boxes are overwritten.
+    if (r0 >= n_boxes || __syncthreads_and(warp.lane.f.done)) break;
+    m = n_boxes - r0 < staged ? n_boxes - r0 : staged;
+    stage_boxes(boxes, gates, r0, m, sbox, sgate);
     __syncthreads();
-    rt::first2_scan(f, smin, smax, r0, m, split, my_tests);
   }
-  if (i < n) keys[i] = (long long)rt::first2_key(f, K, count != 0, i, chunk);
-  const int block_live = __syncthreads_count(f.live);
-  if (threadIdx.x == 0 && block_live) atomicAdd(live_count, block_live);
+  if (i < n) keys[i] = (long long)rt::first2_key(warp.lane.f, K, count != 0, i, chunk);
   if (kCount) {
-    for (int off = 16; off > 0; off >>= 1) my_tests += __shfl_down_sync(0xffffffffu, my_tests, off);
-    if ((threadIdx.x & 31) == 0 && my_tests) atomicAdd(tests, my_tests);
+    unsigned long long t = warp.lane.tests;
+    for (int off = 16; off > 0; off >>= 1) t += __shfl_down_sync(0xffffffffu, t, off);
+    if ((threadIdx.x & 31) == 0 && t) atomicAdd(tests, t);
   }
 }
 
@@ -120,6 +187,46 @@ pcg_draws_kernel(const int* __restrict__ ray_id, int n, uint32_t ray_mult, uint3
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+// The most dynamic shared memory a block of cullhit_keys_kernel takes: a step
+// of rt::kMaxStaged boxes and their gates. Above the default 48 KB a launch
+// needs the opt-in, which each device keeps, so it is asked once per device
+// and kernel rather than on every sorted bounce.
+constexpr size_t kMaxCullhitSmem =
+    (size_t)(rt::kMaxStaged + rt::kMaxStaged / rt::kGate) * rt::kBoxWords * sizeof(float);
+constexpr int kMaxDevices = 64;
+std::mutex opt_in_mutex;
+bool opted_in[kMaxDevices][2];  // [device][kCount]
+
+template <bool kCount>
+cudaError_t opt_in_cullhit_smem() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(opt_in_mutex);
+  if (device < kMaxDevices && opted_in[device][kCount]) return cudaSuccess;
+  err = cudaFuncSetAttribute(cullhit_keys_kernel<kCount>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxCullhitSmem);
+  if (err == cudaSuccess && device < kMaxDevices) opted_in[device][kCount] = true;
+  return err;
+}
+
+template <bool kCount>
+cudaError_t launch_cullhit_keys(int blocks, size_t smem, cudaStream_t s, const float* rows,
+                                int n, const float4* boxes, const float4* gates, int n_boxes,
+                                int staged, int split, int K, int count, int chunk,
+                                long long* keys, int* live_count, unsigned int* scratch,
+                                unsigned long long* tests) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = opt_in_cullhit_smem<kCount>();
+    if (err != cudaSuccess) return err;
+  }
+  cullhit_keys_kernel<kCount><<<blocks, kThreads, smem, s>>>(
+      rows, n, boxes, gates, n_boxes, staged, split, K, count, chunk, keys, live_count,
+      scratch, tests);
+  return cudaGetLastError();
+}
+
 
 }  // namespace
 
@@ -140,34 +247,48 @@ int rt_rays_setup(const float* rows, int n, int tile, int total, const float* sp
 
 // rows (n, 16) float32, 16-byte aligned; min_coord, inv_extent (3,) float32 →
 // keys (n,) int64 (count != 0: the count engine's buckets) and live_count, one
-// int32 set to the live rows. Returns cudaGetLastError().
+// int32 set to the live rows. scratch: two uint32 words of the launch's
+// stream, 0 before the first launch, left 0 by every launch. Returns
+// cudaGetLastError().
 int rt_ray_keys(const float* rows, int n, const float* min_coord, const float* inv_extent,
-                int count, int chunk, long long* keys, int* live_count, void* stream) {
-  cudaMemsetAsync(live_count, 0, sizeof(int), (cudaStream_t)stream);
-  if (n <= 0) return (int)cudaGetLastError();
-  ray_keys_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, n, min_coord, inv_extent, count, chunk, keys, live_count);
+                int count, int chunk, long long* keys, int* live_count, unsigned int* scratch,
+                void* stream) {
+  const int per_block = kKeyThreads * kKeyRows;
+  const int blocks = n > 0 ? (n + per_block - 1) / per_block : 1;
+  ray_keys_kernel<<<blocks, kKeyThreads, 0, (cudaStream_t)stream>>>(
+      rows, n, min_coord, inv_extent, count, chunk, keys, live_count, scratch);
   return (int)cudaGetLastError();
 }
 
-// rows (n, 16) float32, 16-byte aligned; box_min, box_max (n_boxes, 3)
-// float32, n_boxes = K * split cluster boxes → keys (n,) int64, the "cullhit"
-// keys (count != 0: the count engine's buckets), and live_count, one int32
-// set to the live rows. tests: null, or one uint64 counter += the boxes the
-// rays tested. Returns cudaGetLastError().
-int rt_cullhit_keys(const float* rows, int n, const float* box_min, const float* box_max,
-                    int n_boxes, int split, int K, int count, int chunk, long long* keys,
-                    int* live_count, unsigned long long* tests, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaMemsetAsync(live_count, 0, sizeof(int), s);
-  if (n <= 0) return (int)cudaGetLastError();
-  if (tests)
-    cullhit_keys_kernel<true><<<blocks_for(n), kThreads, 0, s>>>(
-        rows, n, box_min, box_max, n_boxes, split, K, count, chunk, keys, live_count, tests);
-  else
-    cullhit_keys_kernel<false><<<blocks_for(n), kThreads, 0, s>>>(
-        rows, n, box_min, box_max, n_boxes, split, K, count, chunk, keys, live_count, nullptr);
-  return (int)cudaGetLastError();
+// rows (n, 16) float32, 16-byte aligned; boxes (n_boxes, 8) and gates
+// (n_gates, 8) float32, 16-byte aligned, as ops/kernels/rays.cullhit_tables
+// lays them out (n_boxes = K * split cluster boxes, n_gates = ceil(n_boxes /
+// rt::kGate)) → keys (n,) int64, the "cullhit" keys (count != 0: the count
+// engine's buckets), and live_count, one int32 set to the live rows, through
+// `scratch` as rt_ray_keys. tests: null, or one uint64 counter += the gates
+// and boxes the rays tested. Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a gate table of another size.
+int rt_cullhit_keys(const float* rows, int n, const float* boxes, const float* gates,
+                    int n_boxes, int n_gates, int split, int K, int count, int chunk,
+                    long long* keys, int* live_count, unsigned int* scratch,
+                    unsigned long long* tests, void* stream) {
+  if (n_boxes < 1 || n_gates != (n_boxes + rt::kGate - 1) / rt::kGate)
+    return (int)cudaErrorInvalidValue;
+  const int staged = n_boxes < rt::kMaxStaged
+                         ? (n_boxes + rt::kGate - 1) / rt::kGate * rt::kGate
+                         : rt::kMaxStaged;
+  const size_t smem = (size_t)(staged + staged / rt::kGate) * rt::kBoxWords * sizeof(float);
+  const int blocks = n > 0 ? blocks_for(n) : 1;
+  const float4* b4 = reinterpret_cast<const float4*>(boxes);
+  const float4* g4 = reinterpret_cast<const float4*>(gates);
+  const cudaError_t err =
+      tests ? launch_cullhit_keys<true>(blocks, smem, (cudaStream_t)stream, rows, n, b4, g4,
+                                        n_boxes, staged, split, K, count, chunk, keys,
+                                        live_count, scratch, tests)
+            : launch_cullhit_keys<false>(blocks, smem, (cudaStream_t)stream, rows, n, b4, g4,
+                                         n_boxes, staged, split, K, count, chunk, keys,
+                                         live_count, scratch, nullptr);
+  return (int)err;
 }
 
 // ray_id (n,) int32 → draws (n_draws, n) int64 holding the uint32 draws of

@@ -18,7 +18,8 @@
 //   - first2_begin / first2_scan / first2_key: a row's "cullhit" sort key
 //     (ops/morton.first2_cluster_keys), its first two distinct slab-hit
 //     cluster ids packed fh << 21 | sh << 10, with ray_key's count bucket and
-//     chunk index;
+//     chunk index; the scan skips groups of kGate boxes whose gate (a
+//     super-box) the warp's rays all miss;
 //   - pcg_draws_ray: the first raw draws of a ray's PCG stream seeded with
 //     ray_id * ray_mult + seed_add (mod 2^32): the camera's jitter
 //     (ops/camera.initial_ray_seeds, two draws) and a bounce's shading
@@ -31,6 +32,15 @@
 #pragma once
 
 #include "brute.cuh"
+
+// Before a template that calls its callable (device-only on the card).
+#ifndef RT_CALLS_ARGS
+#ifdef __CUDACC__
+#define RT_CALLS_ARGS _Pragma("nv_exec_check_disable")
+#else
+#define RT_CALLS_ARGS
+#endif
+#endif
 
 namespace rt {
 
@@ -166,36 +176,76 @@ RT_HD First2 first2_begin(const float* rows, int i, int K) {
   return f;
 }
 
-// first2_cluster_keys' unwindowed slab test of one box: entry (floored at 0)
-// <= exit. torch's min / max propagate NaN, so any NaN plane parameter is a
-// miss; without one, the order and the sign of a zero tie cannot change the
-// comparison.
-RT_HD bool first2_hit(const float o[3], const float inv[3], const float* lo, const float* hi) {
-  float near = 0.0f;
-  float far = 0.0f;
-  bool nan = false;
-  for (int a = 0; a < 3; ++a) {
-    const float t1 = (lo[a] - o[a]) * inv[a];
-    const float t2 = (hi[a] - o[a]) * inv[a];
-    nan = nan || t1 != t1 || t2 != t2;
-    const float mn = t1 < t2 ? t1 : t2;
-    const float mx = t1 < t2 ? t2 : t1;
-    near = a == 0 || mn > near ? mn : near;
-    far = a == 0 || mx < far ? mx : far;
-  }
-  return !nan && (near > 0.0f ? near : 0.0f) <= far;
+// The cullhit key's box table, as ops/kernels/rays.cullhit_tables lays it
+// out: one 8-float row a box, [min xyz 0 max xyz 0], and one row of the same
+// form a gate, the super-box over kGate consecutive box rows (per axis the
+// least and the greatest of both corners of every member row). The kernel
+// stages up to kMaxStaged rows (a multiple of kGate) at a time.
+constexpr int kBoxWords = 8;
+constexpr int kGate = 32;
+constexpr int kMaxStaged = 4096;
+
+// min / max that return NaN when either operand is NaN, as torch.minimum /
+// torch.maximum do: PTX min.NaN / max.NaN (sm_80 on) on the card. Which of
+// -0 and +0 a tie returns may differ between the two builds; the slab tests
+// below compare the results only, where -0 == +0.
+RT_HD float nan_min(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return a != a ? a : (b != b ? b : (b < a ? b : a));
+#endif
 }
 
-// Boxes r0 .. r0 + m - 1 of the table (box_min, box_max: m rows of 3 floats
-// each, row r0 first), in ascending order: the first hit's id r / split is
-// fh, the next hit with another id is sh, and the search is done. Ids ascend
-// with rows, so this is first2_cluster_keys' chunked merge; its padding point
-// boxes (ids >= K) never change (fh, sh) and are not tested.
-RT_HD void first2_scan(First2& f, const float* box_min, const float* box_max, int r0, int m,
-                       int split, unsigned long long& tests) {
-  for (int j = 0; j < m && !f.done; ++j) {
-    ++tests;
-    if (!first2_hit(f.o, f.inv, box_min + 3 * j, box_max + 3 * j)) continue;
+RT_HD float nan_max(float a, float b) {
+#ifdef __CUDA_ARCH__
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+#else
+  return a != a ? a : (b != b ? b : (a < b ? b : a));
+#endif
+}
+
+// first2_cluster_keys' unwindowed slab test of one box row: near, the
+// entry floored at 0, and far, the exit. torch's min / max propagate NaN,
+// so near and far are NaN when any plane parameter is; without a NaN, the
+// order and the sign of a zero tie cannot change near <= far.
+RT_HD void first2_span(const float o[3], const float inv[3], const float* row, float& near,
+                       float& far) {
+  const brute::Quad lo = brute::load4(row);
+  const brute::Quad hi = brute::load4(row + 4);
+  const float x1 = (lo.x - o[0]) * inv[0], x2 = (hi.x - o[0]) * inv[0];
+  const float y1 = (lo.y - o[1]) * inv[1], y2 = (hi.y - o[1]) * inv[1];
+  const float z1 = (lo.z - o[2]) * inv[2], z2 = (hi.z - o[2]) * inv[2];
+  near = nan_max(nan_max(nan_max(nan_min(x1, x2), nan_min(y1, y2)), nan_min(z1, z2)), 0.0f);
+  far = nan_min(nan_min(nan_max(x1, x2), nan_max(y1, y2)), nan_max(z1, z2));
+}
+
+// A lane's step over gate row `gate`: false when the search is done or the
+// gate is missed; a NaN counts as a hit. With kCount, adds the test.
+template <bool kCount>
+RT_HD bool first2_gate(const First2& f, const float* gate, unsigned long long& tests) {
+  if (f.done) return false;
+  if (kCount) ++tests;
+  float near, far;
+  first2_span(f.o, f.inv, gate, near, far);
+  return !(near > far);
+}
+
+// A lane's step over box rows [j0, j1) of `boxes` (row r0 + j of the table):
+// each hit row's id (r0 + j) / split is fh if nothing was found yet, else sh
+// once it differs from fh, and then the search is done.
+template <bool kCount>
+RT_HD void first2_rows(First2& f, const float* boxes, int r0, int j0, int j1, int split,
+                       unsigned long long& tests) {
+  for (int j = j0; j < j1 && !f.done; ++j) {
+    if (kCount) ++tests;
+    float near, far;
+    first2_span(f.o, f.inv, boxes + kBoxWords * (size_t)j, near, far);
+    if (!(near <= far)) continue;
     const int id = (r0 + j) / split;
     if (f.fh == f.sh) {  // still K: nothing found yet
       f.fh = id;
@@ -203,6 +253,50 @@ RT_HD void first2_scan(First2& f, const float* box_min, const float* box_max, in
       f.sh = id;
       f.done = true;
     }
+  }
+}
+
+// One lane of first2_scan: its search, its verdict on the current gate and,
+// with kCount, the gates and boxes it tested.
+struct First2Lane {
+  First2 f;
+  bool want;
+  unsigned long long tests;
+};
+
+// Rows r0 .. r0 + m - 1 of the table (`boxes`: m rows, row r0 first; `gates`:
+// their ceil(m / kGate) gates, r0 a multiple of kGate) for a warp of lanes,
+// in ascending order: first2_cluster_keys' chunked merge, its padding point
+// boxes (ids >= K) never changing (fh, sh) and not tested.
+//
+// Each gate is tested by every lane still searching; the warp skips the
+// gate's rows unless one of them hits it, and leaves once every lane is done.
+// Skipping keeps every key: a lane's o and inv are the same in both tests,
+// and with the form (plane - o) * inv (no contraction) each rounding step is
+// monotone, so per axis the gate's [min, max] of the two plane parameters
+// holds each member row's; near' <= near and far' >= far follow, so a row
+// that hits makes its gate hit (NaN there counting as a hit). Rows stay in
+// ascending order, so the first two distinct ids cannot change.
+//
+// `Warp` is the card's warp of one lane a thread or the host build's lanes
+// in lockstep: any(f) is true when f(lane) holds for some lane, each(f)
+// calls f(lane) for every lane; both evaluate f on every lane.
+RT_CALLS_ARGS
+template <bool kCount, class Warp>
+RT_HD void first2_scan(Warp& warp, const float* boxes, const float* gates, int r0, int m,
+                       int split) {
+  for (int g = 0; g * kGate < m; ++g) {
+    if (!warp.any([](auto& lane) { return !lane.f.done; })) return;
+    const float* gate = gates + kBoxWords * (size_t)g;
+    if (!warp.any([&](auto& lane) {
+          return lane.want = first2_gate<kCount>(lane.f, gate, lane.tests);
+        }))
+      continue;
+    const int j0 = g * kGate;
+    const int j1 = j0 + kGate < m ? j0 + kGate : m;
+    warp.each([&](auto& lane) {
+      if (lane.want) first2_rows<kCount>(lane.f, boxes, r0, j0, j1, split, lane.tests);
+    });
   }
 }
 

@@ -29,6 +29,12 @@ Each is one thread per ray and counts its launches (``LAUNCHES_SETUP``,
 ``LAUNCHES_KEYS``, ``LAUNCHES_CULLHIT``, ``LAUNCHES_DRAWS``). On a CUDA
 tensor it launches its kernel or raises; on a CPU tensor it runs its plain
 PyTorch version, with the same outputs bit for bit.
+
+The two key kernels write the live count themselves, through two words of
+scratch per device and stream (``live_scratch``) that every launch leaves
+zero, so no memset precedes them. The cullhit key reads the scene's box
+table in the kernel's layout with a gate (super-box) over each
+``CULLHIT_GATE`` boxes (``cullhit_tables``), built once per scene.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import ctypes
 
 import torch
 
+from cuda_raytracer_tpu_torch.models.scene import derived
 from cuda_raytracer_tpu_torch.ops import intersect, morton, rng
 from cuda_raytracer_tpu_torch.ops.kernels import build
 from cuda_raytracer_tpu_torch.ops.kernels.cull import device_kind, make_od8, raise_on_error
@@ -45,6 +52,8 @@ ROW_WORDS = 16  # a packed wavefront row (rt::kRowWords)
 COUNT_BUCKET_SHIFT = 23  # the count engine: the key's top bits (rt::kCountShift)
 COUNT_BUCKETS = 256  # ... bucket 255 for dead rays, live ones clamped to 254
 CHUNK_SHIFT = 32  # the sort chunk's index sits above the 32-bit key
+CULLHIT_GATE = 32  # box rows a gate of the cullhit key covers (rt::kGate)
+BOX_WORDS = 8  # a row of the cullhit key's box and gate tables (rt::kBoxWords)
 
 # Kernel launches made in this process (CUDA tensors only).
 LAUNCHES_SETUP = 0
@@ -71,8 +80,8 @@ def library() -> build.Built:
     built = build.load("rays")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
-    built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
-    built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, p, p, p, p]
+    built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p, p]
+    built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
     built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
     for name in ("rt_rays_setup", "rt_ray_keys", "rt_cullhit_keys", "rt_pcg_draws"):
         getattr(built.lib, name).restype = ctypes.c_int
@@ -83,6 +92,23 @@ def library() -> build.Built:
 
 def _stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# (device index, stream) → the two uint32 words of the key kernels' live
+# count on that stream (held as int32).
+_LIVE_SCRATCH = {}
+
+
+def live_scratch(x: torch.Tensor) -> torch.Tensor:
+    """The key kernels' scratch for launches on ``x``'s device and current
+    stream: zeroed once, left zero by every launch (its last block resets
+    it). Launches on one stream run in order, so they never share it
+    concurrently; another stream gets its own."""
+    key = (x.device.index, _stream(x))
+    scratch = _LIVE_SCRATCH.get(key)
+    if scratch is None:
+        scratch = _LIVE_SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=x.device)
+    return scratch
 
 
 # ---- rays_setup ------------------------------------------------------------
@@ -172,10 +198,12 @@ def _finish_keys(keys: torch.Tensor, alive: torch.Tensor, count: bool, chunk: in
     return keys | (chunks << CHUNK_SHIFT), alive.sum().to(torch.int32).reshape(1)
 
 
-def keys_args(rows, min_coord, inv_extent, count, chunk, keys, live) -> list:
-    """The arguments of ``rt_ray_keys`` (and of its host build), without the stream."""
+def keys_args(rows, min_coord, inv_extent, count, chunk, keys, live, scratch=None) -> list:
+    """The arguments of ``rt_ray_keys`` (and of its host build, which takes
+    no scratch), without the stream."""
     return [rows.data_ptr(), rows.shape[0], min_coord.data_ptr(), inv_extent.data_ptr(),
-            int(bool(count)), chunk, keys.data_ptr(), live.data_ptr()]
+            int(bool(count)), chunk, keys.data_ptr(), live.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None]
 
 
 def ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torch.Tensor,
@@ -195,8 +223,8 @@ def ray_keys(rows: torch.Tensor, min_coord: torch.Tensor, inv_extent: torch.Tens
     live = torch.empty(1, dtype=torch.int32, device=rows.device)
     lib = library().lib
     with torch.cuda.device(rows.device):
-        err = lib.rt_ray_keys(*keys_args(rows, min_coord, inv_extent, count, chunk, keys, live),
-                              _stream(rows))
+        err = lib.rt_ray_keys(*keys_args(rows, min_coord, inv_extent, count, chunk, keys, live,
+                                         live_scratch(rows)), _stream(rows))
     raise_on_error(lib, err, "ray_keys")
     LAUNCHES_KEYS += 1
     return keys, live
@@ -222,12 +250,37 @@ def plain_cullhit_keys(rows: torch.Tensor, box_min: torch.Tensor, box_max: torch
     return _finish_keys(keys, alive, count, chunk)
 
 
-def cullhit_args(rows, box_min, box_max, num_clusters, cull_split, count, chunk, keys, live,
-                 tests) -> list:
-    """The arguments of ``rt_cullhit_keys`` (and of its host build), without the stream."""
-    return [rows.data_ptr(), rows.shape[0], box_min.data_ptr(), box_max.data_ptr(),
-            num_clusters * cull_split, cull_split, num_clusters, int(bool(count)), chunk,
-            keys.data_ptr(), live.data_ptr(), tests.data_ptr() if tests is not None else None]
+def cullhit_tables(box_min: torch.Tensor, box_max: torch.Tensor, n_boxes: int):
+    """The cullhit key kernel's tables of the first ``n_boxes`` cluster boxes
+    → (boxes (n_boxes, 8), gates (ceil(n_boxes / CULLHIT_GATE), 8)) float32,
+    each row ``[min xyz 0 max xyz 0]``. Gate g is the super-box of box rows
+    g * CULLHIT_GATE .. (g + 1) * CULLHIT_GATE - 1: per axis the least and
+    the greatest of BOTH corners of every member, so it holds each member as
+    the slab test sees it (an inverted box's corners swap per axis; far
+    point boxes stay in)."""
+    gate = CULLHIT_GATE
+    lo, hi = box_min[:n_boxes], box_max[:n_boxes]
+    boxes = torch.zeros((n_boxes, BOX_WORDS), dtype=torch.float32, device=lo.device)
+    boxes[:, 0:3], boxes[:, 4:7] = lo, hi
+    n_gates = -(-n_boxes // gate)
+    pad = n_gates * gate - n_boxes
+    least = torch.nn.functional.pad(torch.minimum(lo, hi), (0, 0, 0, pad), value=float("inf"))
+    most = torch.nn.functional.pad(torch.maximum(lo, hi), (0, 0, 0, pad), value=float("-inf"))
+    gates = torch.zeros((n_gates, BOX_WORDS), dtype=torch.float32, device=lo.device)
+    gates[:, 0:3] = least.reshape(n_gates, gate, 3).amin(dim=1)
+    gates[:, 4:7] = most.reshape(n_gates, gate, 3).amax(dim=1)
+    return boxes, gates
+
+
+def cullhit_args(rows, boxes, gates, cull_split, num_clusters, count, chunk, keys, live,
+                 scratch=None, tests=None) -> list:
+    """The arguments of ``rt_cullhit_keys`` (and of its host build, which
+    takes no scratch), without the stream."""
+    return [rows.data_ptr(), rows.shape[0], boxes.data_ptr(), gates.data_ptr(),
+            boxes.shape[0], gates.shape[0], cull_split, num_clusters, int(bool(count)), chunk,
+            keys.data_ptr(), live.data_ptr(),
+            scratch.data_ptr() if scratch is not None else None,
+            tests.data_ptr() if tests is not None else None]
 
 
 def cullhit_keys(rows: torch.Tensor, box_min: torch.Tensor, box_max: torch.Tensor,
@@ -239,36 +292,66 @@ def cullhit_keys(rows: torch.Tensor, box_min: torch.Tensor, box_max: torch.Tenso
     slab-hit cluster ids packed ``fh << 21 | sh << 10``
     (``morton.DEAD_RAY_KEY`` on a dead row), or with ``count`` its bucket,
     plus ``(i // chunk) << 32``. ``tests``, a (1,) int64 tensor on the card,
-    gets the boxes the rays tested added to it."""
+    gets the gates and boxes the rays tested added to it. The kernel's
+    tables (``cullhit_tables``) are built once per pair of box tensors."""
     global LAUNCHES_CULLHIT
     _check_keys(rows, chunk)
     n_boxes = num_clusters * cull_split
     if num_clusters < 1 or cull_split < 1:
         raise ValueError("num_clusters and cull_split must be positive")
-    box_min, box_max = box_min[:n_boxes], box_max[:n_boxes]
     for name, x in (("box_min", box_min), ("box_max", box_max)):
-        if x.dtype != torch.float32 or x.shape != (n_boxes, 3) or not x.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous ({n_boxes}, 3) float32 (or longer)")
+        if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] < n_boxes or x.shape[1] != 3:
+            raise ValueError(f"{name} must be a ({n_boxes}, 3) float32 (or longer)")
         if x.device != rows.device:
             raise ValueError(f"{name} is on {x.device}, the rows on {rows.device}")
     if device_kind(rows, "cullhit_keys") == "cpu":
         if tests is not None:
             raise ValueError("tests counts the kernel's work: CUDA tensors only")
-        return plain_cullhit_keys(rows, box_min, box_max, num_clusters, cull_split, count,
-                                  chunk)
+        return plain_cullhit_keys(rows, box_min[:n_boxes], box_max[:n_boxes], num_clusters,
+                                  cull_split, count, chunk)
     if tests is not None and (tests.dtype != torch.int64 or tests.shape != (1,)
                               or tests.device != rows.device):
         raise ValueError("tests must be a (1,) int64 tensor on the rows' device")
+    boxes, gates = derived(("cullhit_tables", n_boxes), (box_min, box_max),
+                           lambda: cullhit_tables(box_min, box_max, n_boxes))
     keys = torch.empty(rows.shape[0], dtype=torch.int64, device=rows.device)
     live = torch.empty(1, dtype=torch.int32, device=rows.device)
     lib = library().lib
     with torch.cuda.device(rows.device):
-        err = lib.rt_cullhit_keys(*cullhit_args(rows, box_min, box_max, num_clusters,
-                                                cull_split, count, chunk, keys, live, tests),
-                                  _stream(rows))
+        err = lib.rt_cullhit_keys(*cullhit_args(rows, boxes, gates, cull_split, num_clusters,
+                                                count, chunk, keys, live, live_scratch(rows),
+                                                tests), _stream(rows))
     raise_on_error(lib, err, "cullhit_keys")
     LAUNCHES_CULLHIT += 1
     return keys, live
+
+
+def flat_box_tests(rows: torch.Tensor, box_min: torch.Tensor, box_max: torch.Tensor,
+                   num_clusters: int, cull_split: int, rays_a_step: int = 2048) -> int:
+    """The box tests a flat ascending scan needs for the cullhit keys of
+    ``rows``: each live ray tests boxes in order until its second distinct
+    hit id (all ``num_clusters * cull_split`` when it has none); summed over
+    live rays. The work the cullhit key's bound counts, whatever the kernel
+    skips."""
+    n_boxes = num_clusters * cull_split
+    lo, hi = box_min[:n_boxes], box_max[:n_boxes]
+    live_rows = rows[rows_alive(rows)]
+    index = torch.arange(n_boxes, device=rows.device)
+    ids = index // cull_split
+    total = 0
+    for r0 in range(0, live_rows.shape[0], rays_a_step):
+        part = live_rows[r0:r0 + rays_a_step]
+        o, d = part[:, 0:3], part[:, 3:6]
+        inv = 1.0 / torch.where(d == 0.0, 1e-30, d)
+        t1 = (lo[None] - o[:, None]) * inv[:, None]
+        t2 = (hi[None] - o[:, None]) * inv[:, None]
+        near = torch.clamp_min(torch.minimum(t1, t2).amax(dim=2), 0.0)
+        hit = near <= torch.maximum(t1, t2).amin(dim=2)
+        first = torch.where(hit, index, n_boxes).amin(dim=1)
+        first_id = torch.where(first < n_boxes, first // cull_split, -1)
+        second = torch.where(hit & (ids[None] != first_id[:, None]), index, n_boxes).amin(dim=1)
+        total += int(torch.where(second < n_boxes, second + 1, n_boxes).sum())
+    return total
 
 
 # ---- pcg_draws -------------------------------------------------------------

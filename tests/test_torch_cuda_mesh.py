@@ -31,9 +31,14 @@ are held bit-equal to their plain versions (dead rays, a ragged last block,
 the packed rows' strided columns; the walk also at 1, 31, 33 and 657 rays
 at 1, 5 and 32 rays a warp and the kernel's pick, one launch a call), a BVH render and a cullhit
 render launch their kernels, and an unsupported input on the card raises
-(a tree deeper than the walk's stack among them).
+(a tree deeper than the walk's stack among them). Both key kernels (Morton
+and cullhit) are held bit-equal at 1, 255, 256, 257, 4,096 and 2^18 rows at
+``cull_split`` 1 and 2, the cullhit key also over a table staged in steps
+(6,000 boxes), and their live counts right on back-to-back launches without
+a reset, on the current stream and on a second one.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -512,3 +517,77 @@ def test_cullhit_render_launches_its_keys_and_matches_morton(cuda):
     fb = pipeline.render_framebuffer(scene.with_config(sort_key="cullhit"))
     assert rays.LAUNCHES_CULLHIT > before[0] and rays.LAUNCHES_KEYS == before[1]
     assert torch.equal(fb, ref)
+
+
+def _key_pair(scene, rows, count, chunk):
+    """(Morton kernel, plain, cullhit kernel, plain) outputs on ``rows``."""
+    K, S = scene.num_clusters, scene.config.cull_split
+    boxes = (scene.cluster_min, scene.cluster_max, K, S)
+    return (rays.ray_keys(rows, scene.min_coord, scene.inv_extent, count, chunk),
+            rays.plain_ray_keys(rows, scene.min_coord, scene.inv_extent, count, chunk),
+            rays.cullhit_keys(rows, *boxes, count, chunk),
+            rays.plain_cullhit_keys(rows, *boxes, count, chunk))
+
+
+@pytest.mark.parametrize("split", [1, 2])
+def test_key_kernels_bit_equal_plain_at_edge_counts(cuda, split):
+    scene = _scene(cuda, sort_key="cullhit", cull_split=split)
+    rows = wavefront.pack_rows(_states(scene, bounces=2)[1])
+    full = rows.repeat(pipeline.RAY_BLOCK // rows.shape[0], 1)
+    for n in (1, 255, 256, 257, rows.shape[0], full.shape[0]):
+        part = full[:n]
+        for count in (False, True):
+            got, want, got_c, want_c = _key_pair(scene, part, count, min(n, 1000))
+            for g, w in ((got, want), (got_c, want_c)):
+                assert torch.equal(g[0], w[0]) and torch.equal(g[1], w[1]), (n, count)
+    assert 0 < int(want_c[1]) < full.shape[0]
+
+
+def test_key_kernels_live_counts_back_to_back(cuda):
+    """Three launches of each key kernel queued without a sync or a reset,
+    interleaved on one stream, then again on a second stream: every live
+    count right (each launch leaves its stream's scratch zero)."""
+    scene = _scene(cuda, sort_key="cullhit")
+    K, S = scene.num_clusters, scene.config.cull_split
+    states = _states(scene, bounces=3)
+    rows = [wavefront.pack_rows(s) for s in states]
+    rows = [rows[0], rows[1][:1000], rows[2][:3001]]
+    want = [int(rays.rows_alive(r).sum()) for r in rows]
+    for stream in (torch.cuda.current_stream(), torch.cuda.Stream()):
+        with torch.cuda.stream(stream):
+            lives = []
+            for r in rows:
+                lives.append(rays.ray_keys(r, scene.min_coord, scene.inv_extent, False,
+                                           r.shape[0])[1])
+                lives.append(rays.cullhit_keys(r, scene.cluster_min, scene.cluster_max, K, S,
+                                               True, 512)[1])
+        stream.synchronize()
+        assert [int(x) for x in lives] == [w for w in want for _ in range(2)]
+    assert len({w for w in want}) == 3
+
+
+def test_cullhit_keys_staged_in_steps_bit_equal_plain(cuda):
+    """6,000 boxes (K = 3,000 squeezed to 11 bits, ``cull_split`` 2): more
+    than the kernel stages at once, so the table is staged in two steps."""
+    r = np.random.default_rng(3)
+    K, S, R = 3000, 2, 4099
+    centers = r.uniform(-3, 3, (K * S, 3)).astype(np.float32)
+    half = r.uniform(0.05, 0.5, (K * S, 3)).astype(np.float32)
+    centers[4500:, 0] += 100.0  # high first ids for the rays moved along x
+    o = r.uniform(-2, 2, (R, 3)).astype(np.float32)
+    o[:R // 2, 0] += 100.0
+    d = r.normal(size=(R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rows = torch.zeros((R, 16))
+    rows[:, 0:3], rows[:, 3:6] = torch.from_numpy(o), torch.from_numpy(d)
+    rows[:, 6:9] = torch.from_numpy((r.uniform(size=R) < 0.9).astype(np.float32))[:, None]
+    rows = rows.to(cuda)
+    bmin = torch.from_numpy(centers - half).to(cuda)
+    bmax = torch.from_numpy(centers + half).to(cuda)
+    for count in (False, True):
+        got = rays.cullhit_keys(rows, bmin, bmax, K, S, count, 2048)
+        want = rays.plain_cullhit_keys(rows, bmin, bmax, K, S, count, 2048)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    keys, _ = rays.plain_cullhit_keys(rows, bmin, bmax, K, S, False, R)
+    fh = keys[rays.rows_alive(rows)] >> 21 & 0x7FF
+    assert (fh >= 2047 * 2250 // K).sum() > 100

@@ -9,10 +9,18 @@ on the host; this file builds that with the host C++ compiler and holds:
   tests/test_morton.py's two cases (K across a chunk boundary with dead
   rays; K = 3000 with ``cull_split`` 2, which squeezes the ids to 11 bits)
   and on the small torus's cluster boxes;
-- the host build of the key (``rt_host_cullhit_keys``) BIT-EQUAL to its
-  plain version (``rays.plain_cullhit_keys``): keys and live count in both
-  ``count`` modes (the bucket clamp at fh >= 1024 included), chunk
-  offsets, and its box-test counter against a NumPy recount;
+- the host build of the key (``rt_host_cullhit_keys``: the kernel's gated
+  scan, its warp vote emulated over 1, 8 and 32 rows in lockstep, the
+  table staged whole or in steps) BIT-EQUAL to its plain version
+  (``rays.plain_cullhit_keys``): keys and live count in both ``count``
+  modes (the bucket clamp at fh >= 1024 included), chunk offsets, and its
+  test counter (gates and boxes tested) against a NumPy recount of the
+  gated scan; also on edge rows (subnormal direction components with box
+  planes at the origin, inverted boxes, far point boxes inside K * S at
+  ``cull_split`` 2, rays whose only hits lie in the last gate's group);
+- each gate of ``rays.cullhit_tables`` the tight super-box of both corners
+  of its members, and ``rays.flat_box_tests`` (the flat scan's tests, the
+  bound's count) EQUAL to a NumPy recount;
 - the small torus's framebuffer with ``sort_key`` "cullhit" and "auto"
   BIT-IDENTICAL to the Morton key's under both sort engines (any
   permutation renders the same bits), and the two keys resolving as JAX's;
@@ -94,26 +102,40 @@ def test_first2_cluster_keys_match_jax(case):
 def host(tmp_path_factory):
     lib = _compile(tmp_path_factory, "bounce_host")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rt_host_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, p, p, p]
+    lib.rt_host_cullhit_keys.argtypes = [p, i, p, p] + [i] * 6 + [p] * 4 + [i, i]
     return lib
 
 
-def _host_keys(lib, rows, bmin, bmax, K, S, count, chunk):
+def _host_keys(lib, rows, bmin, bmax, K, S, count, chunk, lanes=32, staged=0):
+    """The host build's (keys, live, tests); ``staged`` 0 stages as the
+    kernel does (rt::kMaxStaged boxes a step)."""
     keys = torch.empty(rows.shape[0], dtype=torch.int64)
     live = torch.empty(1, dtype=torch.int32)
     tests = torch.zeros(1, dtype=torch.int64)
-    lib.rt_host_cullhit_keys(*rays.cullhit_args(rows, bmin, bmax, K, S, count, chunk, keys,
-                                                live, tests))
+    boxes, gates = rays.cullhit_tables(bmin, bmax, K * S)
+    assert lib.rt_host_cullhit_keys(*rays.cullhit_args(rows, boxes, gates, S, K, count, chunk,
+                                                       keys, live, None, tests),
+                                    lanes, staged) == 0
     return keys, live, int(tests)
+
+
+def _hits(o, d, bmin, bmax):
+    """(R, rows) slab hits as first2_cluster_keys tests them, and whether
+    any plane parameter is NaN."""
+    with np.errstate(invalid="ignore", over="ignore"):
+        inv = 1.0 / np.where(d == 0, np.float32(1e-30), d)
+        t1 = (bmin[None] - o[:, None]) * inv[:, None]
+        t2 = (bmax[None] - o[:, None]) * inv[:, None]
+    near = np.maximum(np.minimum(t1, t2).max(axis=2), 0.0)
+    far = np.maximum(t1, t2).min(axis=2)
+    nan = np.isnan(t1).any(axis=2) | np.isnan(t2).any(axis=2)
+    return (near <= far) & ~nan, nan
 
 
 def _tests_needed(o, d, alive, bmin, bmax, K, S):
     """Boxes a ray tests in ascending order until its second distinct hit
     (all of them when it has none), summed over live rays."""
-    inv = 1.0 / np.where(d == 0, np.float32(1e-30), d)
-    t1 = (bmin[None] - o[:, None]) * inv[:, None]
-    t2 = (bmax[None] - o[:, None]) * inv[:, None]
-    hit = np.maximum(np.minimum(t1, t2).max(axis=2), 0.0) <= np.maximum(t1, t2).min(axis=2)
+    hit, _ = _hits(o, d, bmin, bmax)
     ids = np.arange(K * S) // S
     total = 0
     for r in np.flatnonzero(alive):
@@ -123,22 +145,143 @@ def _tests_needed(o, d, alive, bmin, bmax, K, S):
     return total
 
 
+def _gated_tests_needed(o, d, alive, bmin, bmax, K, S, G=rays.CULLHIT_GATE):
+    """The gates and boxes the gated scan tests, summed over live rays: a
+    ray tests each gate until it is done, and a gate's rows up to its
+    second distinct hit when that gate hits (a NaN counting as a hit)."""
+    hit, _ = _hits(o, d, bmin, bmax)
+    n = K * S
+    gates = [(np.minimum(bmin, bmax)[g:g + G].min(axis=0),
+              np.maximum(bmin, bmax)[g:g + G].max(axis=0)) for g in range(0, n, G)]
+    gate_hit, gate_nan = _hits(o, d, np.stack([lo for lo, _ in gates]),
+                               np.stack([hi for _, hi in gates]))
+    gate_hit |= gate_nan
+    ids = np.arange(n) // S
+    total = 0
+    for r in np.flatnonzero(alive):
+        rows = np.flatnonzero(hit[r])
+        second = rows[ids[rows] != ids[rows[0]]] if rows.size else rows
+        end = int(second[0]) + 1 if second.size else n  # rows tested up to here
+        for g, j0 in enumerate(range(0, n, G)):
+            if j0 >= end:
+                break
+            total += 1 + (min(j0 + G, end) - j0 if gate_hit[r, g] else 0)
+    return total
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_host_build_bit_equal_to_plain(host, case):
     seed, R, K, S = CASES[case][:4]
     o, d, alive, bmin, bmax = _boxes(*CASES[case])
     rows = _rows(o, d, alive)
     tb_min, tb_max = torch.from_numpy(bmin), torch.from_numpy(bmax)
+    counted = set()
     for count in (False, True):
         for chunk in (R, 48):
-            got_keys, got_live, tests = _host_keys(host, rows, tb_min, tb_max, K, S, count,
-                                                   chunk)
             want_keys, want_live = rays.cullhit_keys(rows, tb_min, tb_max, K, S, count, chunk)
-            assert torch.equal(got_keys, want_keys) and torch.equal(got_live, want_live)
-    assert tests == _tests_needed(o, d, alive, bmin, bmax, K, S)
+            for lanes in (1, 8, 32):
+                got_keys, got_live, tests = _host_keys(host, rows, tb_min, tb_max, K, S, count,
+                                                       chunk, lanes)
+                assert torch.equal(got_keys, want_keys) and torch.equal(got_live, want_live)
+                counted.add(tests)
+    assert counted == {_gated_tests_needed(o, d, alive, bmin, bmax, K, S)}
+    assert rays.flat_box_tests(rows, tb_min, tb_max, K, S) == _tests_needed(
+        o, d, alive, bmin, bmax, K, S)
     if case == "squeezed_far":  # the count bucket's clamp is exercised
         keys, _ = rays.plain_cullhit_keys(rows, tb_min, tb_max, K, S, False, R)
         assert ((keys[torch.from_numpy(alive)] >> 21) >= 1024).sum() > 10
+
+
+def _edge_boxes(seed=11, K=75, S=2):
+    """K * S boxes (a ragged last gate group) and rays on the slab test's
+    edges: subnormal direction components (an infinite inverse) from origins
+    on a box plane (a NaN plane parameter), inverted boxes, empty sub-boxes
+    as far point boxes (split_aabbs') hit by rays along the diagonal, and
+    rays whose only hits lie in the last gate's group."""
+    r = np.random.default_rng(seed)
+    n = K * S
+    centers = r.uniform(-3, 3, (n, 3)).astype(np.float32)
+    half = r.uniform(0.1, 0.6, (n, 3)).astype(np.float32)
+    bmin, bmax = centers - half, centers + half
+    flip = r.uniform(size=n) < 0.2  # inverted on one axis
+    axis = r.integers(0, 3, n)
+    bmin[flip, axis[flip]], bmax[flip, axis[flip]] = (bmax[flip, axis[flip]].copy(),
+                                                     bmin[flip, axis[flip]].copy())
+    point = np.arange(1, n, 2)[r.uniform(size=n // 2) < 0.3]  # empty second sub-boxes
+    bmin[point] = bmax[point] = 1e17
+    last = (n - 1) // rays.CULLHIT_GATE * rays.CULLHIT_GATE  # the last group's first row
+    bmin[last:, 1] += 100.0
+    bmax[last:, 1] += 100.0
+    R = 320
+    o = r.uniform(-2, 2, (R, 3)).astype(np.float32)
+    d = r.normal(size=(R, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    # Subnormal components, origins on a box's plane on that axis, or on its
+    # gate's least plane (the gate's test NaN, its members' not).
+    G = rays.CULLHIT_GATE
+    for k in range(64):
+        box, ax = r.integers(0, last), k % 3
+        d[k, ax] = np.float32(1e-40) * (1 if k % 2 else -1)
+        group = np.minimum(bmin, bmax)[box // G * G:(box // G + 1) * G, ax]
+        o[k, ax] = (bmin[box, ax], bmax[box, ax], group.min(), group.min())[k % 4]
+    # Along the diagonal from the origin: the far point boxes tie.
+    o[64:72] = 0.0
+    d[64:72] = np.float32(0.57735026)
+    # Inside the last group's boxes, heading up: their only hits lie there.
+    inside = r.choice(np.setdiff1d(np.arange(last, n), point), 48)
+    o[72:120] = centers[inside] + np.array([0.0, 100.0, 0.0], np.float32)
+    d[72:120] = np.array([0.0, 1.0, 0.0], np.float32)
+    # All three components subnormal from the first gate's least x plane:
+    # that gate's test is NaN, while its members above the plane, straddling
+    # the origin in y and z, hit at near = far = inf.
+    lo0 = np.minimum(bmin, bmax)[:G]
+    members = np.flatnonzero((lo0[:, 0] > lo0[:, 0].min()) & ~np.isin(np.arange(G), point))
+    o[120:128] = centers[r.choice(members, 8)]
+    o[120:128, 0] = lo0[:, 0].min()
+    d[120:128] = np.float32(1e-40)
+    alive = r.uniform(size=R) < 0.95
+    alive[120:128] = True
+    return o, d, alive, bmin, bmax, K, S, last
+
+
+@pytest.mark.parametrize("lanes", [1, 8, 32])
+def test_host_build_bit_equal_on_edge_rows(host, lanes):
+    o, d, alive, bmin, bmax, K, S, last = _edge_boxes()
+    rows = _rows(o, d, alive)
+    tb_min, tb_max = torch.from_numpy(bmin), torch.from_numpy(bmax)
+    for count in (False, True):
+        want = rays.plain_cullhit_keys(rows, tb_min, tb_max, K, S, count, 100)
+        for staged in (32, 64, 0):
+            got_keys, got_live, tests = _host_keys(host, rows, tb_min, tb_max, K, S, count,
+                                                   100, lanes, staged)
+            assert torch.equal(got_keys, want[0]) and torch.equal(got_live, want[1])
+            assert tests == _gated_tests_needed(o, d, alive, bmin, bmax, K, S)
+    # The edges are reached: NaN plane parameters, point-box and last-group
+    # hits, hits at infinity behind a NaN gate.
+    hit, nan = _hits(o, d, bmin, bmax)
+    assert nan[:64].any(axis=1).sum() > 20
+    assert hit[64:72][:, (bmin == 1e17).all(axis=1)].any()
+    keys, _ = rays.plain_cullhit_keys(rows, tb_min, tb_max, K, S, False, 100)
+    fh = keys.numpy() >> 21 & 0x7FF
+    assert (fh[72:120][alive[72:120]] >= last // S).all()
+    assert (fh[72:120][alive[72:120]] < K).all()
+    assert (fh[120:128] < rays.CULLHIT_GATE // S).all()
+
+
+def test_gates_are_the_tight_super_boxes_of_both_corners():
+    o, d, alive, bmin, bmax, K, S, _ = _edge_boxes()
+    for lo, hi, n in ((bmin, bmax, K * S), *((b[0], b[1], CASES["squeezed_split"][2] * 2)
+                                            for b in [_boxes(*CASES["squeezed_split"])[3:]])):
+        boxes, gates = rays.cullhit_tables(torch.from_numpy(lo), torch.from_numpy(hi), n)
+        G = rays.CULLHIT_GATE
+        assert boxes.shape == (n, 8) and gates.shape == (-(-n // G), 8)
+        assert np.array_equal(boxes[:, 0:3].numpy(), lo[:n])
+        assert np.array_equal(boxes[:, 4:7].numpy(), hi[:n])
+        for g in range(gates.shape[0]):
+            corners = np.concatenate([lo[g * G:(g + 1) * G], hi[g * G:(g + 1) * G]])
+            assert np.array_equal(gates[g, 0:3].numpy(), corners.min(axis=0))
+            assert np.array_equal(gates[g, 4:7].numpy(), corners.max(axis=0))
+        assert not boxes[:, [3, 7]].any() and not gates[:, [3, 7]].any()
 
 
 def test_host_build_on_torus_rows(host):
@@ -151,9 +294,11 @@ def test_host_build_on_torus_rows(host):
     rows = wavefront.pack_rows(state)
     K, S = ts.num_clusters, ts.config.cull_split
     for count in (False, True):
-        got = _host_keys(host, rows, ts.cluster_min, ts.cluster_max, K, S, count, 1024)[:2]
         want = rays.cullhit_keys(rows, ts.cluster_min, ts.cluster_max, K, S, count, 1024)
-        assert all(torch.equal(g, w) for g, w in zip(got, want))
+        for lanes in (1, 8, 32):
+            got = _host_keys(host, rows, ts.cluster_min, ts.cluster_max, K, S, count, 1024,
+                             lanes)[:2]
+            assert all(torch.equal(g, w) for g, w in zip(got, want))
     alive = rays.rows_alive(rows)
     assert 0 < int(alive.sum()) < 1024
     ref = np.asarray(jmorton.first2_cluster_keys(

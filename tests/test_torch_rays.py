@@ -82,7 +82,7 @@ def host(tmp_path_factory):
     lib = _compile(tmp_path_factory, "bounce_host")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p]
-    lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p]
+    lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
     lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
     lib.rt_host_bounce_rows.argtypes = (
         [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u])
