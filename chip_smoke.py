@@ -60,8 +60,10 @@ checks them all. Phases, one line each:
 7. mesh main path: the torus at 1000×1000 and 10 bounces after small
    warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
    rays per pixel, each through fused1 and through cull + fused (fused1,
-   cull + fused, cull + fused, fused1), then once through "auto" (cull +
-   fused on the card); launch counts per kernel (> 0 for the regime's
+   cull + fused, cull + fused, fused1), then once through "auto" (on the
+   card fused1 for the 100-spp render's 20-spp passes, the pass regime
+   ``pipeline._regime_scene``, and cull + fused for the 8-spp one); launch
+   counts per kernel (> 0 for the regime's
    kernels and the forward kernels: camera draws, set-up, bounce, sort
    keys; 0 for the other packet kernels), finite framebuffers, sane mean
    display values, and every image of a spp identical;
@@ -72,14 +74,16 @@ checks them all. Phases, one line each:
    Möller–Trumbore tests of live rays against real (unpadded) triangles
    that the kernel did, the bound they imply, and bit-equality at that full
    shape; (b) the bounce kernel's time, its plain version's, the bytes the
-   block needs and its bound; then fused1 on the same block traced as a
-   render traces it (live prefix, Morton sort), entering bounces 2-9, one
-   block per tile and at the chosen split, both bit-equal to the plain
-   version, both timed; the cull (0 mismatched elements against
-   plain_cull, timed beside its bound) and fused (with its skip test, as
-   the cull + fused engine calls it) on the same block's bounces 0-9, fused
-   at one block per tile and at the chosen split, both bit-equal to
-   plain_fused, both timed; then that block's whole trace (10 bounces)
+   block needs and its bound; then the cull (0 mismatched elements against
+   plain_cull, timed beside its bound), fused (with its skip test, as
+   the cull + fused engine calls it) and the pair sweep (over the same
+   culled pairs, timed only) on the same block traced as a render traces
+   it (live prefix, Morton sort), entering bounces 0-9, fused at one block
+   per tile and at the chosen split, both bit-equal to plain_fused, both
+   timed; and fused1 on those rays, one block per tile and at the chosen
+   split, both bit-equal to the plain version, both timed, with its bound
+   and share, each bounce on one line beside cull + fused and the sweep on
+   the same rays; then that block's whole trace (10 bounces)
    under torch.profiler, through fused1 with the bounce kernel and with the
    torch shading (the plain version called by name), and through cull +
    fused: device time by kernel, the packet kernels' time per bounce, the
@@ -151,8 +155,9 @@ checks them all. Phases, one line each:
    mismatched elements); (b) its time on the centre block of a 20-spp pass
    at bounces 0 and 1, its counters and bound,
    its plain time and bit-equality at that shape, beside the pack-1 kernel
-   of phase 8 on the same rays, its profile, and bounces 2-9 as in phase
-   8; (c) the main path: the packed and the unpacked torus at 1000×1000,
+   of phase 8 on the same rays, its profile, and bounces 0-9 as in phase
+   8, beside phase 8's cull + fused, sweep and pack-1 times on the same
+   rays; (c) the main path: the packed and the unpacked torus at 1000×1000,
    100 spp, 10 bounces in turns (packed, unpacked, unpacked, packed):
    pack-2 launches and no other packet kernel's in the packed renders,
    fused1 (pack 1) in the unpacked ones,
@@ -185,8 +190,8 @@ checks them all. Phases, one line each:
    torus's bounces 0, 1 and 3: t within rtol / atol 1e-5 and under 1 % of
    live rays on another triangle (JAX's BVH-against-scan standard), the
    mismatches and how many are equal-distance ties; (c) the torus at
-   1000×1000 × 10 bounces through the BVH and through "auto" in turns
-   (bvh, auto, auto, bvh) at 100 and at 8
+   1000×1000 × 10 bounces through the BVH and through "auto" (fused1 at
+   100 spp, cull + fused at 8) in turns (bvh, auto, auto, bvh) at 100 and at 8
    spp: seconds, Mrays/s, the walk launching in the BVH renders and no
    packet kernel, the mean display value, the images' mean |Δ| and share of
    bytes within ±1 (printed, not gated: tie rays take other paths); then
@@ -263,22 +268,23 @@ CAMERA_OPS = 29
 #                 window and 3 far planes 3, the entry's running
 #                 minimum 1                                          = 19
 #                 (the safe inverse, 3 per ray, is amortised over K)
-#   super-box slab test of the one-launch gated cull (rt::slab_signed)
-#                 per (live ray, super box): 3 axes × (2 sub, 2 mul),
-#                 the entry's max 3, the exit's min 3, no running
-#                 minimum                                            = 18
+#   super-box slab test of the one-launch gated cull (rt::slab_signed),
+#                 and fused1's box and super-box test (rt::slab_sorted)
+#                 per (live ray, box): 3 axes × (2 sub, 2 mul), the
+#                 entry's max 3, the exit's min 3, no running minimum = 18
 #   Möller–Trumbore terms (rt::mt_terms) per (live ray, real triangle of
 #                 a swept cluster; padding slots excluded): h 6 mul +
 #                 3 sub, det 3 mul + 2 add, f 3 sub, ud 5, q 9, vd 5,
 #                 td 5                                               = 41
-#     fused, fused1 (rt::mt_t's sign-folded acceptance): |det| 1,
+#     fused (rt::mt_t's sign-folded acceptance): |det| 1,
 #                 us vs ts 3 mul, us+vs 1, eps·|det| 1               = 47
-#     the sweep (rt::mt_accept_terms): ud+vd 1, eps·det 1            = 43
+#     the sweep and fused1 (rt::mt_accept_terms): ud+vd 1, eps·det 1 = 43
 #                 (+1 division per accepted hit, not counted)
 SLAB_OPS = 19
 SUPER_SLAB_OPS = 18
 MT_OPS = 47
 SWEEP_MT_OPS = 43
+FUSED1_OPS = (SUPER_SLAB_OPS, SWEEP_MT_OPS)  # fused1: (per slab test, per MT test)
 MESH_FULL_SPP = 100
 MESH_FEW_SPP = 8  # one pass: the sparse-sample render
 MESH_SMALL_RPP = 4
@@ -299,7 +305,9 @@ FORWARD_KERNELS = ("pcg_draws", "rays_setup", "shade_rows", "ray_keys")
 # Kernels the 8-spp CLI render must launch (phases 9a, 9b, 12a), "auto" on
 # the card; --cull-hier adds the gated cull (9b).
 # The closest-hit kernels of packet_backend "auto" on the card
-# (packet_intersect.resolve_backend): cull + fused.
+# (packet_intersect.resolve_backend) in a pass of fewer than 10 rays per
+# pixel: cull + fused; a pass of 10 or more takes fused1 (the pass regime,
+# pipeline._regime_scene; _auto_kernels).
 AUTO_KERNELS = ("cull_tiles", "fused_closest_hit")
 CLI_KERNELS = AUTO_KERNELS + FORWARD_KERNELS
 # ... and with --cull-hier 16 (cull_hier, phases 9b-c): the gated cull in one
@@ -849,12 +857,13 @@ def phase_mesh_main_path(full) -> tuple:
     for backend in ("fused1", "fused"):  # kernels, allocator and clocks warm
         pipeline.render_framebuffer(_resized(full, 128, 128).with_config(
             rays_per_pixel=20, packet_backend=backend))
-    regimes = {"fused1": ("fused1_closest_hit",),
-               "cull+fused": ("cull_tiles", "fused_closest_hit"), "auto": AUTO_KERNELS}
     backends = {"fused1": "fused1", "cull+fused": "fused", "auto": "auto"}
     order = ("fused1", "cull+fused", "cull+fused", "fused1", "auto")
     launches, reference = {}, None
     for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
+        regimes = {"fused1": ("fused1_closest_hit",),
+                   "cull+fused": ("cull_tiles", "fused_closest_hit"),
+                   "auto": _auto_kernels(full.with_config(rays_per_pixel=spp))}
         turns = [(label, full.with_config(rays_per_pixel=spp, packet_backend=backends[label]))
                  for label in order]
         seconds, fbs, images, counts = _render_turns(turns, regimes, "7", "mesh main path")
@@ -864,12 +873,15 @@ def phase_mesh_main_path(full) -> tuple:
             + f" images_identical={same}")
         if not same:
             raise SystemExit(f"phase 7 failed: the {spp}-spp images differ between regimes")
-        # The kernel table's launches: the main path's, the 100-spp "auto"
-        # render (the last turn), and fused1's from its own turn (turn 0).
+        # The kernel table's launches: the main path's, the "auto" render
+        # (the last turn) at 100 spp for the forward kernels and fused1 (the
+        # regime of its 20-spp passes) and at 8 spp for cull + fused.
         if spp == MESH_FULL_SPP:
             reference = fbs[-1]  # phase 11c's reference: the "auto" render
-            launches.update({k: counts[-1][k] for k in AUTO_KERNELS + FORWARD_KERNELS})
-            launches["fused1_closest_hit"] = counts[0]["fused1_closest_hit"]
+            launches.update({k: counts[-1][k]
+                             for k in ("fused1_closest_hit",) + FORWARD_KERNELS})
+        else:
+            launches.update({k: counts[-1][k] for k in AUTO_KERNELS})
     return launches, reference
 
 
@@ -1043,6 +1055,8 @@ def phase_packet_timing(full) -> dict:
                                    od8_bytes + box_bytes + sup.numel() * f4
                                    + table_bytes + out_bytes),
         }
+        ops = {"cull_tiles": (SLAB_OPS, 0), "fused_closest_hit": (0, MT_OPS),
+               "fused1_closest_hit": FUSED1_OPS}  # per slab test, per MT test
         swept = {"cull_tiles": 0, "fused_closest_hit": int(stats[1]),
                  "fused1_closest_hit": int(stats1[1])}
         for name, (kernel, plain) in runs.items():
@@ -1050,7 +1064,7 @@ def phase_packet_timing(full) -> dict:
             plain_ms = _plain_ms(plain)
             bad, err = _mismatch(kernel(), plain())
             slabs, mts, nbytes = work[name]
-            ops_ms = (slabs * SLAB_OPS + mts * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+            ops_ms = (slabs * ops[name][0] + mts * ops[name][1]) / PEAK_FP32_FLOPS * 1e3
             bytes_ms = nbytes / PEAK_BYTES * 1e3
             bound_ms = max(ops_ms, bytes_ms)
             print(f"phase 8 timing: torus block lo={block_lo} rays={block} bounce={bounce} "
@@ -1070,9 +1084,10 @@ def phase_packet_timing(full) -> dict:
     out = {name: results[(name, 1)] for name in runs}
     out["shade_rows"] = [_bounce_timing(scene, st, seed, b)
                            for b, st in ((0, state0), (1, state1))][1]
-    out["fused1_closest_hit"].update(_fused1_tail(scene, 1, 16, "8"))
     out["fused_closest_hit"]["tail"] = _fused_tail(scene, ray_id, rpp, seed,
                                                    f"centre block lo={block_lo}", "8")
+    out["fused1_closest_hit"].update(_fused1_tail(scene, 1, 16, "8",
+                                                  out["fused_closest_hit"]["tail"]))
     return out
 
 
@@ -1353,12 +1368,15 @@ def _traced_od8(scene, ids, rpp: int, seed: int, first: int = 0):
                                                  scene.config.packet_tile)
 
 
-def _fused1_tail(scene, pack: int, gate: int, phase: str) -> dict:
+def _fused1_tail(scene, pack: int, gate: int, phase: str, yard: list) -> dict:
     """The centre block of a 20-spp pass traced as a render traces it (the
     live prefix, the Morton sort): fused1 on the ray tiles entering bounces
-    2-9, one block per tile (S = 1) and at split_plan's split, both
+    0-9, one block per tile (S = 1) and at split_plan's split, both
     bit-equal to plain_fused1; each timed (_cuda_ms), with the S = 1
-    counters' bound and the split's own counters beside it."""
+    counters' bound, its share of the chosen split's time and the split's
+    own counters; beside it ``yard``'s times on the same rays (phase 8's
+    ``_fused_tail`` rows: the cull + fused engine, the pair sweep, and for
+    pack 2 the pack-1 kernel over the unpacked table)."""
     import torch
     from cuda_raytracer_tpu_torch.ops import packet_intersect
     from cuda_raytracer_tpu_torch.ops.kernels import fused1
@@ -1371,15 +1389,16 @@ def _fused1_tail(scene, pack: int, gate: int, phase: str) -> dict:
     aabb = packet_intersect.box_table(scene)
     sup = packet_intersect.super_table(scene, gate)
     blocks = scene.cluster_blocks[:K // pack].contiguous()
+    same_rays = {r["bounce"]: r for r in yard}
     rows = []
-    for b, n, od8 in _traced_od8(scene, ids, rpp, seed, first=2):
+    for b, n, od8 in _traced_od8(scene, ids, rpp, seed):
         T = od8.shape[0]
         splits = fused1.split_plan(T, K, gate)[0]
         ref = fused1.plain_fused1(od8, aabb, blocks, pack=pack)
-        stats = {1: torch.zeros(3, dtype=torch.int64, device=scene.device),
-                 splits: torch.zeros(3, dtype=torch.int64, device=scene.device)}
+        stats = {s_: torch.zeros(3, dtype=torch.int64, device=scene.device)
+                 for s_ in (1, splits)}
         bad, ms = 0, {}
-        for s_ in (1, splits):
+        for s_ in stats:
             run = (lambda s_=s_: fused1.fused1_closest_hit(od8, aabb, blocks, sup, gate,
                                                            pack=pack, splits=s_))
             bad += _mismatch(fused1.fused1_closest_hit(
@@ -1387,13 +1406,19 @@ def _fused1_tail(scene, pack: int, gate: int, phase: str) -> dict:
                 ref)[0]
             ms[s_] = _cuda_ms(run)
         s1 = stats[1]
-        ops_ms = (int(s1[0]) * SLAB_OPS + int(s1[2]) * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+        ops_ms = (int(s1[0]) * FUSED1_OPS[0] + int(s1[2]) * FUSED1_OPS[1]) / PEAK_FP32_FLOPS * 1e3
         live = int((od8[:, 6, :] >= 0).sum())
         live_tiles = int((od8[:, 6, :] >= 0).any(dim=1).sum())
+        y = same_rays[b]
+        beside = (f"cull_plus_fused_ms={y['cull_ms'] + y['ms_chosen']:.4f} "
+                  f"sweep_ms={y['sweep_ms']:.4f}")
+        if "fused1_ms" in y:
+            beside += f" pack1_ms={y['fused1_ms']:.4f}"
         print(f"phase {phase} fused1 tail: pack={pack} bounce={b} rays={n} tiles={T} "
               f"live={live} live_tiles={live_tiles} splits={splits} "
               f"ms_split1={ms[1]:.4f} ms_split{splits}={ms[splits]:.4f} "
-              f"ops_bound_ms={ops_ms:.4f} counters_split1={s1.tolist()} "
+              f"ops_bound_ms={ops_ms:.4f} bound_share={ops_ms / ms[splits]:.3f} | same rays: "
+              f"{beside} | counters_split1={s1.tolist()} "
               f"counters_split{splits}={stats[splits].tolist()} mismatched={bad}")
         if bad:
             raise SystemExit(f"phase {phase} failed: fused1 pack {pack} differs from its "
@@ -1413,7 +1438,7 @@ def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list
     bound and the split's counters beside it."""
     import torch
     from cuda_raytracer_tpu_torch.ops import packet_intersect
-    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1
+    from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, sweep
 
     K = scene.num_clusters
     aabb = packet_intersect.box_table(scene)
@@ -1433,7 +1458,7 @@ def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list
                              f"({label}, bounce {b})")
         words = fused.pack_words(entry < packet_intersect.HIT_THRESH)
         ref = fused.plain_fused(od8, blocks, words)
-        splits = fused1.split_plan(T, K)[0]
+        splits = fused1.split_plan(T, K, unit=fused.SPLIT_UNIT)[0]
         stats = {s_: torch.zeros(3, dtype=torch.int64, device=scene.device)
                  for s_ in (1, splits)}
         bad, ms = 0, {}
@@ -1445,19 +1470,40 @@ def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list
         s1 = stats[1]
         ops_ms = int(s1[2]) * MT_OPS / PEAK_FP32_FLOPS * 1e3
         live_tiles = int((od8[:, 6, :] >= 0).any(dim=1).sum())
+        # The pair sweep over the same culled pairs (no window: timed only).
+        select = entry < packet_intersect.HIT_THRESH
+        pairs, total, _ = packet_intersect.extract_pairs(select, max(1, int(select.sum())))
+        tile = od8.shape[2]
+        rays_tiles = sweep.make_rays_tiles(od8[:, 0:3].permute(0, 2, 1).reshape(-1, 3),
+                                           od8[:, 3:6].permute(0, 2, 1).reshape(-1, 3), tile)
+        sweep_ms = _cuda_ms(lambda: sweep.sweep_pairs(rays_tiles, blocks, pairs, total, tile))
         print(f"phase {phase} fused tail: {label} bounce={b} rays={n} tiles={T} "
               f"live={int((od8[:, 6, :] >= 0).sum())} live_tiles={live_tiles} "
               f"selected_pairs={int((entry < packet_intersect.HIT_THRESH).sum())} "
               f"splits={splits} ms_split1={ms[1]:.4f} ms_split{splits}={ms[splits]:.4f} "
               f"ops_bound_ms={ops_ms:.4f} counters_split1={s1.tolist()} "
-              f"counters_split{splits}={stats[splits].tolist()} mismatched={bad}")
+              f"counters_split{splits}={stats[splits].tolist()} mismatched={bad} "
+              f"sweep_same_pairs_ms={sweep_ms:.4f}")
         if bad:
             raise SystemExit(f"phase {phase} failed: fused differs from its plain version "
                              f"({label}, bounce {b})")
         rows.append(dict(bounce=b, tiles=T, splits=splits, ms_split1=ms[1],
                          ms_chosen=ms[splits], bound_ms=ops_ms, cull_ms=cull_ms,
-                         cull_bound_ms=cull_bound))
+                         cull_bound_ms=cull_bound, sweep_ms=sweep_ms))
     return rows
+
+
+def _auto_kernels(scene) -> tuple:
+    """The closest-hit kernels a render of ``scene`` through "auto" launches
+    on the card: those of its passes' regime (``pipeline._regime_scene``;
+    every pass of a render at up to 20 or at a multiple of 20 rays per
+    pixel is in one regime)."""
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    cfg = scene.config
+    rpp = min(cfg.rays_per_pixel, cfg.max_rays_per_pixel_per_pass)
+    regime = pipeline._regime_scene(scene, rpp).config.packet_backend
+    return ("fused1_closest_hit",) if regime == "fused1" else AUTO_KERNELS
 
 
 def _launch_counts() -> dict:
@@ -2275,10 +2321,12 @@ def phase_pack_vs_plain(packed, half) -> float:
     return worst
 
 
-def phase_pack_timing(packed, full) -> dict:
+def phase_pack_timing(packed, full, yard: list) -> dict:
     """11b: the pack-2 kernel on the centre 2^18-ray block of a 20-spp pass,
     bounces 0 and 1: time, counters, bound, plain time, bit-equality; and
-    the pack-1 kernel (phase 8's, C = 256) on the same rays."""
+    the pack-1 kernel (phase 8's, C = 256) on the same rays; then bounces
+    0-9 as phase 8 times them, beside ``yard``: phase 8's times on the same
+    rays (the packed table traces the unpacked one's bits)."""
     import torch
     from cuda_raytracer_tpu_torch.ops import packet_intersect
     from cuda_raytracer_tpu_torch.ops.kernels import cull, fused1
@@ -2325,10 +2373,12 @@ def phase_pack_timing(packed, full) -> dict:
                        .any(dim=0).sum())
         nbytes = (od8.numel() + BOX_ROWS * K + sup.numel() + hit_subs * BLOCK_ROWS * C // 2
                   + T * tile * 2) * f4
-        ops_ms = (int(stats[0]) * SLAB_OPS + int(stats[2]) * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+        ops_ms = ((int(stats[0]) * FUSED1_OPS[0] + int(stats[2]) * FUSED1_OPS[1])
+                  / PEAK_FP32_FLOPS * 1e3)
         bytes_ms = nbytes / PEAK_BYTES * 1e3
         bound_ms = max(ops_ms, bytes_ms)
-        ops1_ms = (int(stats1[0]) * SLAB_OPS + int(stats1[2]) * MT_OPS) / PEAK_FP32_FLOPS * 1e3
+        ops1_ms = ((int(stats1[0]) * FUSED1_OPS[0] + int(stats1[2]) * FUSED1_OPS[1])
+                   / PEAK_FP32_FLOPS * 1e3)
         print(f"phase 11b pack2 timing: torus block lo={block_lo} rays={block} bounce={bounce} "
               f"pack2_ms={ms:.3f} plain_ms={plain_ms:.1f} slab_tests={int(stats[0])} "
               f"swept_sub_pairs={int(stats[1])} mt_tests={int(stats[2])} "
@@ -2346,7 +2396,7 @@ def phase_pack_timing(packed, full) -> dict:
     # Where the packed block's time goes, beside phase 8's profile of the
     # unpacked one: the pack-2 kernel's time per bounce.
     _profile_block(scene, "fused1 pack=2", FUSED1_KERNELS, phase="11b")
-    results[1].update(_fused1_tail(packed, 2, PACK_GATE, "11b"))
+    results[1].update(_fused1_tail(packed, 2, PACK_GATE, "11b", yard))
     return results[1]  # the kernel table reports the sorted bounced block
 
 
@@ -2376,12 +2426,13 @@ def phase_pack_main_path(packed, full, reference_fb) -> int:
     return counts[0]["fused1_closest_hit_pack2"]
 
 
-def phase_pack(full, device):
+def phase_pack(full, device, yard: list):
     """Phase 11a-b: paired sub-cluster tables through the pack-2 kernel →
-    (the packed torus, the kernel's numbers)."""
+    (the packed torus, the kernel's numbers). ``yard``: phase 8's times per
+    bounce on the same rays (cull + fused, the sweep, the pack-1 kernel)."""
     packed, half = _packed_scenes(device)
     worst = phase_pack_vs_plain(packed, half)
-    result = phase_pack_timing(packed, full)
+    result = phase_pack_timing(packed, full, yard)
     result["max_abs_err"] = max(worst, result["max_abs_err"])
     return packed, result
 
@@ -2701,12 +2752,13 @@ def phase_bvh_render(full) -> int:
     bvh = full.with_config(intersector="bvh")
     pipeline.render_framebuffer(_resized(bvh, 128, 128).with_config(rays_per_pixel=20))
     packet = PACKET_LAUNCH_NAMES
-    must = {"bvh": ("bvh_walk",) + FORWARD_KERNELS, "auto": AUTO_KERNELS + FORWARD_KERNELS}
     must_not = {"bvh": packet, "auto": ("bvh_walk",)}
     launches = None
     for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
         scenes = {"bvh": bvh.with_config(rays_per_pixel=spp),
                   "auto": full.with_config(rays_per_pixel=spp)}
+        must = {"bvh": ("bvh_walk",) + FORWARD_KERNELS,
+                "auto": _auto_kernels(scenes["auto"]) + FORWARD_KERNELS}
         out = _turns([(label, scenes[label]) for label in ("bvh", "auto", "auto", "bvh")],
                      must, must_not, "13c", "bvh render")
         seconds = _seconds_by_label(out)
@@ -3033,7 +3085,9 @@ def main() -> int:
     phase_mesh_profile(scenes["torus"])
     gated = phase_cli(scenes["torus"])
     diff_result = phase_diff(scenes["torus"], device)
-    packed, pack_result = phase_pack(scenes["torus"], device)
+    yard = [dict(r, fused1_ms=f["ms_chosen"]) for r, f in zip(
+        mesh_timing["fused_closest_hit"]["tail"], mesh_timing["fused1_closest_hit"]["tail"])]
+    packed, pack_result = phase_pack(scenes["torus"], device, yard)
     pack_launches = phase_pack_main_path(packed, scenes["torus"], framebuffer_100)
     del packed, framebuffer_100
     phase_sharding(scenes["torus"], gated["plain_cli"])
@@ -3071,7 +3125,7 @@ def main() -> int:
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": None,
-            # fused1: the centre block's bounces 2-9 at S = 1 and at the split;
+            # fused1: the centre block's bounces 0-9 at S = 1 and at the split;
             # fused (and the cull): its bounces 0-9, and the train step's pass.
             **({"tail": t["tail"]} if "tail" in t else {}),
             **({"train_tail": diff_result["train_tail"]}

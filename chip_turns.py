@@ -19,6 +19,14 @@ directory) and prints one JSON line with NAME, the card and its power limit:
   two keys run in turns (Morton, cullhit, cullhit, Morton); the hash of
   the cullhit framebuffer (any reorder renders the same bits, so it equals
   ``torus_fb_sha256``). A tree whose config has no ``sort_key`` skips them;
+- ``fused1_s``, ``fused_s``, ``fused1_fb_sha256``, ``engines_fb_equal``:
+  the same 100-spp render through packet backend "fused1" (the single
+  cull + walk + sweep kernel) and then "fused" (cull + fused) by name,
+  whatever "auto" resolves to in the tree; the hash of the fused1
+  framebuffer, and whether both framebuffers equal the "auto" one;
+- ``bvh_s``, ``bvh_fb_sha256``: the same render through
+  ``intersector="bvh"`` (the walk kernel), after a 128×128 warm-up, and
+  the hash of its framebuffer (skipped on a tree without ``intersector``);
 - ``block_wall_ms``, ``block_busy_ms``, ``block_idle_share``,
   ``block_kernels``: the torus's centre 2^18-ray block of a 20-spp pass
   (10 bounces, packet backend "auto") under torch.profiler: wall time,
@@ -128,6 +136,22 @@ def main() -> int:
                        cullhit_fb_equal=all(torch.equal(fb, torus_fb) for _, fb in turns)
                        and torch.equal(again_fb, torus_fb))
 
+    fused1_s, fused1_fb = timed_render(full.with_config(rays_per_pixel=100,
+                                                        packet_backend="fused1"))
+    fused_s, fused_fb = timed_render(full.with_config(rays_per_pixel=100,
+                                                      packet_backend="fused"))
+    engines = dict(fused1_s=fused1_s, fused_s=fused_s,
+                   fused1_fb_sha256=hashlib.sha256(fused1_fb.cpu().numpy().tobytes()).hexdigest(),
+                   engines_fb_equal=torch.equal(fused1_fb, torus_fb)
+                   and torch.equal(fused_fb, torus_fb))
+    del fused1_fb, fused_fb
+    if "intersector" in {f.name for f in dataclasses.fields(full.config)}:
+        pipeline.render_framebuffer(small.with_config(rays_per_pixel=20, intersector="bvh"))
+        bvh_s, bvh_fb = timed_render(full.with_config(rays_per_pixel=100, intersector="bvh"))
+        engines.update(bvh_s=bvh_s, bvh_fb_sha256=hashlib.sha256(
+            bvh_fb.cpu().numpy().tobytes()).hexdigest())
+        del bvh_fb
+
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -219,7 +243,7 @@ def main() -> int:
                           train_kernels=train_kernels, pallas_cap=cap, pallas_s=pallas_s,
                           pallas_steps_s=pallas_steps, pallas_busy_ms=p_busy,
                           pallas_wall_ms=p_wall, pallas_idle_share=1 - p_busy / p_wall,
-                          pallas_kernels=p_kernels, **cullhit)))
+                          pallas_kernels=p_kernels, **engines, **cullhit)))
     return 0
 
 

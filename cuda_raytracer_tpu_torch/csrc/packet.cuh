@@ -288,13 +288,6 @@ struct DeviceExec {
     __syncthreads();
 #endif
   }
-  RT_HD void or_bits(uint32_t* dst, uint32_t v) const {
-#ifdef __CUDA_ARCH__
-    if (v) atomicOr(dst, v);
-#else
-    *dst |= v;
-#endif
-  }
   RT_HD void add(unsigned long long* dst, unsigned long long v) const {
 #ifdef __CUDA_ARCH__
     atomicAdd(dst, v);
@@ -338,6 +331,42 @@ struct DeviceExec {
       asm volatile("cp.async.wait_group 1;\n" ::);
 #endif
   }
+  // copy_async of `rows` rows of `width` words, `stride` words apart in
+  // global src, into rows x width words at shared dst (16 bytes a copy where
+  // the width and the stride are whole 16 bytes too). Kept apart from
+  // copy_async: with this loop's division per copy, fused.cu's bounce 1 took
+  // 1.77 ms against 1.61 on an H100 80GB HBM3 at 700 W.
+  RT_HD void copy_rows_async(float* dst, const float* src, int rows, int width,
+                             int stride) const {
+#ifdef __CUDA_ARCH__
+    const unsigned base = (unsigned)__cvta_generic_to_shared(dst);
+    const int n = rows * width;
+    if (((size_t)dst | (size_t)src) % 16 == 0 && width % 4 == 0 && stride % 4 == 0) {
+      for (int i = 4 * threadIdx.x; i < n; i += 4 * blockDim.x) {
+        const int r = i / width;
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(base + 4 * i),
+                     "l"(src + (size_t)r * stride + (i - r * width)));
+      }
+    } else {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const int r = i / width;
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(base + 4 * i),
+                     "l"(src + (size_t)r * stride + (i - r * width)));
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+#endif
+  }
+  // OR v into *dst for the whole warp: the lanes' values ORed together, then
+  // one atomic. Every lane of the warp must call it.
+  RT_HD void or_bits_warp(uint32_t* dst, uint32_t v) const {
+#ifdef __CUDA_ARCH__
+    v = __reduce_or_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0 && v) atomicOr(dst, v);
+#else
+    *dst |= v;
+#endif
+  }
   // Lanes (per-thread register state) of an n-thread block that the caller
   // plays: its own alone, lane 0 being thread threadIdx.x.
   RT_HD int lanes(int) const { return 1; }
@@ -353,7 +382,6 @@ struct HostExec {
   bool leader() const { return true; }
   bool any(bool v) const { return v; }
   void sync() const {}
-  void or_bits(uint32_t* dst, uint32_t v) const { *dst |= v; }
   void add(unsigned long long* dst, unsigned long long v) const { *dst += v; }
   void min_u64(unsigned long long* dst, unsigned long long v) const {
     if (v < *dst) *dst = v;
@@ -362,6 +390,11 @@ struct HostExec {
   void copy_async(float* dst, const float* src, int n) const {
     for (int i = 0; i < n; ++i) dst[i] = src[i];
   }
+  void copy_rows_async(float* dst, const float* src, int rows, int width, int stride) const {
+    for (int r = 0; r < rows; ++r)
+      for (int c = 0; c < width; ++c) dst[r * width + c] = src[(size_t)r * stride + c];
+  }
+  void or_bits_warp(uint32_t* dst, uint32_t v) const { *dst |= v; }
   void wait_copies(int) const {}
 };
 
@@ -403,30 +436,6 @@ RT_HD void load_rays(const Exec& ex, const float* od8, int t, int tile,
     rt.acc[r] = kMiss;
     rt.acc_tri[r] = -1;
   }
-}
-
-template <class Exec>
-RT_HD void stage_block(const Exec& ex, const float* blocks, int k, int C,
-                       float* blk) {
-  const float* src = blocks + (size_t)k * 16 * C;
-  for (int i = ex.first(); i < kBlockRows * C; i += ex.step()) blk[i] = src[i];
-}
-
-// Stage sub-cluster k of a table of (16, C) blocks that each hold `pack`
-// sub-clusters side by side (models/cluster.pack_paired_blocks): lanes
-// [(k % pack) * cs, (k % pack + 1) * cs) of block k / pack, cs = C / pack,
-// into a (kBlockRows, cs) block. pack = 1 is stage_block.
-template <class Exec>
-RT_HD void stage_sub_block(const Exec& ex, const float* blocks, int k, int C,
-                           int pack, float* blk) {
-  if (pack == 1) {
-    stage_block(ex, blocks, k, C, blk);
-    return;
-  }
-  const int cs = C / pack;
-  const float* src = blocks + (size_t)(k / pack) * 16 * C + (k % pack) * cs;
-  for (int i = ex.first(); i < kBlockRows * cs; i += ex.step())
-    blk[i] = src[(i / cs) * C + i % cs];
 }
 
 template <class Exec>
@@ -534,10 +543,10 @@ RT_HD bool slab_ordered(const float o[3], const float inv[3], float win, const f
 
 // slab_ordered with the inverse direction's signs as values (bit a of
 // signs set: inv[a] is not negative), for threads that test different rays:
-// the same hit test.
+// the same hit test and entry.
 RT_HD bool slab_signed(const float o[3], const float inv[3], uint32_t signs, float win,
-                       const float lo[3], const float hi[3]) {
-  float entry = 0.0f;
+                       const float lo[3], const float hi[3], float& entry) {
+  entry = 0.0f;
   float exit = win;
   for (int a = 0; a < 3; ++a) {
     const bool pos = (signs >> a) & 1u;
@@ -728,7 +737,7 @@ RT_HD bool chunk_gate(const Exec& ex, const float* smem, int tile, const int* ga
       if (ray[3] < 0.0f) continue;
       const float inv[3] = {ray[4], ray[5], ray[6]};
       float e;
-      hit = (ordered ? slab_signed(ray, inv, float_bits(ray[7]), ray[3], lo, hi)
+      hit = (ordered ? slab_signed(ray, inv, float_bits(ray[7]), ray[3], lo, hi, e)
                      : slab(ray, inv, ray[3], lo, hi, e)) || hit;
     }
   }
@@ -924,166 +933,6 @@ RT_HD void fused_block(const Exec& ex, float* smem, const float* od8,
       ex.min_u64(&keys[(size_t)t * tile + r], sweep_key(rt.acc[r], rt.acc_tri[r]));
 }
 
-// ---- fused1: cull + walk + sweep of one tile ------------------------------------
-//
-// The tile's rays are culled against boxes [k_lo, k_hi) `chunk` (<= kChunk)
-// at a time; each ray's entry for the chunk stays in shared memory (+inf
-// where it misses), the chunk's any-hit bits are ORed together, and then
-// each hit box whose entry some ray's bound reaches (the per-ray early-out)
-// has its block swept. With gate_g > 0 (dividing chunk, and k_lo a multiple
-// of chunk), sup holds the super boxes (n_sup, 6): min xyz, max xyz over
-// gate_g consecutive boxes, and a chunk is culled only when some ray hits
-// one of its supers (conservative, so the output is unchanged). A tile
-// whose rays are all dead skips everything. stats (null, or 3 counters):
-// [0] += slab tests of live rays, [1] and [2] as fused_block's.
-//
-// Output. With keys null the block owns all K boxes of its tile
-// ([k_lo, k_hi) = [0, K)) and writes the in-window (t, tri) with
-// store_tile. With keys non-null the tile's boxes are split over several
-// blocks (fused1_split_block): each folds its own share into a running
-// best and min_u64s it into the tile's (T, tile) keys (sweep_key, so the
-// minimum is the fold's result whatever order the blocks finish in), and
-// finish_key applies the window afterwards. A block's early-out uses only
-// its own running best, a weaker bound than the whole tile's, so it may
-// sweep more but never drops the winning hit; and filtering after the
-// minimum equals filtering before it, because the window is a threshold on
-// t and the key orders by t first.
-//
-// Paired sub-cluster tables (pack = 2, cluster_pack): the K boxes are
-// sub-cluster boxes and blocks holds K / 2 blocks of C lanes, sub-cluster k
-// in lanes [(k % 2) * C / 2, (k % 2 + 1) * C / 2) of block k / 2. Each hit
-// sub-cluster is its own pair: its entry gates it and only its C / 2 lanes
-// are staged and swept, so an unhit half is never swept (a triangle there
-// could win only through a degenerate slab tie) and the result and the
-// stats are those of pack = 1 over the same sub-clusters cut at C / 2. The
-// TPU kernel's split-plane chunk layout, permuted validity column and
-// 2-bit half masks exist to pair the halves in VMEM sublanes and SMEM
-// words; a thread per ray needs none of them, and pairing two hit halves
-// into one staging round would save one __syncthreads per such pair at the
-// cost of the per-half skip.
-// Shared: fused1_smem_words.
-RT_HD size_t fused1_smem_words(int tile, int chunk, int C, int pack) {
-  return (size_t)12 * tile + (size_t)chunk * tile + 6 * chunk + 4 + kBlockRows * (C / pack);
-}
-
-template <class Exec>
-RT_HD void fused1_block(const Exec& ex, float* smem, const float* od8,
-                        const float* aabb, int K, const float* sup, int n_sup,
-                        int gate_g, const float* blocks, int C, int pack,
-                        int tile, int t, int k_lo, int k_hi, int chunk, float* t_out,
-                        int* tri_out, unsigned long long* keys,
-                        unsigned long long* stats) {
-  RayTile rt;
-  float* ent = carve_rays(smem, tile, rt);
-  float* box = ent + chunk * tile;
-  uint32_t* hitw = reinterpret_cast<uint32_t*>(box + 6 * chunk);
-  float* blk = box + 6 * chunk + 4;
-  const float inf = inf_f();
-  const int cs = C / pack;  // lanes of one swept sub-cluster
-
-  load_rays(ex, od8, t, tile, true, rt);
-  ex.sync();
-  const int n_live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
-  bool live = false;
-  for (int r = ex.first(); r < tile; r += ex.step()) live = live || rt.win[r] >= 0.0f;
-  if (k_lo < k_hi && ex.any(live)) {
-    for (int lo = k_lo; lo < k_hi; lo += chunk) {
-      const int nb = k_hi - lo < chunk ? k_hi - lo : chunk;
-      if (gate_g > 0) {
-        const int s_lo = lo / gate_g;
-        const int s_end = s_lo + (nb + gate_g - 1) / gate_g;
-        const int s_hi = s_end < n_sup ? s_end : n_sup;
-        bool hit_sup = false;
-        for (int r = ex.first(); r < tile; r += ex.step()) {
-          const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
-          const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
-          for (int s = s_lo; s < s_hi && !hit_sup; ++s) {
-            float e;
-            hit_sup = slab(o, inv, rt.win[r], sup + 6 * s, sup + 6 * s + 3, e);
-          }
-        }
-        if (!ex.any(hit_sup)) continue;
-      }
-      for (int i = ex.first(); i < 6 * chunk; i += ex.step()) {
-        const int a = i / chunk;
-        const int j = i % chunk;
-        box[i] = j < nb ? aabb[(size_t)a * K + lo + j] : 0.0f;
-      }
-      for (int i = ex.first(); i < 4; i += ex.step()) hitw[i] = 0u;
-      ex.sync();
-      for (int r = ex.first(); r < tile; r += ex.step()) {
-        const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
-        const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
-        uint32_t bits[4] = {0u, 0u, 0u, 0u};
-        for (int j = 0; j < nb; ++j) {
-          const float lo3[3] = {box[j], box[chunk + j], box[2 * chunk + j]};
-          const float hi3[3] = {box[3 * chunk + j], box[4 * chunk + j],
-                                box[5 * chunk + j]};
-          float e;
-          const bool hit = slab(o, inv, rt.win[r], lo3, hi3, e);
-          ent[j * tile + r] = hit ? e : inf;
-          if (hit) bits[j / 32] |= 1u << (j % 32);
-        }
-        for (int q = 0; q < 4; ++q) ex.or_bits(&hitw[q], bits[q]);
-      }
-      if (stats && ex.leader()) ex.add(&stats[0], (unsigned long long)nb * n_live);
-      ex.sync();
-      for (int q = 0; q < 4; ++q) {
-        uint32_t w = hitw[q];
-        while (w) {
-          const int j = q * 32 + ctz32(w);
-          w &= w - 1;
-          bool need = false;
-          for (int r = ex.first(); r < tile; r += ex.step()) {
-            need = need ||
-                   min_nan(rt.acc[r], rt.win[r]) >= ent[j * tile + r] * kSkipSlack;
-          }
-          if (!ex.any(need)) continue;
-          stage_sub_block(ex, blocks, lo + j, C, pack, blk);
-          ex.sync();
-          if (stats && ex.leader()) {
-            ex.add(&stats[1], 1ull);
-            ex.add(&stats[2], (unsigned long long)n_live * real_tris(blk, cs));
-          }
-          sweep_tile(ex, blk, cs, tile, rt);
-          ex.sync();
-        }
-      }
-      ex.sync();
-    }
-  }
-  if (keys == nullptr) {
-    store_tile(ex, rt, t, tile, t_out, tri_out);
-    return;
-  }
-  for (int r = ex.first(); r < tile; r += ex.step())
-    if (rt.acc[r] < kMiss)
-      ex.min_u64(&keys[(size_t)t * tile + r], sweep_key(rt.acc[r], rt.acc_tri[r]));
-}
-
-// Boxes per block of the split fused1: whole chunks, as many as cover K in
-// `splits` ranges.
-RT_HD int fused1_split_per(int K, int splits, int chunk) {
-  const int n_chunks = (K + chunk - 1) / chunk;
-  return (n_chunks + splits - 1) / splits * chunk;
-}
-
-// Block (t, s) of the split fused1: boxes [s * per, (s + 1) * per) of tile
-// t, folded into keys. per is a multiple of chunk; a block past K does
-// nothing.
-template <class Exec>
-RT_HD void fused1_split_block(const Exec& ex, float* smem, const float* od8,
-                              const float* aabb, int K, const float* sup, int n_sup,
-                              int gate_g, const float* blocks, int C, int pack, int tile,
-                              int t, int s, int per, int chunk, unsigned long long* keys,
-                              unsigned long long* stats) {
-  const long long lo = (long long)s * per;
-  if (lo >= K) return;  // the whole block: s is the same for every thread
-  const int k_hi = lo + per < K ? (int)(lo + per) : K;
-  fused1_block(ex, smem, od8, aabb, K, sup, n_sup, gate_g, blocks, C, pack, tile, t,
-               (int)lo, k_hi, chunk, nullptr, nullptr, keys, stats);
-}
-
 // ---- sweep: contiguous ranges of an extracted pair list, no window -------------
 //
 // Pair i of pairs (2, P) int32 ([tile; cluster]) sweeps every ray of its tile
@@ -1117,10 +966,10 @@ struct SweepShape {
 };
 
 // lanes: enough for the tile at kSweepRays a lane, in whole warps; groups:
-// as many as kSweepThreads threads hold (at least one).
-RT_HD SweepShape sweep_shape(int tile) {
+// as many as `threads` threads hold (at least one).
+RT_HD SweepShape sweep_shape(int tile, int threads = kSweepThreads) {
   const int lanes = ((tile + kSweepRays - 1) / kSweepRays + 31) / 32 * 32;
-  const int groups = lanes < kSweepThreads ? kSweepThreads / lanes : 1;
+  const int groups = lanes < threads ? threads / lanes : 1;
   return {lanes, groups, lanes * groups};
 }
 
@@ -1216,10 +1065,12 @@ RT_HD void sweep_lane_quads(SweepLane& ln, const float* blk, int C, int g, int G
 
 // Group g of G's triangles of a staged block (quads, or for C % 4 != 0
 // triangles, g, g + G, ...) against a lane's rays; C = 256, the default
-// cluster width, compiled for its own.
+// cluster width, and 128, a paired table's sub-cluster, compiled for their own.
 RT_HD void sweep_lane(SweepLane& ln, const float* blk, int C, int g, int G) {
   if (C == 256) {
     sweep_lane_quads<256>(ln, blk, C, g, G);
+  } else if (C == 128) {
+    sweep_lane_quads<128>(ln, blk, C, g, G);
   } else if (C % 4 == 0) {
     sweep_lane_quads<0>(ln, blk, C, g, G);
   } else {
@@ -1269,6 +1120,279 @@ RT_HD void sweep_range_block(const Exec& ex, float* smem, SweepLane* lanes,
   }
   for (int l = 0; l < ex.lanes(sh.threads); ++l)
     fold_lane(ex, lanes[l], tile, run, ex.lane(l) % sh.lanes, sh.lanes, keys);
+}
+
+// ---- fused1: cull + walk + sweep of one tile ------------------------------------
+//
+// The tile's rays are culled against boxes [k_lo, k_hi) `chunk` (<= kChunk)
+// at a time; each ray's entry for the chunk stays in shared memory (+inf
+// where it misses), the chunk's any-hit bits are ORed together, and then
+// each hit box whose entry some ray's bound min(acc, win) reaches (the
+// per-ray early-out) has its block swept. With gate_g > 0 (dividing chunk,
+// and k_lo a multiple of chunk), sup holds the super boxes (n_sup, 6): min
+// xyz, max xyz over gate_g consecutive boxes, and a chunk is culled only
+// when some ray hits one of its supers (conservative, so the output is
+// unchanged). A tile whose rays are all dead skips everything. stats (null,
+// or 3 counters): [0] += slab tests of live rays, [1] and [2] as
+// fused_block's.
+//
+// The block's threads share every step:
+//   - Cull. The chunk's (ray, box) tests are spread over all the threads,
+//     consecutive threads on consecutive rays of one box; a thread keeps its
+//     hit bits for the chunk's four words and the block ORs them a warp at
+//     a time (or_bits_warp). A box with ordered corners is tested in the
+//     sign-picked form (slab_sorted: slab()'s hit and entry value; only the
+//     sign of a zero entry can differ, and the entry is only compared with
+//     >=, where -0 and +0 agree); the super boxes' gate the same way.
+//   - Sweep. The threads are sh.groups groups of sh.lanes ray lanes
+//     (fused1_shape(tile, cs)): lane s holds rays s, s + lanes,
+//     ... in registers with their running best, as the pair sweep's lanes
+//     do, and group g sweeps quads g, g + groups, ... of the staged block
+//     (sweep_lane). After each swept pair every group writes its lanes'
+//     running bests to shared memory, and behind the barrier that ends the
+//     pair the tile's acc / acc_tri fold them in (fold: order-free), so the
+//     early-out tests the bound the one-thread-a-ray body tested: the swept
+//     pairs and the counters are that body's.
+//   - Staging is double-buffered: while a pair is swept, the chunk's next
+//     hit box's block is already being copied into the other buffer
+//     (Exec::copy_rows_async). The early-out still decides on the current
+//     best, so a prefetched block that it then passes over costs only its
+//     copy. A pair takes two barriers: the early-out's vote, which also
+//     makes the staged block visible, and the one after the sweep.
+//
+// Output. With keys null the block owns all K boxes of its tile
+// ([k_lo, k_hi) = [0, K)) and writes the in-window (t, tri) with
+// store_tile. With keys non-null the tile's boxes are split over several
+// blocks (fused1_split_block): each folds its own share into a running
+// best and min_u64s it into the tile's (T, tile) keys (sweep_key, so the
+// minimum is the fold's result whatever order the blocks finish in), and
+// finish_key applies the window afterwards. A block's early-out uses only
+// its own running best, a weaker bound than the whole tile's, so it may
+// sweep more but never drops the winning hit; and filtering after the
+// minimum equals filtering before it, because the window is a threshold on
+// t and the key orders by t first.
+//
+// Paired sub-cluster tables (pack = 2, cluster_pack): the K boxes are
+// sub-cluster boxes and blocks holds K / 2 blocks of C lanes, sub-cluster k
+// in lanes [(k % 2) * C / 2, (k % 2 + 1) * C / 2) of block k / 2. Each hit
+// sub-cluster is its own pair: its entry gates it and only its C / 2 lanes
+// are staged and swept, so an unhit half is never swept (a triangle there
+// could win only through a degenerate slab tie) and the result and the
+// stats are those of pack = 1 over the same sub-clusters cut at C / 2. The
+// TPU kernel's split-plane chunk layout, permuted validity column and
+// 2-bit half masks exist to pair the halves in VMEM sublanes and SMEM
+// words; lanes over rays need none of them.
+//
+// Shared (fused1_smem_words): the two staging buffers, the tile's rays and
+// bests (RayTile), the chunk's entries (chunk x tile) and boxes (6 x chunk),
+// its hit words, and the groups' bests (2 x groups x tile).
+constexpr int kFused1Threads = 256;  // the most threads of a block, unless a tile needs more lanes
+
+// A block's lanes and groups for a tile and a swept width of cs lanes:
+// sweep_shape's lanes, and as many groups as kFused1Threads threads hold but
+// no more than leave each group 8 quads (256 lanes: 8 groups; a paired
+// table's 128: 4), so a pair's tests per thread stay many beside its
+// barriers.
+RT_HD SweepShape fused1_shape(int tile, int cs) {
+  const SweepShape sh = sweep_shape(tile, kFused1Threads);
+  const int most = cs / 32 > 1 ? cs / 32 : 1;
+  const int groups = sh.groups < most ? sh.groups : most;
+  return {sh.lanes, groups, sh.lanes * groups};
+}
+
+// Words of one staging buffer of a cs-lane block: rounded up to 16 bytes,
+// so the second buffer is as aligned as the first.
+RT_HD size_t fused1_stage_words(int cs) { return ((size_t)kBlockRows * cs + 3) / 4 * 4; }
+
+RT_HD size_t fused1_smem_words(int tile, int chunk, int C, int pack) {
+  const SweepShape sh = fused1_shape(tile, C / pack);
+  return 2 * fused1_stage_words(C / pack) + (size_t)12 * tile + (size_t)chunk * tile +
+         6 * chunk + 4 + 2 * (size_t)sh.groups * tile;
+}
+
+// slab()'s hit test and entry value (not the sign of a zero entry): for a box
+// with ordered corners slab_signed with the signs of this ray's inverse
+// direction, else slab() itself.
+RT_HD bool slab_sorted(const float o[3], const float inv[3], float win, const float lo[3],
+                       const float hi[3], float& entry) {
+  if (!ordered_box(lo, hi)) return slab(o, inv, win, lo, hi, entry);
+  const uint32_t signs =
+      (inv[0] >= 0.0f ? 1u : 0u) | (inv[1] >= 0.0f ? 2u : 0u) | (inv[2] >= 0.0f ? 4u : 0u);
+  return slab_signed(o, inv, signs, win, lo, hi, entry);
+}
+
+// The set bits of a chunk's four hit words, in ascending order.
+struct HitBits {
+  uint32_t w[4];
+  // The next hit box of the chunk, or -1.
+  RT_HD int next() {
+    RT_UNROLL for (int q = 0; q < 4; ++q) {
+      if (w[q]) {
+        const int j = q * 32 + ctz32(w[q]);
+        w[q] &= w[q] - 1;
+        return j;
+      }
+    }
+    return -1;
+  }
+};
+
+// The (kBlockRows, cs) rows of sub-cluster k in a table of (16, C) blocks that
+// each hold `pack` sub-clusters side by side (models/cluster.pack_paired_blocks:
+// lanes [(k % pack) * cs, (k % pack + 1) * cs) of block k / pack, cs = C /
+// pack), rows C words apart: the first row's first word.
+RT_HD const float* sub_block_rows(const float* blocks, int k, int C, int pack) {
+  return blocks + (size_t)(k / pack) * 16 * C + (k % pack) * (C / pack);
+}
+
+// lanes holds Exec::lanes(fused1_shape(tile, C / pack).threads) lane states
+// (on the card the thread's own, in registers).
+template <class Exec>
+RT_HD void fused1_block(const Exec& ex, float* smem, SweepLane* lanes, const float* od8,
+                        const float* aabb, int K, const float* sup, int n_sup,
+                        int gate_g, const float* blocks, int C, int pack,
+                        int tile, int t, int k_lo, int k_hi, int chunk, float* t_out,
+                        int* tri_out, unsigned long long* keys,
+                        unsigned long long* stats) {
+  const int cs = C / pack;  // lanes of one swept sub-cluster
+  const SweepShape sh = fused1_shape(tile, cs);
+  float* cur = smem;        // the two staging buffers
+  float* other = smem + fused1_stage_words(cs);
+  RayTile rt;
+  float* ent = carve_rays(smem + 2 * fused1_stage_words(cs), tile, rt);
+  float* box = ent + (size_t)chunk * tile;
+  uint32_t* hitw = reinterpret_cast<uint32_t*>(box + 6 * chunk);
+  float* part_t = box + 6 * chunk + 4;  // [groups][tile] bests, and their ids
+  float* part_tri = part_t + sh.groups * tile;
+  const float inf = inf_f();
+
+  load_rays(ex, od8, t, tile, true, rt);
+  ex.sync();
+  const int n_live = stats && ex.leader() ? live_rows(rt.win, tile) : 0;
+  bool live = false;
+  for (int r = ex.first(); r < tile; r += ex.step()) live = live || rt.win[r] >= 0.0f;
+  if (k_lo < k_hi && ex.any(live)) {
+    for (int l = 0; l < ex.lanes(sh.threads); ++l)
+      load_lane(lanes[l], od8, tile, tile, t, ex.lane(l) % sh.lanes, sh.lanes);
+    for (int lo = k_lo; lo < k_hi; lo += chunk) {
+      const int nb = k_hi - lo < chunk ? k_hi - lo : chunk;
+      if (gate_g > 0) {
+        const int s_lo = lo / gate_g;
+        const int s_end = s_lo + (nb + gate_g - 1) / gate_g;
+        const int ns = (s_end < n_sup ? s_end : n_sup) - s_lo;
+        bool hit_sup = false;
+        for (int i = ex.first(); i < ns * tile && !hit_sup; i += ex.step()) {
+          const int s = s_lo + i / tile;
+          const int r = i % tile;
+          const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
+          const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
+          float e;
+          hit_sup = slab_sorted(o, inv, rt.win[r], sup + 6 * s, sup + 6 * s + 3, e);
+        }
+        if (!ex.any(hit_sup)) continue;
+      }
+      for (int i = ex.first(); i < 6 * chunk; i += ex.step()) {
+        const int a = i / chunk;
+        const int j = i % chunk;
+        box[i] = j < nb ? aabb[(size_t)a * K + lo + j] : 0.0f;
+      }
+      for (int i = ex.first(); i < 4; i += ex.step()) hitw[i] = 0u;
+      ex.sync();
+      // Test i is ray i % tile against box i / tile; its entry is ent[i].
+      uint32_t bits[4] = {0u, 0u, 0u, 0u};
+      for (int i = ex.first(); i < nb * tile; i += ex.step()) {
+        const int j = i / tile;
+        const int r = i - j * tile;
+        const float o[3] = {rt.o[r], rt.o[tile + r], rt.o[2 * tile + r]};
+        const float inv[3] = {rt.inv[r], rt.inv[tile + r], rt.inv[2 * tile + r]};
+        const float lo3[3] = {box[j], box[chunk + j], box[2 * chunk + j]};
+        const float hi3[3] = {box[3 * chunk + j], box[4 * chunk + j], box[5 * chunk + j]};
+        float e;
+        const bool hit = slab_sorted(o, inv, rt.win[r], lo3, hi3, e);
+        ent[i] = hit ? e : inf;
+        const uint32_t bit = hit ? 1u << (j % 32) : 0u;
+        RT_UNROLL for (int q = 0; q < 4; ++q) bits[q] |= q == j / 32 ? bit : 0u;
+      }
+      for (int q = 0; q < 4; ++q) ex.or_bits_warp(&hitw[q], bits[q]);
+      if (stats && ex.leader()) ex.add(&stats[0], (unsigned long long)nb * n_live);
+      ex.sync();
+      HitBits hits = {{hitw[0], hitw[1], hitw[2], hitw[3]}};
+      int j = hits.next();
+      if (j >= 0)
+        ex.copy_rows_async(cur, sub_block_rows(blocks, lo + j, C, pack), kBlockRows, cs, C);
+      while (j >= 0) {
+        const int next = hits.next();
+        if (next >= 0)
+          ex.copy_rows_async(other, sub_block_rows(blocks, lo + next, C, pack), kBlockRows,
+                             cs, C);
+        ex.wait_copies(next >= 0 ? 1 : 0);  // box j's block has landed
+        bool need = false;
+        for (int r = ex.first(); r < tile; r += ex.step())
+          need = need || min_nan(rt.acc[r], rt.win[r]) >= ent[j * tile + r] * kSkipSlack;
+        // One barrier: the block's vote on box j, and its block visible to all.
+        need = ex.any(need);
+        if (need) {
+          if (stats && ex.leader()) {
+            ex.add(&stats[1], 1ull);
+            ex.add(&stats[2], (unsigned long long)n_live * real_tris(cur, cs));
+          }
+          for (int l = 0; l < ex.lanes(sh.threads); ++l) {
+            const int v = ex.lane(l);
+            const int g = v / sh.lanes;
+            sweep_lane(lanes[l], cur, cs, g, sh.groups);
+            RT_UNROLL for (int q = 0; q < kSweepRays; ++q) {
+              const int r = v % sh.lanes + q * sh.lanes;
+              if (r < tile) {
+                part_t[g * tile + r] = lanes[l].best[q];
+                part_tri[g * tile + r] = lanes[l].best_tri[q];
+              }
+            }
+          }
+        }
+        ex.sync();  // cur is free for the copy after next; the groups' bests are in
+        if (need)
+          for (int r = ex.first(); r < tile; r += ex.step())
+            for (int g = 0; g < sh.groups; ++g)
+              fold(part_t[g * tile + r], (int)part_tri[g * tile + r], rt.acc[r],
+                   rt.acc_tri[r]);
+        float* swap = cur;
+        cur = other;
+        other = swap;
+        j = next;
+      }
+      ex.sync();
+    }
+  }
+  if (keys == nullptr) {
+    store_tile(ex, rt, t, tile, t_out, tri_out);
+    return;
+  }
+  for (int r = ex.first(); r < tile; r += ex.step())
+    if (rt.acc[r] < kMiss)
+      ex.min_u64(&keys[(size_t)t * tile + r], sweep_key(rt.acc[r], rt.acc_tri[r]));
+}
+
+// Boxes per block of the split fused1: whole chunks, as many as cover K in
+// `splits` ranges.
+RT_HD int fused1_split_per(int K, int splits, int chunk) {
+  const int n_chunks = (K + chunk - 1) / chunk;
+  return (n_chunks + splits - 1) / splits * chunk;
+}
+
+// Block (t, s) of the split fused1: boxes [s * per, (s + 1) * per) of tile
+// t, folded into keys. per is a multiple of chunk; a block past K does
+// nothing.
+template <class Exec>
+RT_HD void fused1_split_block(const Exec& ex, float* smem, SweepLane* lanes, const float* od8,
+                              const float* aabb, int K, const float* sup, int n_sup,
+                              int gate_g, const float* blocks, int C, int pack, int tile,
+                              int t, int s, int per, int chunk, unsigned long long* keys,
+                              unsigned long long* stats) {
+  const long long lo = (long long)s * per;
+  if (lo >= K) return;  // the whole block: s is the same for every thread
+  const int k_hi = lo + per < K ? (int)(lo + per) : K;
+  fused1_block(ex, smem, lanes, od8, aabb, K, sup, n_sup, gate_g, blocks, C, pack, tile, t,
+               (int)lo, k_hi, chunk, nullptr, nullptr, keys, stats);
 }
 
 }  // namespace rt

@@ -68,17 +68,20 @@ int rt_host_fused_closest_hit(const float* od8, const float* blocks, const int* 
 
 // splits = 1: one block per tile over all K boxes (chunk ignored); splits >
 // 1: blocks (t, s) over `chunk`-box chunks, run split-major (every tile's
-// split 0, then split 1, ...), folded through keys and finished.
+// split 0, then split 1, ...), folded through keys and finished. Each
+// block's lanes are played in turn (rt::HostExec::lanes).
 int rt_host_fused1_closest_hit(const float* od8, const float* aabb, const float* sup,
                                int n_sup, int gate_g, const float* blocks, int T,
                                int K, int C, int pack, int tile, int splits, int chunk,
                                float* t_out, int* tri_out, unsigned long long* stats) {
   rt::HostExec ex;
+  std::vector<rt::SweepLane> lanes(rt::fused1_shape(tile, C / pack).threads);
   if (splits == 1) {
     std::vector<float> smem(rt::fused1_smem_words(tile, rt::kChunk, C, pack));
     for (int t = 0; t < T; ++t)
-      rt::fused1_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
-                       pack, tile, t, 0, K, rt::kChunk, t_out, tri_out, nullptr, stats);
+      rt::fused1_block(ex, smem.data(), lanes.data(), od8, aabb, K, sup, n_sup, gate_g,
+                       blocks, C, pack, tile, t, 0, K, rt::kChunk, t_out, tri_out, nullptr,
+                       stats);
     return 0;
   }
   std::vector<float> smem(rt::fused1_smem_words(tile, chunk, C, pack));
@@ -86,8 +89,8 @@ int rt_host_fused1_closest_hit(const float* od8, const float* aabb, const float*
   const int per = rt::fused1_split_per(K, splits, chunk);
   for (int s = 0; s < splits; ++s)
     for (int t = 0; t < T; ++t)
-      rt::fused1_split_block(ex, smem.data(), od8, aabb, K, sup, n_sup, gate_g, blocks, C,
-                             pack, tile, t, s, per, chunk, keys.data(), stats);
+      rt::fused1_split_block(ex, smem.data(), lanes.data(), od8, aabb, K, sup, n_sup, gate_g,
+                             blocks, C, pack, tile, t, s, per, chunk, keys.data(), stats);
   for (int i = 0; i < T * tile; ++i) rt::finish_key(keys.data(), od8, tile, i, t_out, tri_out);
   return 0;
 }

@@ -51,6 +51,9 @@ MISS = 1e30
 SKIP_SLACK = 1.0 - 2.0 ** -14
 # Elements per (pairs, tile, C) intermediate of the plain sweep.
 PLAIN_ELEMS = 1 << 22
+# Clusters per unit of fused1.split_plan's splits: at most one split per 32
+# clusters (fused1's own unit is smaller).
+SPLIT_UNIT = 32
 
 # Kernel launches made by fused_closest_hit in this process (CUDA tensors only).
 LAUNCHES = 0
@@ -228,7 +231,7 @@ def fused_closest_hit(
 
     _check(od8, blocks, words, entry, hitmask, stats)
     T, _, tile = od8.shape
-    splits = split_plan(T, blocks.shape[0], splits=splits)[0]
+    splits = split_plan(T, blocks.shape[0], splits=splits, unit=SPLIT_UNIT)[0]
     if device_kind(od8, "fused_closest_hit") == "cpu":
         return plain_fused(od8, blocks, words, entry, hitmask)
     t_out = torch.empty((T, tile), dtype=torch.float32, device=od8.device)

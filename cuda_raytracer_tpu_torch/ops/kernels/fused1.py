@@ -51,11 +51,16 @@ from cuda_raytracer_tpu_torch.ops.kernels.cull import (
 from cuda_raytracer_tpu_torch.ops.kernels.fused import sweep_selected
 
 CHUNK = 128  # boxes per cull chunk; gate_g must divide it
-# Boxes per cull chunk of the split kernel (at least gate_g): a smaller chunk
-# shrinks each block's shared entry array, so more blocks are resident.
-SPLIT_CHUNK = 32
-# Blocks (tiles x splits) a launch aims for: a few per SM of the 132 on an
-# H100, counting dead tiles, which return at once.
+# Boxes per cull chunk of the split kernel (at least gate_g): the unit a
+# tile's boxes are split in. On an H100 (NVIDIA H100 80GB HBM3, 700 W) the
+# centre block's tail bounces (11-15 live tiles of 64) ran in 0.14-0.17 ms
+# at 46 splits of 16 boxes against 0.18-0.21 ms at 23 of 32
+# (chip_fused1.py; PERF.md).
+SPLIT_CHUNK = 16
+# Blocks (tiles x splits) a launch aims for, counting dead tiles, which
+# return at once: a full 2^18-ray block's 4,096 tiles stay one block each,
+# the fastest there (bounce 1: 1.05 ms against 1.13-2.56 ms at 5-46 splits
+# on the same H100).
 TARGET_BLOCKS = 4096
 
 PACKS = (1, 2)  # sub-clusters per block the kernel takes
@@ -95,12 +100,13 @@ def sub_blocks(blocks: torch.Tensor, pack: int) -> torch.Tensor:
             .reshape(Kb * pack, rows, C // pack))
 
 
-def split_plan(T: int, K: int, gate_g: int = 0, splits: int = None):
+def split_plan(T: int, K: int, gate_g: int = 0, splits: int = None, unit: int = None):
     """(splits, chunk) of a launch over T tiles and K boxes: ``splits=None``
     chooses enough splits that T * splits reaches ``TARGET_BLOCKS``, at most
-    one per chunk; 1 keeps one block per tile and 128-box chunks. Any
+    one per chunk of max(``unit``, gate_g) boxes (``unit`` defaults to
+    ``SPLIT_CHUNK``); 1 keeps one block per tile and 128-box chunks. Any
     explicit count is taken as it is (blocks past K do nothing)."""
-    chunk = max(SPLIT_CHUNK, gate_g)
+    chunk = max(unit or SPLIT_CHUNK, gate_g)
     if splits is None:
         n_chunks = max(1, -(-K // chunk))
         per = -(-n_chunks // min(-(-TARGET_BLOCKS // max(T, 1)), n_chunks))

@@ -28,7 +28,9 @@ space: scene.cu:134-241). Four engines, picked by ``backend``:
   to the first round's hits. The fused engine has the same two-round
   option (round 1: each tile's nearest cluster).
 
-``"auto"`` is ``"fused"`` on a CUDA device and ``"xla"`` on the CPU. The
+``"auto"`` is ``"fused"`` on a CUDA device and ``"xla"`` on the CPU; a
+render pass of 10 or more rays per pixel takes ``"fused1"`` on a CUDA
+device instead (``render/pipeline._regime_scene``). The
 kernel engines run their plain versions on CPU tensors (the JAX package's
 ``*_interpret`` engine names are not taken). Each kernel takes
 the whole cluster table in one launch (the TPU package's shards are a VMEM
@@ -68,10 +70,10 @@ BACKENDS = ("auto", "xla", "fused", "fused1", "pallas")
 def resolve_backend(backend: str, device: torch.device, pack: int = 1) -> str:
     """``"auto"`` → ``"fused1"`` for a paired table (``pack`` > 1), else
     ``"fused"`` (cull + fused) on CUDA and ``"xla"`` elsewhere; unknown
-    names raise ValueError. On an H100, renders of the 126,000-triangle
-    torus through cull + fused beat fused1 at 8 and at 100 rays per pixel in
-    every turn of two runs (PERF.md), so fused1 runs only when asked for or
-    for a paired table."""
+    names raise ValueError. A render pass of 10 or more rays per pixel has
+    already turned "auto" into ``"fused1"`` on CUDA
+    (``render/pipeline._regime_scene``), so "fused" is what the sparse
+    passes (fewer rays per pixel, the train step) and direct calls get."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown packet backend {backend!r}; expected one of {BACKENDS}")
     if backend == "auto":

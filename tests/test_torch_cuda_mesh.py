@@ -7,9 +7,10 @@ which has no JAX, run them without the suite's JAX conftest:
 
 Each kernel is held BIT-EQUAL to its plain version on real wavefront states
 of the small torus at 32×32 (coherent primary rays and Morton-sorted
-bounced ones); a two-pass render ("auto": cull + fused for both its 10-
-and its 2-rays-per-pixel pass) is held to the agreement gate against the
-same render with the xla engine, and bit-equal to it through fused1. The
+bounced ones); a two-pass render ("auto": fused1 for its 10-rays-per-pixel
+pass, the pass regime, and cull + fused for its 2-rays-per-pixel pass) is
+held to the agreement gate against the same render with the xla engine, and
+bit-equal to it through fused1 alone. The
 gated cull is held bit-equal to its plain version with all-ones, real and
 all-zero gates and in its one-launch form (gates from the super boxes), and
 the hierarchical cull engine to the flat one. The pair sweep is held
@@ -18,7 +19,10 @@ holds and one that overflows, at the kernel's range count and at 1, 7, one
 per pair and more ranges than pairs), the "pallas" engine to
 the "fused" one, and a differentiable render through each engine launches
 its closest-hit kernels in the forward pass and none in the backward pass.
-The pack-2 fused1 kernel (paired sub-cluster tables, ``cluster_pack=2``) is
+fused1's block body is held bit-equal at 1 row to 2^18 rows with a ragged
+last tile, pack 1 and 2, flat and gated, at every split it is run at, its
+unsplit counters equal to the host build's. The pack-2 fused1 kernel
+(paired sub-cluster tables, ``cluster_pack=2``) is
 held bit-equal to its plain version (flat, gated, two block-aligned shards)
 and to the pack-1 kernel over the table cut at C/2, and a packed render
 launches it alone and equals the unpacked render at C/2 bit for bit. fused1
@@ -129,9 +133,13 @@ def test_render_goes_through_kernels_and_matches_xla(cuda):
     scene = _scene(cuda, rays_per_pixel=12, bounces=4, max_rays_per_pixel_per_pass=10)
     counts = lambda: (cull.LAUNCHES, fused.LAUNCHES, fused1.LAUNCHES, shade.LAUNCHES)
     before = counts()
-    fb = pipeline.render_framebuffer(scene)  # passes of 10 and 2, both through cull + fused
+    # Passes of 10 and 2: the first through fused1 (the pass regime), the
+    # second through cull + fused.
+    fb = pipeline.render_framebuffer(scene)
     after = counts()
-    assert all(a > b for a, b in zip(after[:2], before[:2])) and after[2:] == before[2:]
+    assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3] == before[3]
+    assert pipeline._regime_scene(scene, 10).config.packet_backend == "fused1"
+    assert pipeline._regime_scene(scene, 2) is scene
     fused1_fb = pipeline.render_framebuffer(scene.with_config(packet_backend="fused1"))
     assert counts()[2] > after[2] and counts()[:2] == after[:2]  # fused1 alone
     assert torch.equal(fused1_fb, fb)
@@ -391,6 +399,88 @@ def test_fused1_split_bit_equal_plain(cuda):
                                                     splits=splits)
                     assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
                         pack, gate, splits)
+
+
+def _host_fused1_lib(tmp_path):
+    """``csrc/packet_host.cpp`` built with the host C++ compiler: the same
+    fused1 body on the CPU, which ``test_torch_packet_host.py`` holds to a
+    PyTorch recount of the counters."""
+    import ctypes
+    import shutil
+    import subprocess
+
+    from cuda_raytracer_tpu_torch.ops.kernels import build
+
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    path = tmp_path / "libpacket_host.so"
+    subprocess.run([cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC", "-o",
+                    str(path), str(build.CSRC_DIR / "packet_host.cpp")], check=True)
+    lib = ctypes.CDLL(str(path))
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.rt_host_fused1_closest_hit.argtypes = [p] * 3 + [i] * 2 + [p] + [i] * 7 + [p] * 3
+    return lib
+
+
+@pytest.mark.parametrize("pack", [1, 2])
+def test_fused1_rows_splits_counters(cuda, tmp_path, pack):
+    """The fused1 kernel's block body (groups of ray lanes sharing each swept
+    cluster, the cull spread over the block, double-buffered staging) on a
+    torus of 171 clusters of 256 triangles (pack 1: 8 groups of lanes) or
+    342 sub-clusters of 128 two to a block (pack 2: 4 groups), entering
+    bounces 0 and 1 of 32×32 × 256 spp: at 1, 65, 4,097 and 2^18 - 7 rays
+    from the middle of the wavefront (a ragged last tile), flat and gated, at one block per tile, at
+    ``split_plan``'s choice for that many tiles and at more splits than
+    chunks, bit-equal to ``plain_fused1``, one launch a call; the counters
+    at one split equal the host build's on the same rays (the host build's
+    are held to a PyTorch recount on the CPU)."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (144, 96))
+    scene = scene_dsl.assemble_scene(
+        parsed, config_overrides=dict(width=32, height=32, cluster_pack=pack),
+        cluster_tris=256, device=cuda)
+    K = scene.num_clusters
+    assert K > fused1.CHUNK
+    aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
+    blocks = scene.cluster_blocks[:K // pack].contiguous()
+    host = _host_fused1_lib(tmp_path)
+    launches = lambda: fused1.LAUNCHES if pack == 1 else fused1.LAUNCHES_PACK2
+    n_chunks = -(-K // fused1.SPLIT_CHUNK)
+    for state in _states(scene, rpp=256):
+        alive = torch.any(state.transmitted != 0, dim=-1)
+        window = torch.where(alive, 1e30, -1.0)
+        R = window.shape[0]
+        for n in (1, 65, 4097, (1 << 18) - 7):
+            lo = (R - n) // 2  # rays from the middle of the image
+            od8 = cull.make_od8(*packet_intersect._pad_rays(
+                state.origin[lo:lo + n], state.direction[lo:lo + n], window[lo:lo + n], 64), 64)
+            T = od8.shape[0]
+            ref = fused1.plain_fused1(od8, aabb, blocks, pack=pack)
+            for gate in (0, 16):
+                sup = (fused1.shard_supers(scene.cluster_min, scene.cluster_max, gate)
+                       if gate else None)
+                for splits in sorted({1, fused1.split_plan(T, K, gate)[0], n_chunks + 2}):
+                    stats = torch.zeros(3, dtype=torch.int64, device=cuda)
+                    before = launches()
+                    got = fused1.fused1_closest_hit(od8, aabb, blocks, sup, gate, stats=stats,
+                                                    pack=pack, splits=splits)
+                    assert launches() == before + 1
+                    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]), (
+                        n, gate, splits)
+                    if splits > 1 or n > 4097:
+                        continue
+                    host_stats = torch.zeros(3, dtype=torch.int64)
+                    t, tri = torch.empty_like(ref[0].cpu()), torch.empty_like(ref[1].cpu())
+                    od8_c, aabb_c, blocks_c = od8.cpu(), aabb.cpu(), blocks.cpu()
+                    sup_c = sup.cpu() if gate else None
+                    host.rt_host_fused1_closest_hit(
+                        od8_c.data_ptr(), aabb_c.data_ptr(),
+                        sup_c.data_ptr() if gate else None, sup.shape[0] if gate else 0,
+                        gate, blocks_c.data_ptr(), T, K, blocks.shape[2], pack, 64, 1,
+                        fused1.CHUNK, t.data_ptr(), tri.data_ptr(), host_stats.data_ptr())
+                    assert torch.equal(t, got[0].cpu()) and torch.equal(tri, got[1].cpu())
+                    assert stats.cpu().tolist() == host_stats.tolist(), (n, gate)
+            assert n == 1 or (ref[1] >= 0).any()
 
 
 def test_fused_split_bit_equal_plain(cuda):

@@ -101,6 +101,48 @@ def test_certificate_retries_then_raises():
         assert torch.equal(pipeline.render_framebuffer(stale), full)
 
 
+def test_pass_regime_matches_jax(monkeypatch):
+    """The pass regime (``pipeline.regime_backend``) on a CUDA device resolves
+    every combination of packet backend, rays per pixel, ``cull_split`` and
+    cluster table size as JAX's ``_regime_scene`` resolves it on a TPU:
+    ``"auto"`` becomes ``"fused1"`` for passes of 10 or more rays per pixel
+    with one box a cluster and a table of at most 16 MiB, and an explicit
+    backend stays. On the CPU every backend stays, and a CPU scene's pass
+    keeps "auto", the xla engine, as JAX's non-TPU path does."""
+    import dataclasses
+    import types
+
+    import jax
+    from cuda_raytracer_tpu.models.scene import RenderConfig
+
+    class RegimeScene:  # what _regime_scene reads of a JAX scene
+        def __init__(self, config, words):
+            self.config, self.cluster_blocks = config, types.SimpleNamespace(size=words)
+
+        def replace(self, config):
+            return RegimeScene(config, self.cluster_blocks.size)
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    limit_words = (16 << 20) // 4
+    moved = 0
+    for backend in packet_intersect.BACKENDS:
+        for rpp in (1, 2, 8, 9, 10, 11, 20):
+            for split in (1, 2):
+                for words in (1, limit_words - 1, limit_words, limit_words + 1, 4 * limit_words):
+                    cfg = dataclasses.replace(RenderConfig(), packet_backend=backend,
+                                              cull_split=split)
+                    want = jpipeline._regime_scene(RegimeScene(cfg, words), rpp)
+                    got = pipeline.regime_backend(backend, rpp, split, 4 * words, "cuda")
+                    assert got == want.config.packet_backend, (backend, rpp, split, words)
+                    assert pipeline.regime_backend(backend, rpp, split, 4 * words,
+                                                   "cpu") == backend
+                    moved += got != backend
+    assert moved == 3 * 3  # "auto" at 10, 11 and 20 rays per pixel, tables up to 16 MiB
+    _, ts = _both("torus")
+    assert ts.config.packet_backend == "auto"
+    assert pipeline._regime_scene(ts, 20) is ts
+
+
 def test_regime_and_unported_paths():
     """The paths once unported run: the "cullhit" and "auto" sort keys
     reorder (a permutation of the rays) and render the Morton key's bits;

@@ -390,6 +390,22 @@ def packed_pair():
     return packed, half
 
 
+@pytest.fixture(scope="module")
+def wide_pair():
+    """A finer torus in clusters of 256 (171 clusters: two cull chunks) and
+    paired at 256 (342 sub-clusters of 128): fused1's blocks sweep them in 8
+    and 4 groups of lanes (``rt::fused1_shape``), where the narrow tables
+    above take one."""
+    parsed = builtin_scenes.parse_mesh_scene("torus", (144, 96))
+    cfg = dict(width=8, height=8)
+    wide = scene_dsl.assemble_scene(parsed, config_overrides=cfg, prefer_native_bvh=False,
+                                    cluster_tris=256, device="cpu")
+    packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(cfg, cluster_pack=2),
+                                      prefer_native_bvh=False, cluster_tris=256, device="cpu")
+    assert wide.num_clusters > fused1.CHUNK and packed.num_clusters > 2 * fused1.CHUNK
+    return wide, packed
+
+
 def _host_fused1(host_lib, od8, scene, gate, pack, splits=1):
     """The host build's fused1 loop over a scene's table, with ``splits``
     blocks per tile (split_plan's chunk) → (t, tri, stats)."""
@@ -409,12 +425,15 @@ def _host_fused1(host_lib, od8, scene, gate, pack, splits=1):
     return t, tri, stats
 
 
-def _fused1_counters(od8, scene, gate, pack):
+def _fused1_counters(od8, scene, gate, pack, prefetched_skips=None):
     """The unsplit kernel's counters recomputed in PyTorch: per tile, the
     128-box chunks in order (a gated chunk skipped unless some ray hits one
     of its super boxes), each hit box swept when some ray's bound min(best,
     window) reaches its entry scaled by SKIP_SLACK, the bests folded as
-    the kernel folds → [slab tests, swept pairs, Möller–Trumbore tests]."""
+    the kernel folds → [slab tests, swept pairs, Möller–Trumbore tests].
+    ``prefetched_skips``, a list, gets (tile, box) of every hit box that the
+    early-out passes over after its block was copied while the chunk's
+    previous hit box was handled."""
     K = scene.num_clusters
     aabb = cull.box_table(scene.cluster_min, scene.cluster_max)
     sub = fused1.sub_blocks(scene.cluster_blocks[:K // pack], pack)
@@ -442,8 +461,10 @@ def _fused1_counters(od8, scene, gate, pack):
                                         aabb[3:6, lo:lo + nb].T[None])
             ent = torch.where(hit, ent, float("inf"))
             stats[0] += nb * n_live
-            for j in torch.nonzero(hit.any(dim=0)).reshape(-1).tolist():
+            for i, j in enumerate(torch.nonzero(hit.any(dim=0)).reshape(-1).tolist()):
                 if not (torch.minimum(acc, win) >= ent[:, j] * SKIP_SLACK).any():
+                    if prefetched_skips is not None and i > 0:
+                        prefetched_skips.append((t, lo + j))
                     continue
                 k = lo + j
                 stats[1] += 1
@@ -460,40 +481,54 @@ def _fused1_counters(od8, scene, gate, pack):
     return stats
 
 
+@pytest.mark.parametrize("width", ["narrow", "wide"])
 @pytest.mark.parametrize("pack", [1, 2])
-@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
-def test_host_fused1_split_bit_equal_plain(host_lib, scene, packed_pair, pack, n, tile):
+@pytest.mark.parametrize("n,tile", [(700, 64), (250, 100), (333, 40)])
+def test_host_fused1_split_bit_equal_plain(host_lib, scene, packed_pair, wide_pair, width,
+                                           pack, n, tile):
     """The split fused1 (a tile's boxes over 2, 3 and more blocks than it has
     chunks, folded through 64-bit keys) against ``plain_fused1``, flat and
     gated, for pack 1 and 2; with one split the counters are the unsplit
-    kernel's, recomputed by ``_fused1_counters``."""
-    table = scene if pack == 1 else packed_pair[0]
+    kernel's, recomputed by ``_fused1_counters``. The block's lanes hold two
+    rays each in groups of whole warps (``rt::fused1_shape``), one group
+    over the narrow tables' sub-clusters of 32, 8 (pack 1) and 4 (pack 2)
+    over the wide ones, their bests folded into the tile's after each pair;
+    tiles of 100 and 40 rays leave the last lanes of every group without
+    rays, and the cases include hit boxes whose block was copied while the
+    previous one was swept and that the early-out then passed over."""
+    table = {"narrow": (scene, packed_pair[0]), "wide": wide_pair}[width][pack - 1]
     od8 = _od8(n, tile, seed=n + 4)
     K = table.num_clusters
     ref = fused1.plain_fused1(od8, cull.box_table(table.cluster_min, table.cluster_max),
                               table.cluster_blocks, pack=pack)
     assert (ref[1] >= 0).sum() > n // 10
     n_chunks = -(-K // fused1.SPLIT_CHUNK)
+    skipped = []
     for gate in (0, 16):
         for splits in (1, 2, 3, n_chunks + 2):
             t, tri, stats = _host_fused1(host_lib, od8, table, gate, pack, splits)
             assert torch.equal(t, ref[0]) and torch.equal(tri, ref[1]), (gate, splits)
             if splits == 1:
-                assert stats.tolist() == _fused1_counters(od8, table, gate, pack), gate
+                counters = _fused1_counters(od8, table, gate, pack, skipped)
+                assert stats.tolist() == counters, gate
             else:
                 assert stats[1] > 0
+    assert skipped  # prefetched, then passed over by the early-out
 
 
 def test_split_plan():
     """One block per tile while the tiles fill the card; below that, enough
-    splits of whole chunks, none without boxes."""
+    splits of whole chunks, none without boxes; fused's plan in units of 32
+    clusters."""
     assert fused1.split_plan(4096, 721) == (1, fused1.CHUNK)
-    assert fused1.split_plan(64, 721, 16) == (23, 32)
-    assert fused1.split_plan(256, 721, 16) == (12, 32)
+    assert fused1.split_plan(64, 721, 16) == (46, 16)
+    assert fused1.split_plan(256, 721, 16) == (16, 16)
     assert fused1.split_plan(64, 721, 64) == (12, 64)
-    assert fused1.split_plan(8, 40) == (2, 32)
-    assert fused1.split_plan(64, 721, 16, splits=5) == (5, 32)
+    assert fused1.split_plan(8, 40) == (3, 16)
+    assert fused1.split_plan(64, 721, 16, splits=5) == (5, 16)
     assert fused1.split_plan(64, 721, 16, splits=1) == (1, fused1.CHUNK)
+    assert fused1.split_plan(64, 721, unit=fused.SPLIT_UNIT) == (23, 32)
+    assert fused1.split_plan(256, 721, unit=fused.SPLIT_UNIT) == (12, 32)
 
 
 @pytest.mark.parametrize("n,tile", [(700, 64), (250, 100)])
