@@ -55,8 +55,13 @@ checks them all. Phases, one line each:
    permutation) and the PCG draws (a bounce's; the camera's at bounce 0)
    bit-equal to their plain versions, the live counts of three
    back-to-back launches of each key kernel right, the packed bounce
-   kernel against the torch shading at the shade gate; then their times
-   (each call on rows out of L2), plain times and bounds;
+   kernel against the torch shading at the shade gate; the camera kernel
+   (a block's packed starting rows) bit-equal to its plain version on the
+   first, centre and last (short) blocks of a pass and rank 1 of 2's first
+   block, at 20 and 8 rays a pixel, for pass seeds 80 and 2^31 + 80; then
+   their times (each call on rows out of L2), plain times and bounds, the
+   camera kernel's beside the sequence it replaced (its device operations,
+   device and host time) and torch.cat of the rows' columns;
 7. mesh main path: the torus at 1000×1000 and 10 bounces after small
    warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
    rays per pixel, each through fused1 and through cull + fused (fused1,
@@ -64,8 +69,9 @@ checks them all. Phases, one line each:
    card fused1 for the 100-spp render's 20-spp passes, the pass regime
    ``pipeline._regime_scene``, and cull + fused for the 8-spp one); launch
    counts per kernel (> 0 for the regime's
-   kernels and the forward kernels: camera draws, set-up, bounce, sort
-   keys; 0 for the other packet kernels), finite framebuffers, sane mean
+   kernels and the forward kernels: camera rows, set-up, bounce, sort
+   keys; 0 for the other packet kernels and the PCG draws; the camera
+   kernel once a block), finite framebuffers, sane mean
    display values, and every image of a spp identical;
 8. packet timing: the 2^18-ray block of the 20-rays-per-pixel pass that
    holds the image centre,
@@ -87,7 +93,7 @@ checks them all. Phases, one line each:
    under torch.profiler, through fused1 with the bounce kernel and with the
    torch shading (the plain version called by name), and through cull +
    fused: device time by kernel, the packet kernels' time per bounce, the
-   device kernels per block and per bounce and the device's idle share;
+   device operations per block and per bounce and the device's idle share;
 9. the command-line renderer: the full-size torus and the Cornell scene
    written as ``.scene`` files; (a) ``python -m cuda_raytracer_tpu_torch
    torus.scene --spp 8 --metrics`` as a subprocess (exit 0, the PNG,
@@ -299,9 +305,11 @@ EXAMPLE_BAR = 0.15  # phase 10d: the example's own bar
 CLI_SPP = 8  # phase 9: one pass (9c renders it through cull + fused, the gated cull's path)
 CLI_GATE = 16  # --cull-hier: clusters per super box
 # The kernels every forward mesh render launches beside its closest hit: the
-# camera's PCG draws and the packed trace's set-up, bounce and sort-key
-# kernels.
-FORWARD_KERNELS = ("pcg_draws", "rays_setup", "shade_rows", "ray_keys")
+# camera rows and the packed trace's set-up, bounce and sort-key kernels;
+# and the one it must not: the PCG draws (a graph-building trace's camera,
+# the training shading).
+FORWARD_KERNELS = ("camera_rows", "rays_setup", "shade_rows", "ray_keys")
+FORWARD_NOT = ("pcg_draws",)
 # Kernels the 8-spp CLI render must launch (phases 9a, 9b, 12a), "auto" on
 # the card; --cull-hier adds the gated cull (9b).
 # The closest-hit kernels of packet_backend "auto" on the card
@@ -837,7 +845,7 @@ def _render_turns(label_scenes, regimes, phase: str, tag: str):
     must launch its regime's kernels and the forward kernels, and no other
     closest-hit kernel."""
     must = {label: regime + FORWARD_KERNELS for label, regime in regimes.items()}
-    must_not = {label: tuple(k for k in PACKET_LAUNCH_NAMES if k not in regime)
+    must_not = {label: tuple(k for k in PACKET_LAUNCH_NAMES if k not in regime) + FORWARD_NOT
                 for label, regime in regimes.items()}
     out = _turns(label_scenes, must, must_not, phase, tag)
     return (_seconds_by_label(out), [o[1] for o in out], [o[2] for o in out],
@@ -868,21 +876,41 @@ def phase_mesh_main_path(full) -> tuple:
                  for label in order]
         seconds, fbs, images, counts = _render_turns(turns, regimes, "7", "mesh main path")
         same = all(np.array_equal(img, images[0]) for img in images)
+        blocks = _render_blocks(turns[0][1])
+        once_a_block = all(c["camera_rows"] == blocks for c in counts)
         print(f"phase 7 mesh main path: spp={spp} seconds " + " ".join(
             f"{label}={[round(x, 4) for x in secs]}" for label, secs in seconds.items())
-            + f" images_identical={same}")
+            + f" images_identical={same} blocks={blocks} "
+            f"camera_rows_launches={[c['camera_rows'] for c in counts]}")
         if not same:
             raise SystemExit(f"phase 7 failed: the {spp}-spp images differ between regimes")
+        if not once_a_block:
+            raise SystemExit("phase 7 failed: the camera kernel did not launch once a block")
         # The kernel table's launches: the main path's, the "auto" render
         # (the last turn) at 100 spp for the forward kernels and fused1 (the
         # regime of its 20-spp passes) and at 8 spp for cull + fused.
         if spp == MESH_FULL_SPP:
             reference = fbs[-1]  # phase 11c's reference: the "auto" render
             launches.update({k: counts[-1][k]
-                             for k in ("fused1_closest_hit",) + FORWARD_KERNELS})
+                             for k in ("fused1_closest_hit",) + FORWARD_KERNELS + FORWARD_NOT})
         else:
             launches.update({k: counts[-1][k] for k in AUTO_KERNELS})
     return launches, reference
+
+
+def _render_blocks(scene) -> int:
+    """The wavefront blocks of a render of ``scene``: per pass of at most
+    ``max_rays_per_pixel_per_pass`` rays a pixel, its rays in blocks of
+    whole pixels of at most ``pipeline.RAY_BLOCK`` rays."""
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    cfg, blocks, remaining = scene.config, 0, scene.config.rays_per_pixel
+    while remaining > 0:
+        rpp = min(cfg.max_rays_per_pixel_per_pass, remaining)
+        remaining -= rpp
+        block = max(rpp, (pipeline.RAY_BLOCK // rpp) * rpp)
+        blocks += -(-scene.num_pixels * rpp // block)
+    return blocks
 
 
 def _centre_block(scene, rpp: int):
@@ -982,8 +1010,8 @@ def _profile_block(scene, backend: str, kernels, phase: str = "8") -> None:
           f"bounces={scene.config.bounces} live_bounds={bounds} wall_ms={wall_ms:.2f} "
           f"device_busy_ms={busy_ms:.2f} device_idle_share={1 - busy_ms / wall_ms:.3f} "
           f"packet_kernels_ms={kernel_ms:.3f} bounce_kernel_ms={bounce_ms:.3f} "
-          f"device_kernels={device_kernels} "
-          f"device_kernels_per_bounce={device_kernels / scene.config.bounces:.1f}")
+          f"device_ops_per_block={device_kernels} "
+          f"device_ops_per_bounce={device_kernels / scene.config.bounces:.1f}")
     for dev_ms, count, key in rows[:8]:
         print(f"phase {phase} profile: {backend} top device time {dev_ms:.3f} ms x{count} "
               f"{key[:90]}")
@@ -1219,9 +1247,11 @@ def phase_row_kernels(full) -> dict:
     at bounce 0 the camera's) bit-equal (0 mismatched bits), the live count
     of three back-to-back launches of each key kernel (Morton and cullhit)
     right with no reset between them, the packed
-    bounce kernel against the torch shading at the shade gate. Then their
-    times at bounce 1 (the draws on the train step's 131,072 ray ids), each
-    beside its bound and plain time."""
+    bounce kernel against the torch shading at the shade gate; the camera
+    kernel against its plain version on blocks of passes (``_camera_checks``).
+    Then their times at bounce 1 (the draws on the train step's 131,072 ray
+    ids; the camera kernel on the centre block), each beside its bound and
+    plain time."""
     import torch
     from cuda_raytracer_tpu_torch.ops import camera
     from cuda_raytracer_tpu_torch.ops.kernels import bounce, rays
@@ -1289,7 +1319,125 @@ def phase_row_kernels(full) -> dict:
     for name, err in errs.items():
         out[name]["max_abs_err"] = err
     out["bounce_max_abs_err"] = worst
+    out["camera_rows"] = _camera_timing(scene, block_lo, block, rpp, seed)
+    out["camera_rows"]["max_abs_err"] = _camera_checks(scene)
     return out
+
+
+def _camera_checks(scene) -> float:
+    """6c: the camera kernel against its plain version run on the card, 0
+    mismatched bits, at 20 and 8 rays a pixel and pass seeds 80 and 2^31 +
+    80, on the first, centre and last (short) blocks of a pass and on the
+    first block of rank 1 of 2 (a first ray no multiple of the block) →
+    the largest |Δ| among mismatched bits (0.0)."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+    from cuda_raytracer_tpu_torch.render import pipeline
+
+    words = rays.camera_words(scene.camera)
+    width, worst = scene.config.width, 0.0
+    for rpp in (20, 8):
+        block = (pipeline.RAY_BLOCK // rpp) * rpp
+        total = scene.num_pixels * rpp
+        starts = {"first": 0, "centre": _centre_block(scene, rpp)[0],
+                  "last": (total - 1) // block * block,
+                  "rank1of2": scene.num_pixels // 2 * rpp}
+        for seed in (80, 2 ** 31 + 80):
+            for label, lo in starts.items():
+                n = min(block, total - lo)
+                got = rays.camera_rows(words, lo, n, rpp, width, seed)
+                want = rays.plain_camera_rows(words, lo, n, rpp, width, seed)
+                bad, err = _bit_mismatch((got,), (want,))
+                finite = bool(torch.isfinite(got[:, :12]).all()) and bool(
+                    torch.isfinite(got[:, 13:]).all())  # all but the ray id's bits
+                print(f"phase 6c camera rows: {label} block lo={lo} rays={n} rpp={rpp} "
+                      f"seed={seed} lo_mod_block={lo % block} camera_rows_mismatched={bad} "
+                      f"max_abs_err={err:.3g} finite={finite}")
+                if bad or not finite:
+                    raise SystemExit(f"phase 6c failed: camera_rows differs from its plain "
+                                     f"version ({label} block, rpp {rpp}, seed {seed})")
+                worst = max(worst, err)
+    return worst
+
+
+def _old_camera_rows(scene, block_lo: int, block: int, rpp: int, seed: int):
+    """A block's starting rows as the pass loop made them before the camera
+    kernel: the ids (arange + add), ``make_initial_state`` (the PCG draw
+    kernel, then the jitter, direction and weights in torch) and
+    ``pack_rows``."""
+    import torch
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
+    return wavefront.pack_rows(wavefront.make_initial_state(scene, ids, rpp, seed))
+
+
+def _host_ms(fn, runs: int = 20) -> float:
+    """Median host milliseconds to enqueue one call of ``fn`` (the device
+    idle after each, so no call waits for room in the launch queue)."""
+    import torch
+
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - start) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def _camera_timing(scene, block_lo: int, block: int, rpp: int, seed: int) -> dict:
+    """6c: the camera kernel on the centre block: its time, its bound (64
+    bytes written a row; CAMERA_OPS a ray), the sequence it replaced (its
+    wall time between events, its device operations and device time under
+    the profiler, its host time to enqueue) beside the kernel's, the plain
+    version's time (the torch PCG) and torch.cat of the rows' columns (the
+    packing only, the one call that does part of its work)."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    words = rays.camera_words(scene.camera)
+    width = scene.config.width
+    kernel = lambda: rays.camera_rows(words, block_lo, block, rpp, width, seed)
+    old = lambda: _old_camera_rows(scene, block_lo, block, rpp, seed)
+    state = wavefront.unpack_rows(old())
+    cols = [state.origin.contiguous(), state.direction.contiguous(),
+            state.transmitted.contiguous(), state.collected.contiguous(),
+            state.ray_id.view(torch.float32)[:, None],
+            torch.zeros((block, 3), dtype=torch.float32, device=scene.device)]
+    ms = _cuda_ms(kernel)
+    old_ms = _plain_ms(old)
+    plain_ms = _plain_ms(lambda: rays.plain_camera_rows(words, block_lo, block, rpp, width,
+                                                        seed))
+    library_ms = _cuda_ms(lambda: torch.cat(cols, dim=1))
+    _, old_wall_ms, old_rows = _profiled(old)
+    _, kernel_wall_ms, kernel_rows = _profiled(kernel)
+    old_host_ms, kernel_host_ms = _host_ms(old), _host_ms(kernel)
+    nbytes = block * 64 + rays.CAMERA_WORDS * 4
+    ops_ms = block * CAMERA_OPS / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    old_ops, old_busy = sum(r[1] for r in old_rows), sum(r[0] for r in old_rows)
+    kernel_ops, kernel_busy = sum(r[1] for r in kernel_rows), sum(r[0] for r in kernel_rows)
+    print(f"phase 6c timing: camera_rows rays={block} ms={ms:.4f} plain_ms={old_ms:.3f} "
+          f"plain_torch_pcg_ms={plain_ms:.3f} library_ms={library_ms:.4f} bytes={nbytes} "
+          f"bytes_bound_ms={bytes_ms:.4f} ops_bound_ms={ops_ms:.4f} "
+          f"bound_share={bound_ms / ms:.3f}")
+    print(f"phase 6c camera rows vs the sequence it replaced: centre block rays={block} "
+          f"old_device_ops={old_ops} old_device_busy_ms={old_busy:.4f} "
+          f"old_profiled_wall_ms={old_wall_ms:.3f} old_host_enqueue_ms={old_host_ms:.4f} "
+          f"kernel_device_ops={kernel_ops} kernel_device_busy_ms={kernel_busy:.4f} "
+          f"kernel_profiled_wall_ms={kernel_wall_ms:.3f} "
+          f"kernel_host_enqueue_ms={kernel_host_ms:.4f}")
+    for dev_ms, count, key in old_rows:
+        print(f"phase 6c camera rows: old sequence device time {dev_ms:.4f} ms x{count} "
+              f"{key[:80]}")
+    return dict(ms=ms, plain_ms=old_ms, plain_torch_pcg_ms=plain_ms, library_ms=library_ms,
+                bound_ms=bound_ms, bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                old_device_ops=old_ops, old_device_busy_ms=old_busy,
+                old_host_enqueue_ms=old_host_ms, host_enqueue_ms=kernel_host_ms)
 
 
 def _cold_copies(rows):
@@ -2752,7 +2900,7 @@ def phase_bvh_render(full) -> int:
     bvh = full.with_config(intersector="bvh")
     pipeline.render_framebuffer(_resized(bvh, 128, 128).with_config(rays_per_pixel=20))
     packet = PACKET_LAUNCH_NAMES
-    must_not = {"bvh": packet, "auto": ("bvh_walk",)}
+    must_not = {"bvh": packet + FORWARD_NOT, "auto": ("bvh_walk",) + FORWARD_NOT}
     launches = None
     for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
         scenes = {"bvh": bvh.with_config(rays_per_pixel=spp),
@@ -2945,9 +3093,10 @@ def phase_cullhit(full, lamp) -> tuple:
     scenes = {"morton": full.with_config(rays_per_pixel=MESH_FEW_SPP),
               "cullhit": full.with_config(rays_per_pixel=MESH_FEW_SPP, sort_key="cullhit")}
     must = {"morton": AUTO_KERNELS + FORWARD_KERNELS,
-            "cullhit": AUTO_KERNELS + ("cullhit_keys", "pcg_draws", "rays_setup",
+            "cullhit": AUTO_KERNELS + ("cullhit_keys", "camera_rows", "rays_setup",
                                        "shade_rows")}
-    must_not = {"morton": ("cullhit_keys", "bvh_walk"), "cullhit": ("ray_keys", "bvh_walk")}
+    must_not = {"morton": ("cullhit_keys", "bvh_walk") + FORWARD_NOT,
+                "cullhit": ("ray_keys", "bvh_walk") + FORWARD_NOT}
     out = _turns([(label, scenes[label]) for label in ("morton", "cullhit", "cullhit",
                                                        "morton")],
                  must, must_not, "13e", "cullhit render")
@@ -3162,9 +3311,15 @@ def main() -> int:
             ("rays_setup", "cuda_raytracer_tpu/render/wavefront.py:75",
              mesh_launches["rays_setup"]),
             ("ray_keys", "cuda_raytracer_tpu/ops/morton.py:51", mesh_launches["ray_keys"]),
-            # The camera's jitter in every trace; the torch shading's five
-            # draws a bounce in training.
-            ("pcg_draws", "cuda_raytracer_tpu/ops/rng.py:121", mesh_launches["pcg_draws"])):
+            # JAX generate_rays + make_initial_state (the port's pack_rows):
+            # a block's starting rows; the 100-spp render's blocks.
+            ("camera_rows", "cuda_raytracer_tpu/ops/camera.py:33",
+             mesh_launches["camera_rows"]),
+            # The torch shading's five draws a bounce and a graph-building
+            # trace's camera: the 5 timed "auto" train steps (checkpointed);
+            # no forward render launches it.
+            ("pcg_draws", "cuda_raytracer_tpu/ops/rng.py:121",
+             diff_result["train_launches"]["pcg_draws"])):
         r = row_kernels[name]
         kernels.append({
             "name": name,
@@ -3175,13 +3330,18 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"],
             "tolerance": "bit-equal",
             "ms": r["ms"],
+            # camera_rows: the sequence it replaced (the PCG draw kernel and
+            # torch), on the card.
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
-            # rays_setup: torch.stack of its ray tiles' rows, the packing only.
+            # rays_setup: torch.stack of its ray tiles' rows; camera_rows:
+            # torch.cat of its rows' columns; the packing only.
             "library_ms": r["library_ms"],
-            **({"train_step_launches": diff_result["train_launches"]["pcg_draws"]}
-               if name == "pcg_draws" else {}),
+            **({"render_launches": mesh_launches["pcg_draws"]} if name == "pcg_draws" else {}),
+            **({k: r[k] for k in ("plain_torch_pcg_ms", "old_device_ops",
+                                  "old_device_busy_ms", "old_host_enqueue_ms",
+                                  "host_enqueue_ms")} if name == "camera_rows" else {}),
         })
     kernels.append({
         "name": "cull_gated",

@@ -31,6 +31,11 @@ directory) and prints one JSON line with NAME, the card and its power limit:
   ``block_kernels``: the torus's centre 2^18-ray block of a 20-spp pass
   (10 bounces, packet backend "auto") under torch.profiler: wall time,
   device busy time, the device's idle share and the device kernels it ran;
+- ``block_walls_ms``: that block's wall time without the profiler, host
+  clock around the call and a synchronise, 21 times after one untimed call,
+  and their median ``block_wall_median_ms``;
+- ``bvh_block_*``: the centre block as ``block_*`` is profiled and timed,
+  through ``intersector="bvh"`` (skipped on a tree without it);
 - ``train_s``: the median of 5 inverse-rendering train steps ("auto"
   engine, per-bounce checkpointing, Adam) on the 126,000-triangle torus at
   256×256 × 2 spp × 10 bounces, after 2 untimed steps: phase 10c's shape;
@@ -181,6 +186,34 @@ def main() -> int:
     block_wall, block_busy, block_kernels = profiled(lambda: pipeline.render_pass(
         full, framebuffer, 80, rpp, full.config.bounces, True,
         pixels=(px_lo, px_lo + block // rpp)))
+    def walls(scene):
+        """21 unprofiled wall times (ms) of the centre block, after one."""
+        def call():
+            pipeline.render_pass(scene, framebuffer, 80, rpp, scene.config.bounces, True,
+                                 pixels=(px_lo, px_lo + block // rpp))
+        call()
+        out = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            call()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - start) * 1e3)
+        return out
+
+    block_walls = walls(full)
+    engines.update(block_walls_ms=block_walls,
+                   block_wall_median_ms=statistics.median(block_walls))
+    if "bvh_s" in engines:
+        bvh_scene = full.with_config(intersector="bvh")
+        wall, busy, kernels = profiled(lambda: pipeline.render_pass(
+            bvh_scene, framebuffer, 80, rpp, bvh_scene.config.bounces, True,
+            pixels=(px_lo, px_lo + block // rpp)))
+        bvh_walls = walls(bvh_scene)
+        engines.update(bvh_block_wall_ms=wall, bvh_block_busy_ms=busy,
+                       bvh_block_idle_share=1 - busy / wall, bvh_block_kernels=kernels,
+                       bvh_block_walls_ms=bvh_walls,
+                       bvh_block_wall_median_ms=statistics.median(bvh_walls))
     gated = full.with_config(packet_backend="fused", cull_hier=16)
     gated_wall, gated_busy, gated_kernels = profiled(lambda: pipeline.render_pass(
         gated, framebuffer, 80, rpp, gated.config.bounces, True,

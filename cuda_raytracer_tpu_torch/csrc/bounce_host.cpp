@@ -1,7 +1,8 @@
 // Host build of bounce.cu and rays.cu, for the CPU tests: each grid as a
 // loop over rays, each ray run through the same bodies the card runs
 // (rt::shade_packed_row in shading.cuh; rt::setup_ray, rt::ray_key, the
-// cullhit key's rt::first2_* and rt::pcg_draws_ray in rays.cuh).
+// cullhit key's rt::first2_*, rt::pcg_draws_ray and rt::camera_row in
+// rays.cuh).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libbounce_host.so bounce_host.cpp
 
@@ -114,6 +115,18 @@ int rt_host_pcg_draws(const int* ray_id, int n, unsigned int ray_mult, unsigned 
                       int n_draws, long long* draws) {
   for (int i = 0; i < n; ++i)
     rt::pcg_draws_ray(ray_id, n, ray_mult, seed_add, n_draws, i, draws);
+  return 0;
+}
+
+// rt_camera_rows's arguments, without the stream.
+int rt_host_camera_rows(const float* cam, int ray_lo, int n, int rays_per_pixel, int width,
+                        unsigned int pass_seed, float* rows) {
+  for (int i = 0; i < n; ++i) {
+    rt::Row4 q[4];
+    rt::camera_row(cam, ray_lo + i, rays_per_pixel, width, pass_seed, q);
+    for (int k = 0; k < 4; ++k)
+      rt::store_row4(rows + rt::kRowWords * (size_t)i + 4 * k, q[k].x, q[k].y, q[k].z, q[k].w);
+  }
   return 0;
 }
 

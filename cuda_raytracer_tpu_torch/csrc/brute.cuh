@@ -86,9 +86,14 @@ struct Path {
   int bounce;  // bounces done
 };
 
-RT_HD void camera_ray(const Scene& sc, int rid, int rays_per_pixel, int width,
-                      uint32_t pass_seed, Path& p) {
-  const float* cam = sc.words;
+// The camera ray of ray id rid (ops/camera.generate_rays, expression for
+// expression): its pixel's jitter from the first two draws of its PCG
+// stream, the direction (tl + x·sr) − y·su normalised as v / sqrt(sum) with
+// a left-to-right dot. cam: the kHeadWords head's first 14 words [position
+// top_left scaled_right scaled_up inv_width inv_height]. The megakernel's
+// camera_ray and the mesh wavefront's camera_row (rays.cuh) both run it.
+RT_HD void camera_direction(const float* cam, int rid, int rays_per_pixel, int width,
+                            uint32_t pass_seed, float dir[3]) {
   const int pixel = rid / rays_per_pixel;
   const float px = (float)(pixel % width);
   const float py = (float)(pixel / width);
@@ -97,12 +102,18 @@ RT_HD void camera_ray(const Scene& sc, int rid, int rays_per_pixel, int width,
   const uint32_t jb = pcg_next(st);
   const float x = (px + (float)ja * kOneInv) * cam[12];
   const float y = (py + (float)jb * kOneInv) * cam[13];
-  float d[3] = {cam[3] + x * cam[6] - y * cam[9], cam[4] + x * cam[7] - y * cam[10],
-                cam[5] + x * cam[8] - y * cam[11]};
+  const float d[3] = {cam[3] + x * cam[6] - y * cam[9], cam[4] + x * cam[7] - y * cam[10],
+                      cam[5] + x * cam[8] - y * cam[11]};
   const float m = sqrtf(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]);
+  for (int a = 0; a < 3; ++a) dir[a] = d[a] / m;
+}
+
+RT_HD void camera_ray(const Scene& sc, int rid, int rays_per_pixel, int width,
+                      uint32_t pass_seed, Path& p) {
+  const float* cam = sc.words;
+  camera_direction(cam, rid, rays_per_pixel, width, pass_seed, p.d);
   for (int a = 0; a < 3; ++a) {
     p.o[a] = cam[a];
-    p.d[a] = d[a] / m;
     p.tr[a] = 1.0f;
     p.co[a] = 0.0f;
   }

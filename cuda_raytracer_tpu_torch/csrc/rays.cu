@@ -20,8 +20,14 @@
 //     same bucket, chunk index and live count as ray_keys_kernel;
 //   - pcg_draws_kernel: a ray's first raw PCG draws (JAX
 //     cuda_raytracer_tpu/ops/rng.py::uniforms), seeded as the camera's
-//     jitter (two per ray, every trace's initial state) or a bounce's
-//     shading (five per ray, the training shading) seeds them.
+//     jitter (two per ray, the initial state of a trace that builds a
+//     graph) or a bounce's shading (five per ray, the training shading)
+//     seeds them;
+//   - camera_rows_kernel: a forward trace's packed starting rows, the
+//     camera rays of a block (JAX cuda_raytracer_tpu/ops/camera.py::
+//     generate_rays and render/wavefront.py::make_initial_state; the port's
+//     pack_rows), with the jitter's two draws kept in registers where the
+//     pcg_draws kernel wrote them out and some 30 torch ops read them back.
 //
 // The arithmetic is in rays.cuh and shading.cuh, shared with the host build
 // the CPU tests run.
@@ -46,6 +52,15 @@
 // block adds its count to a two-word scratch of the launch's stream, and the
 // last block to finish (a ticket taken after a fence) writes the total and
 // zeroes the scratch for the next launch, so no memset precedes them.
+//
+// The camera rows: bytes, 64 B written a row (the 14 camera words are one
+// broadcast read), and 29 FP32 operations a ray beside two LCG steps and a
+// seed. One thread a row computes the brute megakernel's camera ray
+// (rt::brute::camera_direction, shared with it); the block writes its rows
+// through shared memory as 16-byte words, each warp's store contiguous. The
+// draws, the pixel's jitter and the direction never leave the chip, where
+// the plain sequence writes and rereads a dozen (R,) and (R, 3) temporaries
+// and the ids, the ones and the zeros it packs.
 //
 // The cullhit key is issue-bound: a flat scan tests 531 of the torus's 721
 // boxes a live ray. Its block stages the box table and its gates in shared
@@ -186,6 +201,33 @@ pcg_draws_kernel(const int* __restrict__ ray_id, int n, uint32_t ray_mult, uint3
   rt::pcg_draws_ray(ray_id, n, ray_mult, seed_add, n_draws, i, draws);
 }
 
+// A block's rows go out through shared memory: each thread puts its row's
+// four 16-byte words there, then the block stores its rows as consecutive
+// 16-byte words, a warp's store 512 contiguous bytes (a thread storing its
+// own row would spread each store over 64-byte strides). A row's words are
+// rotated by (row >> 1) & 3 so that neither side conflicts in the banks.
+__global__ void __launch_bounds__(kThreads)
+camera_rows_kernel(const float* __restrict__ cam, int ray_lo, int n, int rays_per_pixel,
+                   int width, uint32_t pass_seed, float4* __restrict__ rows) {
+  __shared__ float4 stage[4 * kThreads];
+  const int r0 = blockIdx.x * kThreads;
+  const int t = threadIdx.x;
+  if (r0 + t < n) {
+    rt::Row4 q[4];
+    rt::camera_row(cam, ray_lo + r0 + t, rays_per_pixel, width, pass_seed, q);
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      stage[4 * t + ((k + (t >> 1)) & 3)] = make_float4(q[k].x, q[k].y, q[k].z, q[k].w);
+  }
+  __syncthreads();
+  const int quads = 4 * min(kThreads, n - r0);
+  float4* out = rows + 4 * (size_t)r0;
+  for (int j = t; j < quads; j += kThreads) {
+    const int r = j >> 2;
+    out[j] = stage[4 * r + (((j & 3) + (r >> 1)) & 3)];
+  }
+}
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // The most dynamic shared memory a block of cullhit_keys_kernel takes: a step
@@ -298,6 +340,19 @@ int rt_pcg_draws(const int* ray_id, int n, unsigned int ray_mult, unsigned int s
   if (n <= 0) return (int)cudaGetLastError();
   pcg_draws_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       ray_id, n, ray_mult, seed_add, n_draws, draws);
+  return (int)cudaGetLastError();
+}
+
+// cam: the 14 camera words [position top_left scaled_right scaled_up
+// inv_width inv_height] float32 → rows (n, 16) float32, 16-byte aligned: the
+// packed starting rows of camera rays ray_lo .. ray_lo + n - 1 (each ray id
+// below 2^31), rays_per_pixel rays a pixel of an image `width` pixels wide,
+// jittered by the pass seed's draws. Returns cudaGetLastError().
+int rt_camera_rows(const float* cam, int ray_lo, int n, int rays_per_pixel, int width,
+                   unsigned int pass_seed, float* rows, void* stream) {
+  if (n <= 0) return (int)cudaGetLastError();
+  camera_rows_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      cam, ray_lo, n, rays_per_pixel, width, pass_seed, reinterpret_cast<float4*>(rows));
   return (int)cudaGetLastError();
 }
 

@@ -23,7 +23,10 @@
 //   - pcg_draws_ray: the first raw draws of a ray's PCG stream seeded with
 //     ray_id * ray_mult + seed_add (mod 2^32): the camera's jitter
 //     (ops/camera.initial_ray_seeds, two draws) and a bounce's shading
-//     (wavefront.bounce_seeds, five), rng.uniforms of those seeds.
+//     (wavefront.bounce_seeds, five), rng.uniforms of those seeds;
+//   - camera_row: a block's packed starting row, pack_rows of
+//     make_initial_state (ops/camera.generate_rays at full throughput), the
+//     camera ray the brute megakernel computes (brute::camera_direction).
 //
 // Numerics follow the plain PyTorch versions expression for expression
 // (nvcc -fmad=false, g++ -ffp-contract=off); the sphere test is the brute
@@ -319,6 +322,19 @@ RT_HD void pcg_draws_ray(const int* ray_id, int n_rays, uint32_t ray_mult, uint3
                          int n_draws, int i, long long* draws) {
   uint64_t st = pcg_seed((uint32_t)ray_id[i] * ray_mult + seed_add);
   for (int k = 0; k < n_draws; ++k) draws[(size_t)k * n_rays + i] = (long long)pcg_next(st);
+}
+
+// Camera ray rid's packed starting row as four aligned 16-byte words q:
+// [origin direction 1 1 1 0 0 0 ray_id 0 0 0], the ray id's int32 bits in
+// word 12. cam: the 14 camera words of brute::camera_direction.
+RT_HD void camera_row(const float* cam, int rid, int rays_per_pixel, int width,
+                      uint32_t pass_seed, Row4 q[4]) {
+  float d[3];
+  brute::camera_direction(cam, rid, rays_per_pixel, width, pass_seed, d);
+  q[0] = {cam[0], cam[1], cam[2], d[0]};
+  q[1] = {d[1], d[2], 1.0f, 1.0f};
+  q[2] = {1.0f, 0.0f, 0.0f, 0.0f};
+  q[3] = {int_as_float(rid), 0.0f, 0.0f, 0.0f};
 }
 
 }  // namespace rt

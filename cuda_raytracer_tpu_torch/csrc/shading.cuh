@@ -325,6 +325,16 @@ RT_HD int float_as_int(float x) {
 #endif
 }
 
+RT_HD float int_as_float(int i) {
+#ifdef __CUDA_ARCH__
+  return __int_as_float(i);
+#else
+  float x;
+  __builtin_memcpy(&x, &i, sizeof x);
+  return x;
+#endif
+}
+
 RT_HD bool row_alive(const Row4& b, const Row4& c) {
   return b.z != 0.0f || b.w != 0.0f || c.x != 0.0f;  // transmitted = (b.z, b.w, c.x)
 }

@@ -22,13 +22,21 @@ bounce; these kernels take their place (the cullhit key joins them for
 - ``pcg_draws``: each ray's first raw PCG draws, (n, R) int64 holding
   uint32, its stream seeded with ``ray_id * ray_mult + seed_add`` mod 2^32
   (``rng.uniforms``; JAX ``ops/rng.py`` ``uniforms``): the camera's jitter
-  (``camera.generate_rays``, two) and the training shading's five draws a
-  bounce (``bounce_draws``: ``rng.uniforms(bounce_seeds(...), 5)``).
+  of a trace that builds a graph (``camera.generate_rays``, two) and the
+  training shading's five draws a bounce (``bounce_draws``:
+  ``rng.uniforms(bounce_seeds(...), 5)``).
+- ``camera_rows``: a forward trace's packed starting rows, the camera rays
+  ``[ray_lo, ray_lo + n)`` of a block at full throughput (``pack_rows`` of
+  ``wavefront.make_initial_state``; JAX ``ops/camera.py`` ``generate_rays``
+  and ``render/wavefront.py`` ``make_initial_state``), the jitter's draws
+  folded in. It reads the camera as 14 words on the device
+  (``camera_words``, built once per camera).
 
 Each is one thread per ray and counts its launches (``LAUNCHES_SETUP``,
-``LAUNCHES_KEYS``, ``LAUNCHES_CULLHIT``, ``LAUNCHES_DRAWS``). On a CUDA
-tensor it launches its kernel or raises; on a CPU tensor it runs its plain
-PyTorch version, with the same outputs bit for bit.
+``LAUNCHES_KEYS``, ``LAUNCHES_CULLHIT``, ``LAUNCHES_DRAWS``,
+``LAUNCHES_CAMERA``). On a CUDA tensor it launches its kernel or raises; on
+a CPU tensor it runs its plain PyTorch version, with the same outputs bit
+for bit.
 
 The two key kernels write the live count themselves, through two words of
 scratch per device and stream (``live_scratch``) that every launch leaves
@@ -40,6 +48,7 @@ table in the kernel's layout with a gate (super-box) over each
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -60,6 +69,7 @@ LAUNCHES_SETUP = 0
 LAUNCHES_KEYS = 0
 LAUNCHES_CULLHIT = 0
 LAUNCHES_DRAWS = 0
+LAUNCHES_CAMERA = 0
 
 
 def rows_alive(rows: torch.Tensor) -> torch.Tensor:
@@ -83,7 +93,9 @@ def library() -> build.Built:
     built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p, p]
     built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
     built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
-    for name in ("rt_rays_setup", "rt_ray_keys", "rt_cullhit_keys", "rt_pcg_draws"):
+    built.lib.rt_camera_rows.argtypes = [p, i, i, i, i, u, p, p]
+    for name in ("rt_rays_setup", "rt_ray_keys", "rt_cullhit_keys", "rt_pcg_draws",
+                 "rt_camera_rows"):
         getattr(built.lib, name).restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -416,3 +428,79 @@ def bounce_draws(ray_id: torch.Tensor, pass_seed, bounce: int) -> torch.Tensor:
 
 def plain_bounce_draws(ray_id: torch.Tensor, pass_seed, bounce: int) -> torch.Tensor:
     return plain_pcg_draws(ray_id, BOUNCE_RAY_MULT, bounce_seed_add(pass_seed, bounce), 5)
+
+
+# ---- camera_rows -------------------------------------------------------------
+
+CAMERA_WORDS = 14  # [position top_left scaled_right scaled_up inv_width inv_height]
+
+
+class CameraWords(NamedTuple):
+    """The fields of a camera that ``camera.generate_rays`` reads, as views
+    of its 14 words."""
+
+    position: torch.Tensor
+    near_plane_top_left: torch.Tensor
+    scaled_right: torch.Tensor
+    scaled_up: torch.Tensor
+    inv_width: torch.Tensor
+    inv_height: torch.Tensor
+
+
+def camera_words(camera) -> torch.Tensor:
+    """A camera's 14 float32 words on its device, in the layout of the
+    shade kernel's head (``shade.pack_table``), built once per set of camera
+    tensors."""
+    fields = CameraWords(*(getattr(camera, name) for name in CameraWords._fields))
+    return derived(("camera_words",), tuple(fields), lambda: torch.cat(
+        [x.detach().reshape(-1) for x in fields]).to(torch.float32))
+
+
+def words_camera(words: torch.Tensor) -> CameraWords:
+    return CameraWords(words[0:3], words[3:6], words[6:9], words[9:12], words[12], words[13])
+
+
+def plain_camera_rows(words: torch.Tensor, ray_lo: int, n: int, rays_per_pixel: int,
+                      width: int, pass_seed) -> torch.Tensor:
+    """The camera kernel's plain PyTorch version: the ray ids, their camera
+    rays (``camera.generate_rays`` with the torch PCG), the initial state
+    at full throughput and ``pack_rows`` of it."""
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    ray_id = ray_lo + torch.arange(n, dtype=torch.int32, device=words.device)
+    state = wavefront.initial_state(words_camera(words), width, ray_id, rays_per_pixel,
+                                    pass_seed, plain=True)
+    return wavefront.pack_rows(state)
+
+
+def camera_args(words, ray_lo, n, rays_per_pixel, width, pass_seed, rows) -> list:
+    """The arguments of ``rt_camera_rows`` (and of its host build), without the stream."""
+    return [words.data_ptr(), ray_lo, n, rays_per_pixel, width, int(pass_seed) & rng.MASK32,
+            rows.data_ptr()]
+
+
+def camera_rows(words: torch.Tensor, ray_lo: int, n: int, rays_per_pixel: int, width: int,
+                pass_seed) -> torch.Tensor:
+    """The (n, 16) float32 packed starting rows of camera rays ``ray_lo ..
+    ray_lo + n - 1`` (``rays_per_pixel`` a pixel, pixel-major, an image
+    ``width`` pixels wide): ``[origin direction 1 1 1 0 0 0 ray_id 0 0 0]``
+    with the ray id's int32 bits in column 12, as ``pack_rows`` lays out
+    ``make_initial_state``. ``words``: ``camera_words`` of the camera."""
+    global LAUNCHES_CAMERA
+    if words.dtype != torch.float32 or words.shape != (CAMERA_WORDS,) or not (
+            words.is_contiguous()):
+        raise ValueError(f"camera words must be a contiguous ({CAMERA_WORDS},) float32, got "
+                         f"{words.dtype} {tuple(words.shape)}")
+    if n < 0 or ray_lo < 0 or ray_lo + n > 2 ** 31 or rays_per_pixel < 1 or width < 1:
+        raise ValueError(f"bad camera rows: ray_lo={ray_lo} n={n} "
+                         f"rays_per_pixel={rays_per_pixel} width={width}")
+    if device_kind(words, "camera_rows") == "cpu":
+        return plain_camera_rows(words, ray_lo, n, rays_per_pixel, width, pass_seed)
+    rows = torch.empty((n, ROW_WORDS), dtype=torch.float32, device=words.device)
+    lib = library().lib
+    with torch.cuda.device(words.device):
+        err = lib.rt_camera_rows(*camera_args(words, ray_lo, n, rays_per_pixel, width,
+                                              pass_seed, rows), _stream(words))
+    raise_on_error(lib, err, "camera_rows")
+    LAUNCHES_CAMERA += 1
+    return rows

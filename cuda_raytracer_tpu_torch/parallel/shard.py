@@ -124,12 +124,9 @@ def _trace_share(scene: Scene, mesh: Mesh, rays_per_pixel: int, pass_seed: int,
     if hi == lo:
         return local, 0
     sort_rays = scene.config.sort_rays
-    ray_id = torch.arange(lo * rays_per_pixel, hi * rays_per_pixel, dtype=torch.int32,
-                          device=scene.device)
-    state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
-    state, suspect = wavefront.trace_wavefront(
-        scene, state, pass_seed, bounces, sort_rays, reparam=reparam,
-        checkpoint_bounces=checkpoint_bounces)
+    state, suspect = wavefront.trace_camera(
+        scene, lo * rays_per_pixel, (hi - lo) * rays_per_pixel, rays_per_pixel, pass_seed,
+        bounces, sort_rays, reparam=reparam, checkpoint_bounces=checkpoint_bounces)
     acc = wavefront.accumulate_radiance(
         state, rays_per_pixel, hi - lo,
         ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces))

@@ -81,17 +81,19 @@ def _render_block(
     reparam: bool = False,
 ) -> Tuple[torch.Tensor, int]:
     """Trace rays [block_lo, block_lo + block_rays) and add their radiance
-    into the framebuffer rows they cover (blocks are whole-pixel runs)."""
-    ray_id = block_lo + torch.arange(block_rays, dtype=torch.int32, device=scene.device)
+    into the framebuffer rows they cover (blocks are whole-pixel runs). On
+    the wavefront path a forward trace starts from the camera kernel's
+    packed rows (``wavefront.trace_camera``)."""
     block_pixels = block_rays // rays_per_pixel
     suspect = 0
     if shade.megakernel_eligible(scene, reparam):
+        ray_id = block_lo + torch.arange(block_rays, dtype=torch.int32, device=scene.device)
         collected = shade.shade_trace(scene, ray_id, rays_per_pixel, pass_seed, bounces)
         contribution = collected.reshape(block_pixels, rays_per_pixel, 3).sum(dim=1)
     else:
-        state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
-        state, suspect = wavefront.trace_wavefront(
-            scene, state, pass_seed, bounces, sort_rays, reparam=reparam
+        state, suspect = wavefront.trace_camera(
+            scene, block_lo, block_rays, rays_per_pixel, pass_seed, bounces, sort_rays,
+            reparam=reparam
         )
         contribution = wavefront.accumulate_radiance(
             state, rays_per_pixel, block_pixels,

@@ -13,7 +13,8 @@ device (and is the plain version the CUDA shade kernel,
 ``ops/kernels/shade.py``, is held against), and mesh scenes through the
 packet intersector (``ops/packet_intersect.py``), whose kernels run on a
 CUDA device. A forward trace (no autograd graph to build) runs on packed
-rows (``trace_packed``): per bounce the set-up, closest-hit and bounce
+rows (``trace_packed``), from a block's camera rows written by one kernel
+(``trace_camera``, ``ops/kernels/rays.camera_rows``): per bounce the set-up, closest-hit and bounce
 kernels (``ops/kernels/rays.py``, ``ops/kernels/bounce.py``) on a CUDA
 device, their plain versions (this module's torch shading) on the CPU. A
 trace that builds a graph shades with torch (``trace_rays``). With
@@ -389,10 +390,15 @@ def shade(
     )
 
 
-def _needs_graph(scene: Scene, state: RayState) -> bool:
-    """True when shading this state builds an autograd graph."""
+def _needs_graph(scene: Scene, state: RayState = None) -> bool:
+    """True when shading this state builds an autograd graph. Without a
+    state, for the fresh camera rays of a trace yet to start: they require
+    grad only where a camera tensor does."""
+    leaves = (state[:4] if state is not None else
+              [getattr(scene.camera, f.name) for f in dataclasses.fields(scene.camera)
+               if isinstance(getattr(scene.camera, f.name), torch.Tensor)])
     return torch.is_grad_enabled() and (
-        any(leaf.requires_grad for leaf in state[:4])
+        any(leaf.requires_grad for leaf in leaves)
         or scene.environment_map.requires_grad
         or any(getattr(scene.materials, f.name).requires_grad
                for f in dataclasses.fields(scene.materials))
@@ -425,8 +431,16 @@ def make_initial_state(
 ) -> RayState:
     """The camera rays of ``ray_id`` at full throughput; with ``plain`` the
     camera's draws come from the torch PCG on any device."""
+    return initial_state(scene.camera, scene.config.width, ray_id, rays_per_pixel, pass_seed,
+                         plain=plain)
+
+
+def initial_state(camera, width: int, ray_id: torch.Tensor, rays_per_pixel: int, pass_seed,
+                  plain: bool = False) -> RayState:
+    """``make_initial_state`` of a camera (anything with the fields
+    ``camera.generate_rays`` reads) and an image width."""
     origin, direction = camera_ops.generate_rays(
-        scene.camera, scene.config.width, rays_per_pixel, ray_id, pass_seed, plain=plain
+        camera, width, rays_per_pixel, ray_id, pass_seed, plain=plain
     )
     rays = ray_id.shape[0]
     return RayState(
@@ -782,12 +796,32 @@ def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
     return suspect
 
 
+def trace_camera(
+    scene: Scene, ray_lo: int, rays: int, rays_per_pixel: int, pass_seed, bounces: int,
+    sort_rays: bool, reparam: bool = False, checkpoint_bounces: bool = True,
+) -> Tuple[RayState, int]:
+    """``trace_wavefront`` of the camera rays ``[ray_lo, ray_lo + rays)``. A
+    forward trace (detached mode, no graph to build) starts packed from the
+    camera kernel's rows (``rays.camera_rows``: one launch, the bits of
+    ``pack_rows(make_initial_state(...))``); one that builds a graph starts
+    from ``make_initial_state``."""
+    if not reparam and not _needs_graph(scene):
+        rows = rays_kernel.camera_rows(rays_kernel.camera_words(scene.camera), ray_lo, rays,
+                                       rays_per_pixel, scene.config.width, pass_seed)
+        return trace_packed(scene, rows, pass_seed, bounces, sort_rays)
+    ray_id = ray_lo + torch.arange(rays, dtype=torch.int32, device=scene.device)
+    state = make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
+    return trace_wavefront(scene, state, pass_seed, bounces, sort_rays, reparam=reparam,
+                           checkpoint_bounces=checkpoint_bounces)
+
+
 def trace_packed(
-    scene: Scene, state: RayState, pass_seed, bounces: int, sort_rays: bool,
+    scene: Scene, state, pass_seed, bounces: int, sort_rays: bool,
     plain: bool = False, bounds: list = None,
 ) -> Tuple[RayState, int]:
-    """The forward ``trace_wavefront`` on one packed (R, 16) buffer
-    (``pack_rows``), bit-identical to ``trace_rays``: each bounce runs
+    """The forward ``trace_wavefront`` on one packed (R, 16) buffer: ``state``
+    is a ``RayState`` (packed with ``pack_rows``) or such rows, which the
+    trace then overwrites. Bit-identical to ``trace_rays``: each bounce runs
     ``bounce_rows`` in place on the live prefix, then the reorder gathers
     the prefix, sorted (``sort_order``), into the other buffer of a pair.
     Rows past the prefix are all dead and stay where they are in both
@@ -798,11 +832,11 @@ def trace_packed(
     entering live bound."""
     sort_rays = sort_rays and reorder_is_useful(scene)
     sorted_bounces = _sort_schedule(scene, sort_rays, bounces)
-    R = state.origin.shape[0]
+    cur = state if isinstance(state, torch.Tensor) else pack_rows(state)
+    R = cur.shape[0]
     cs = sort_chunk_size(R)
     compact = sort_rays and cs == R
     sched = scene.config.live_schedule
-    cur = pack_rows(state)
     spare = torch.empty_like(cur) if any(sorted_bounces) else None
     live_bound = settled = R
     suspect_total = 0

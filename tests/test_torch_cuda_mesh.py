@@ -39,7 +39,13 @@ render launch their kernels, and an unsupported input on the card raises
 and cullhit) are held bit-equal at 1, 255, 256, 257, 4,096 and 2^18 rows at
 ``cull_split`` 1 and 2, the cullhit key also over a table staged in steps
 (6,000 boxes), and their live counts right on back-to-back launches without
-a reset, on the current stream and on a second one.
+a reset, on the current stream and on a second one. The camera kernel's
+rows are held bit-equal to its plain version (a whole pass, an unaligned
+block, one row, ids just below 2^31, a pass seed above 2^31); a forward
+render launches it once a block and the PCG draw kernel never, and gives
+the bits of blocks traced from ``make_initial_state``, while a
+differentiable render draws through the PCG draw kernel and launches no
+camera kernel.
 """
 
 import numpy as np
@@ -681,3 +687,45 @@ def test_cullhit_keys_staged_in_steps_bit_equal_plain(cuda):
     keys, _ = rays.plain_cullhit_keys(rows, bmin, bmax, K, S, False, R)
     fh = keys[rays.rows_alive(rows)] >> 21 & 0x7FF
     assert (fh >= 2047 * 2250 // K).sum() > 100
+
+
+@pytest.mark.parametrize("ray_lo,n,rpp,seed", [
+    (0, 32 * 32 * 20, 20, 80), (1237, 5000, 4, 2**31 + 5), (7, 1, 1, 0),
+    (2**31 - 300, 300, 8, 19)])
+def test_camera_rows_bit_equal_plain(cuda, ray_lo, n, rpp, seed):
+    scene = _scene(cuda)
+    words = rays.camera_words(scene.camera)
+    before = rays.LAUNCHES_CAMERA
+    got = rays.camera_rows(words, ray_lo, n, rpp, scene.config.width, seed)
+    assert rays.LAUNCHES_CAMERA == before + 1
+    want = rays.plain_camera_rows(words, ray_lo, n, rpp, scene.config.width, seed)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_forward_render_launches_camera_rows_once_a_block(cuda, monkeypatch):
+    """Passes of 10 and 2 rays a pixel over 32×32 pixels in blocks of at
+    most 4,096 rays: 3 + 1 blocks."""
+    scene = _scene(cuda, rays_per_pixel=12, bounces=4, max_rays_per_pixel_per_pass=10)
+    monkeypatch.setattr(pipeline, "RAY_BLOCK", 4096)
+    before = (rays.LAUNCHES_CAMERA, rays.LAUNCHES_DRAWS)
+    fb = pipeline.render_framebuffer(scene)
+    assert (rays.LAUNCHES_CAMERA, rays.LAUNCHES_DRAWS) == (before[0] + 4, before[1])
+
+    def old_trace_camera(scene, ray_lo, n, rpp, pass_seed, *args, **kwargs):
+        ids = ray_lo + torch.arange(n, dtype=torch.int32, device=scene.device)
+        state = wavefront.make_initial_state(scene, ids, rpp, pass_seed)
+        return wavefront.trace_wavefront(scene, state, pass_seed, *args, **kwargs)
+
+    monkeypatch.setattr(wavefront, "trace_camera", old_trace_camera)
+    assert torch.equal(pipeline.render_framebuffer(scene), fb)
+    assert rays.LAUNCHES_CAMERA == before[0] + 4 and rays.LAUNCHES_DRAWS > before[1]
+
+
+def test_differentiable_render_draws_through_pcg_draws(cuda):
+    scene = _scene(cuda)
+    before = (rays.LAUNCHES_CAMERA, rays.LAUNCHES_DRAWS)
+    params = diff.make_leaves(diff.split_params(scene)[0])
+    diff.render_radiance(params, scene, 0, 2, 3).square().mean().backward()
+    torch.cuda.synchronize()
+    assert rays.LAUNCHES_CAMERA == before[0] and rays.LAUNCHES_DRAWS > before[1]

@@ -22,6 +22,14 @@ the GPU build's ``-fmad=false``) and holds, on seeded inputs:
 - ``pcg_draws`` BIT-EQUAL to ``rng.uniforms`` and to JAX ``ops/rng.py``
   ``uniforms``, seeded as a bounce's shading (``rays.bounce_seeds``)
   and as the camera's jitter (``camera.initial_ray_seeds``);
+- ``camera_rows`` (a block's packed starting rows) BIT-EQUAL to
+  ``plain_camera_rows`` with torch.sqrt correctly rounded, on the torus's
+  and Cornell's cameras at widths 13 and 64, 1, 4 and 20 rays a pixel,
+  first rays 0 and off a block's multiple, pass seeds 0, 19 and 2^31 + 5;
+  ``plain_camera_rows`` BIT-EQUAL to ``pack_rows(make_initial_state(...))``
+  and to JAX ``render/wavefront.py`` ``make_initial_state`` and
+  ``ops/camera.py`` ``generate_rays`` (origin, weights and ids exact, the
+  direction within 1e-6: JAX's CPU floats carry FMA contraction);
 - the packed bounce's fold of the packet kernel's raw hit BIT-EQUAL to the
   bounce on ``packet_intersect._finalize``'s hit (the body against the torch
   shading and JAX's ``process_rays`` is ``tests/test_torch_bounce.py``);
@@ -35,7 +43,9 @@ the GPU build's ``-fmad=false``) and holds, on seeded inputs:
 and end to end, the packed forward trace (``wavefront.trace_packed``) gives
 the ``RayState`` trace's bits (``trace_rays``, the path every forward
 render took before) on the small torus (every packet engine, the live
-schedule) and on Cornell; ``tests/test_torch_mesh_render.py``
+schedule) and on Cornell; the pass loop's blocks, traced from the camera
+rows (``wavefront.trace_camera``), give the framebuffer's bits of blocks
+traced from ``make_initial_state``; ``tests/test_torch_mesh_render.py``
 holds its renders, packed now, to the JAX package's.
 """
 
@@ -84,6 +94,7 @@ def host(tmp_path_factory):
     lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p]
     lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
     lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
+    lib.rt_host_camera_rows.argtypes = [p, i, i, i, i, u, p]
     lib.rt_host_bounce_rows.argtypes = (
         [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u])
     return lib
@@ -137,6 +148,22 @@ def _state(n: int, seed: int, dead_every: int = 5) -> wavefront.RayState:
 
 def _bits(x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.fixture(scope="module")
+def cameras():
+    """The small torus's camera (the torus's camera lines, whatever its
+    mesh size) at 13×9 pixels and Cornell's at 64×64, both packages."""
+    return {"torus": build_mesh_both(builtin_scenes.torus(builtin_scenes.SMALL),
+                                     dict(width=13, height=9)),
+            "cornell": build_mesh_both(builtin_scenes.CORNELL, dict(width=64, height=64))}
+
+
+def _ieee_sqrt(monkeypatch):
+    """torch.sqrt correctly rounded, as on the card: a float32 square root
+    taken in float64 and rounded once."""
+    sqrt = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda x: sqrt(x.double()).float())
 
 
 def _ieee_setup(monkeypatch, rows, scene, tile):
@@ -250,6 +277,60 @@ def test_pcg_draws_host_bit_equal_plain_and_jax(host, pass_seed, bnc):
     assert rays.LAUNCHES_DRAWS == launches  # CPU tensors never launch
     with pytest.raises(ValueError, match="ray_id"):
         rays.bounce_draws(tids.long(), pass_seed, bnc)
+
+
+# ---- camera_rows ----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,ray_lo,rpp,seed", [
+    ("torus", 0, 1, 0), ("torus", 77, 4, 19), ("torus", 5, 20, 2**31 + 5),
+    ("cornell", 0, 20, 19), ("cornell", 4100, 4, 2**31 + 5), ("cornell", 1237, 1, 0)])
+def test_camera_rows_host_bit_equal_plain_and_jax(host, cameras, monkeypatch, name, ray_lo,
+                                                  rpp, seed):
+    """The camera kernel's body against its plain version (and that against
+    the sequence it replaces and JAX), on up to 2,048 rows of a pass."""
+    js, ts = cameras[name]
+    width = ts.config.width
+    n = min(ts.num_pixels * rpp - ray_lo, 2048)
+    words = rays.camera_words(ts.camera)
+    assert rays.camera_words(ts.camera) is words  # built once per camera
+    ids = ray_lo + torch.arange(n, dtype=torch.int32)
+    plain = rays.plain_camera_rows(words, ray_lo, n, rpp, width, seed)
+    before = rays.LAUNCHES_CAMERA
+    _assert_bit_equal((rays.camera_rows(words, ray_lo, n, rpp, width, seed),), (plain,))
+    assert rays.LAUNCHES_CAMERA == before  # CPU tensors never launch
+    _assert_bit_equal((plain,), (wavefront.pack_rows(
+        wavefront.make_initial_state(ts, ids, rpp, seed)),))
+    assert torch.equal(plain[:, 12].view(torch.int32), ids)
+    assert not plain[:, 13:].any()
+    jstate = jwavefront.make_initial_state(js, jnp.asarray(ids.numpy()), rpp, seed)
+    jorigin, jdirection = jcamera.generate_rays(js.camera, width, rpp,
+                                                jnp.asarray(ids.numpy()), seed)
+    state = wavefront.unpack_rows(plain)
+    for got, want in ((state.origin, jorigin), (state.origin, jstate.origin),
+                      (state.transmitted, jstate.transmitted),
+                      (state.collected, jstate.collected), (state.ray_id, jstate.ray_id)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    for want in (jdirection, jstate.direction):
+        np.testing.assert_allclose(state.direction.numpy(), np.asarray(want), rtol=0,
+                                   atol=1e-6)
+    _ieee_sqrt(monkeypatch)
+    want = rays.plain_camera_rows(words, ray_lo, n, rpp, width, seed)
+    got = torch.empty((n, rays.ROW_WORDS), dtype=torch.float32)
+    assert host.rt_host_camera_rows(*rays.camera_args(words, ray_lo, n, rpp, width, seed,
+                                                      got)) == 0
+    _assert_bit_equal((got,), (want,))
+
+
+def test_camera_rows_check_inputs(cameras):
+    words = rays.camera_words(cameras["torus"][1].camera)
+    with pytest.raises(ValueError, match="camera words"):
+        rays.camera_rows(words[:12], 0, 16, 4, 13, 0)
+    with pytest.raises(ValueError, match="camera words"):
+        rays.camera_rows(words.double(), 0, 16, 4, 13, 0)
+    with pytest.raises(ValueError, match="camera rows"):
+        rays.camera_rows(words, 2**31 - 8, 16, 4, 13, 0)
+    assert rays.camera_rows(words, 3, 0, 4, 13, 0).shape == (0, rays.ROW_WORDS)
 
 
 def test_row_wrappers_run_plain_on_cpu_and_check_inputs(torus):
@@ -445,6 +526,43 @@ def test_packed_render_gives_the_ray_state_framebuffer(torus, monkeypatch):
         assert torch.equal(fb, pipeline.render_framebuffer(scene))
 
 
+def _old_trace_camera(scene, ray_lo, n, rpp, pass_seed, bounces, sort_rays, reparam=False,
+                      checkpoint_bounces=True):
+    """A block traced as the pass loop traced it before the camera kernel:
+    the ids, ``make_initial_state`` and ``trace_wavefront``."""
+    ids = ray_lo + torch.arange(n, dtype=torch.int32)
+    state = wavefront.make_initial_state(scene, ids, rpp, pass_seed)
+    return wavefront.trace_wavefront(scene, state, pass_seed, bounces, sort_rays,
+                                     reparam=reparam, checkpoint_bounces=checkpoint_bounces)
+
+
+@pytest.mark.parametrize("name", ["torus", "cornell"])
+@pytest.mark.parametrize("sort_rays", [True, False])
+def test_blocks_from_camera_rows_give_the_framebuffer(torus, monkeypatch, name, sort_rays):
+    """The pass loop's forward blocks start from ``camera_rows`` (one call a
+    block, its rows handed to ``trace_packed``) and give, bit for bit, the
+    framebuffer of blocks traced from ``make_initial_state``: two blocks a
+    pass (rays 0-71 and 72-143), two passes, on the small torus (packet)
+    and Cornell (brute)."""
+    scene = (torus[1] if name == "torus" else
+             build_mesh_both(builtin_scenes.CORNELL, SIZE)[1])
+    scene = scene.with_config(width=8, height=6, rays_per_pixel=6, bounces=3,
+                              max_rays_per_pixel_per_pass=3, sort_rays=sort_rays)
+    monkeypatch.setattr(pipeline, "RAY_BLOCK", 8 * 3 * 3)
+    calls, packed = [], []
+    camera_rows, trace_packed = rays.camera_rows, wavefront.trace_packed
+    monkeypatch.setattr(rays, "camera_rows",
+                        lambda *a: calls.append(a[1:]) or camera_rows(*a))
+    monkeypatch.setattr(wavefront, "trace_packed",
+                        lambda sc, state, *a, **k: packed.append(
+                            isinstance(state, torch.Tensor)) or trace_packed(sc, state, *a, **k))
+    got = pipeline.render_framebuffer(scene)
+    assert [c[:2] for c in calls] == [(0, 72), (72, 72)] * 2 and all(packed)
+    monkeypatch.setattr(wavefront, "trace_camera", _old_trace_camera)
+    assert torch.equal(got, pipeline.render_framebuffer(scene))
+    assert len(calls) == 4
+
+
 def test_plain_trace_calls_no_kernel_wrapper(monkeypatch):
     """``shade.plain_trace``, the brute megakernel's plain version, traces
     with ``plain=True``: the forward trace's bits on Cornell, and no row
@@ -460,7 +578,7 @@ def test_plain_trace_calls_no_kernel_wrapper(monkeypatch):
         raise AssertionError("a kernel wrapper was called")
 
     for module, name in ((rays, "rays_setup"), (rays, "pcg_draws"), (rays, "ray_keys"),
-                         (bounce, "shade_rows")):
+                         (rays, "camera_rows"), (bounce, "shade_rows")):
         monkeypatch.setattr(module, name, refuse)
     assert torch.equal(shade.plain_trace(cornell, ids, rpp, 4, 3), want)
 
