@@ -56,7 +56,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="shard rays over N devices, one process each (0 = "
                         "single-device render; with 'cpu no_gpu': N CPU ranks)")
     parser.add_argument("--metrics", action="store_true",
-                        help="emit a JSON metrics line to stderr")
+                        help="emit a JSON metrics line to stderr: phases (the render "
+                             "loops' rt.* spans among them), counters (sync.host, "
+                             "rays.live, rays.launched, sync.device_idle_s and the "
+                             "kernel launches) and series")
     parser.add_argument("--packet-skip", action="store_true",
                         help="enable the fused kernel's per-ray slab-entry early-out (exact)")
     parser.add_argument("--packet-tile", type=int,
@@ -97,7 +100,7 @@ def main(argv=None) -> int:
     from cuda_raytracer_tpu_torch.ops.kernels.counts import launch_counts, launches_since
     from cuda_raytracer_tpu_torch.render import pipeline
     from cuda_raytracer_tpu_torch.utils.backend import default_device
-    from cuda_raytracer_tpu_torch.utils.metrics import Metrics
+    from cuda_raytracer_tpu_torch.utils.metrics import Metrics, attached
     from cuda_raytracer_tpu_torch.utils.png import write_png
 
     metrics = Metrics()
@@ -143,7 +146,7 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize(framebuffer.device)
         for name, n in launches_since(before).items():
             metrics.count(f"launches_{name}", n)
-        with metrics.phase(f"post_{label}"):
+        with metrics.phase(f"post_{label}"), attached(metrics):
             image = pipeline.render_image(scene, apply_bloom=not args.no_bloom,
                                           framebuffer=framebuffer)
         rate = metrics.throughput(

@@ -28,10 +28,13 @@ int rt_host_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph
 // rt_rays_setup's arguments, without the stream.
 int rt_host_rays_setup(const float* rows, int n, int tile, int total,
                        const float* sphere_center, const float* sphere_radius, int n_spheres,
-                       unsigned char* alive, float* t, int* index, float* od8) {
-  for (int i = 0; i < total; ++i)
-    rt::setup_ray(rows, n, tile, sphere_center, sphere_radius, n_spheres, i, alive, t, index,
-                  od8);
+                       unsigned char* alive, float* t, int* index, float* od8,
+                       unsigned long long* live_count) {
+  for (int i = 0; i < total; ++i) {
+    const bool live = rt::setup_ray(rows, n, tile, sphere_center, sphere_radius, n_spheres, i,
+                                    alive, t, index, od8);
+    if (live_count && live) ++*live_count;
+  }
   return 0;
 }
 

@@ -48,7 +48,9 @@
 // is written once, coalesced (the ray-tile columns of one tile are
 // consecutive threads), where the plain versions write and reread a dozen
 // (R,) and (R, 3) temporaries, and the plain PCG some 60 int64 ops a draw on
-// 32-bit limbs. The key kernels produce the live count themselves: each
+// 32-bit limbs. Given a counter, the set-up kernel also sums the live rows
+// entering the bounce (a render's live ray-bounces, while it records): one
+// atomic a warp, of its alive ballot's popcount. The key kernels produce the live count themselves: each
 // block adds its count to a two-word scratch of the launch's stream, and the
 // last block to finish (a ticket taken after a fence) writes the total and
 // zeroes the scratch for the next launch, so no memset precedes them.
@@ -100,16 +102,25 @@ __device__ void add_live(int block_live, unsigned int* scratch, int* live_count)
   }
 }
 
+// live_count: null, or a counter each warp adds its live rows to (one
+// atomic of its alive ballot's popcount); a uniform branch when null.
 __global__ void __launch_bounds__(kThreads)
 rays_setup_kernel(const float* __restrict__ rows, int n, int tile, int total,
                   const float* __restrict__ sphere_center,
                   const float* __restrict__ sphere_radius, int n_spheres,
                   unsigned char* __restrict__ alive, float* __restrict__ t,
-                  int* __restrict__ index, float* __restrict__ od8) {
+                  int* __restrict__ index, float* __restrict__ od8,
+                  unsigned long long* __restrict__ live_count) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  rt::setup_ray(rows, n, tile, sphere_center, sphere_radius, n_spheres, i, alive, t, index,
-                od8);
+  bool live = false;
+  if (i < total)
+    live = rt::setup_ray(rows, n, tile, sphere_center, sphere_radius, n_spheres, i, alive, t,
+                         index, od8);
+  if (live_count) {
+    const unsigned int ballot = __ballot_sync(0xffffffffu, live);
+    if ((threadIdx.x & 31) == 0 && ballot)
+      atomicAdd(live_count, (unsigned long long)__popc(ballot));
+  }
 }
 
 __global__ void __launch_bounds__(kKeyThreads)
@@ -277,13 +288,15 @@ extern "C" {
 // rows (n, 16) float32, 16-byte aligned; sphere_center (n_spheres, 3),
 // sphere_radius (n_spheres,) → alive (n,) uint8, t (n,) float32, index (n,)
 // int32 and, unless od8 is null, od8 (T, 8, tile) float32 with T * tile >= n
-// (`total` = T * tile rays; n when od8 is null). Returns cudaGetLastError().
+// (`total` = T * tile rays; n when od8 is null); unless live_count is null,
+// one uint64 += the live rows. Returns cudaGetLastError().
 int rt_rays_setup(const float* rows, int n, int tile, int total, const float* sphere_center,
                   const float* sphere_radius, int n_spheres, unsigned char* alive, float* t,
-                  int* index, float* od8, void* stream) {
+                  int* index, float* od8, unsigned long long* live_count, void* stream) {
   if (total <= 0) return (int)cudaGetLastError();
   rays_setup_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
-      rows, n, tile, total, sphere_center, sphere_radius, n_spheres, alive, t, index, od8);
+      rows, n, tile, total, sphere_center, sphere_radius, n_spheres, alive, t, index, od8,
+      live_count);
   return (int)cudaGetLastError();
 }
 

@@ -49,12 +49,14 @@ namespace rt {
 
 // Ray i of the n rows (i < T * tile, the padded count when od8 is not
 // null): alive[i], t[i], index[i] for i < n, and ray i's column of od8.
-RT_HD void setup_ray(const float* rows, int n, int tile, const float* sphere_center,
+// Returns alive[i] (false for a padding ray).
+RT_HD bool setup_ray(const float* rows, int n, int tile, const float* sphere_center,
                      const float* sphere_radius, int n_spheres, int i, unsigned char* alive,
                      float* t, int* index, float* od8) {
   float o[3] = {0.0f, 0.0f, 0.0f};
   float d[3] = {1.0f, 1.0f, 1.0f};
   float window = -1.0f;
+  bool live = false;
   if (i < n) {
     const float* row = rows + kRowWords * (size_t)i;
     const Row4 a = load_row4(row);
@@ -66,7 +68,7 @@ RT_HD void setup_ray(const float* rows, int n, int tile, const float* sphere_cen
     d[0] = a.w;
     d[1] = b.x;
     d[2] = b.y;
-    const bool live = row_alive(b, c);
+    live = row_alive(b, c);
     float best = brute::kMiss;
     int best_i = -1;
     for (int s = 0; s < n_spheres; ++s) {
@@ -93,6 +95,7 @@ RT_HD void setup_ray(const float* rows, int n, int tile, const float* sphere_cen
     col[6 * tile] = window;
     col[7 * tile] = 0.0f;
   }
+  return live;
 }
 
 // ops/morton.interleave_5: the low 5 bits of x spread to every third bit.

@@ -11,7 +11,8 @@ bounce; these kernels take their place (the cullhit key joins them for
   -1`` on a dead ray (``wavefront.closest_hit``'s sphere part; JAX
   ``render/wavefront.py`` ``closest_hit``) and, for the packet kernels, the
   (T, 8, tile) ray tiles (``packet_intersect._pad_rays`` + ``cull.make_od8``;
-  JAX ``ops/pallas/cull.py``'s ray tiles).
+  JAX ``ops/pallas/cull.py``'s ray tiles); given a ``live`` counter, the
+  live rows added to it (``utils/metrics``' ``rays.live``).
 - ``ray_keys``: each row's Morton sort key (``morton.ray_sort_keys``; JAX
   ``ops/morton.py`` ``ray_sort_keys``), the "count" engine's clamped bucket
   where asked, its sort chunk's index in the high 32 bits (one flat stable
@@ -56,6 +57,7 @@ from cuda_raytracer_tpu_torch.models.scene import derived
 from cuda_raytracer_tpu_torch.ops import intersect, morton, rng
 from cuda_raytracer_tpu_torch.ops.kernels import build
 from cuda_raytracer_tpu_torch.ops.kernels.cull import device_kind, make_od8, raise_on_error
+from cuda_raytracer_tpu_torch.utils import metrics as recording
 
 ROW_WORDS = 16  # a packed wavefront row (rt::kRowWords)
 COUNT_BUCKET_SHIFT = 23  # the count engine: the key's top bits (rt::kCountShift)
@@ -89,7 +91,7 @@ def library() -> build.Built:
     """Build (at first use) and bind ``csrc/rays.cu``."""
     built = build.load("rays")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
+    built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p, p]
     built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p, p]
     built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
     built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
@@ -127,13 +129,16 @@ def live_scratch(x: torch.Tensor) -> torch.Tensor:
 
 
 def plain_rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor,
-                     sphere_radius: torch.Tensor, tile: int = 0):
+                     sphere_radius: torch.Tensor, tile: int = 0, live: torch.Tensor = None):
     """The set-up kernel's plain PyTorch version → (alive, t, index, od8):
     the torch code of the port's closest hit (alive mask,
     ``intersect_spheres``, ``t = -1`` where dead, ``_pad_rays`` +
-    ``make_od8``); ``od8`` is None when ``tile`` is 0."""
+    ``make_od8``); ``od8`` is None when ``tile`` is 0. The live rows are
+    added to ``live`` when given."""
     origin, direction = rows[:, 0:3], rows[:, 3:6]
     alive = rows_alive(rows)
+    if live is not None:
+        live += alive.sum()
     t, index = intersect.intersect_spheres(origin, direction, sphere_center, sphere_radius)
     t = torch.where(alive, t, -1.0)
     od8 = None
@@ -145,13 +150,15 @@ def plain_rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor,
     return alive, t, index, od8
 
 
-def setup_args(rows, sphere_center, sphere_radius, tile, alive, t, index, od8) -> list:
+def setup_args(rows, sphere_center, sphere_radius, tile, alive, t, index, od8,
+               live=None) -> list:
     """The arguments of ``rt_rays_setup`` (and of its host build), without the stream."""
     n = rows.shape[0]
     total = od8.shape[0] * tile if od8 is not None else n
     return [rows.data_ptr(), n, max(tile, 1), total, sphere_center.data_ptr(),
             sphere_radius.data_ptr(), sphere_center.shape[0], alive.data_ptr(),
-            t.data_ptr(), index.data_ptr(), od8.data_ptr() if od8 is not None else None]
+            t.data_ptr(), index.data_ptr(), od8.data_ptr() if od8 is not None else None,
+            live.data_ptr() if live is not None else None]
 
 
 def setup_outputs(rows: torch.Tensor, tile: int):
@@ -165,22 +172,27 @@ def setup_outputs(rows: torch.Tensor, tile: int):
 
 
 def rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor, sphere_radius: torch.Tensor,
-               tile: int = 0):
+               tile: int = 0, live: torch.Tensor = None):
     """(n, 16) packed rows → (alive (n,) bool, t (n,) float32 with -1 on dead
     rays, sphere index (n,) int32 with -1 on a miss, and with ``tile`` > 0 the
-    (ceil(n / tile), 8, tile) ray tiles, else None)."""
+    (ceil(n / tile), 8, tile) ray tiles, else None). ``live``, a (1,) int64
+    tensor on the rows' device, gets the live rows added to it."""
     global LAUNCHES_SETUP
     _check_rows(rows)
     if sphere_center.shape != (sphere_radius.shape[0], 3) or not (
             sphere_center.is_contiguous() and sphere_radius.is_contiguous()):
         raise ValueError("sphere tables must be contiguous (S, 3) and (S,)")
+    if live is not None and (live.dtype != torch.int64 or live.shape != (1,)
+                             or live.device != rows.device):
+        raise ValueError("live must be a (1,) int64 tensor on the rows' device")
     if device_kind(rows, "rays_setup") == "cpu":
-        return plain_rays_setup(rows, sphere_center, sphere_radius, tile)
+        return plain_rays_setup(rows, sphere_center, sphere_radius, tile, live)
     outs = setup_outputs(rows, tile)
     lib = library().lib
+    recording.launching()  # ends the device idle of a live-count read, if one is open
     with torch.cuda.device(rows.device):
-        err = lib.rt_rays_setup(*setup_args(rows, sphere_center, sphere_radius, tile, *outs),
-                                _stream(rows))
+        err = lib.rt_rays_setup(*setup_args(rows, sphere_center, sphere_radius, tile, *outs,
+                                            live), _stream(rows))
     raise_on_error(lib, err, "rays_setup")
     LAUNCHES_SETUP += 1
     return outs

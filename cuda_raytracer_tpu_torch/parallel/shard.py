@@ -275,19 +275,20 @@ def cli_render(mesh: Mesh, scene_path: str, load_kwargs: dict, out: str, apply_b
     """One rank's share of ``python -m cuda_raytracer_tpu_torch <scene> --mesh N``
     on ``mesh``: load the scene on the rank's device and render it sharded;
     rank 0 writes the PNG and, when ``metrics_scene`` is set, the metrics
-    line (phases ``load_scene`` and ``render_sharded``, and the render's
-    kernel launches as ``launches_<kernel>`` counters). A size-1 mesh runs it
-    in the calling process, as the JAX CLI does."""
+    line (phases ``load_scene`` and ``render_sharded``, the render's kernel
+    launches as ``launches_<kernel>`` counters, and rank 0's loop spans and
+    counters, ``utils/metrics``). A size-1 mesh runs it in the calling
+    process, as the JAX CLI does."""
     from cuda_raytracer_tpu_torch.models.scene_dsl import load_scene
     from cuda_raytracer_tpu_torch.ops.kernels.counts import launch_counts, launches_since
-    from cuda_raytracer_tpu_torch.utils.metrics import Metrics
+    from cuda_raytracer_tpu_torch.utils.metrics import Metrics, attached
     from cuda_raytracer_tpu_torch.utils.png import write_png
 
     metrics = Metrics()
     with metrics.phase("load_scene"):
         scene = load_scene(scene_path, device=mesh.device, **load_kwargs)
     before = launch_counts()
-    with metrics.phase("render_sharded"):
+    with metrics.phase("render_sharded"), attached(metrics):
         framebuffer = render_framebuffer_sharded(scene, mesh)
         _sync(mesh.device)
     for name, n in launches_since(before).items():

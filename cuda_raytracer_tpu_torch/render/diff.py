@@ -31,6 +31,7 @@ import torch
 
 from cuda_raytracer_tpu_torch.models.scene import Materials, Scene
 from cuda_raytracer_tpu_torch.render import wavefront
+from cuda_raytracer_tpu_torch.utils import metrics as recording
 from cuda_raytracer_tpu_torch.utils.backend import resolve_device
 
 MATERIAL_FIELDS = tuple(f.name for f in dataclasses.fields(Materials))
@@ -220,6 +221,7 @@ def make_train_step(
     reparam: bool = False,
     live_schedule="auto",
     checkpoint_bounces: bool = True,
+    metrics=None,
 ):
     """A single-device inverse-rendering train step:
     ``step(params, target, seed) -> loss``.
@@ -235,7 +237,14 @@ def make_train_step(
     ``live_schedule``: ``"auto"`` calibrates a static live-prefix schedule
     for this scene and shape (``calibrate_live_schedule``) and keeps it only
     if one audited pass (``check_radiance_exact``) reports no suspect; a
-    tuple pins a schedule the same way; None keeps the dynamic prefix."""
+    tuple pins a schedule the same way; None keeps the dynamic prefix.
+
+    A step's three phases are spans (``utils/metrics``): ``rt.step.forward``
+    (the render and the loss, building the graph), ``rt.step.backward``
+    (``loss.backward()``) and ``rt.step.adam`` (the zero gradients and
+    ``optimizer.step()``), recorded into ``metrics`` (a
+    ``utils.metrics.Metrics``, attached for every step) or, while a
+    ``torch.profiler`` records, into ``utils/metrics.PROFILED``."""
     if live_schedule == "auto":
         live_schedule = calibrate_live_schedule(scene, rays_per_pixel=rays_per_pixel,
                                                 bounces=bounces)
@@ -251,13 +260,17 @@ def make_train_step(
         if any(id(p) not in owned for p in leaves):
             raise ValueError("the optimizer must be built over param_leaves(params)")
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_against_target(params, scene, target, seed, rays_per_pixel, bounces,
-                                   reparam, checkpoint_bounces)
-        loss.backward()
-        for p in leaves:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        optimizer.step()
+        with recording.attached(metrics):
+            with recording.span("rt.step.forward"):
+                loss = loss_against_target(params, scene, target, seed, rays_per_pixel,
+                                           bounces, reparam, checkpoint_bounces)
+            with recording.span("rt.step.backward"):
+                loss.backward()
+            with recording.span("rt.step.adam"):
+                for p in leaves:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                optimizer.step()
         return loss.detach()
 
     train_step.scene = scene  # the audited scene the step renders

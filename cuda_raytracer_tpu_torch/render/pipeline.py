@@ -11,7 +11,10 @@ kernel (``ops/kernels/shade.py``); everything else, mesh scenes included,
 runs the wavefront path in blocks of at most ``RAY_BLOCK`` rays, where the
 packet intersector's kernels run on a CUDA device. Every pass boundary can
 be checkpointed (``utils/checkpoint.py``) and reported to a progress
-callback and a ``utils/metrics.Metrics`` registry.
+callback and a ``utils/metrics.Metrics`` registry. The loops' spans
+(``rt.pass``, ``rt.block``, ``rt.accumulate``, ``rt.post`` here; the bounce
+loop's in ``render/wavefront.py``) and counters go to that registry, or to
+``utils/metrics.PROFILED`` while a ``torch.profiler`` records.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from cuda_raytracer_tpu_torch.ops import tonemap as tonemap_ops
 from cuda_raytracer_tpu_torch.ops.kernels import shade
 from cuda_raytracer_tpu_torch.render import wavefront
 from cuda_raytracer_tpu_torch.utils import checkpoint as ckpt
+from cuda_raytracer_tpu_torch.utils import metrics as recording
 
 # Rays per traced block on the wavefront path. Matching wavefront.SORT_CHUNK
 # keeps every block in the whole-wavefront sort regime, where dead-ray
@@ -85,24 +89,29 @@ def _render_block(
     the wavefront path a forward trace starts from the camera kernel's
     packed rows (``wavefront.trace_camera``)."""
     block_pixels = block_rays // rays_per_pixel
-    suspect = 0
-    if shade.megakernel_eligible(scene, reparam):
-        ray_id = block_lo + torch.arange(block_rays, dtype=torch.int32, device=scene.device)
-        collected = shade.shade_trace(scene, ray_id, rays_per_pixel, pass_seed, bounces)
-        contribution = collected.reshape(block_pixels, rays_per_pixel, 3).sum(dim=1)
-    else:
-        state, suspect = wavefront.trace_camera(
-            scene, block_lo, block_rays, rays_per_pixel, pass_seed, bounces, sort_rays,
-            reparam=reparam
-        )
-        contribution = wavefront.accumulate_radiance(
-            state, rays_per_pixel, block_pixels,
-            ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces),
-        )
     px_lo = block_lo // rays_per_pixel
-    # In place: where the JAX version donates the framebuffer buffer to XLA
-    # between blocks, the port adds into the block's rows directly.
-    framebuffer[px_lo:px_lo + block_pixels] += contribution
+    suspect = 0
+    with recording.span("rt.block"):
+        if shade.megakernel_eligible(scene, reparam):
+            ray_id = block_lo + torch.arange(block_rays, dtype=torch.int32, device=scene.device)
+            collected = shade.shade_trace(scene, ray_id, rays_per_pixel, pass_seed, bounces)
+            with recording.span("rt.accumulate"):
+                contribution = collected.reshape(block_pixels, rays_per_pixel, 3).sum(dim=1)
+                framebuffer[px_lo:px_lo + block_pixels] += contribution
+        else:
+            state, suspect = wavefront.trace_camera(
+                scene, block_lo, block_rays, rays_per_pixel, pass_seed, bounces, sort_rays,
+                reparam=reparam
+            )
+            with recording.span("rt.accumulate"):
+                contribution = wavefront.accumulate_radiance(
+                    state, rays_per_pixel, block_pixels,
+                    ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces),
+                )
+                # In place: where the JAX version donates the framebuffer
+                # buffer to XLA between blocks, the port adds into the
+                # block's rows directly.
+                framebuffer[px_lo:px_lo + block_pixels] += contribution
     return framebuffer, suspect
 
 
@@ -133,12 +142,13 @@ def render_pass(
     else:
         block = max(rays_per_pixel, (RAY_BLOCK // rays_per_pixel) * rays_per_pixel)
     suspect = 0
-    for lo in range(first, end, block):
-        framebuffer, s = _render_block(
-            scene, framebuffer, pass_seed, lo, rays_per_pixel,
-            min(block, end - lo), bounces, sort_rays, reparam,
-        )
-        suspect += s
+    with recording.span("rt.pass"):
+        for lo in range(first, end, block):
+            framebuffer, s = _render_block(
+                scene, framebuffer, pass_seed, lo, rays_per_pixel,
+                min(block, end - lo), bounces, sort_rays, reparam,
+            )
+            suspect += s
     return framebuffer, suspect
 
 
@@ -158,7 +168,8 @@ def render_framebuffer(
     last pass; pass seeds derive from the remaining-sample count, so a
     resumed render is bit-identical to an uninterrupted one. ``metrics``
     (``utils.metrics.Metrics``) records ``samples_done`` after every pass
-    and ``suspect_rays`` at the end; ``progress(done, total)`` is called
+    and ``suspect_rays`` at the end, and is attached for the loops' spans
+    and counters (``utils/metrics``); ``progress(done, total)`` is called
     after every pass, once the device has finished it.
 
     If the closest-hit exactness certificate fires, the render is redone
@@ -167,6 +178,13 @@ def render_framebuffer(
     through the certificate), then with a doubled ``packet_cap`` up to the
     cluster count (the xla engine's per-tile budget; the kernels are exact
     by construction). ``auto_retry=False`` raises instead."""
+    with recording.attached(metrics):
+        return _render_framebuffer(scene, progress, checkpoint_path, checkpoint_every, metrics,
+                                   auto_retry)
+
+
+def _render_framebuffer(scene, progress, checkpoint_path, checkpoint_every, metrics,
+                        auto_retry) -> torch.Tensor:
     cfg = scene.config
     framebuffer = torch.zeros((scene.num_pixels, 3), dtype=torch.float32, device=scene.device)
     remaining = cfg.rays_per_pixel
@@ -196,6 +214,7 @@ def render_framebuffer(
         done = cfg.rays_per_pixel - remaining
         if checkpoint_path is not None and (passes_done % checkpoint_every == 0
                                             or not remaining):
+            recording.count("sync.host", 1)  # the framebuffer's copy to the host
             ckpt.save_checkpoint(checkpoint_path, framebuffer.cpu().numpy(), done,
                                  fingerprint, suspects=int(suspects))
         if metrics is not None:
@@ -204,6 +223,8 @@ def render_framebuffer(
             if framebuffer.device.type == "cuda":
                 torch.cuda.synchronize(framebuffer.device)
             progress(done, cfg.rays_per_pixel)
+    if isinstance(suspects, torch.Tensor):
+        recording.count("sync.host", 1)
     suspects = int(suspects)  # one device sync, after the pass loop
     if metrics is not None:
         metrics.record("suspect_rays", suspects)
@@ -238,11 +259,12 @@ def render_image(
     cfg = scene.config
     if framebuffer is None:
         framebuffer = render_framebuffer(scene)
-    image = framebuffer.reshape(cfg.height, cfg.width, 3)
-    if apply_bloom:
-        image = bloom_ops.apply_bloom(image, cfg.rays_per_pixel)
-    display = tonemap_ops.tonemap(image, cfg.exposure, cfg.rays_per_pixel)
-    return tonemap_ops.to_bytes(display).cpu().numpy()
+    with recording.span("rt.post"):
+        image = framebuffer.reshape(cfg.height, cfg.width, 3)
+        if apply_bloom:
+            image = bloom_ops.apply_bloom(image, cfg.rays_per_pixel)
+        display = tonemap_ops.tonemap(image, cfg.exposure, cfg.rays_per_pixel)
+        return tonemap_ops.to_bytes(display).cpu().numpy()
 
 
 def render_timed(scene: Scene) -> tuple:

@@ -56,6 +56,7 @@ from cuda_raytracer_tpu_torch.ops import envmap, intersect, packet_intersect, rn
 from cuda_raytracer_tpu_torch.ops.kernels import bounce as bounce_kernel
 from cuda_raytracer_tpu_torch.ops.kernels import rays as rays_kernel
 from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
+from cuda_raytracer_tpu_torch.utils import metrics as recording
 
 # Bounces whose closest hit uses the "pallas" engine's two-round sweep (the
 # wavefront is still large there but has lost primary-ray coherence).
@@ -556,15 +557,18 @@ def bounce_on_live_prefix(
         n = next(size for size in reversed(live_prefix_sizes(scene, rays))
                  if size >= live_bound)
     prefix = RayState(*(leaf[:n] for leaf in state))
+    recording.launching()
     out, suspect = process_rays_tiled(scene, prefix, pass_seed, bounce, reparam=reparam,
                                       checkpoint=checkpoint)
     bound = min(live_bound, n)
     if do_sort:
-        out = reorder_rays(scene, out, chunk_size=min(cs, n))
+        with recording.span("rt.reorder"):
+            out = reorder_rays(scene, out, chunk_size=min(cs, n))
         if n <= cs:
             # Single-piece sort → live-first prefix → exact recount.
-            bound = int(_live_count(out))
+            bound = recording.read_live(_live_count(out))
     if n < rays:
+        recording.launching()
         out = RayState(*(torch.cat([o, leaf[n:]]) for o, leaf in zip(out, state)))
     if static_divisor is not None:
         suspect = suspect + max(live_bound - n, 0)
@@ -741,22 +745,24 @@ def trace_rays(
     live_bound = R
     suspect_total = 0
     for bounce, do_sort in enumerate(sorted_bounces):
-        if not compact:
-            # Without a whole-wavefront sort the live bound never tightens,
-            # so every bounce runs the full wavefront.
-            state, suspect = process_rays_tiled(scene, state, pass_seed, bounce,
-                                                reparam=reparam,
-                                                checkpoint=checkpoint_bounces)
-            if do_sort:
-                state = reorder_rays(scene, state)
-        else:
-            divisor = sched[min(bounce, len(sched) - 1)] if sched else None
-            state, live_bound, suspect = bounce_on_live_prefix(
-                scene, state, pass_seed, bounce, live_bound, do_sort,
-                reparam=reparam, static_divisor=divisor,
-                checkpoint=checkpoint_bounces,
-            )
-        suspect_total = suspect_total + suspect
+        with recording.span("rt.bounce"):
+            if not compact:
+                # Without a whole-wavefront sort the live bound never tightens,
+                # so every bounce runs the full wavefront.
+                state, suspect = process_rays_tiled(scene, state, pass_seed, bounce,
+                                                    reparam=reparam,
+                                                    checkpoint=checkpoint_bounces)
+                if do_sort:
+                    with recording.span("rt.reorder"):
+                        state = reorder_rays(scene, state)
+            else:
+                divisor = sched[min(bounce, len(sched) - 1)] if sched else None
+                state, live_bound, suspect = bounce_on_live_prefix(
+                    scene, state, pass_seed, bounce, live_bound, do_sort,
+                    reparam=reparam, static_divisor=divisor,
+                    checkpoint=checkpoint_bounces,
+                )
+            suspect_total = suspect_total + suspect
     return state, suspect_total
 
 
@@ -772,18 +778,19 @@ def _row_engine(scene: Scene):
 
 
 def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
-                plain: bool = False):
+                plain: bool = False, live: torch.Tensor = None):
     """One forward bounce of packed rows, in place → suspect: the set-up
     kernel (alive bit, sphere hit, ray tiles), the closest hit over the
     triangles (the fused / fused1 kernels on the ray tiles, else
     ``triangle_hit``), the bounce kernel. Bit-identical to ``process_rays``
     on the same rays. With ``plain`` the set-up and the shading run their
-    plain versions (torch) on any device; the closest hit is unchanged."""
+    plain versions (torch) on any device; the closest hit is unchanged.
+    ``live``, a (1,) int64 counter, gets the live rows added by the set-up."""
     engine = _row_engine(scene)
     tile = scene.config.packet_tile if engine else 0
     setup = rays_kernel.plain_rays_setup if plain else rays_kernel.rays_setup
     shade_rows = bounce_kernel.plain_shade_rows if plain else bounce_kernel.shade_rows
-    _, t, index, od8 = setup(rows, scene.sphere_center, scene.sphere_radius, tile)
+    _, t, index, od8 = setup(rows, scene.sphere_center, scene.sphere_radius, tile, live)
     t_tri = tri = None
     suspect = 0
     if engine:
@@ -806,8 +813,9 @@ def trace_camera(
     ``pack_rows(make_initial_state(...))``); one that builds a graph starts
     from ``make_initial_state``."""
     if not reparam and not _needs_graph(scene):
-        rows = rays_kernel.camera_rows(rays_kernel.camera_words(scene.camera), ray_lo, rays,
-                                       rays_per_pixel, scene.config.width, pass_seed)
+        with recording.span("rt.camera"):
+            rows = rays_kernel.camera_rows(rays_kernel.camera_words(scene.camera), ray_lo,
+                                           rays, rays_per_pixel, scene.config.width, pass_seed)
         return trace_packed(scene, rows, pass_seed, bounces, sort_rays)
     ray_id = ray_lo + torch.arange(rays, dtype=torch.int32, device=scene.device)
     state = make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
@@ -829,7 +837,10 @@ def trace_packed(
     copies the suffix back. The live count, a device int32 written by the
     key kernel, is read once per sorted bounce: the host's one sync.
     ``plain`` is ``bounce_rows``'; ``bounds``, a list, gets each bounce's
-    entering live bound."""
+    entering live bound. While recording (``utils/metrics``) a bounce counts
+    its live rows (``rays.live``, summed by the set-up) and its prefix's
+    rows (``rays.launched``), and a sorted one's read of the live count the
+    device idle until the next set-up launch (``sync.device_idle_s``)."""
     sort_rays = sort_rays and reorder_is_useful(scene)
     sorted_bounces = _sort_schedule(scene, sort_rays, bounces)
     cur = state if isinstance(state, torch.Tensor) else pack_rows(state)
@@ -841,31 +852,35 @@ def trace_packed(
     live_bound = settled = R
     suspect_total = 0
     for bounce, do_sort in enumerate(sorted_bounces):
-        n, divisor = R, None
-        if compact:
-            divisor = sched[min(bounce, len(sched) - 1)] if sched else None
-            n = (prefix_for_divisor(scene, R, divisor) if divisor is not None
-                 else next(size for size in reversed(live_prefix_sizes(scene, R))
-                           if size >= live_bound))
-        if bounds is not None:
-            bounds.append(live_bound)
-        suspect = 0
-        for lo in range(0, n, ROW_TILE):
-            suspect = suspect + bounce_rows(scene, cur[lo:min(n, lo + ROW_TILE)], pass_seed,
-                                            bounce, plain)
-        if divisor is not None:
-            suspect = suspect + max(live_bound - n, 0)
-        live_bound = min(live_bound, n)
-        if do_sort:
-            if n < settled:
-                spare[n:settled] = cur[n:settled]
-            order, live = sort_order(scene, cur[:n], min(cs, n))
-            torch.index_select(cur[:n], 0, order, out=spare[:n])
-            cur, spare = spare, cur
+        with recording.span("rt.bounce"):
+            n, divisor = R, None
             if compact:
-                live_bound = int(live.item())
-        settled = n if do_sort else max(settled, n)
-        suspect_total = suspect_total + suspect
+                divisor = sched[min(bounce, len(sched) - 1)] if sched else None
+                n = (prefix_for_divisor(scene, R, divisor) if divisor is not None
+                     else next(size for size in reversed(live_prefix_sizes(scene, R))
+                               if size >= live_bound))
+            if bounds is not None:
+                bounds.append(live_bound)
+            recording.count("rays.launched", n)
+            counter = recording.device_counter("rays.live", cur)
+            suspect = 0
+            for lo in range(0, n, ROW_TILE):
+                suspect = suspect + bounce_rows(scene, cur[lo:min(n, lo + ROW_TILE)],
+                                                pass_seed, bounce, plain, counter)
+            if divisor is not None:
+                suspect = suspect + max(live_bound - n, 0)
+            live_bound = min(live_bound, n)
+            if do_sort:
+                with recording.span("rt.reorder"):
+                    if n < settled:
+                        spare[n:settled] = cur[n:settled]
+                    order, live = sort_order(scene, cur[:n], min(cs, n))
+                    torch.index_select(cur[:n], 0, order, out=spare[:n])
+                cur, spare = spare, cur
+                if compact:
+                    live_bound = recording.read_live(live)
+            settled = n if do_sort else max(settled, n)
+            suspect_total = suspect_total + suspect
     return unpack_rows(cur), suspect_total
 
 

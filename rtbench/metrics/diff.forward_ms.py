@@ -1,0 +1,13 @@
+"""diff.forward_ms: host milliseconds a train step of render/diff's
+make_train_step spends in its forward phase, the render and the loss that
+build the autograd graph (the program's ``rt.step.forward`` span), over the
+traced steps."""
+
+from rtbench.core import program
+
+MOVES = "step_s"
+
+
+def read(trace):
+    value = program.per_unit(trace, "train", "phases", "rt.step.forward")
+    return None if value is None else value * 1e3

@@ -729,3 +729,46 @@ def test_differentiable_render_draws_through_pcg_draws(cuda):
     diff.render_radiance(params, scene, 0, 2, 3).square().mean().backward()
     torch.cuda.synchronize()
     assert rays.LAUNCHES_CAMERA == before[0] and rays.LAUNCHES_DRAWS > before[1]
+
+
+@pytest.mark.parametrize("n,tile", [(1, 64), (31, 0), (33, 32), (257, 64), (4096, 64),
+                                    (4096, 0)])
+def test_rays_setup_live_counter_keeps_the_bits(cuda, n, tile):
+    """The set-up kernel given a live counter: outputs bit-equal to the
+    launch without one, the counter up by the live rows at every launch
+    (bounced rows in shuffled order, live and dead mixed, ragged warps)."""
+    scene = _scene(cuda)
+    rows = wavefront.pack_rows(_states(scene, bounces=3)[2])
+    g = torch.Generator().manual_seed(n)
+    rows = rows[torch.randperm(rows.shape[0], generator=g).to(cuda)[:n]].contiguous()
+    want = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, tile)
+    live = torch.zeros(1, dtype=torch.int64, device=cuda)
+    for k in (1, 2):
+        got = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, tile, live)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+        assert (got[3] is None) == (tile == 0) and (tile == 0 or torch.equal(got[3], want[3]))
+        assert int(live) == k * int(want[0].sum())
+    if n >= 257:
+        assert want[0].any() and (~want[0]).any()
+
+
+def test_recorded_render_keeps_its_bits_and_counts(cuda, monkeypatch):
+    """A render into an attached registry over 32×32 × 4 in blocks of 2,048
+    rays (2 blocks of 4 bounces, 3 sorted): the framebuffer of the render
+    without one, a live-count read per sorted bounce with the device idle
+    it caused, and the live rows the set-up kernel summed."""
+    from cuda_raytracer_tpu_torch.utils import metrics
+
+    scene = _scene(cuda, rays_per_pixel=4, bounces=4)
+    monkeypatch.setattr(pipeline, "RAY_BLOCK", 2048)
+    fb = pipeline.render_framebuffer(scene)
+    m = metrics.Metrics()
+    assert torch.equal(pipeline.render_framebuffer(scene, metrics=m), fb)
+    counters = m.resolve().counters
+    assert counters["sync.host"] == 2 * 3
+    assert counters["rays.launched"] >= counters["rays.live"] > 2 * 2048
+    assert counters["sync.device_idle_s"] > 0
+    assert m.phases["rt.bounce"] > 0
+    # each read's event pair was read and went back to the pool
+    assert not m._idle and sum(map(len, m._events.values())) == 2 * 2 * 3

@@ -91,7 +91,7 @@ def _compile(tmp_path_factory, source: str):
 def host(tmp_path_factory):
     lib = _compile(tmp_path_factory, "bounce_host")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p]
+    lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
     lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
     lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
     lib.rt_host_camera_rows.argtypes = [p, i, i, i, i, u, p]
@@ -194,8 +194,10 @@ def test_rays_setup_host_bit_equal_plain_and_jax(host, spheres, monkeypatch, n, 
     rows = wavefront.pack_rows(state)
     want = _ieee_setup(monkeypatch, rows, ts, tile)
     got = rays.setup_outputs(rows, tile)
+    live = torch.zeros(1, dtype=torch.int64)
     assert host.rt_host_rays_setup(
-        *rays.setup_args(rows, ts.sphere_center, ts.sphere_radius, tile, *got)) == 0
+        *rays.setup_args(rows, ts.sphere_center, ts.sphere_radius, tile, *got, live)) == 0
+    assert int(live) == int(want[0].sum())  # the live counter: padding rays are dead
     assert (got[3] is None) == (tile == 0)
     if tile:
         assert got[3].shape == (-(-n // tile), 8, tile)
