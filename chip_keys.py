@@ -56,14 +56,18 @@ def main() -> int:
     smi = chip_smoke._smi()
     print(smi, flush=True)
     device = torch.device("cuda")
-    torus = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus"), device=device)
+    # The cullhit key keys a packet scene's reorder ("auto" walks the BVH).
+    packet = dict(intersector="packet")
+    torus = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus"),
+                                     config_overrides=packet, device=device)
     bounces = timed_bounces(torus, 3, "torus")
     result = dict(label=args.label, card=smi, rows=[n for _, n, _ in bounces],
                   cullhit_ms=[t["ms"] for _, _, t in bounces],
                   ray_keys_ms=bounces[1][2]["ray_keys_ms"])
     if args.lamp:
         lamp = scene_dsl.assemble_scene(
-            builtin_scenes.parse_mesh_scene("torus", chip_smoke.LAMP_SIZE), device=device)
+            builtin_scenes.parse_mesh_scene("torus", chip_smoke.LAMP_SIZE),
+            config_overrides=packet, device=device)
         result["lamp_clusters"] = lamp.num_clusters
         result["lamp_cullhit_ms"] = timed_bounces(lamp, 1, "lamp-scale torus")[1][2]["ms"]
     print(json.dumps(result), flush=True)

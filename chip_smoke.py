@@ -6,17 +6,20 @@
 Drives the port's main paths: forward renders at the reference benchmark
 shape (1000×1000, 100 rays per pixel in five passes of 20, 10 bounces) of a
 brute scene through the shade kernel and of a 126,000-triangle mesh through
-the packet kernels (cull + fused by default, with the gated cull behind
-``cull_hier``; fused1 when asked for, and with pack=2 for a paired
-sub-cluster table) on the packed forward wavefront (set-up, bounce and
-sort-key kernels), the command-line renderer, the
+the packet kernels (``intersector="packet"``: fused1 for passes of 10 or
+more rays a pixel, cull + fused below, with the gated cull behind
+``cull_hier``, and with pack=2 for a paired sub-cluster table) and through
+"auto", which walks the BVH on the card, on the packed forward wavefront
+(set-up, bounce and sort-key kernels), the command-line renderer, the
 inverse-rendering train step on that mesh at the JAX package's
 forward+backward shape (256×256, 2 rays per pixel, 10 bounces) through both
 packet engines that reach a TPU kernel (cull + fused, and cull + the pair
 sweep), sharded rendering and training over torch.distributed, and the
 same render and train step through the BVH intersector (a per-ray walk
 kernel) and the render reordered by the "cullhit" key (a key kernel), and
-checks them all. Phases, one line each:
+checks them all. The mesh phases 6-11 and 13 pin ``intersector="packet"``
+on their scenes; the CLI (9) and sharding (12) take "auto". Phases, one
+line each:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA;
 2. build: compile ``csrc/shade.cu``, ``cull.cu`` (flat and gated cull),
@@ -66,13 +69,15 @@ checks them all. Phases, one line each:
    warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
    rays per pixel, each through fused1 and through cull + fused (fused1,
    cull + fused, cull + fused, fused1), then once through "auto" (on the
-   card fused1 for the 100-spp render's 20-spp passes, the pass regime
-   ``pipeline._regime_scene``, and cull + fused for the 8-spp one); launch
-   counts per kernel (> 0 for the regime's
-   kernels and the forward kernels: camera rows, set-up, bounce, sort
-   keys; 0 for the other packet kernels and the PCG draws; the camera
+   card the BVH walk, ``wavefront.resolve_intersector``); launch
+   counts per kernel (> 0 for the regime's kernels, the walk's in "auto",
+   and the forward kernels: camera rows, set-up, bounce, sort
+   keys; 0 for the other closest-hit kernels and the PCG draws; the camera
    kernel once a block), finite framebuffers, sane mean
-   display values, and every image of a spp identical;
+   display values, every packet image of a spp identical, and the "auto"
+   image within ±1 of them on at least WALK_IMAGE_SHARE of its bytes (the
+   walk keeps the first of two tied triangles, the packet engines the
+   larger id);
 8. packet timing: the 2^18-ray block of the 20-rays-per-pixel pass that
    holds the image centre,
    entering bounce 0 and bounce 1 (sorted): each kernel and its plain
@@ -98,13 +103,12 @@ checks them all. Phases, one line each:
    written as ``.scene`` files; (a) ``python -m cuda_raytracer_tpu_torch
    torus.scene --spp 8 --metrics`` as a subprocess (exit 0, the PNG,
    paths/s; its load_scene seconds with the native BVH, render seconds and
-   metrics line, whose launch counters must show the cull, fused and
-   forward kernels); (b) ``cli.main`` in process on the same render with
-   the gated cull (``--cull-hier 16``) and the flat one (``--cull-hier
-   -1``), in turns (gated, flat, flat, gated): fused and the forward
-   kernels launch in every run, the gated cull (one launch a cull) in the
-   gated ones and the flat cull in the flat ones only, every PNG is
-   byte-identical to 9a's, and each run's render seconds are printed; (c)
+   metrics line, whose launch counters must show the walk and the
+   forward kernels: "auto" walks the BVH on the card); (b) ``cli.main`` in
+   process on the same render with ``--cull-hier 16``: the walk and the
+   forward kernels launch and no other kernel, stderr warns that the
+   packet option has no effect on a walk render, and the PNG is
+   byte-identical to 9a's; (c)
    the gated cull kernel's path: the 8-spp torus through cull + fused with
    ``cull_hier=16`` and with the flat cull, in turns: the gated cull
    launches in every gated render and the flat cull in none (not even for
@@ -173,10 +177,12 @@ checks them all. Phases, one line each:
    render_sharded seconds beside 9a's, 9a's kernels launched, a PNG
    byte-identical to phase 9a's; (b) two ranks on the one card, joined by
    gloo, on the Cornell scene and the torus at 256×256 × 2 spp × 10
-   bounces: the sharded framebuffer against the single-device one, one
+   bounces, the torus through "auto" and through ``intersector="packet"``:
+   the sharded framebuffer against the single-device one, one
    sharded train step's loss (the same bits on both ranks) against the
    single-device loss, the summed gradients against
-   ``diff.render_and_grad``'s, and packet kernel launches in both ranks;
+   ``diff.render_and_grad``'s, and in both ranks the walk's launches on
+   the "auto" torus, cull + fused's on the packet one (SHARD_SCENES);
    (c) ``scaling_report`` on the size-1 mesh;
 13. the BVH intersector (``intersector="bvh"``, the walk kernel of
    ``csrc/traverse.cu``) and the "cullhit" sort key (the key kernel of
@@ -192,17 +198,18 @@ checks them all. Phases, one line each:
    torus (LAMP_SIZE, 619,500 triangles): its set-up seconds, the walk
    bit-equal on its centre block's bounces 0, 1 and 3, bounces 1 and 3
    timed as above;
-   (b) the walk against the packet engine ("auto": cull + fused) on the
+   (b) the walk against the packet engine (cull + fused) on the
    torus's bounces 0, 1 and 3: t within rtol / atol 1e-5 and under 1 % of
    live rays on another triangle (JAX's BVH-against-scan standard), the
    mismatches and how many are equal-distance ties; (c) the torus at
-   1000×1000 × 10 bounces through the BVH and through "auto" (fused1 at
-   100 spp, cull + fused at 8) in turns (bvh, auto, auto, bvh) at 100 and at 8
-   spp: seconds, Mrays/s, the walk launching in the BVH renders and no
+   1000×1000 × 10 bounces through the BVH and through the packet
+   intersector (fused1 at 100 spp, cull + fused at 8) in turns (bvh,
+   packet, packet, bvh) at 100 and at 8 spp: seconds, Mrays/s, the walk launching in the BVH renders and no
    packet kernel, the mean display value, the images' mean |Δ| and share of
    bytes within ±1 (printed, not gated: tie rays take other paths); then
    the centre block's profile through the BVH; (d) the train step at phase
-   10c's shape, checkpointed, through the BVH and through "auto" in turns:
+   10c's shape, checkpointed, through the BVH and through the packet
+   intersector (cull + fused) in turns:
    seconds per step, a falling loss, finite gradients, the walk's launches
    per step equal to the forward pass's; (e) the cullhit key against its
    plain version on the centre block's bounces 0-3 (traced with that key)
@@ -310,15 +317,19 @@ CLI_GATE = 16  # --cull-hier: clusters per super box
 # the training shading).
 FORWARD_KERNELS = ("camera_rows", "rays_setup", "shade_rows", "ray_keys")
 FORWARD_NOT = ("pcg_draws",)
-# Kernels the 8-spp CLI render must launch (phases 9a, 9b, 12a), "auto" on
-# the card; --cull-hier adds the gated cull (9b).
 # The closest-hit kernels of packet_backend "auto" on the card
 # (packet_intersect.resolve_backend) in a pass of fewer than 10 rays per
 # pixel: cull + fused; a pass of 10 or more takes fused1 (the pass regime,
 # pipeline._regime_scene; _auto_kernels).
 AUTO_KERNELS = ("cull_tiles", "fused_closest_hit")
-CLI_KERNELS = AUTO_KERNELS + FORWARD_KERNELS
-# ... and with --cull-hier 16 (cull_hier, phases 9b-c): the gated cull in one
+FLAT_KERNELS = AUTO_KERNELS + FORWARD_KERNELS
+# Kernels the 8-spp CLI render must launch (phases 9a, 9b, 12a): "auto" walks
+# the BVH on the card, and no cull option changes that.
+CLI_KERNELS = ("bvh_walk",) + FORWARD_KERNELS
+# Share of an "auto" (walk) image's bytes within ±1 of the packet images
+# (phase 7): they differ on tie rays alone.
+WALK_IMAGE_SHARE = 0.9999
+# ... and with --cull-hier 16 (cull_hier, phase 9c): the gated cull in one
 # launch a cull, no flat cull (not even of the super boxes).
 GATED_KERNELS = ("cull_gated", "fused_closest_hit") + FORWARD_KERNELS
 CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
@@ -604,12 +615,15 @@ def phase_timing(device) -> dict:
 
 
 def _mesh_scene(name: str, device):
-    """A full-size mesh scene (1000×1000, 100 spp, 10 bounces) on the card.
-    Parsing and the native BVH build are set-up, outside every timed scope."""
+    """A full-size mesh scene (1000×1000, 100 spp, 10 bounces) on the card,
+    through the packet intersector. Parsing and the native BVH build are
+    set-up, outside every timed scope."""
     from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 
     start = time.perf_counter()
-    scene = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene(name), device=device)
+    scene = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene(name),
+                                     config_overrides=dict(intersector="packet"),
+                                     device=device)
     table = scene.cluster_blocks
     print(f"phase 6 setup: {name} triangles={scene.triangle_count} "
           f"clusters={scene.num_clusters} cluster_tris={scene.cluster_tris} "
@@ -856,45 +870,54 @@ def phase_mesh_main_path(full) -> tuple:
     """Phase 7: the torus at 1000×1000, 10 bounces, after small warm-ups:
     100 spp, then 8 spp, each through fused1 (``packet_backend="fused1"``)
     and through cull + fused (``"fused"``) in turns (fused1, cull + fused,
-    cull + fused, fused1), and once through ``"auto"``. Every image of a spp
-    must be identical → (the kernel table's launches, the 100-spp "auto"
-    framebuffer)."""
+    cull + fused, fused1), and once through ``intersector="auto"`` (the BVH
+    walk on the card). Every packet image of a spp must be identical, and
+    the "auto" image within ±1 of them on WALK_IMAGE_SHARE of its bytes →
+    (the kernel table's launches, the 100-spp fused1 framebuffer)."""
     import numpy as np
     from cuda_raytracer_tpu_torch.render import pipeline
 
-    for backend in ("fused1", "fused"):  # kernels, allocator and clocks warm
-        pipeline.render_framebuffer(_resized(full, 128, 128).with_config(
-            rays_per_pixel=20, packet_backend=backend))
-    backends = {"fused1": "fused1", "cull+fused": "fused", "auto": "auto"}
+    small = _resized(full, 128, 128).with_config(rays_per_pixel=20)
+    for cfg in (dict(packet_backend="fused1"), dict(packet_backend="fused"),
+                dict(intersector="auto")):  # kernels, allocator and clocks warm
+        pipeline.render_framebuffer(small.with_config(**cfg))
+    configs = {"fused1": dict(packet_backend="fused1"), "cull+fused": dict(packet_backend="fused"),
+               "auto": dict(intersector="auto")}
     order = ("fused1", "cull+fused", "cull+fused", "fused1", "auto")
     launches, reference = {}, None
     for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
+        turns = [(label, full.with_config(rays_per_pixel=spp, **configs[label]))
+                 for label in order]
         regimes = {"fused1": ("fused1_closest_hit",),
                    "cull+fused": ("cull_tiles", "fused_closest_hit"),
-                   "auto": _auto_kernels(full.with_config(rays_per_pixel=spp))}
-        turns = [(label, full.with_config(rays_per_pixel=spp, packet_backend=backends[label]))
-                 for label in order]
+                   "auto": _auto_kernels(turns[-1][1])}
         seconds, fbs, images, counts = _render_turns(turns, regimes, "7", "mesh main path")
-        same = all(np.array_equal(img, images[0]) for img in images)
+        same = all(np.array_equal(img, images[0]) for img in images[:-1])
+        gap = np.abs(images[-1].astype(np.int32) - images[0].astype(np.int32))
+        walk_share = float((gap <= 1).mean())
         blocks = _render_blocks(turns[0][1])
         once_a_block = all(c["camera_rows"] == blocks for c in counts)
         print(f"phase 7 mesh main path: spp={spp} seconds " + " ".join(
             f"{label}={[round(x, 4) for x in secs]}" for label, secs in seconds.items())
-            + f" images_identical={same} blocks={blocks} "
+            + f" packet_images_identical={same} auto_vs_packet: "
+            f"{_image_gap(images[-1], images[0])} blocks={blocks} "
             f"camera_rows_launches={[c['camera_rows'] for c in counts]}")
         if not same:
             raise SystemExit(f"phase 7 failed: the {spp}-spp images differ between regimes")
+        if walk_share < WALK_IMAGE_SHARE:
+            raise SystemExit(f"phase 7 failed: the {spp}-spp walk image is off the packet one")
         if not once_a_block:
             raise SystemExit("phase 7 failed: the camera kernel did not launch once a block")
-        # The kernel table's launches: the main path's, the "auto" render
-        # (the last turn) at 100 spp for the forward kernels and fused1 (the
-        # regime of its 20-spp passes) and at 8 spp for cull + fused.
+        # The kernel table's launches on their paths: the "auto" render (the
+        # last turn) at 100 spp for the walk and the forward kernels, the
+        # first fused1 turn for fused1, and the 8-spp cull + fused turn.
         if spp == MESH_FULL_SPP:
-            reference = fbs[-1]  # phase 11c's reference: the "auto" render
+            reference = fbs[0]  # phase 11c's reference: the fused1 render
             launches.update({k: counts[-1][k]
-                             for k in ("fused1_closest_hit",) + FORWARD_KERNELS + FORWARD_NOT})
+                             for k in ("bvh_walk",) + FORWARD_KERNELS + FORWARD_NOT})
+            launches["fused1_closest_hit"] = counts[0]["fused1_closest_hit"]
         else:
-            launches.update({k: counts[-1][k] for k in AUTO_KERNELS})
+            launches.update({k: counts[1][k] for k in AUTO_KERNELS})
     return launches, reference
 
 
@@ -1642,12 +1665,15 @@ def _fused_tail(scene, ids, rpp: int, seed: int, label: str, phase: str) -> list
 
 
 def _auto_kernels(scene) -> tuple:
-    """The closest-hit kernels a render of ``scene`` through "auto" launches
-    on the card: those of its passes' regime (``pipeline._regime_scene``;
+    """The closest-hit kernels a render of ``scene`` launches on the card
+    with packet backend "auto": the walk where its intersector resolves to
+    the BVH, else those of its passes' regime (``pipeline._regime_scene``;
     every pass of a render at up to 20 or at a multiple of 20 rays per
     pixel is in one regime)."""
-    from cuda_raytracer_tpu_torch.render import pipeline
+    from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 
+    if wavefront.resolved_intersector(scene) == "bvh":
+        return ("bvh_walk",)
     cfg = scene.config
     rpp = min(cfg.rays_per_pixel, cfg.max_rays_per_pixel_per_pass)
     regime = pipeline._regime_scene(scene, rpp).config.packet_backend
@@ -1716,49 +1742,40 @@ def phase_cli_subprocess(scenes: dict, workdir: Path) -> bytes:
 
 
 def phase_cli_in_process(scenes: dict, workdir: Path, subprocess_png: bytes) -> None:
-    """9b: ``cli.main`` with the gated cull (``--cull-hier 16``) and with
-    the flat one (``--cull-hier -1``), in turns (gated, flat, flat, gated),
-    each run's launch counts set to 0 just before it and read just after:
-    the forward kernels and fused launch in every run, the gated cull (one
-    launch a cull, its super boxes tested inside it) in the gated runs and
-    the flat cull in the flat ones only, no other kernel, and every PNG
-    equals phase 9a's byte for byte."""
+    """9b: ``cli.main`` in this process with ``--cull-hier 16``, its launch
+    counts set to 0 just before and read just after: "auto" walks the BVH
+    on the card, so the walk and the forward kernels launch and no other
+    kernel, stderr warns that the packet option has no effect, and the PNG
+    equals phase 9a's byte for byte (9c drives the gated cull)."""
     import contextlib
     import io
 
     from cuda_raytracer_tpu_torch import cli
 
-    pngs, seconds, ok = [], {"gated": [], "flat": []}, True
-    for turn, label in enumerate(("gated", "flat", "flat", "gated")):
-        gate = CLI_GATE if label == "gated" else -1
-        out = workdir / f"inproc_{turn}_{label}.png"
-        argv = [str(scenes["torus"]), "--spp", str(CLI_SPP), "--cull-hier", str(gate),
-                "--metrics", "--out", str(out)]
-        err = io.StringIO()
-        _zero_launch_counts()
-        with contextlib.redirect_stderr(err):
-            rc = cli.main(argv)
-        counts = _launch_counts()
-        if rc != 0:
-            print(err.getvalue()[-4000:], file=sys.stderr)
-            raise SystemExit(f"phase 9b failed: cli.main returned {rc} ({label})")
-        m = json.loads([ln for ln in err.getvalue().splitlines() if ln.startswith("{")][-1])
-        render = m["phases"]["render_accelerator"]
-        seconds[label].append(render)
-        expected = GATED_KERNELS if label == "gated" else CLI_KERNELS
-        ok = ok and all(counts[k] > 0 for k in expected) and not any(
-            v for k, v in counts.items() if k not in expected)
-        pngs.append(out.read_bytes())
-        print(f"phase 9b cli.main: torus spp={CLI_SPP} turn={turn} {label} "
-              f"--cull-hier {gate} rc={rc} load_scene_seconds={m['phases']['load_scene']:.3f} "
-              f"render_seconds={render:.4f} launches={json.dumps(counts)}")
-    same = all(png == pngs[0] for png in pngs)
-    same_sub = pngs[0] == subprocess_png
-    print(f"phase 9b cli.main: render_seconds gated={seconds['gated']} "
-          f"flat={seconds['flat']} png_byte_identical={same} "
-          f"identical_to_subprocess={same_sub}")
-    if not (ok and same and same_sub):
-        raise SystemExit("phase 9b failed: launches or PNG bytes")
+    out = workdir / "inproc.png"
+    argv = [str(scenes["torus"]), "--spp", str(CLI_SPP), "--cull-hier", str(CLI_GATE),
+            "--metrics", "--out", str(out)]
+    err = io.StringIO()
+    _zero_launch_counts()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    counts = _launch_counts()
+    if rc != 0:
+        print(err.getvalue()[-4000:], file=sys.stderr)
+        raise SystemExit(f"phase 9b failed: cli.main returned {rc}")
+    lines = err.getvalue().splitlines()
+    m = json.loads([ln for ln in lines if ln.startswith("{")][-1])
+    warned = any(ln.startswith("Warning: --cull-hier") and "'bvh' on cuda" in ln
+                 for ln in lines)
+    launched = all(counts[k] > 0 for k in CLI_KERNELS) and not any(
+        v for k, v in counts.items() if k not in CLI_KERNELS)
+    same_sub = out.read_bytes() == subprocess_png
+    print(f"phase 9b cli.main: torus spp={CLI_SPP} --cull-hier {CLI_GATE} rc={rc} "
+          f"load_scene_seconds={m['phases']['load_scene']:.3f} "
+          f"render_seconds={m['phases']['render_accelerator']:.4f} warned={warned} "
+          f"identical_to_subprocess={same_sub} launches={json.dumps(counts)}")
+    if not (launched and warned and same_sub):
+        raise SystemExit("phase 9b failed: launches, warning or PNG bytes")
 
 
 def phase_gated_render(full) -> int:
@@ -1783,7 +1800,7 @@ def phase_gated_render(full) -> int:
         launches.append(counts["cull_gated"])
         print(f"phase 9c gated render: torus spp={CLI_SPP} turn={turn} {label} "
               f"seconds={secs:.4f} launches={json.dumps(counts)}")
-        expected = GATED_KERNELS if label == "gated" else CLI_KERNELS
+        expected = GATED_KERNELS if label == "gated" else FLAT_KERNELS
         if not (all(counts[k] > 0 for k in expected)
                 and not any(v for k, v in counts.items() if k not in expected)):
             raise SystemExit(f"phase 9c failed: launches of the {label} render")
@@ -2405,9 +2422,11 @@ def _packed_scenes(device):
 
     start = time.perf_counter()
     parsed = builtin_scenes.parse_mesh_scene("torus")
-    packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(cluster_pack=2),
+    packet = dict(intersector="packet")
+    packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(packet, cluster_pack=2),
                                       cluster_tris=PACK_TRIS, device=device)
-    half = scene_dsl.assemble_scene(parsed, cluster_tris=PACK_TRIS // 2, device=device)
+    half = scene_dsl.assemble_scene(parsed, config_overrides=packet,
+                                    cluster_tris=PACK_TRIS // 2, device=device)
     table = packed.cluster_blocks[:packed.num_clusters // 2]
     print(f"phase 11 setup: torus cluster_pack=2 cluster_tris={packed.cluster_tris} "
           f"sub_clusters={packed.num_clusters} blocks={table.shape[0]} "
@@ -2629,6 +2648,14 @@ def phase_mesh_cli(plain_cli: dict) -> None:
                              "or a kernel of the path did not launch")
 
 
+# Phase 12b's scenes: the torus through "auto" (the walk on the card) and
+# pinned to the packet intersector (cull + fused, and the pair budget's
+# suspect count that sharding certifies), each with the kernels both ranks
+# must launch.
+SHARD_SCENES = {"cornell": ("shade_trace",), "torus": CLI_KERNELS,
+                "torus_packet": FLAT_KERNELS}
+
+
 def _shard_scene(name: str, device):
     """A phase 12b scene at the train step's shape."""
     from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
@@ -2636,7 +2663,8 @@ def _shard_scene(name: str, device):
     if name == "cornell":
         return _scene("cornell", TRAIN, device)
     full = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus"), device=device)
-    return _resized(full, TRAIN["width"], TRAIN["height"]).with_config(**TRAIN)
+    scene = _resized(full, TRAIN["width"], TRAIN["height"]).with_config(**TRAIN)
+    return scene.with_config(intersector="packet") if name == "torus_packet" else scene
 
 
 def _shard_rank(rank: int, coordinator: str, out_dir: str) -> None:
@@ -2654,7 +2682,7 @@ def _shard_rank(rank: int, coordinator: str, out_dir: str) -> None:
     rpp, bounces = TRAIN["rays_per_pixel"], TRAIN["bounces"]
     results = {}
     try:
-        for name in ("cornell", "torus"):
+        for name in SHARD_SCENES:
             scene = _shard_scene(name, device)
             true_params, _ = diff.split_params(scene)
             with torch.no_grad():
@@ -2713,7 +2741,7 @@ def phase_two_ranks() -> None:
         ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
                  for r in range(SHARD_RANKS)]
     ok = True
-    for name in ("cornell", "torus"):
+    for name, kernels in SHARD_SCENES.items():
         r0, r1 = ranks[0][name], ranks[1][name]
         fb_replicated = np.array_equal(r0["fb"], r1["fb"])
         fb_close = np.allclose(r0["fb"], r0["single_fb"], **SHARD_FB_TOL)
@@ -2737,8 +2765,6 @@ def phase_two_ranks() -> None:
         print(f"phase 12b gradients {name}: " + " ".join(
             f"{k}:max|g|={sc:.4g},max|d|={d:.3g},over_gate={lit:.3g}"
             for k, sc, d, lit in leaves))
-        # The torus renders and trains through cull + fused.
-        kernels = AUTO_KERNELS + FORWARD_KERNELS if name == "torus" else ("shade_trace",)
         launched = all(r["launches"][k] > 0 for r in (r0, r1) for k in kernels)
         print(f"phase 12b two gloo ranks on cuda:0: {name} {TRAIN['width']}x{TRAIN['height']} "
               f"spp={TRAIN['rays_per_pixel']} bounces={TRAIN['bounces']} "
@@ -2846,9 +2872,10 @@ def _walk_check(scene, rows, label: str, b: int, timed: bool, plain_timed: bool 
 
 
 def _walk_vs_packet(scene, packet_scene, rows, b: int) -> None:
-    """13b: the walk against the packet engine ("auto": cull + fused on the
-    card) on the same rays, at JAX's BVH-against-scan standard: t within
-    rtol / atol 1e-5, under 1 % of live rays on another triangle. A
+    """13b: the walk against the packet engine (``packet_scene``: cull +
+    fused on the card at packet backend "auto") on the same rays, at JAX's
+    BVH-against-scan standard: t within rtol / atol 1e-5, under 1 % of live
+    rays on another triangle. A
     mismatch is a tie when the two triangles' Möller–Trumbore distances
     for the ray agree within 1e-5 relative."""
     import torch
@@ -2892,26 +2919,26 @@ def _image_gap(a, b) -> str:
 
 def phase_bvh_render(full) -> int:
     """13c: the torus at 1000×1000 × 10 bounces through ``intersector="bvh"``
-    and through "auto", in turns (bvh, auto, auto, bvh), at 100 and 8 spp;
-    then the centre block's profile through the BVH → the walk's launches in
-    the first 100-spp BVH render."""
+    and through the packet intersector (``full``'s), in turns (bvh, packet,
+    packet, bvh), at 100 and 8 spp; then the centre block's profile through
+    the BVH → the walk's launches in the first 100-spp BVH render."""
     from cuda_raytracer_tpu_torch.render import pipeline
 
     bvh = full.with_config(intersector="bvh")
     pipeline.render_framebuffer(_resized(bvh, 128, 128).with_config(rays_per_pixel=20))
     packet = PACKET_LAUNCH_NAMES
-    must_not = {"bvh": packet + FORWARD_NOT, "auto": ("bvh_walk",) + FORWARD_NOT}
+    must_not = {"bvh": packet + FORWARD_NOT, "packet": ("bvh_walk",) + FORWARD_NOT}
     launches = None
     for spp in (MESH_FULL_SPP, MESH_FEW_SPP):
         scenes = {"bvh": bvh.with_config(rays_per_pixel=spp),
-                  "auto": full.with_config(rays_per_pixel=spp)}
+                  "packet": full.with_config(rays_per_pixel=spp)}
         must = {"bvh": ("bvh_walk",) + FORWARD_KERNELS,
-                "auto": _auto_kernels(scenes["auto"]) + FORWARD_KERNELS}
-        out = _turns([(label, scenes[label]) for label in ("bvh", "auto", "auto", "bvh")],
+                "packet": _auto_kernels(scenes["packet"]) + FORWARD_KERNELS}
+        out = _turns([(label, scenes[label]) for label in ("bvh", "packet", "packet", "bvh")],
                      must, must_not, "13c", "bvh render")
         seconds = _seconds_by_label(out)
         print(f"phase 13c bvh render: spp={spp} seconds {json.dumps(seconds)} "
-              f"bvh vs auto images: {_image_gap(out[0][2], out[1][2])}")
+              f"bvh vs packet images: {_image_gap(out[0][2], out[1][2])}")
         if spp == MESH_FULL_SPP:
             launches = out[0][4]["bvh_walk"]
     _profile_block(bvh.with_config(rays_per_pixel=20), "bvh", ("bvh_walk_kernel",), "13c")
@@ -2920,8 +2947,8 @@ def phase_bvh_render(full) -> int:
 
 def phase_bvh_train(full) -> None:
     """13d: the train step (256×256 × 2 spp × 10 bounces, checkpointed, phase
-    10c's shape) through ``intersector="bvh"`` and through "auto", in turns
-    (bvh, auto, auto, bvh): 5 timed steps each after 2 warm-ups; the loss
+    10c's shape) through ``intersector="bvh"`` and through the packet
+    intersector (``full``'s: cull + fused), in turns (bvh, packet, packet, bvh): 5 timed steps each after 2 warm-ups; the loss
     must fall, every gradient be finite, and the walk's launches per step
     equal the forward pass's (the backward pass walks no BVH)."""
     import torch
@@ -2934,10 +2961,10 @@ def phase_bvh_train(full) -> None:
         target = diff.render_radiance(true_params, base, TRAIN_SEED, rpp, bounces)
     start = diff.params_to_numpy(true_params)
     start["materials.diffuse_albedo"][:] = 0.5
-    scenes = {"bvh": base.with_config(intersector="bvh"), "auto": base}
-    walk = {"bvh": ("bvh_walk",), "auto": ("cull_tiles", "fused_closest_hit")}
+    scenes = {"bvh": base.with_config(intersector="bvh"), "packet": base}
+    walk = {"bvh": ("bvh_walk",), "packet": ("cull_tiles", "fused_closest_hit")}
     medians = {}
-    for turn, label in enumerate(("bvh", "auto", "auto", "bvh")):
+    for turn, label in enumerate(("bvh", "packet", "packet", "bvh")):
         scene = scenes[label]
         schedule = diff.calibrate_live_schedule(scene, seeds=(TRAIN_SEED, TRAIN_SEED + 1))
         params = diff.params_from_numpy(start, base.device, requires_grad=True)
@@ -2964,7 +2991,7 @@ def phase_bvh_train(full) -> None:
                      for p in diff.param_leaves(params))
         per_step = {k: v / TRAIN_STEPS for k, v in counts.items()}
         ok_launches = all(per_step[k] == forward[k] > 0 for k in walk[label]) and all(
-            counts[k] == 0 for k in walk["auto" if label == "bvh" else "bvh"])
+            counts[k] == 0 for k in walk["packet" if label == "bvh" else "bvh"])
         falling = losses[-1] < losses[0] and all(x == x for x in losses)
         median = statistics.median(seconds)
         medians.setdefault(label, []).append(round(median, 4))
@@ -3123,6 +3150,7 @@ def phase_lamp_walk(device, lanes=WALK_LANES) -> dict:
     rpp, seed = 20, 80
     start = time.perf_counter()
     scene = scene_dsl.assemble_scene(builtin_scenes.parse_mesh_scene("torus", LAMP_SIZE),
+                                     config_overrides=dict(intersector="packet"),
                                      device=device)
     setup = time.perf_counter() - start
     start = time.perf_counter()
@@ -3175,7 +3203,7 @@ def phase_bvh(scenes) -> dict:
                                  pops_per_live_ray=r["pops"] / max(r["live"], 1),
                                  lanes_ms=r["lanes_ms"]))
             if torus and b in (0, 1, 3):
-                _walk_vs_packet(scene, scene.with_config(intersector="auto"), rows, b)
+                _walk_vs_packet(scene, scene.with_config(intersector="packet"), rows, b)
             if torus and b == 1:  # the kernel table: the sorted bounced block
                 result = r
     print("phase 13a walk: torus centre block ms per bounce "
@@ -3400,7 +3428,8 @@ def main() -> int:
     })
     for name, source, replaces, note in (
             # JAX's lockstep while_loop walk, not a TPU kernel; launches: the
-            # 100-spp torus render through intersector="bvh" (phase 13c).
+            # 100-spp torus render through intersector="auto", the main path
+            # (phase 7; phase 13c's explicit "bvh" render is bvh_render_launches).
             ("bvh_walk", "cuda_raytracer_tpu_torch/csrc/traverse.cu",
              "cuda_raytracer_tpu/ops/traverse.py:52", "bounce 1 of the centre block"),
             # JAX first2_cluster_keys, plain XLA; launches: the 8-spp torus
@@ -3413,7 +3442,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": r["launches"],
+            "launches": mesh_launches[name] if name == "bvh_walk" else r["launches"],
             "max_abs_err": r["max_abs_err"],
             "tolerance": "bit-equal",
             "ms": r["ms"],
@@ -3430,8 +3459,8 @@ def main() -> int:
                if name == "cullhit_keys" else {}),
             # The walk: every bounce of the centre block (also at
             # WALK_LANES), and bounce 1 of the lamp-scale torus.
-            **({"tail": r["tail"], "lamp_scale": r["lamp_scale"]} if name == "bvh_walk"
-               else {}),
+            **({"tail": r["tail"], "lamp_scale": r["lamp_scale"],
+                "bvh_render_launches": r["launches"]} if name == "bvh_walk" else {}),
         })
     # Each kernel's launches on its path beside its time and bound, ranked by
     # the device time a path loses to it: launches x (ms - bound_ms).

@@ -33,6 +33,7 @@ import sys
 import torch
 
 FLAGS = ("no_sort", "cpu", "no_gpu", "no_bvh")
+PACKET_OPTIONS = ("packet_skip", "packet_tile", "cluster_tris", "cull_split", "cull_hier")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,19 +61,23 @@ def build_parser() -> argparse.ArgumentParser:
                              "loops' rt.* spans among them), counters (sync.host, "
                              "rays.live, rays.launched, sync.device_idle_s and the "
                              "kernel launches) and series")
+    # The packet intersector's knobs. A mesh on a CUDA device walks the BVH
+    # instead (wavefront.resolve_intersector), and there they do nothing.
     parser.add_argument("--packet-skip", action="store_true",
-                        help="enable the fused kernel's per-ray slab-entry early-out (exact)")
+                        help="packet intersector: enable the fused kernel's per-ray "
+                        "slab-entry early-out (exact)")
     parser.add_argument("--packet-tile", type=int,
-                        help="rays per packet tile in the cluster intersector (default 64)")
+                        help="packet intersector: rays per packet tile (default 64)")
     parser.add_argument("--cluster-tris", type=int,
-                        help="triangles per cluster block (multiple of 128; default 256)")
+                        help="packet intersector: triangles per cluster block "
+                        "(multiple of 128; default 256)")
     parser.add_argument("--cull-split", type=int,
-                        help="tight sub-AABBs per cluster block in the cull "
-                        "(must divide cluster-tris; default 1)")
+                        help="packet intersector: tight sub-AABBs per cluster block in "
+                        "the cull (must divide cluster-tris; default 1)")
     parser.add_argument("--cull-hier", type=int,
-                        help="hierarchical cull: clusters per super-AABB gating 128-box "
-                        "chunks of the main cull (cull-hier * cull-split must divide "
-                        "128; 0 = flat cull, the default)")
+                        help="packet intersector: hierarchical cull, clusters per "
+                        "super-AABB gating 128-box chunks of the main cull (cull-hier * "
+                        "cull-split must divide 128; 0 = flat cull, the default)")
     return parser
 
 
@@ -134,6 +139,7 @@ def main(argv=None) -> int:
         f"{scene.bvh_node_count} BVH nodes",
         file=sys.stderr,
     )
+    _warn_unused_packet_options(args, scene)
 
     def run_backend(scene, label: str, checkpoint_path):
         before = launch_counts()
@@ -173,6 +179,20 @@ def main(argv=None) -> int:
         metrics.emit(stream=sys.stderr, scene=args.scene)
     print(f"Wrote {args.out}", file=sys.stderr)
     return 0
+
+
+def _warn_unused_packet_options(args, scene) -> None:
+    """Name on stderr the packet intersector's options that were given for
+    a scene that resolves to another intersector, where they do nothing."""
+    from cuda_raytracer_tpu_torch.render.wavefront import resolved_intersector
+
+    given = [f"--{name.replace('_', '-')}" for name in PACKET_OPTIONS
+             if getattr(args, name) not in (None, False)]
+    resolved = resolved_intersector(scene)
+    if given and resolved != "packet":
+        print(f"Warning: {' '.join(given)} apply to the packet intersector; this scene "
+              f"resolves to '{resolved}' on {scene.device.type}, so they have no effect",
+              file=sys.stderr)
 
 
 def _run_mesh(args, load_kwargs: dict, device_type: str) -> int:

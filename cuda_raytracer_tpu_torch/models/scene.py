@@ -118,8 +118,9 @@ class RenderConfig:
     # Brute scenes never reorder, so the port's brute path ignores it.
     sort_rays: bool = True
     sort_depth: int = 5
-    # Triangle intersector: "auto" (brute up to 512 triangles, packet
-    # above), "brute", "packet" or "bvh" (the per-ray BVH walk).
+    # Triangle intersector: "auto" (brute up to 512 triangles; above, the
+    # BVH walk on a CUDA device, packet elsewhere: render/wavefront.
+    # resolve_intersector), "brute", "packet" or "bvh" (the per-ray walk).
     intersector: str = "auto"
     packet_tile: int = 64
     packet_cap: int = 64

@@ -13,7 +13,7 @@ the bits of the single-device one.
 - Forward renders (``render_pass_sharded``, ``render_framebuffer_sharded``)
   trace a rank's share through the pipeline's own block tracer
   (``pipeline.render_pass`` over a pixel range): 2^18-ray blocks through
-  the packet kernels, or one shade-kernel launch for a brute scene. A
+  the closest-hit kernels, or one shade-kernel launch for a brute scene. A
   size-1 mesh gives ``render_framebuffer``'s bits.
 - Training (``sharded_loss``, ``make_sharded_train_step``) traces a rank's
   share as one differentiable wavefront, as ``diff.render_radiance`` traces

@@ -16,8 +16,8 @@ train step drives a ``torch.optim`` optimizer over ``param_leaves``.
 with the same numbers. ``params_to_numpy`` / ``params_from_numpy`` carry
 parameters across packages under the JAX field names.
 
-On the card the mesh path's closest hits run through the packet kernels in
-the forward pass only: the backward pass recomputes the shading from the
+On the card the mesh path's closest hits (the BVH walk under "auto", the
+packet kernels when asked for) run in the forward pass only: the backward pass recomputes the shading from the
 saved hit records and never launches a closest-hit kernel.
 """
 

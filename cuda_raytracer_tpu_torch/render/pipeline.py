@@ -9,7 +9,8 @@ i // rpp), so a block's per-pixel sums are a reshape-sum.
 Brute scenes on a CUDA device trace each pass in one launch of the shade
 kernel (``ops/kernels/shade.py``); everything else, mesh scenes included,
 runs the wavefront path in blocks of at most ``RAY_BLOCK`` rays, where the
-packet intersector's kernels run on a CUDA device. Every pass boundary can
+closest-hit kernels (the BVH walk, or the packet intersector's) run on a
+CUDA device. Every pass boundary can
 be checkpointed (``utils/checkpoint.py``) and reported to a progress
 callback and a ``utils/metrics.Metrics`` registry. The loops' spans
 (``rt.pass``, ``rt.block``, ``rt.accumulate``, ``rt.post`` here; the bounce

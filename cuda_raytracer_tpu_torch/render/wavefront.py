@@ -11,17 +11,19 @@ not depend on execution order.
 This is the port's PyTorch wavefront: it renders brute scenes on any
 device (and is the plain version the CUDA shade kernel,
 ``ops/kernels/shade.py``, is held against), and mesh scenes through the
-packet intersector (``ops/packet_intersect.py``), whose kernels run on a
-CUDA device. A forward trace (no autograd graph to build) runs on packed
-rows (``trace_packed``), from a block's camera rows written by one kernel
+intersector ``resolved_intersector`` picks: on a CUDA device "auto" walks
+the BVH, elsewhere it takes the packet intersector
+(``ops/packet_intersect.py``), whose kernels run on a CUDA device when it
+is asked for by name. A forward trace (no autograd graph to build) runs on
+packed rows (``trace_packed``), from a block's camera rows written by one kernel
 (``trace_camera``, ``ops/kernels/rays.camera_rows``): per bounce the set-up, closest-hit and bounce
 kernels (``ops/kernels/rays.py``, ``ops/kernels/bounce.py``) on a CUDA
 device, their plain versions (this module's torch shading) on the CPU. A
-trace that builds a graph shades with torch (``trace_rays``). With
-``intersector="bvh"`` the closest hit walks the BVH instead
-(``ops/kernels/traverse.bvh_walk``: one thread per ray in
+trace that builds a graph shades with torch (``trace_rays``). The BVH
+walk (``intersector="bvh"``, or "auto" on the card) is
+``ops/kernels/traverse.bvh_walk``: one thread per ray in
 ``csrc/traverse.cu`` on the card, ``ops/traverse.py``'s lockstep walk on the
-CPU). Between bounces the wavefront is
+CPU. Between bounces the wavefront is
 reordered by Morton key, or for a packet scene by ``sort_key="cullhit"``'s
 first two slab-hit cluster ids (chunk-local, see ``SORT_CHUNK``), and each
 bounce runs on the smallest static prefix that holds every live ray
@@ -111,10 +113,13 @@ def closest_hit(
 def triangle_hit(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
                  t: torch.Tensor, index: torch.Tensor, two_round: bool = False):
     """``closest_hit`` after the spheres: (t, index), the sphere hit (t = -1
-    on a dead ray), updated with the nearest triangle → (t, index, suspect)."""
+    on a dead ray), updated with the nearest triangle → (t, index, suspect).
+    While recording, its rows count as ``hit.rows``, and as ``hit.walk_rows``
+    too where the BVH walk takes them."""
     if scene.triangle_count == 0:
         return t, index, 0
     mode = resolved_intersector(scene)
+    recording.count("hit.rows", origin.shape[0])
     if mode == "packet":
         cfg = scene.config
         return packet_intersect.closest_hit_packet(
@@ -126,6 +131,7 @@ def triangle_hit(scene: Scene, origin: torch.Tensor, direction: torch.Tensor,
             skip=cfg.packet_skip,
         )
     if mode == "bvh":
+        recording.count("hit.walk_rows", origin.shape[0])
         t, index = traverse_kernel.bvh_walk(scene, origin, direction, t, index)
         return t, index, 0
     t_tri, i_tri = intersect.intersect_triangles_brute(
@@ -575,19 +581,48 @@ def bounce_on_live_prefix(
     return out, bound, suspect
 
 
-def resolved_intersector(scene: Scene) -> str:
-    """The triangle intersector closest_hit uses: auto → brute up to 512
-    triangles, packet above; a single-leaf tree or no triangles → brute."""
-    mode = scene.config.intersector
+# "auto" keeps scenes of at most this many triangles on the brute tile.
+BRUTE_MAX_TRIANGLES = 512
+
+
+def resolve_intersector(mode: str, triangle_count: int, bvh_node_count: int,
+                        device_type: str) -> str:
+    """The triangle intersector of a scene: ``"auto"`` becomes brute up to
+    BRUTE_MAX_TRIANGLES triangles; above, the BVH walk on a CUDA device and
+    the packet intersector elsewhere. A single-leaf tree or no triangles →
+    brute, whatever the mode; an explicit mode is otherwise returned as it
+    is. Off the card "auto" is the JAX package's rule (measured on a TPU
+    v5e), so the CPU tests hold the port to JAX like for like. On an H100
+    (NVIDIA H100 80GB HBM3, 700 W; turns bvh, packet, packet, bvh) at
+    1000×1000 × 10 bounces the walk won every turn at 126,000 triangles and
+    above: at 100 rays a pixel the torus in 1.63–1.71 s against 4.97–5.06
+    s, its glass form 1.55–1.76 against 4.63–4.74, the torus without its
+    ground 1.51–1.64 against 2.40–2.50, the 619,502-triangle one 1.62–1.78
+    against 15.9–16.3; at 1 ray a pixel 0.017–0.026 s against 0.050–0.190
+    s. Smaller tori: at 514 and 770 triangles the two tie at 100 rays a
+    pixel (1.27–1.58 s against 1.43–1.55) and the walk wins at 1 (0.016–
+    0.020 s against 0.029–0.037); at 2,402, 9,602 and 36,002 it wins at
+    both (at 100: 1.31–1.63 s against 1.88–3.41). BRUTE_MAX_TRIANGLES is the JAX
+    package's cut-off; on the card it was timed against the walk only at 450
+    triangles under a sky map (no megakernel: the wavefront's brute path),
+    where brute took 87.8 s and the walk 1.58 (PERF.md §7)."""
     if mode not in ("auto", "brute", "packet", "bvh"):
         raise ValueError(
             f"unknown intersector {mode!r}; expected auto | brute | packet | bvh"
         )
+    if bvh_node_count <= 1 or triangle_count == 0 or (
+            mode == "auto" and triangle_count <= BRUTE_MAX_TRIANGLES):
+        return "brute"
     if mode == "auto":
-        mode = "brute" if scene.triangle_count <= 512 else "packet"
-    if scene.bvh_node_count <= 1 or scene.triangle_count == 0:
-        mode = "brute"
+        return "bvh" if device_type == "cuda" else "packet"
     return mode
+
+
+def resolved_intersector(scene: Scene) -> str:
+    """The triangle intersector closest_hit uses (``resolve_intersector`` on
+    the scene's device)."""
+    return resolve_intersector(scene.config.intersector, scene.triangle_count,
+                               scene.bvh_node_count, scene.device.type)
 
 
 def reorder_is_useful(scene: Scene) -> bool:
@@ -785,7 +820,9 @@ def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
     ``triangle_hit``), the bounce kernel. Bit-identical to ``process_rays``
     on the same rays. With ``plain`` the set-up and the shading run their
     plain versions (torch) on any device; the closest hit is unchanged.
-    ``live``, a (1,) int64 counter, gets the live rows added by the set-up."""
+    ``live``, a (1,) int64 counter, gets the live rows added by the set-up.
+    While recording, the rows a packet engine takes count as ``hit.rows``
+    (``triangle_hit`` counts its own)."""
     engine = _row_engine(scene)
     tile = scene.config.packet_tile if engine else 0
     setup = rays_kernel.plain_rays_setup if plain else rays_kernel.rays_setup
@@ -794,6 +831,7 @@ def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
     t_tri = tri = None
     suspect = 0
     if engine:
+        recording.count("hit.rows", rows.shape[0])
         t_tri, tri = packet_intersect.packet_tiles(scene, od8, engine,
                                                    skip=scene.config.packet_skip)
     else:

@@ -23,7 +23,8 @@ point costs that check alone. The loops' records:
   ``device_counter``), ``rays.launched`` (rows the bounce kernels ran
   over), ``sync.device_idle_s`` (device idle between the event recorded
   before each ``read_live`` and the one recorded at the next launch,
-  ``launching``).
+  ``launching``), ``hit.rows`` (rows handed to a triangle closest hit) and
+  ``hit.walk_rows`` (those of them the BVH walk took).
 
 Values that live on the device (the accumulators, the event pairs) are
 kept as they are and folded into ``counters`` when the registry is read

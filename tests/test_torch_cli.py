@@ -8,7 +8,9 @@ The exit codes for a missing scene argument, an unknown flag and no backend
 equal JAX's. Without CUDA the accelerator run raises instead of rendering
 on the CPU, and so does ``--mesh`` unless ``cpu no_gpu`` asks for CPU ranks
 (``test_torch_parallel.py`` runs those). ``--mesh 1`` renders in the calling
-process, as the JAX CLI does, and writes the plain run's PNG bytes.
+process, as the JAX CLI does, and writes the plain run's PNG bytes. The
+packet intersector's options, given for a scene that resolves to another
+intersector, are named in a warning.
 """
 
 import multiprocessing.process
@@ -100,3 +102,21 @@ def test_mesh_1_renders_in_process(cornell, tmp_path, monkeypatch):
     assert cli.main([str(cornell), "cpu", "no_gpu", *SMALL, "--mesh", "1", "--metrics",
                      "--out", str(mesh)]) == 0
     assert mesh.read_bytes() == plain.read_bytes()
+
+
+@pytest.mark.parametrize("name, resolved", [("cornell", "brute"), ("torus", "packet")])
+def test_packet_options_warn_when_unused(name, resolved, tmp_path, capsys):
+    """``--cull-hier`` and ``--packet-tile`` on the CPU: the Cornell box
+    resolves to brute and gets a warning that names both; the small torus
+    (768 triangles) resolves to the packet intersector and gets none."""
+    scene = tmp_path / f"{name}.scene"
+    scene.write_text(builtin_scenes.CORNELL if name == "cornell"
+                     else builtin_scenes.torus(builtin_scenes.SMALL) + "sky_map envmap.pfm\n")
+    assert cli.main([str(scene), "cpu", "no_gpu", *SMALL, "--cull-hier", "16",
+                     "--packet-tile", "32", "--out", str(tmp_path / "x.png")]) == 0
+    warnings = [ln for ln in capsys.readouterr().err.splitlines() if ln.startswith("Warning:")]
+    if resolved == "packet":
+        assert warnings == []
+    else:
+        assert len(warnings) == 1
+        assert "--packet-tile --cull-hier" in warnings[0] and "'brute' on cpu" in warnings[0]

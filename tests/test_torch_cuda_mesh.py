@@ -7,7 +7,10 @@ which has no JAX, run them without the suite's JAX conftest:
 
 Each kernel is held BIT-EQUAL to its plain version on real wavefront states
 of the small torus at 32×32 (coherent primary rays and Morton-sorted
-bounced ones); a two-pass render ("auto": fused1 for its 10-rays-per-pixel
+bounced ones), through ``intersector="packet"`` unless a test names
+another: "auto" on the card walks the BVH, and a render through it launches
+the walk and no packet kernel and gives the walk's bits. A two-pass render
+(packet backend "auto": fused1 for its 10-rays-per-pixel
 pass, the pass regime, and cull + fused for its 2-rays-per-pixel pass) is
 held to the agreement gate against the same render with the xla engine, and
 bit-equal to it through fused1 alone. The
@@ -70,10 +73,11 @@ def cuda():
 
 
 def _scene(device, name="torus", **overrides):
+    """The small torus at 32×32 through the packet intersector unless
+    ``overrides`` name another ("auto" on the card walks the BVH)."""
     parsed = builtin_scenes.parse_mesh_scene(name, builtin_scenes.SMALL)
-    return scene_dsl.assemble_scene(
-        parsed, config_overrides=dict(width=32, height=32, **overrides), device=device
-    )
+    cfg = {"width": 32, "height": 32, "intersector": "packet", **overrides}
+    return scene_dsl.assemble_scene(parsed, config_overrides=cfg, device=device)
 
 
 def _states(scene, rpp=4, bounces=2):
@@ -293,7 +297,7 @@ def _packed_pair(device, **overrides):
     """The torus in sub-clusters of 32: packed two to a 64-lane block, and
     unpacked."""
     parsed = builtin_scenes.parse_mesh_scene("torus", (72, 48))
-    cfg = dict(width=32, height=32, **overrides)
+    cfg = dict(width=32, height=32, intersector="packet", **overrides)
     packed = scene_dsl.assemble_scene(parsed, config_overrides=dict(cfg, cluster_pack=2),
                                       cluster_tris=64, device=device)
     half = scene_dsl.assemble_scene(parsed, config_overrides=cfg, cluster_tris=32,
@@ -586,6 +590,27 @@ def test_bvh_render_launches_the_walk_and_refuses_bad_inputs(cuda):
                          bvh_child2=torch.tensor(child2, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="MAX_BVH_DEPTH"):
         traverse_kernel.bvh_walk(deep, o, o, t, i)
+
+
+def test_auto_renders_meshes_through_the_walk(cuda):
+    """"auto" on the card: the torus's passes of 10 and 2 rays a pixel walk
+    the BVH, no packet kernel launches, the framebuffer is the one of
+    ``intersector="bvh"`` bit for bit, and every row handed to a closest
+    hit went to the walk."""
+    from cuda_raytracer_tpu_torch.utils import metrics
+
+    scene = _scene(cuda, intersector="auto", rays_per_pixel=12, bounces=4,
+                   max_rays_per_pixel_per_pass=10)
+    assert wavefront.resolved_intersector(scene) == "bvh"
+    packet = lambda: (cull.LAUNCHES, cull.LAUNCHES_GATED, fused.LAUNCHES, fused1.LAUNCHES,
+                      fused1.LAUNCHES_PACK2, sweep.LAUNCHES)
+    before = (traverse_kernel.LAUNCHES, packet())
+    m = metrics.Metrics()
+    fb = pipeline.render_framebuffer(scene, metrics=m)
+    assert traverse_kernel.LAUNCHES > before[0] and packet() == before[1]
+    assert torch.equal(fb, pipeline.render_framebuffer(scene.with_config(intersector="bvh")))
+    counters = m.resolve().counters
+    assert counters["hit.walk_rows"] == counters["hit.rows"] >= 12 * 32 * 32
 
 
 def test_cullhit_keys_bit_equal_plain(cuda):
