@@ -58,9 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "single-device render; with 'cpu no_gpu': N CPU ranks)")
     parser.add_argument("--metrics", action="store_true",
                         help="emit a JSON metrics line to stderr: phases (the render "
-                             "loops' rt.* spans among them), counters (sync.host, "
-                             "rays.live, rays.launched, sync.device_idle_s and the "
-                             "kernel launches) and series")
+                             "loops' rt.* spans among them, rt.tail too), counters "
+                             "(sync.host, rays.live, rays.live_tail, rays.launched, "
+                             "shade.dielectric, sync.device_idle_s and the kernel "
+                             "launches) and series")
     # The packet intersector's knobs. A mesh on a CUDA device walks the BVH
     # instead (wavefront.resolve_intersector), and there they do nothing.
     parser.add_argument("--packet-skip", action="store_true",

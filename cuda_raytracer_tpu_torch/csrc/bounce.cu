@@ -25,6 +25,11 @@
 // strided scalar loads from four leaves and a separate (R, 12) output; the
 // update is in place, so a dead ray costs its row's read and no write, and
 // nothing is allocated per bounce. Misses skip the PCG chain.
+//
+// Given a counter (recording on: utils/metrics' shade.dielectric), the
+// counting instance runs, and each warp adds the rows it scattered off a
+// dielectric with one atomic of its ballot's popcount. Null, the other
+// instance runs, the body alone: the rows are the same either way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -35,14 +40,25 @@ namespace {
 
 constexpr int kThreads = 256;
 
+template <bool kCount>
 __global__ void __launch_bounds__(kThreads)
 bounce_rows_kernel(rt::BounceTables tb, float* __restrict__ rows, int n,
                    const float* __restrict__ t_sph, const int* __restrict__ i_sph,
                    const float* __restrict__ t_tri, const int* __restrict__ tri,
-                   uint32_t pass_seed, uint32_t bounce) {
+                   uint32_t pass_seed, uint32_t bounce,
+                   unsigned long long* __restrict__ dielectric) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+  if (!kCount) {
+    if (i >= n) return;
+    rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+    return;
+  }
+  bool diel = false;
+  if (i < n)
+    diel = rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+  const unsigned int ballot = __ballot_sync(0xffffffffu, diel);
+  if ((threadIdx.x & 31) == 0 && ballot)
+    atomicAdd(dielectric, (unsigned long long)__popc(ballot));
 }
 
 }  // namespace
@@ -54,20 +70,26 @@ extern "C" {
 // float32 and i_sph (n,) int32: the sphere hit, -1 on a dead ray; t_tri (>= n,)
 // float32 and tri (>= n,) int32: the packet kernel's per-ray triangle hit, or
 // both null when t_sph / i_sph already hold the closest hit. Tables as
-// rt::BounceTables.
+// rt::BounceTables. dielectric: null, or a counter the rows scattered off a
+// dielectric are added to.
 int rt_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph,
                    const float* t_tri, const int* tri, const int* material_index,
                    int n_prims, const float* sphere_center, const float* sphere_radius,
                    int n_sphere_rows, int sphere_count, const float* tri_normal,
                    int n_tri_rows, const float* materials, const float* env, int env_h,
-                   int env_w, unsigned int pass_seed, unsigned int bounce, void* stream) {
+                   int env_w, unsigned int pass_seed, unsigned int bounce,
+                   unsigned long long* dielectric, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
                             materials, env, env_h, env_w};
   const int blocks = (n + kThreads - 1) / kThreads;
-  bounce_rows_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+  if (dielectric)
+    bounce_rows_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, bounce, dielectric);
+  else
+    bounce_rows_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, bounce, nullptr);
   return (int)cudaGetLastError();
 }
 

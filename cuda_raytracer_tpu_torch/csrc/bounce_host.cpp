@@ -16,12 +16,16 @@ int rt_host_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph
                         int n_prims, const float* sphere_center, const float* sphere_radius,
                         int n_sphere_rows, int sphere_count, const float* tri_normal,
                         int n_tri_rows, const float* materials, const float* env, int env_h,
-                        int env_w, unsigned int pass_seed, unsigned int bounce) {
+                        int env_w, unsigned int pass_seed, unsigned int bounce,
+                        unsigned long long* dielectric) {
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
                             materials, env, env_h, env_w};
-  for (int i = 0; i < n; ++i)
-    rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+  for (int i = 0; i < n; ++i) {
+    const bool diel =
+        rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+    if (dielectric && diel) ++*dielectric;
+  }
   return 0;
 }
 
@@ -29,11 +33,12 @@ int rt_host_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph
 int rt_host_rays_setup(const float* rows, int n, int tile, int total,
                        const float* sphere_center, const float* sphere_radius, int n_spheres,
                        unsigned char* alive, float* t, int* index, float* od8,
-                       unsigned long long* live_count) {
+                       unsigned long long* live_count, unsigned long long* live_tail) {
   for (int i = 0; i < total; ++i) {
     const bool live = rt::setup_ray(rows, n, tile, sphere_center, sphere_radius, n_spheres, i,
                                     alive, t, index, od8);
     if (live_count && live) ++*live_count;
+    if (live_tail && live) ++*live_tail;
   }
   return 0;
 }

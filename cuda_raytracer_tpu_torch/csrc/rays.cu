@@ -50,7 +50,9 @@
 // (R,) and (R, 3) temporaries, and the plain PCG some 60 int64 ops a draw on
 // 32-bit limbs. Given a counter, the set-up kernel also sums the live rows
 // entering the bounce (a render's live ray-bounces, while it records): one
-// atomic a warp, of its alive ballot's popcount. The key kernels produce the live count themselves: each
+// atomic a warp, of its alive ballot's popcount, and, given a second counter
+// (a bounce of the trace's tail), the same count into it. The key kernels
+// produce the live count themselves: each
 // block adds its count to a two-word scratch of the launch's stream, and the
 // last block to finish (a ticket taken after a fence) writes the total and
 // zeroes the scratch for the next launch, so no memset precedes them.
@@ -104,13 +106,15 @@ __device__ void add_live(int block_live, unsigned int* scratch, int* live_count)
 
 // live_count: null, or a counter each warp adds its live rows to (one
 // atomic of its alive ballot's popcount); a uniform branch when null.
+// live_tail: null, or a second counter that gets the same adds.
 __global__ void __launch_bounds__(kThreads)
 rays_setup_kernel(const float* __restrict__ rows, int n, int tile, int total,
                   const float* __restrict__ sphere_center,
                   const float* __restrict__ sphere_radius, int n_spheres,
                   unsigned char* __restrict__ alive, float* __restrict__ t,
                   int* __restrict__ index, float* __restrict__ od8,
-                  unsigned long long* __restrict__ live_count) {
+                  unsigned long long* __restrict__ live_count,
+                  unsigned long long* __restrict__ live_tail) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   bool live = false;
   if (i < total)
@@ -118,8 +122,10 @@ rays_setup_kernel(const float* __restrict__ rows, int n, int tile, int total,
                          index, od8);
   if (live_count) {
     const unsigned int ballot = __ballot_sync(0xffffffffu, live);
-    if ((threadIdx.x & 31) == 0 && ballot)
+    if ((threadIdx.x & 31) == 0 && ballot) {
       atomicAdd(live_count, (unsigned long long)__popc(ballot));
+      if (live_tail) atomicAdd(live_tail, (unsigned long long)__popc(ballot));
+    }
   }
 }
 
@@ -289,14 +295,16 @@ extern "C" {
 // sphere_radius (n_spheres,) → alive (n,) uint8, t (n,) float32, index (n,)
 // int32 and, unless od8 is null, od8 (T, 8, tile) float32 with T * tile >= n
 // (`total` = T * tile rays; n when od8 is null); unless live_count is null,
-// one uint64 += the live rows. Returns cudaGetLastError().
+// one uint64 += the live rows, and so live_tail unless it is null too.
+// Returns cudaGetLastError().
 int rt_rays_setup(const float* rows, int n, int tile, int total, const float* sphere_center,
                   const float* sphere_radius, int n_spheres, unsigned char* alive, float* t,
-                  int* index, float* od8, unsigned long long* live_count, void* stream) {
+                  int* index, float* od8, unsigned long long* live_count,
+                  unsigned long long* live_tail, void* stream) {
   if (total <= 0) return (int)cudaGetLastError();
   rays_setup_kernel<<<blocks_for(total), kThreads, 0, (cudaStream_t)stream>>>(
       rows, n, tile, total, sphere_center, sphere_radius, n_spheres, alive, t, index, od8,
-      live_count);
+      live_count, live_tail);
   return (int)cudaGetLastError();
 }
 

@@ -18,6 +18,11 @@ bounce. Training shades with torch (``wavefront.process_rays``).
   agree to the shade kernel's gate (libm sin / cos / atan differ by ulps);
   on the card every path shades through the kernel, so regimes, packings,
   resumes and ranks keep identical bits there.
+
+Given a ``dielectric`` counter (``utils/metrics``' ``shade.dielectric``),
+both add to it the rows they scattered off a dielectric (a live hit on a
+material of ior > 0), reflected or refracted; the rows are the same with
+and without it.
 """
 
 from __future__ import annotations
@@ -54,19 +59,23 @@ def material_table(scene: Scene) -> torch.Tensor:
 
 
 def plain_shade_bounce(scene: Scene, state, t: torch.Tensor, hit_index: torch.Tensor,
-                       pass_seed, bounce: int):
+                       pass_seed, bounce: int, dielectric: torch.Tensor = None):
     """The kernel's plain PyTorch version on a ``RayState``: the hit record's
-    gathers, then ``wavefront.shade`` with the torch PCG."""
+    gathers, then ``wavefront.shade`` with the torch PCG; ``dielectric`` as
+    ``shade_rows``'."""
     from cuda_raytracer_tpu_torch.render import wavefront
 
     alive = torch.any(state.transmitted != 0.0, dim=-1)
     hit = wavefront.gather_hit(scene, state, alive, t, hit_index)
+    if dielectric is not None:
+        ior = scene.materials.index_of_refraction.detach()[hit.mat_i]
+        dielectric += (alive & (hit_index >= 0) & (ior > 0)).sum()
     return wavefront.shade(scene, state, hit, pass_seed, bounce, plain_draws=True)
 
 
 def plain_shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
                      pass_seed, bounce: int, t_tri: torch.Tensor = None,
-                     tri: torch.Tensor = None) -> None:
+                     tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> None:
     """The kernel's plain PyTorch version on packed rows, in place: the
     packet hit's fold (``packet_intersect._finalize``), then
     ``plain_shade_bounce``."""
@@ -75,12 +84,13 @@ def plain_shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: t
     n = rows.shape[0]
     if t_tri is not None:
         t, index, _ = packet_intersect._finalize(scene, t_tri, tri, None, t, index, n, 1)
-    state = plain_shade_bounce(scene, wavefront.unpack_rows(rows), t, index, pass_seed, bounce)
+    state = plain_shade_bounce(scene, wavefront.unpack_rows(rows), t, index, pass_seed, bounce,
+                               dielectric)
     rows[:, 0:12] = torch.cat(list(state[:4]), dim=1)
 
 
 def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
-           t_tri: torch.Tensor, tri: torch.Tensor) -> None:
+           t_tri: torch.Tensor, tri: torch.Tensor, dielectric: torch.Tensor) -> None:
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 16:
         raise ValueError(f"rows must be (n, 16) float32, got {rows.dtype} {tuple(rows.shape)}")
     if not rows.is_contiguous() or rows.data_ptr() % 16:
@@ -100,6 +110,9 @@ def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tenso
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != scene.device:
             raise ValueError(f"{name} lies on {x.device}, the scene on {scene.device}")
+    if dielectric is not None and (dielectric.dtype != torch.int64 or dielectric.shape != (1,)
+                                   or dielectric.device != scene.device):
+        raise ValueError("dielectric must be a (1,) int64 tensor on the scene's device")
 
 
 def library() -> build.Built:
@@ -107,7 +120,7 @@ def library() -> build.Built:
     built = build.load("bounce")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = built.lib.rt_bounce_rows
-    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p]
+    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p, p]
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -116,7 +129,7 @@ def library() -> build.Built:
 
 def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
                 pass_seed, bounce: int, t_tri: torch.Tensor = None,
-                tri: torch.Tensor = None) -> list:
+                tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> list:
     """The arguments of ``rt_bounce_rows`` (and of its host build) for one
     call, without the stream."""
     env = scene.environment_map
@@ -130,6 +143,7 @@ def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.
         scene.tri_normal.data_ptr(), scene.tri_normal.shape[0],
         material_table(scene).data_ptr(), env.data_ptr(), env.shape[0], env.shape[1],
         int(pass_seed) & 0xFFFFFFFF, int(bounce),
+        dielectric.data_ptr() if dielectric is not None else None,
     ]
 
 
@@ -144,21 +158,22 @@ def _check_tables(scene: Scene) -> None:
 
 def shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
                pass_seed, bounce: int, t_tri: torch.Tensor = None,
-               tri: torch.Tensor = None) -> None:
+               tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> None:
     """Shade the (n, 16) packed rows in place, given each row's sphere hit
     (``t``, -1 on a dead ray; ``index``, -1 on a miss) and, unless None, the
     packet kernel's per-ray triangle hit (``t_tri``, ``tri``: at least n
-    values, (T, tile) as the kernel returns them)."""
+    values, (T, tile) as the kernel returns them). ``dielectric``, a (1,)
+    int64 tensor, gets the rows scattered off a dielectric added to it."""
     global LAUNCHES
-    _check(scene, rows, t, index, t_tri, tri)
+    _check(scene, rows, t, index, t_tri, tri, dielectric)
     if device_kind(rows, "shade_rows") == "cpu":
-        plain_shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri)
+        plain_shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric)
         return
     _check_tables(scene)
     lib = library().lib
     with torch.cuda.device(rows.device):
         err = lib.rt_bounce_rows(
-            *kernel_args(scene, rows, t, index, pass_seed, bounce, t_tri, tri),
+            *kernel_args(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric),
             torch.cuda.current_stream(rows.device).cuda_stream,
         )
     raise_on_error(lib, err, "bounce")

@@ -12,7 +12,8 @@ bounce; these kernels take their place (the cullhit key joins them for
   ``render/wavefront.py`` ``closest_hit``) and, for the packet kernels, the
   (T, 8, tile) ray tiles (``packet_intersect._pad_rays`` + ``cull.make_od8``;
   JAX ``ops/pallas/cull.py``'s ray tiles); given a ``live`` counter, the
-  live rows added to it (``utils/metrics``' ``rays.live``).
+  live rows added to it (``utils/metrics``' ``rays.live``), and to a second,
+  ``tail``, where given too (``rays.live_tail``).
 - ``ray_keys``: each row's Morton sort key (``morton.ray_sort_keys``; JAX
   ``ops/morton.py`` ``ray_sort_keys``), the "count" engine's clamped bucket
   where asked, its sort chunk's index in the high 32 bits (one flat stable
@@ -91,7 +92,7 @@ def library() -> build.Built:
     """Build (at first use) and bind ``csrc/rays.cu``."""
     built = build.load("rays")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p, p]
+    built.lib.rt_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p, p, p]
     built.lib.rt_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p, p]
     built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
     built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
@@ -129,16 +130,20 @@ def live_scratch(x: torch.Tensor) -> torch.Tensor:
 
 
 def plain_rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor,
-                     sphere_radius: torch.Tensor, tile: int = 0, live: torch.Tensor = None):
+                     sphere_radius: torch.Tensor, tile: int = 0, live: torch.Tensor = None,
+                     tail: torch.Tensor = None):
     """The set-up kernel's plain PyTorch version → (alive, t, index, od8):
     the torch code of the port's closest hit (alive mask,
     ``intersect_spheres``, ``t = -1`` where dead, ``_pad_rays`` +
     ``make_od8``); ``od8`` is None when ``tile`` is 0. The live rows are
-    added to ``live`` when given."""
+    added to ``live`` when given, and then to ``tail`` when given."""
     origin, direction = rows[:, 0:3], rows[:, 3:6]
     alive = rows_alive(rows)
     if live is not None:
-        live += alive.sum()
+        n_live = alive.sum()
+        live += n_live
+        if tail is not None:
+            tail += n_live
     t, index = intersect.intersect_spheres(origin, direction, sphere_center, sphere_radius)
     t = torch.where(alive, t, -1.0)
     od8 = None
@@ -151,14 +156,15 @@ def plain_rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor,
 
 
 def setup_args(rows, sphere_center, sphere_radius, tile, alive, t, index, od8,
-               live=None) -> list:
+               live=None, tail=None) -> list:
     """The arguments of ``rt_rays_setup`` (and of its host build), without the stream."""
     n = rows.shape[0]
     total = od8.shape[0] * tile if od8 is not None else n
     return [rows.data_ptr(), n, max(tile, 1), total, sphere_center.data_ptr(),
             sphere_radius.data_ptr(), sphere_center.shape[0], alive.data_ptr(),
             t.data_ptr(), index.data_ptr(), od8.data_ptr() if od8 is not None else None,
-            live.data_ptr() if live is not None else None]
+            live.data_ptr() if live is not None else None,
+            tail.data_ptr() if tail is not None else None]
 
 
 def setup_outputs(rows: torch.Tensor, tile: int):
@@ -172,27 +178,31 @@ def setup_outputs(rows: torch.Tensor, tile: int):
 
 
 def rays_setup(rows: torch.Tensor, sphere_center: torch.Tensor, sphere_radius: torch.Tensor,
-               tile: int = 0, live: torch.Tensor = None):
+               tile: int = 0, live: torch.Tensor = None, tail: torch.Tensor = None):
     """(n, 16) packed rows → (alive (n,) bool, t (n,) float32 with -1 on dead
     rays, sphere index (n,) int32 with -1 on a miss, and with ``tile`` > 0 the
     (ceil(n / tile), 8, tile) ray tiles, else None). ``live``, a (1,) int64
-    tensor on the rows' device, gets the live rows added to it."""
+    tensor on the rows' device, gets the live rows added to it; so does
+    ``tail``, another such tensor, which needs ``live``."""
     global LAUNCHES_SETUP
     _check_rows(rows)
     if sphere_center.shape != (sphere_radius.shape[0], 3) or not (
             sphere_center.is_contiguous() and sphere_radius.is_contiguous()):
         raise ValueError("sphere tables must be contiguous (S, 3) and (S,)")
-    if live is not None and (live.dtype != torch.int64 or live.shape != (1,)
-                             or live.device != rows.device):
-        raise ValueError("live must be a (1,) int64 tensor on the rows' device")
+    for name, counter in (("live", live), ("tail", tail)):
+        if counter is not None and (counter.dtype != torch.int64 or counter.shape != (1,)
+                                    or counter.device != rows.device):
+            raise ValueError(f"{name} must be a (1,) int64 tensor on the rows' device")
+    if tail is not None and live is None:
+        raise ValueError("tail needs live")
     if device_kind(rows, "rays_setup") == "cpu":
-        return plain_rays_setup(rows, sphere_center, sphere_radius, tile, live)
+        return plain_rays_setup(rows, sphere_center, sphere_radius, tile, live, tail)
     outs = setup_outputs(rows, tile)
     lib = library().lib
     recording.launching()  # ends the device idle of a live-count read, if one is open
     with torch.cuda.device(rows.device):
         err = lib.rt_rays_setup(*setup_args(rows, sphere_center, sphere_radius, tile, *outs,
-                                            live), _stream(rows))
+                                            live, tail), _stream(rows))
     raise_on_error(lib, err, "rays_setup")
     LAUNCHES_SETUP += 1
     return outs

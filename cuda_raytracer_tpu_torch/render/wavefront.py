@@ -46,6 +46,7 @@ permutation are computed once, in the forward pass.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
@@ -59,6 +60,8 @@ from cuda_raytracer_tpu_torch.ops.kernels import bounce as bounce_kernel
 from cuda_raytracer_tpu_torch.ops.kernels import rays as rays_kernel
 from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
 from cuda_raytracer_tpu_torch.utils import metrics as recording
+
+_NO_SPAN = contextlib.nullcontext()  # the head bounces' stand-in for the rt.tail span
 
 # Bounces whose closest hit uses the "pallas" engine's two-round sweep (the
 # wavefront is still large there but has lost primary-ray coherence).
@@ -813,21 +816,23 @@ def _row_engine(scene: Scene):
 
 
 def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
-                plain: bool = False, live: torch.Tensor = None):
+                plain: bool = False, live: torch.Tensor = None, tail: torch.Tensor = None,
+                dielectric: torch.Tensor = None):
     """One forward bounce of packed rows, in place → suspect: the set-up
     kernel (alive bit, sphere hit, ray tiles), the closest hit over the
     triangles (the fused / fused1 kernels on the ray tiles, else
     ``triangle_hit``), the bounce kernel. Bit-identical to ``process_rays``
     on the same rays. With ``plain`` the set-up and the shading run their
     plain versions (torch) on any device; the closest hit is unchanged.
-    ``live``, a (1,) int64 counter, gets the live rows added by the set-up.
-    While recording, the rows a packet engine takes count as ``hit.rows``
-    (``triangle_hit`` counts its own)."""
+    ``live``, a (1,) int64 counter, gets the live rows added by the set-up,
+    and ``tail``, another, the same; ``dielectric`` gets the rows the bounce
+    kernel scattered off a dielectric. While recording, the rows a packet
+    engine takes count as ``hit.rows`` (``triangle_hit`` counts its own)."""
     engine = _row_engine(scene)
     tile = scene.config.packet_tile if engine else 0
     setup = rays_kernel.plain_rays_setup if plain else rays_kernel.rays_setup
     shade_rows = bounce_kernel.plain_shade_rows if plain else bounce_kernel.shade_rows
-    _, t, index, od8 = setup(rows, scene.sphere_center, scene.sphere_radius, tile, live)
+    _, t, index, od8 = setup(rows, scene.sphere_center, scene.sphere_radius, tile, live, tail)
     t_tri = tri = None
     suspect = 0
     if engine:
@@ -837,7 +842,7 @@ def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
     else:
         t, index, suspect = triangle_hit(scene, rows[:, 0:3], rows[:, 3:6], t, index,
                                          two_round=bounce in TWO_ROUND_BOUNCES)
-    shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri)
+    shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric)
     return suspect
 
 
@@ -877,8 +882,12 @@ def trace_packed(
     ``plain`` is ``bounce_rows``'; ``bounds``, a list, gets each bounce's
     entering live bound. While recording (``utils/metrics``) a bounce counts
     its live rows (``rays.live``, summed by the set-up) and its prefix's
-    rows (``rays.launched``), and a sorted one's read of the live count the
-    device idle until the next set-up launch (``sync.device_idle_s``)."""
+    rows (``rays.launched``), the bounce kernel the rows it scattered off a
+    dielectric (``shade.dielectric``), and a sorted one's read of the live
+    count the device idle until the next set-up launch
+    (``sync.device_idle_s``). The tail, bounces ``bounces // 2`` on, also
+    counts its live rows into ``rays.live_tail`` and runs each bounce inside
+    an ``rt.tail`` span within its ``rt.bounce``."""
     sort_rays = sort_rays and reorder_is_useful(scene)
     sorted_bounces = _sort_schedule(scene, sort_rays, bounces)
     cur = state if isinstance(state, torch.Tensor) else pack_rows(state)
@@ -890,7 +899,8 @@ def trace_packed(
     live_bound = settled = R
     suspect_total = 0
     for bounce, do_sort in enumerate(sorted_bounces):
-        with recording.span("rt.bounce"):
+        in_tail = bounce >= bounces // 2
+        with recording.span("rt.bounce"), recording.span("rt.tail") if in_tail else _NO_SPAN:
             n, divisor = R, None
             if compact:
                 divisor = sched[min(bounce, len(sched) - 1)] if sched else None
@@ -901,10 +911,13 @@ def trace_packed(
                 bounds.append(live_bound)
             recording.count("rays.launched", n)
             counter = recording.device_counter("rays.live", cur)
+            tail = recording.device_counter("rays.live_tail", cur) if in_tail else None
+            dielectric = recording.device_counter("shade.dielectric", cur)
             suspect = 0
             for lo in range(0, n, ROW_TILE):
                 suspect = suspect + bounce_rows(scene, cur[lo:min(n, lo + ROW_TILE)],
-                                                pass_seed, bounce, plain, counter)
+                                                pass_seed, bounce, plain, counter, tail,
+                                                dielectric)
             if divisor is not None:
                 suspect = suspect + max(live_bound - n, 0)
             live_bound = min(live_bound, n)

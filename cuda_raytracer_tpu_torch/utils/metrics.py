@@ -15,13 +15,17 @@ point costs that check alone. The loops' records:
 - spans (``span``, the same timer as ``phase``: host seconds under
   ``phases``, and a profiler span of the same name while the profiler
   records): ``rt.pass``, ``rt.block``, ``rt.camera``, ``rt.bounce``,
-  ``rt.reorder``, ``rt.accumulate``, ``rt.post``, ``rt.step.forward``,
-  ``rt.step.backward``, ``rt.step.adam``;
+  ``rt.tail`` (inside ``rt.bounce``, on the packed forward trace's bounces
+  ``bounces // 2`` on), ``rt.reorder``, ``rt.accumulate``, ``rt.post``,
+  ``rt.step.forward``, ``rt.step.backward``, ``rt.step.adam``;
 - counters: ``sync.host`` (host reads of device values in the loops: the
   live counts, ``read_live``), ``rays.live`` (live rays entering each bounce of the
   packed forward trace, summed on the device by the set-up kernel into
-  ``device_counter``), ``rays.launched`` (rows the bounce kernels ran
-  over), ``sync.device_idle_s`` (device idle between the event recorded
+  ``device_counter``), ``rays.live_tail`` (those of them entering bounces
+  ``bounces // 2`` on, summed the same way), ``shade.dielectric`` (rows the
+  bounce kernel scattered off a dielectric, reflected or refracted, summed
+  on the device by that kernel), ``rays.launched`` (rows the bounce kernels
+  ran over), ``sync.device_idle_s`` (device idle between the event recorded
   before each ``read_live`` and the one recorded at the next launch,
   ``launching``), ``hit.rows`` (rows handed to a triangle closest hit) and
   ``hit.walk_rows`` (those of them the BVH walk took).

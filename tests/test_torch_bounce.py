@@ -63,7 +63,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.rt_host_bounce_rows.argtypes = (
-        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u])
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p])
     lib.rt_host_bounce_rows.restype = ctypes.c_int
     return lib
 
@@ -119,6 +119,38 @@ def test_host_kernel_matches_torch_shading(host_lib, scenes, name):
         else:
             state = ref
     assert {"dead", "miss", "hit"} <= kinds
+
+
+@pytest.mark.parametrize("name", list(SCENE_TEXT))
+def test_host_kernel_counts_dielectric_rows_and_keeps_its_bits(host_lib, scenes, name):
+    """Given a counter the host build adds the rows it scattered off a
+    dielectric (a live hit on a material of ior > 0), as the plain version
+    and a count from the hit materials do, and shades the same bits as
+    without one; the diffuse torus has none."""
+    _, scene = scenes[name]
+    seed = 6
+    rays = scene.num_pixels * SIZE["rays_per_pixel"]
+    state = wavefront.make_initial_state(
+        scene, torch.arange(rays, dtype=torch.int32), SIZE["rays_per_pixel"], seed)
+    ior = scene.materials.index_of_refraction
+    total = 0
+    for bnc in range(4):
+        alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, bnc)
+        mat = scene.material_index[hit_index.clamp_min(0).long()].long()
+        want = int((alive & (hit_index >= 0) & (ior[mat] > 0)).sum())
+        rows = wavefront.pack_rows(state)
+        counted, counter, plain = rows.clone(), torch.zeros(1, dtype=torch.int64), \
+            torch.zeros(1, dtype=torch.int64)
+        assert host_lib.rt_host_bounce_rows(
+            *bounce.kernel_args(scene, rows, t, hit_index, seed, bnc)) == 0
+        assert host_lib.rt_host_bounce_rows(
+            *bounce.kernel_args(scene, counted, t, hit_index, seed, bnc,
+                                dielectric=counter)) == 0
+        assert torch.equal(rows.view(torch.int32), counted.view(torch.int32))
+        state = bounce.plain_shade_bounce(scene, state, t, hit_index, seed, bnc, plain)
+        assert int(counter) == int(plain) == want
+        total += want
+    assert (total > 0) == (name != "torus")
 
 
 def test_host_kernel_bits_of_dead_rays_and_draws(host_lib, scenes):

@@ -32,7 +32,10 @@ launches it alone and equals the unpacked render at C/2 bit for bit. fused1
 and fused split over several blocks per tile are held bit-equal to their
 plain versions (fused with and without its skip test),
 and the bounce kernel to the torch shading under the shade gate; a forward
-render launches the bounce kernel and a graph-building pass does not.
+render launches the bounce kernel and a graph-building pass does not. Given
+their counters (``shade.dielectric``, ``rays.live_tail``) the bounce and
+set-up kernels keep their bits and count what their plain versions count,
+and a recorded glass render keeps its framebuffer.
 The BVH walk kernel (``intersector="bvh"``) and the "cullhit" key kernel
 are held bit-equal to their plain versions (dead rays, a ragged last block,
 the packed rows' strided columns; the walk also at 1, 31, 33 and 657 rays
@@ -776,6 +779,63 @@ def test_rays_setup_live_counter_keeps_the_bits(cuda, n, tile):
         assert int(live) == k * int(want[0].sum())
     if n >= 257:
         assert want[0].any() and (~want[0]).any()
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+def test_bounce_kernel_dielectric_counter_keeps_the_bits(cuda, name):
+    """The bounce kernel given a ``shade.dielectric`` counter: rows bit-equal
+    to the launch without one, the counter up by the rows scattered off a
+    dielectric at every launch, as the plain version counts them (none on
+    the diffuse torus), on bounces 0-2 of the walk's wavefront."""
+    from cuda_raytracer_tpu_torch.ops.kernels import bounce
+
+    scene = _scene(cuda, name, intersector="bvh")
+    total = 0
+    for b, state in enumerate(_states(scene, bounces=3)):
+        alive, t, hit_index, _ = wavefront.closest_hit_of(scene, state, b)
+        rows = wavefront.pack_rows(state)
+        want = rows.clone()
+        bounce.shade_rows(scene, want, t, hit_index, 3, b)
+        plain = torch.zeros(1, dtype=torch.int64, device=cuda)
+        bounce.plain_shade_rows(scene, rows.clone(), t, hit_index, 3, b, dielectric=plain)
+        counter = torch.zeros(1, dtype=torch.int64, device=cuda)
+        for k in (1, 2):
+            got = rows.clone()
+            bounce.shade_rows(scene, got, t, hit_index, 3, b, dielectric=counter)
+            torch.cuda.synchronize()
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            assert int(counter) == k * int(plain)
+        total += int(plain)
+    assert (total > 0) == (name == "glass_torus")
+
+
+def test_rays_setup_tail_counter_gets_the_live_rows(cuda):
+    scene = _scene(cuda)
+    rows = wavefront.pack_rows(_states(scene, bounces=3)[2])
+    want = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, 0)
+    live, tail = (torch.zeros(1, dtype=torch.int64, device=cuda) for _ in range(2))
+    got = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, 0, live, tail)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], want[:3]))
+    assert int(tail) == int(live) == int(want[0].sum()) > 0
+
+
+def test_recorded_glass_render_counts_the_dielectric_and_the_tail(cuda):
+    """A glass render through "auto" (the walk) into an attached registry:
+    the framebuffer of the render without one, rows scattered off the glass,
+    and a tail (bounces 5-9 of 10) with fewer live rays than the whole and
+    less time than every bounce's."""
+    from cuda_raytracer_tpu_torch.utils import metrics
+
+    scene = _scene(cuda, "glass_torus", intersector="auto", rays_per_pixel=4, bounces=10)
+    fb = pipeline.render_framebuffer(scene)
+    m = metrics.Metrics()
+    assert torch.equal(pipeline.render_framebuffer(scene, metrics=m), fb)
+    counters = m.resolve().counters
+    assert counters["hit.walk_rows"] == counters["hit.rows"] > 0
+    assert 0 < counters["shade.dielectric"] < counters["rays.live"]
+    assert 0 < counters["rays.live_tail"] < counters["rays.live"]
+    assert 0 < m.phases["rt.tail"] < m.phases["rt.bounce"]
 
 
 def test_recorded_render_keeps_its_bits_and_counts(cuda, monkeypatch):

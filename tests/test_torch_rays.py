@@ -91,12 +91,12 @@ def _compile(tmp_path_factory, source: str):
 def host(tmp_path_factory):
     lib = _compile(tmp_path_factory, "bounce_host")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-    lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p]
+    lib.rt_host_rays_setup.argtypes = [p, i, i, i, p, p, i, p, p, p, p, p, p]
     lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
     lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
     lib.rt_host_camera_rows.argtypes = [p, i, i, i, i, u, p]
     lib.rt_host_bounce_rows.argtypes = (
-        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u])
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p])
     return lib
 
 
@@ -185,6 +185,29 @@ def _assert_bit_equal(got, want):
 
 
 # ---- rays_setup -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("tile", [64, 0])
+def test_rays_setup_tail_counter(host, spheres, tile):
+    """A second counter (``rays.live_tail``) gets the live rows the first
+    one gets, in the host build and the plain version, and the outputs keep
+    their bits."""
+    _, ts = spheres
+    rows = wavefront.pack_rows(_state(700, seed=3))
+    bare = rays.setup_outputs(rows, tile)
+    assert host.rt_host_rays_setup(
+        *rays.setup_args(rows, ts.sphere_center, ts.sphere_radius, tile, *bare)) == 0
+    got = rays.setup_outputs(rows, tile)
+    live, tail = torch.zeros(1, dtype=torch.int64), torch.full((1,), 5, dtype=torch.int64)
+    assert host.rt_host_rays_setup(
+        *rays.setup_args(rows, ts.sphere_center, ts.sphere_radius, tile, *got, live, tail)) == 0
+    _assert_bit_equal(got[:3] + got[3:] * bool(tile), bare[:3] + bare[3:] * bool(tile))
+    plain_live, plain_tail = torch.zeros(1, dtype=torch.int64), torch.zeros(1, dtype=torch.int64)
+    rays.plain_rays_setup(rows, ts.sphere_center, ts.sphere_radius, tile, plain_live, plain_tail)
+    assert int(live) == int(tail) - 5 == int(plain_live) == int(plain_tail) == int(bare[0].sum())
+    assert 0 < int(live) < 700
+    with pytest.raises(ValueError, match="tail needs live"):
+        rays.rays_setup(rows, ts.sphere_center, ts.sphere_radius, tile, None, plain_tail)
 
 
 @pytest.mark.parametrize("n,tile", [(1000, 64), (333, 32), (250, 0)])

@@ -4,8 +4,8 @@
   process-wide registry stays empty, and framebuffers and train-step losses
   are bit-identical with recording on (attached, or under the profiler).
 - Under a CPU ``torch.profiler`` the ``rt.*`` spans appear in the trace,
-  nested pass > block > camera / bounce / accumulate, bounce > reorder and
-  the live count's read, and go to ``PROFILED``.
+  nested pass > block > camera / bounce / accumulate, bounce > tail,
+  reorder and the live count's read, and go to ``PROFILED``.
 - Per block of a small mesh scene, ``rays.live`` counts the live rows
   entering each bounce (against the ``RayState`` trace's own count, and
   ``trace_live_bounds`` where that bound is exact), ``rays.launched`` the
@@ -25,7 +25,8 @@ from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.render import diff, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
 
-LOOP_SPANS = ("rt.pass", "rt.block", "rt.camera", "rt.bounce", "rt.reorder", "rt.accumulate")
+LOOP_SPANS = ("rt.pass", "rt.block", "rt.camera", "rt.bounce", "rt.tail", "rt.reorder",
+              "rt.accumulate")
 STEP_SPANS = ("rt.step.forward", "rt.step.backward", "rt.step.adam")
 
 
@@ -110,14 +111,15 @@ def test_spans_nest_under_the_profiler(profiled):
     reads = [e for e in events.pop("aten::item") if any(_inside(e, b) for b in events["rt.bounce"])]
     assert set(events) == set(LOOP_SPANS) | {"rt.post"}
     parent = {"rt.block": "rt.pass", "rt.camera": "rt.block", "rt.bounce": "rt.block",
-              "rt.accumulate": "rt.block", "rt.reorder": "rt.bounce"}
+              "rt.accumulate": "rt.block", "rt.reorder": "rt.bounce", "rt.tail": "rt.bounce"}
     for name, outer in parent.items():
         for e in events[name]:
             assert any(_inside(e, o) for o in events[outer]), (name, outer)
     assert not any(_inside(p, b) for p in events["rt.post"] for b in events["rt.pass"])
-    # one pass of one block, 5 bounces of which 4 are sorted: a live-count read each
-    assert [len(events[n]) for n in ("rt.pass", "rt.block", "rt.bounce")] + [len(reads)] == [
-        1, 1, 5, 4]
+    # one pass of one block, 5 bounces of which 4 are sorted: a live-count read each;
+    # the tail is bounces 2-4
+    assert [len(events[n]) for n in ("rt.pass", "rt.block", "rt.bounce", "rt.tail")] + [
+        len(reads)] == [1, 1, 5, 3, 4]
     assert set(profiled.phases) == set(LOOP_SPANS) | {"rt.post"}
     assert torch.equal(fb, pipeline.render_framebuffer(scene))
 
