@@ -26,10 +26,14 @@
 // update is in place, so a dead ray costs its row's read and no write, and
 // nothing is allocated per bounce. Misses skip the PCG chain.
 //
-// Given a counter (recording on: utils/metrics' shade.dielectric), the
-// counting instance runs, and each warp adds the rows it scattered off a
-// dielectric with one atomic of its ballot's popcount. Null, the other
-// instance runs, the body alone: the rows are the same either way.
+// Given a counter (utils/metrics' shade.dielectric), the counting instance
+// runs, and each warp adds the rows it scattered off a dielectric with one
+// atomic of its ballot's popcount. Null, the other instance runs, the body
+// alone: the rows are the same either way.
+//
+// Given a seed word, the pass seed is read from it on the device, not taken
+// from the argument: a launch captured into a CUDA graph (render/graphs.py)
+// keeps its arguments, and the word lets one graph serve every pass.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,9 +49,10 @@ __global__ void __launch_bounds__(kThreads)
 bounce_rows_kernel(rt::BounceTables tb, float* __restrict__ rows, int n,
                    const float* __restrict__ t_sph, const int* __restrict__ i_sph,
                    const float* __restrict__ t_tri, const int* __restrict__ tri,
-                   uint32_t pass_seed, uint32_t bounce,
-                   unsigned long long* __restrict__ dielectric) {
+                   uint32_t pass_seed, const uint32_t* __restrict__ seed_word,
+                   uint32_t bounce, unsigned long long* __restrict__ dielectric) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (seed_word) pass_seed = *seed_word;
   if (!kCount) {
     if (i >= n) return;
     rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
@@ -70,15 +75,16 @@ extern "C" {
 // float32 and i_sph (n,) int32: the sphere hit, -1 on a dead ray; t_tri (>= n,)
 // float32 and tri (>= n,) int32: the packet kernel's per-ray triangle hit, or
 // both null when t_sph / i_sph already hold the closest hit. Tables as
-// rt::BounceTables. dielectric: null, or a counter the rows scattered off a
+// rt::BounceTables. seed_word: null, or one uint32 on the device read in place
+// of pass_seed. dielectric: null, or a counter the rows scattered off a
 // dielectric are added to.
 int rt_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph,
                    const float* t_tri, const int* tri, const int* material_index,
                    int n_prims, const float* sphere_center, const float* sphere_radius,
                    int n_sphere_rows, int sphere_count, const float* tri_normal,
                    int n_tri_rows, const float* materials, const float* env, int env_h,
-                   int env_w, unsigned int pass_seed, unsigned int bounce,
-                   unsigned long long* dielectric, void* stream) {
+                   int env_w, unsigned int pass_seed, const unsigned int* seed_word,
+                   unsigned int bounce, unsigned long long* dielectric, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
@@ -86,10 +92,10 @@ int rt_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph,
   const int blocks = (n + kThreads - 1) / kThreads;
   if (dielectric)
     bounce_rows_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, bounce, dielectric);
+        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, seed_word, bounce, dielectric);
   else
     bounce_rows_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, bounce, nullptr);
+        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, seed_word, bounce, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -16,8 +16,9 @@ int rt_host_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph
                         int n_prims, const float* sphere_center, const float* sphere_radius,
                         int n_sphere_rows, int sphere_count, const float* tri_normal,
                         int n_tri_rows, const float* materials, const float* env, int env_h,
-                        int env_w, unsigned int pass_seed, unsigned int bounce,
-                        unsigned long long* dielectric) {
+                        int env_w, unsigned int pass_seed, const unsigned int* seed_word,
+                        unsigned int bounce, unsigned long long* dielectric) {
+  if (seed_word) pass_seed = *seed_word;
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
                             materials, env, env_h, env_w};

@@ -90,7 +90,8 @@ def plain_shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: t
 
 
 def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
-           t_tri: torch.Tensor, tri: torch.Tensor, dielectric: torch.Tensor) -> None:
+           t_tri: torch.Tensor, tri: torch.Tensor, dielectric: torch.Tensor,
+           pass_seed) -> None:
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 16:
         raise ValueError(f"rows must be (n, 16) float32, got {rows.dtype} {tuple(rows.shape)}")
     if not rows.is_contiguous() or rows.data_ptr() % 16:
@@ -113,6 +114,10 @@ def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tenso
     if dielectric is not None and (dielectric.dtype != torch.int64 or dielectric.shape != (1,)
                                    or dielectric.device != scene.device):
         raise ValueError("dielectric must be a (1,) int64 tensor on the scene's device")
+    if isinstance(pass_seed, torch.Tensor) and (
+            pass_seed.dtype != torch.int32 or pass_seed.shape != (1,)
+            or pass_seed.device != scene.device):
+        raise ValueError("a seed word must be a (1,) int32 tensor on the scene's device")
 
 
 def library() -> build.Built:
@@ -120,7 +125,7 @@ def library() -> build.Built:
     built = build.load("bounce")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = built.lib.rt_bounce_rows
-    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p, p]
+    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p, p]
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -131,8 +136,11 @@ def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.
                 pass_seed, bounce: int, t_tri: torch.Tensor = None,
                 tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> list:
     """The arguments of ``rt_bounce_rows`` (and of its host build) for one
-    call, without the stream."""
+    call, without the stream. ``pass_seed`` is a number, or a seed word: a
+    (1,) int32 tensor on the rows' device holding its low 32 bits, which the
+    kernel reads when it runs."""
     env = scene.environment_map
+    word = pass_seed if isinstance(pass_seed, torch.Tensor) else None
     return [
         rows.data_ptr(), rows.shape[0], t.data_ptr(), index.data_ptr(),
         t_tri.data_ptr() if t_tri is not None else None,
@@ -142,7 +150,8 @@ def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.
         scene.sphere_center.shape[0], scene.sphere_count,
         scene.tri_normal.data_ptr(), scene.tri_normal.shape[0],
         material_table(scene).data_ptr(), env.data_ptr(), env.shape[0], env.shape[1],
-        int(pass_seed) & 0xFFFFFFFF, int(bounce),
+        0 if word is not None else int(pass_seed) & 0xFFFFFFFF,
+        word.data_ptr() if word is not None else None, int(bounce),
         dielectric.data_ptr() if dielectric is not None else None,
     ]
 
@@ -163,9 +172,11 @@ def shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.T
     (``t``, -1 on a dead ray; ``index``, -1 on a miss) and, unless None, the
     packet kernel's per-ray triangle hit (``t_tri``, ``tri``: at least n
     values, (T, tile) as the kernel returns them). ``dielectric``, a (1,)
-    int64 tensor, gets the rows scattered off a dielectric added to it."""
+    int64 tensor, gets the rows scattered off a dielectric added to it.
+    ``pass_seed`` may be a seed word on the card (``kernel_args``), as a
+    launch captured into a CUDA graph takes it (``render/graphs.py``)."""
     global LAUNCHES
-    _check(scene, rows, t, index, t_tri, tri, dielectric)
+    _check(scene, rows, t, index, t_tri, tri, dielectric, pass_seed)
     if device_kind(rows, "shade_rows") == "cpu":
         plain_shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric)
         return

@@ -502,12 +502,14 @@ def camera_args(words, ray_lo, n, rays_per_pixel, width, pass_seed, rows) -> lis
 
 
 def camera_rows(words: torch.Tensor, ray_lo: int, n: int, rays_per_pixel: int, width: int,
-                pass_seed) -> torch.Tensor:
+                pass_seed, out: torch.Tensor = None) -> torch.Tensor:
     """The (n, 16) float32 packed starting rows of camera rays ``ray_lo ..
     ray_lo + n - 1`` (``rays_per_pixel`` a pixel, pixel-major, an image
     ``width`` pixels wide): ``[origin direction 1 1 1 0 0 0 ray_id 0 0 0]``
     with the ray id's int32 bits in column 12, as ``pack_rows`` lays out
-    ``make_initial_state``. ``words``: ``camera_words`` of the camera."""
+    ``make_initial_state``. ``words``: ``camera_words`` of the camera.
+    ``out``, a contiguous (n, 16) float32 tensor on the words' device, takes
+    the rows and is returned."""
     global LAUNCHES_CAMERA
     if words.dtype != torch.float32 or words.shape != (CAMERA_WORDS,) or not (
             words.is_contiguous()):
@@ -516,9 +518,16 @@ def camera_rows(words: torch.Tensor, ray_lo: int, n: int, rays_per_pixel: int, w
     if n < 0 or ray_lo < 0 or ray_lo + n > 2 ** 31 or rays_per_pixel < 1 or width < 1:
         raise ValueError(f"bad camera rows: ray_lo={ray_lo} n={n} "
                          f"rays_per_pixel={rays_per_pixel} width={width}")
+    if out is not None:
+        _check_rows(out)
+        if out.shape[0] != n or out.device != words.device:
+            raise ValueError(f"out must hold {n} rows on {words.device}, got "
+                             f"{tuple(out.shape)} on {out.device}")
     if device_kind(words, "camera_rows") == "cpu":
-        return plain_camera_rows(words, ray_lo, n, rays_per_pixel, width, pass_seed)
-    rows = torch.empty((n, ROW_WORDS), dtype=torch.float32, device=words.device)
+        rows = plain_camera_rows(words, ray_lo, n, rays_per_pixel, width, pass_seed)
+        return rows if out is None else out.copy_(rows)
+    rows = out if out is not None else torch.empty((n, ROW_WORDS), dtype=torch.float32,
+                                                   device=words.device)
     lib = library().lib
     with torch.cuda.device(words.device):
         err = lib.rt_camera_rows(*camera_args(words, ray_lo, n, rays_per_pixel, width,

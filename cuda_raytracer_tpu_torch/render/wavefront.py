@@ -696,24 +696,28 @@ def _sort_engine(scene: Scene, chunk: int) -> str:
     return engine
 
 
+def sort_keys(scene: Scene, rows: torch.Tensor, chunk: int):
+    """The reorder's keys of packed rows, ``chunk``-local → (keys (n,)
+    int64, live rows (1,) int32 on the device): ``rays.ray_keys`` for the
+    Morton key, ``rays.cullhit_keys`` for "cullhit", each the whole key for
+    the ``"argsort"`` engine or its bucket for ``"count"`` (the JAX package's
+    matmul counting sort, ``ops/sort.py``, is a TPU device), with the chunk
+    index above the key."""
+    count = _sort_engine(scene, chunk) == "count"
+    if sort_key_mode(scene) == "cullhit":
+        return rays_kernel.cullhit_keys(rows, scene.cluster_min, scene.cluster_max,
+                                        scene.num_clusters, scene.config.cull_split, count,
+                                        chunk)
+    return rays_kernel.ray_keys(rows, scene.min_coord, scene.inv_extent, count, chunk)
+
+
 def sort_order(scene: Scene, rows: torch.Tensor, chunk: int):
     """The reorder's permutation of packed rows, ``chunk``-local → (order
     (n,) int64, live rows (1,) int32 on the device). Both of the JAX
     package's engines are stable sorts, so each one's permutation is one
-    stable torch sort: ``"argsort"`` on the whole key, ``"count"`` on the
-    key's bucket (its matmul counting sort, ``ops/sort.py``, is a TPU
-    device); the keys (``rays.ray_keys`` for the Morton key,
-    ``rays.cullhit_keys`` for "cullhit") carry the chunk index above the key,
-    so one flat sort keeps every ray in its chunk. Dead rays land last in
-    every chunk."""
-    count = _sort_engine(scene, chunk) == "count"
-    if sort_key_mode(scene) == "cullhit":
-        keys, live = rays_kernel.cullhit_keys(rows, scene.cluster_min, scene.cluster_max,
-                                              scene.num_clusters, scene.config.cull_split,
-                                              count, chunk)
-    else:
-        keys, live = rays_kernel.ray_keys(rows, scene.min_coord, scene.inv_extent, count,
-                                          chunk)
+    stable torch sort of ``sort_keys``; the chunk index above the key keeps
+    every ray in its chunk. Dead rays land last in every chunk."""
+    keys, live = sort_keys(scene, rows, chunk)
     return torch.argsort(keys, stable=True), live
 
 
@@ -853,85 +857,158 @@ def trace_camera(
     """``trace_wavefront`` of the camera rays ``[ray_lo, ray_lo + rays)``. A
     forward trace (detached mode, no graph to build) starts packed from the
     camera kernel's rows (``rays.camera_rows``: one launch, the bits of
-    ``pack_rows(make_initial_state(...))``); one that builds a graph starts
-    from ``make_initial_state``."""
+    ``pack_rows(make_initial_state(...))``), written straight into the block
+    shape's first buffer where its bounces replay as CUDA graphs; one that
+    builds a graph starts from ``make_initial_state``."""
     if not reparam and not _needs_graph(scene):
+        block = _block_graphs(scene, rays, bounces, sort_rays)
         with recording.span("rt.camera"):
             rows = rays_kernel.camera_rows(rays_kernel.camera_words(scene.camera), ray_lo,
-                                           rays, rays_per_pixel, scene.config.width, pass_seed)
-        return trace_packed(scene, rows, pass_seed, bounces, sort_rays)
+                                           rays, rays_per_pixel, scene.config.width, pass_seed,
+                                           None if block is None else block.buffers[0])
+        return trace_packed(scene, rows, pass_seed, bounces, sort_rays, block=block)
     ray_id = ray_lo + torch.arange(rays, dtype=torch.int32, device=scene.device)
     state = make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
     return trace_wavefront(scene, state, pass_seed, bounces, sort_rays, reparam=reparam,
                            checkpoint_bounces=checkpoint_bounces)
 
 
+def _block_graphs(scene: Scene, rays: int, bounces: int, sort_rays: bool, plain: bool = False):
+    """The CUDA graphs of a ``rays``-row block (``render/graphs.block_graphs``)
+    where its forward trace replays them, else None."""
+    from cuda_raytracer_tpu_torch.render import graphs
+
+    if not graphs.applies(scene, plain):
+        return None
+    return graphs.block_graphs(scene, rays, bounces, sort_rays and reorder_is_useful(scene))
+
+
+def prefix_rows(scene: Scene, R: int, bounce: int, live_bound: int, compact: bool):
+    """The rows bounce ``bounce`` of an R-row packed trace runs on → (n,
+    the static schedule's divisor or None): the whole wavefront unless
+    ``compact``; else the schedule's prefix, or without one the smallest
+    live prefix size that holds ``live_bound``."""
+    if not compact:
+        return R, None
+    sched = scene.config.live_schedule
+    if sched:
+        divisor = sched[min(bounce, len(sched) - 1)]
+        return prefix_for_divisor(scene, R, divisor), divisor
+    return next(size for size in reversed(live_prefix_sizes(scene, R))
+                if size >= live_bound), None
+
+
+def packed_bounce(scene: Scene, cur: torch.Tensor, spare: torch.Tensor, n: int, settled: int,
+                  bounce: int, do_sort: bool, chunk: int, pass_seed, plain: bool = False,
+                  live: torch.Tensor = None, tail: torch.Tensor = None,
+                  dielectric: torch.Tensor = None, copied=None):
+    """One bounce of ``trace_packed`` on the first ``n`` rows of ``cur`` →
+    (suspect, the live rows (1,) int32 on the device, or None unsorted):
+    ``bounce_rows`` in place; then, with ``do_sort``, the rows ``[n,
+    settled)`` copied into ``spare`` and the prefix gathered into it sorted
+    (``sort_order`` in ``chunk``-row chunks). What a CUDA graph of the bounce
+    holds (``render/graphs.py``); ``pass_seed`` may be a seed word there.
+    ``copied``, a pinned (1,) int32 and a CUDA event: the live rows are
+    copied into it and the event recorded once the keys are written, so the
+    host can read the count while the sort and the gather run. The counters
+    as ``bounce_rows``'."""
+    recording.count("bounces.packed", 1)
+    recording.count("rays.launched", n)
+    suspect, count = 0, None
+    for lo in range(0, n, ROW_TILE):
+        suspect = suspect + bounce_rows(scene, cur[lo:min(n, lo + ROW_TILE)], pass_seed, bounce,
+                                        plain, live, tail, dielectric)
+    if do_sort:
+        with recording.span("rt.reorder"):
+            if n < settled:
+                spare[n:settled] = cur[n:settled]
+            keys, count = sort_keys(scene, cur[:n], chunk)
+            if copied is not None:
+                copied[0].copy_(count, non_blocking=True)
+                copied[1].record()
+            torch.index_select(cur[:n], 0, torch.argsort(keys, stable=True), out=spare[:n])
+    return suspect, count
+
+
 def trace_packed(
     scene: Scene, state, pass_seed, bounces: int, sort_rays: bool,
-    plain: bool = False, bounds: list = None,
+    plain: bool = False, bounds: list = None, block=None,
 ) -> Tuple[RayState, int]:
     """The forward ``trace_wavefront`` on one packed (R, 16) buffer: ``state``
-    is a ``RayState`` (packed with ``pack_rows``) or such rows, which the
-    trace then overwrites. Bit-identical to ``trace_rays``: each bounce runs
-    ``bounce_rows`` in place on the live prefix, then the reorder gathers
-    the prefix, sorted (``sort_order``), into the other buffer of a pair.
-    Rows past the prefix are all dead and stay where they are in both
-    buffers (``settled`` marks the rows the two buffers share), so no bounce
-    copies the suffix back. The live count, a device int32 written by the
-    key kernel, is read once per sorted bounce: the host's one sync.
+    is a ``RayState`` (packed with ``pack_rows``) or such rows. Bit-identical
+    to ``trace_rays``: each bounce runs ``bounce_rows`` in place on the live
+    prefix, then the reorder gathers the prefix, sorted (``sort_order``),
+    into the other buffer of a pair (``packed_bounce``). Rows past the prefix
+    are all dead and stay where they are in both buffers (``settled`` marks
+    the rows the two buffers share), so no bounce copies the suffix back.
+    The live count, a device int32 written by the key kernel, is read once
+    per sorted bounce: the host's one sync.
+
+    On a CUDA device, walking the BVH with the kernels (``plain`` False),
+    the bounces between two reads replay as one CUDA graph
+    (``render/graphs.py``) on the block shape's own buffer pair: the rows
+    are copied into it, and the returned state is a view of it, valid until
+    the next trace of that shape. Elsewhere the trace launches bounce by
+    bounce, on ``state``'s rows, which it overwrites, and a buffer of its
+    own. Both give the same bits and the same records.
+
     ``plain`` is ``bounce_rows``'; ``bounds``, a list, gets each bounce's
-    entering live bound. While recording (``utils/metrics``) a bounce counts
-    its live rows (``rays.live``, summed by the set-up) and its prefix's
-    rows (``rays.launched``), the bounce kernel the rows it scattered off a
-    dielectric (``shade.dielectric``), and a sorted one's read of the live
-    count the device idle until the next set-up launch
-    (``sync.device_idle_s``). The tail, bounces ``bounces // 2`` on, also
-    counts its live rows into ``rays.live_tail`` and runs each bounce inside
-    an ``rt.tail`` span within its ``rt.bounce``."""
+    entering live bound; ``block``: the rows' graphs where a caller has
+    looked them up (``_block_graphs``), else found here. While recording
+    (``utils/metrics``) a bounce counts itself (``bounces.packed``;
+    ``bounces.graphed`` inside a replay), its live rows (``rays.live``,
+    summed by the set-up) and its prefix's rows (``rays.launched``), the
+    bounce kernel the rows it scattered off a dielectric
+    (``shade.dielectric``), and a sorted one's read of the live count the
+    device idle until the next launch (``sync.device_idle_s``). The tail,
+    bounces ``bounces // 2`` on, also counts its live rows into
+    ``rays.live_tail`` and runs each bounce inside an ``rt.tail`` span within
+    its ``rt.bounce``."""
+    cur = state if isinstance(state, torch.Tensor) else pack_rows(state)
+    if block is None:
+        block = _block_graphs(scene, cur.shape[0], bounces, sort_rays, plain)
     sort_rays = sort_rays and reorder_is_useful(scene)
     sorted_bounces = _sort_schedule(scene, sort_rays, bounces)
-    cur = state if isinstance(state, torch.Tensor) else pack_rows(state)
     R = cur.shape[0]
     cs = sort_chunk_size(R)
     compact = sort_rays and cs == R
-    sched = scene.config.live_schedule
-    spare = torch.empty_like(cur) if any(sorted_bounces) else None
+    if block is not None:
+        cur, spare = block.start(cur, pass_seed)
+        counters = block.counters
+    else:
+        spare = torch.empty_like(cur) if any(sorted_bounces) else None
+        counters = tuple(recording.device_counter(name, cur)
+                         for name in ("rays.live", "rays.live_tail", "shade.dielectric"))
     live_bound = settled = R
     suspect_total = 0
+    segment = None
     for bounce, do_sort in enumerate(sorted_bounces):
         in_tail = bounce >= bounces // 2
         with recording.span("rt.bounce"), recording.span("rt.tail") if in_tail else _NO_SPAN:
-            n, divisor = R, None
-            if compact:
-                divisor = sched[min(bounce, len(sched) - 1)] if sched else None
-                n = (prefix_for_divisor(scene, R, divisor) if divisor is not None
-                     else next(size for size in reversed(live_prefix_sizes(scene, R))
-                               if size >= live_bound))
+            n, divisor = prefix_rows(scene, R, bounce, live_bound, compact)
             if bounds is not None:
                 bounds.append(live_bound)
-            recording.count("rays.launched", n)
-            counter = recording.device_counter("rays.live", cur)
-            tail = recording.device_counter("rays.live_tail", cur) if in_tail else None
-            dielectric = recording.device_counter("shade.dielectric", cur)
             suspect = 0
-            for lo in range(0, n, ROW_TILE):
-                suspect = suspect + bounce_rows(scene, cur[lo:min(n, lo + ROW_TILE)],
-                                                pass_seed, bounce, plain, counter, tail,
-                                                dielectric)
+            if block is None:
+                live, tail, dielectric = counters
+                suspect, count = packed_bounce(scene, cur, spare, n, settled, bounce, do_sort,
+                                               min(cs, n), pass_seed, plain, live,
+                                               tail if in_tail else None, dielectric)
+            elif segment is None or bounce == segment.end:
+                recording.launching()  # ends the device idle of a live-count read, if one is open
+                segment, count = block.replay(bounce, n, settled)
             if divisor is not None:
                 suspect = suspect + max(live_bound - n, 0)
             live_bound = min(live_bound, n)
             if do_sort:
-                with recording.span("rt.reorder"):
-                    if n < settled:
-                        spare[n:settled] = cur[n:settled]
-                    order, live = sort_order(scene, cur[:n], min(cs, n))
-                    torch.index_select(cur[:n], 0, order, out=spare[:n])
                 cur, spare = spare, cur
                 if compact:
-                    live_bound = recording.read_live(live)
+                    live_bound = recording.read_live(
+                        count, None if block is None else block.copied)
             settled = n if do_sort else max(settled, n)
             suspect_total = suspect_total + suspect
+    if block is not None and sorted_bounces:
+        block.finish()
     return unpack_rows(cur), suspect_total
 
 

@@ -27,8 +27,11 @@ point costs that check alone. The loops' records:
   on the device by that kernel), ``rays.launched`` (rows the bounce kernels
   ran over), ``sync.device_idle_s`` (device idle between the event recorded
   before each ``read_live`` and the one recorded at the next launch,
-  ``launching``), ``hit.rows`` (rows handed to a triangle closest hit) and
-  ``hit.walk_rows`` (those of them the BVH walk took).
+  ``launching``), ``hit.rows`` (rows handed to a triangle closest hit),
+  ``hit.walk_rows`` (those of them the BVH walk took), ``bounces.packed``
+  (bounces of the packed forward trace), ``bounces.graphed`` (those of them
+  run inside a CUDA graph's replay, ``render/graphs.py``) and
+  ``graph.captures`` (graphs captured).
 
 Values that live on the device (the accumulators, the event pairs) are
 kept as they are and folded into ``counters`` when the registry is read
@@ -123,10 +126,11 @@ class Metrics:
             acc = self._device[key] = torch.zeros(1, dtype=torch.int64, device=like.device)
         return acc
 
-    def read_live(self, value: torch.Tensor) -> int:
+    def read_live(self, value: torch.Tensor, copied=None) -> int:
         """``int(value)`` of a live count on the device, counted as
-        ``sync.host``. On a CUDA device an event goes on the stream first;
-        ``launching`` records its pair, which ``resolve`` reads."""
+        ``sync.host``; with ``copied`` (``_read``) from its host copy. On a
+        CUDA device an event goes on the stream first; ``launching`` records
+        its pair, which ``resolve`` reads."""
         self.count("sync.host", 1)
         if value.is_cuda:
             self._drop_open()
@@ -137,7 +141,7 @@ class Metrics:
             end.record(stream)
             start.record(stream)
             self._open = (start, end, stream, value.device)
-        return int(value.item())
+        return _read(value, copied)
 
     def launching(self) -> None:
         """Call before the first launch after a ``read_live``: records the
@@ -241,10 +245,22 @@ def device_counter(name: str, like: torch.Tensor) -> Optional[torch.Tensor]:
     return None if rec is None else rec.device_counter(name, like)
 
 
-def read_live(value: torch.Tensor) -> int:
-    """``int(value)``, through ``Metrics.read_live`` while recording."""
+def _read(value: torch.Tensor, copied) -> int:
+    """``int(value)``; with ``copied``, a host tensor and the CUDA event
+    recorded once ``value`` was copied into it, from the copy after waiting
+    for that event alone (not for work queued on the stream after it)."""
+    if copied is None:
+        return int(value.item())
+    host, ready = copied
+    ready.synchronize()
+    return int(host.item())
+
+
+def read_live(value: torch.Tensor, copied=None) -> int:
+    """``int(value)`` (from ``copied`` as ``_read``), through
+    ``Metrics.read_live`` while recording."""
     rec = recorder()
-    return int(value.item()) if rec is None else rec.read_live(value)
+    return _read(value, copied) if rec is None else rec.read_live(value, copied)
 
 
 def launching() -> None:

@@ -63,7 +63,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.rt_host_bounce_rows.argtypes = (
-        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p])
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p])
     lib.rt_host_bounce_rows.restype = ctypes.c_int
     return lib
 
@@ -171,6 +171,27 @@ def test_host_kernel_bits_of_dead_rays_and_draws(host_lib, scenes):
                               hit_index[flip].contiguous(), 3, 0)
     for a, b in zip(got_flipped[:4], got[:4]):
         assert torch.equal(a, b[flip])
+
+
+@pytest.mark.parametrize("seed", [0, 5, 2**31 + 80, 2**32 - 1])
+def test_host_kernel_reads_the_pass_seed_from_a_word(host_lib, scenes, seed):
+    """Given a seed word (the pass seed's low 32 bits as one int32, as a
+    CUDA graph's launch takes it) the host build shades the bits it shades
+    given the seed itself, whatever the argument says."""
+    _, scene = scenes["glass_torus"]
+    rays = 512
+    state = wavefront.make_initial_state(scene, torch.arange(rays, dtype=torch.int32), 4, 3)
+    _, t, hit_index, _ = wavefront.closest_hit_of(scene, state, 0)
+    want = wavefront.pack_rows(state)
+    got = want.clone()
+    assert host_lib.rt_host_bounce_rows(
+        *bounce.kernel_args(scene, want, t, hit_index, seed, 2)) == 0
+    word = torch.tensor([seed & 0xFFFFFFFF], dtype=torch.int64).to(torch.int32)
+    args = bounce.kernel_args(scene, got, t, hit_index, word, 2)
+    assert args[18] == 0 and args[19] == word.data_ptr()
+    assert host_lib.rt_host_bounce_rows(*args) == 0
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert not torch.equal(got, wavefront.pack_rows(state))
 
 
 @pytest.mark.parametrize("name", list(SCENE_TEXT))

@@ -1,0 +1,149 @@
+"""The bounce loop's CUDA graphs (``render/graphs.py``) on the GPU, against the eager loop.
+
+Marked ``cuda``: skipped on a machine without a GPU. On the GPU machine,
+which has no JAX, run them without the suite's JAX conftest:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_graphs.py -q
+
+The small torus and glass torus (768 triangles: "auto" walks the BVH on the
+card) at 160×120 × 20 rays a pixel, 10 bounces: a pass of 384,000 rays is a
+full block of 262,140 rays and a last block of 121,860. The eager loop is
+the same trace with ``graphs.applies`` turned off. Held bit for bit:
+
+- ``trace_packed`` graphed (capturing on its first call, then replaying),
+  at a full block, at the pass's last block and at a full block whose rows
+  are all dead but one in 64 (its live prefix falls to R / 64), at two pass
+  seeds: its rows, suspect count and entering live bounds;
+- ``render_framebuffer``, first (capturing) and again (capturing nothing),
+  and at another sample count (two passes, other pass seeds; the same block
+  shapes, so nothing captured): framebuffers, every counter of the loop's
+  records, and the kernels' ``LAUNCHES`` counts over a render;
+- a static ``live_schedule`` (a tight one, whose suspect count is not 0)
+  and ``trace_live_bounds``.
+"""
+
+import pytest
+import torch
+
+from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
+from cuda_raytracer_tpu_torch.ops.kernels import bounce, rays
+from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
+from cuda_raytracer_tpu_torch.render import graphs, pipeline, wavefront
+from cuda_raytracer_tpu_torch.utils import metrics
+
+pytestmark = pytest.mark.cuda
+
+FULL, LAST = 262_140, 384_000 - 262_140
+# Counters that differ by path: the graph path's own, and device seconds.
+GRAPH_ONLY = ("bounces.graphed", "graph.captures", "sync.device_idle_s")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def eager(monkeypatch):
+    """``eager(True)`` turns the graphs off, ``eager(False)`` back on."""
+    applies = graphs.applies
+
+    def use(on: bool):
+        monkeypatch.setattr(graphs, "applies", (lambda *a, **k: False) if on else applies)
+    return use
+
+
+def _scene(device, name="torus", **overrides):
+    parsed = builtin_scenes.parse_mesh_scene(name, builtin_scenes.SMALL)
+    cfg = dict(width=160, height=120, rays_per_pixel=20, bounces=10, **overrides)
+    scene = scene_dsl.assemble_scene(parsed, config_overrides=cfg, device=device)
+    assert wavefront.resolved_intersector(scene) == "bvh" and graphs.applies(scene)
+    return scene
+
+
+def _block_rows(scene, case: str, seed: int):
+    lo, n = (FULL, LAST) if case == "last" else (0, FULL)
+    rows = rays.camera_rows(rays.camera_words(scene.camera), lo, n, 20, 160, seed)
+    if case == "sparse":
+        rows[torch.arange(n, device=rows.device) % 64 != 0, 6:9] = 0.0
+    return rows
+
+
+def _trace(scene, rows, seed):
+    """``trace_packed`` of a copy of ``rows`` → (its rows, copied out of the
+    block's buffers; suspect; entering bounds)."""
+    bounds = []
+    out, suspect = wavefront.trace_packed(scene, rows.clone(), seed, 10, True, bounds=bounds)
+    packed = torch.cat(list(out[:4]) + [out.ray_id.view(torch.float32)[:, None]], dim=1)
+    return packed.view(torch.int32).clone(), int(suspect), bounds
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+@pytest.mark.parametrize("case", ["full", "last", "sparse"])
+def test_trace_packed_graphed_is_the_eager_trace(cuda, eager, name, case):
+    scene = _scene(cuda, name)
+    for seed in (60, 2**31 + 5):
+        rows = _block_rows(scene, case, seed)
+        eager(True)
+        want = _trace(scene, rows, seed)
+        eager(False)
+        for _ in range(2):
+            got = _trace(scene, rows, seed)
+            assert torch.equal(got[0], want[0]) and got[1:] == want[1:]
+    R = rows.shape[0]
+    sizes = wavefront.live_prefix_sizes(scene, R)
+    if case == "sparse":
+        assert want[2][1] <= R // 64 and sizes[-1] >= want[2][-1]
+    assert want[2][0] == R and want[2][-1] < R
+
+
+def _launches():
+    return (rays.LAUNCHES_SETUP, rays.LAUNCHES_KEYS, rays.LAUNCHES_CAMERA,
+            traverse_kernel.LAUNCHES, bounce.LAUNCHES)
+
+
+def _render(scene):
+    m = metrics.Metrics()
+    before = _launches()
+    fb = pipeline.render_framebuffer(scene, metrics=m)
+    torch.cuda.synchronize()
+    launched = tuple(a - b for a, b in zip(_launches(), before))
+    return fb, m.resolve().counters, launched
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+def test_render_graphed_is_the_eager_render(cuda, eager, name):
+    scene = _scene(cuda, name)
+    other = scene.with_config(rays_per_pixel=40)  # passes at seeds 20 and 0
+    eager(True)
+    want = {s: _render(s) for s in (scene, other)}
+    eager(False)
+    first = _render(scene)
+    assert first[1]["graph.captures"] > 0
+    for s, got in ((scene, first), (scene, _render(scene)), (other, _render(other))):
+        fb, counters, launched = want[s]
+        assert torch.equal(got[0], fb)
+        graphed = {k: v for k, v in got[1].items() if k not in GRAPH_ONLY}
+        assert graphed == {k: v for k, v in counters.items() if k not in GRAPH_ONLY}
+        assert got[1]["bounces.graphed"] == counters["bounces.packed"] == 10 * (
+            2 * s.config.rays_per_pixel // 20)
+        assert "bounces.graphed" not in counters
+        if got is not first:
+            assert "graph.captures" not in got[1] and got[2] == launched
+    assert (want[scene][1]["shade.dielectric"] > 0) == (name == "glass_torus")
+
+
+def test_static_schedule_and_live_bounds(cuda, eager):
+    scene = _scene(cuda, "glass_torus")
+    rows = _block_rows(scene, "full", 40)
+    tight = scene.with_config(live_schedule=(1, 4, 16, 64))
+    ids = torch.arange(FULL, dtype=torch.int32, device=cuda)
+    state = wavefront.make_initial_state(scene, ids, 20, 40)
+    eager(True)
+    want = _trace(tight, rows, 40), wavefront.trace_live_bounds(scene, state, 40, 10, True)
+    eager(False)
+    got = _trace(tight, rows, 40), wavefront.trace_live_bounds(scene, state, 40, 10, True)
+    assert torch.equal(got[0][0], want[0][0]) and got[0][1:] == want[0][1:]
+    assert got[1] == want[1] and want[0][1] > 0

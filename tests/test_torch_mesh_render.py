@@ -8,7 +8,8 @@ substitute sky. With the default config (``intersector="auto"``,
 the Morton reorder, live-prefix compaction and the by-ray-id unsort. The
 framebuffers are held to the repo's per-pixel agreement gate
 (tests/test_render_parity.py): max |Δ| < 1e-3 on at least 99.9 % of pixels,
-all finite. Within the port, reordering, ray blocking and the kernel
+all finite, and the port's render traces bounce by bounce (no CUDA graph
+off the card). Within the port, reordering, ray blocking and the kernel
 engines must not change a single bit.
 """
 
@@ -22,6 +23,7 @@ from cuda_raytracer_tpu.render import wavefront as jwavefront
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.ops import packet_intersect
 from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+from cuda_raytracer_tpu_torch.utils import metrics
 
 from test_torch_packet import build_mesh_both
 
@@ -45,7 +47,11 @@ def test_mesh_render_matches_jax(name):
     js, ts = _both(name)
     assert wavefront.resolved_intersector(ts) == "packet" and ts.config.sort_rays
     ref = np.asarray(jpipeline.render_framebuffer(js))
-    fb = pipeline.render_framebuffer(ts)
+    recorded = metrics.Metrics()
+    fb = pipeline.render_framebuffer(ts, metrics=recorded)
+    # the CPU traces bounce by bounce: no CUDA graph is captured or replayed
+    assert recorded.counters["bounces.packed"] == 4 and not (
+        {"bounces.graphed", "graph.captures"} & set(recorded.counters))
     assert fb.shape == (256, 3)
     assert_pixels_agree(fb.numpy(), ref)
     img = pipeline.render_image(ts, framebuffer=fb)

@@ -96,7 +96,7 @@ def host(tmp_path_factory):
     lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
     lib.rt_host_camera_rows.argtypes = [p, i, i, i, i, u, p]
     lib.rt_host_bounce_rows.argtypes = (
-        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, u, p])
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p])
     return lib
 
 
