@@ -1009,12 +1009,12 @@ def _profile_block(scene, backend: str, kernels, phase: str = "8") -> None:
     import torch
     from torch.autograd import DeviceType
 
-    from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+    from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 
     rpp, seed = scene.config.rays_per_pixel, 80
     block_lo, block = _centre_block(scene, rpp)
     ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
-    bounds = wavefront.trace_live_bounds(
+    bounds = packed.trace_live_bounds(
         scene, wavefront.make_initial_state(scene, ids, rpp, seed), seed,
         scene.config.bounces, True)
     framebuffer = torch.zeros((scene.num_pixels, 3), device=scene.device)
@@ -1221,7 +1221,7 @@ def _bounce_timing(scene, state, seed: int, b: int) -> dict:
 
 
 def _traced_rows(scene, ids, rpp: int, seed: int):
-    """One block traced as ``wavefront.trace_packed`` traces it (the live
+    """One block traced as ``packed.trace_packed`` traces it (the live
     prefix, the Morton sort) → yields (bounce, the live prefix's packed rows)
     before each bounce; the caller must not change them."""
     import torch
@@ -1229,9 +1229,9 @@ def _traced_rows(scene, ids, rpp: int, seed: int):
 
     cur = wavefront.pack_rows(wavefront.make_initial_state(scene, ids, rpp, seed))
     R = live_bound = cur.shape[0]
-    for b, do_sort in enumerate(wavefront._sort_schedule(scene, True, scene.config.bounces)):
-        n = next(size for size in reversed(wavefront.live_prefix_sizes(scene, R))
-                 if size >= live_bound)
+    schedule = wavefront.bounce_schedule(scene, R, scene.config.bounces, True)
+    for b, do_sort in enumerate(schedule.sorted):
+        n, _ = schedule.rows(b, live_bound)
         yield b, cur[:n]
         rows = cur[:n].clone()
         wavefront.bounce_rows(scene, rows, seed, b)
@@ -2219,15 +2219,15 @@ def _step_shading_suspects(scene, params, rpp: int, bounces: int) -> int:
     so every bounce shades with torch. Launches no bounce kernel."""
     import torch
     from cuda_raytracer_tpu_torch.ops.kernels import bounce
-    from cuda_raytracer_tpu_torch.render import diff, wavefront
+    from cuda_raytracer_tpu_torch.render import diff, packed, wavefront
 
     merged = diff.merge_params(scene, params)
     ids = torch.arange(merged.num_pixels * rpp, dtype=torch.int32, device=merged.device)
     launches = bounce.LAUNCHES
     with torch.enable_grad():
         state = wavefront.make_initial_state(merged, ids, rpp, TRAIN_SEED)
-        _, suspect = wavefront.trace_wavefront(merged, state, TRAIN_SEED, bounces,
-                                               merged.config.sort_rays)
+        _, suspect = packed.trace_wavefront(merged, state, TRAIN_SEED, bounces,
+                                            merged.config.sort_rays)
     if bounce.LAUNCHES != launches:
         raise SystemExit("phase 10c failed: a graph-building pass launched the bounce kernel")
     return int(suspect)

@@ -5,7 +5,7 @@
     python3 chip_walk.py --tree DIR --times [--profile]
 
 Traces the 126,000-triangle torus's centre 20-spp block (1000×1000, 10
-bounces, ``intersector="bvh"``) as ``wavefront.trace_packed`` traces it and
+bounces, ``intersector="bvh"``) as ``packed.trace_packed`` traces it and
 runs ``chip_smoke.py``'s phase-13a check on each bounce 0-9, at the live
 prefix the render hands the walk: the kernel at the rays a warp it picks
 and at each of ``--lanes`` (default ``chip_smoke.WALK_LANES``), each

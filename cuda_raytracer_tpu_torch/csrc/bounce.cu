@@ -32,7 +32,7 @@
 // alone: the rows are the same either way.
 //
 // Given a seed word, the pass seed is read from it on the device, not taken
-// from the argument: a launch captured into a CUDA graph (render/graphs.py)
+// from the argument: a launch captured into a CUDA graph (render/packed.py)
 // keeps its arguments, and the word lets one graph serve every pass.
 
 #include <cuda_runtime.h>

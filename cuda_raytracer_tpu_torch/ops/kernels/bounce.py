@@ -9,7 +9,7 @@ triangle hit, which it folds as ``packet_intersect._finalize`` does: the hit
 record's material and normal gathers plus ``wavefront.shade`` with
 ``reparam=False`` (PCG draws, environment fetch on a miss, emission, rough
 normal, metallicity coin or Schlick + total internal reflection, scatter;
-dead rays unchanged). ``wavefront.trace_packed`` takes it for every forward
+dead rays unchanged). ``packed.trace_packed`` takes it for every forward
 bounce. Training shades with torch (``wavefront.process_rays``).
 
 - On a CUDA tensor it launches the hand-written kernel, one thread per ray,
@@ -174,7 +174,7 @@ def shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.T
     values, (T, tile) as the kernel returns them). ``dielectric``, a (1,)
     int64 tensor, gets the rows scattered off a dielectric added to it.
     ``pass_seed`` may be a seed word on the card (``kernel_args``), as a
-    launch captured into a CUDA graph takes it (``render/graphs.py``)."""
+    launch captured into a CUDA graph takes it (``render/packed.py``)."""
     global LAUNCHES
     _check(scene, rows, t, index, t_tri, tri, dielectric, pass_seed)
     if device_kind(rows, "shade_rows") == "cpu":

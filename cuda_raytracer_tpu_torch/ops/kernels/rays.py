@@ -1,6 +1,6 @@
 """The mesh wavefront's per-ray set-up, sort-key and draw kernels: wrappers of ``csrc/rays.cu``.
 
-The forward mesh bounce (``render/wavefront.trace_packed``) holds its
+The forward mesh bounce (``render/packed.trace_packed``) holds its
 wavefront as one (R, 16) float32 buffer of rows ``[origin direction
 transmitted collected ray_id pad]`` (``wavefront.pack_rows``). Around its
 closest-hit and shading kernels it used to issue a few dozen torch ops a

@@ -26,7 +26,7 @@ import torch
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops.kernels import build
 from cuda_raytracer_tpu_torch.ops.kernels.cull import raise_on_error
-from cuda_raytracer_tpu_torch.render import wavefront
+from cuda_raytracer_tpu_torch.render import packed, wavefront
 
 # Table limits: every shipped brute scene fits with slack (cornell_plus has
 # 34 primitives). The bounce limit is the JAX kernel's (its seed table held
@@ -111,8 +111,7 @@ def plain_trace(
     torch alone on every device (the camera's PCG, the sphere and triangle
     tests, the shading), so it shares no device code with the kernel."""
     state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed, plain=True)
-    state, _ = wavefront.trace_packed(scene, state, pass_seed, bounces, sort_rays=False,
-                                      plain=True)
+    state, _ = packed.trace_packed(scene, state, pass_seed, bounces, sort_rays=False, plain=True)
     return state.collected
 
 

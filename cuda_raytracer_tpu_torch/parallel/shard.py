@@ -38,7 +38,7 @@ import torch
 
 from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.parallel.mesh import Mesh, init_group, shutdown
-from cuda_raytracer_tpu_torch.render import diff, pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import diff, packed, pipeline, wavefront
 
 
 def pixel_share(num_pixels: int, mesh: Mesh) -> Tuple[int, int]:
@@ -124,12 +124,12 @@ def _trace_share(scene: Scene, mesh: Mesh, rays_per_pixel: int, pass_seed: int,
     if hi == lo:
         return local, 0
     sort_rays = scene.config.sort_rays
-    state, suspect = wavefront.trace_camera(
+    state, suspect = packed.trace_camera(
         scene, lo * rays_per_pixel, (hi - lo) * rays_per_pixel, rays_per_pixel, pass_seed,
         bounces, sort_rays, reparam=reparam, checkpoint_bounces=checkpoint_bounces)
     acc = wavefront.accumulate_radiance(
         state, rays_per_pixel, hi - lo,
-        ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces))
+        ordered=wavefront.wavefront_ordered(scene, (hi - lo) * rays_per_pixel, bounces, sort_rays))
     return torch.nn.functional.pad(acc, (0, 0, lo, scene.num_pixels - hi)), suspect
 
 

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from cuda_raytracer_tpu_torch.models.scene import Materials, Scene
-from cuda_raytracer_tpu_torch.render import wavefront
+from cuda_raytracer_tpu_torch.render import packed, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics as recording
 from cuda_raytracer_tpu_torch.utils.backend import resolve_device
 
@@ -108,13 +108,13 @@ def render_radiance(
     ray_id = torch.arange(scene.num_pixels * rays_per_pixel, dtype=torch.int32,
                           device=scene.device)
     state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
-    state, _suspect = wavefront.trace_wavefront(
+    state, _suspect = packed.trace_wavefront(
         scene, state, pass_seed, bounces, sort_rays, reparam=reparam,
         checkpoint_bounces=checkpoint_bounces,
     )
     acc = wavefront.accumulate_radiance(
         state, rays_per_pixel, scene.num_pixels,
-        ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces),
+        ordered=wavefront.wavefront_ordered(scene, ray_id.shape[0], bounces, sort_rays),
     )
     return acc / rays_per_pixel
 
@@ -131,7 +131,7 @@ def check_radiance_exact(scene: Scene, pass_seed: int = 0, rays_per_pixel: int =
         ray_id = torch.arange(scene.num_pixels * rays_per_pixel, dtype=torch.int32,
                               device=scene.device)
         state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, pass_seed)
-        _, suspect = wavefront.trace_wavefront(scene, state, pass_seed, bounces, cfg.sort_rays)
+        _, suspect = packed.trace_wavefront(scene, state, pass_seed, bounces, cfg.sort_rays)
     return int(suspect)
 
 
@@ -151,8 +151,7 @@ def calibrate_live_schedule(scene: Scene, rays_per_pixel: int = None, bounces: i
         for seed in seeds:
             ray_id = torch.arange(R, dtype=torch.int32, device=scene.device)
             state = wavefront.make_initial_state(scene, ray_id, rays_per_pixel, seed)
-            measured.append(wavefront.trace_live_bounds(scene, state, seed, bounces,
-                                                        cfg.sort_rays))
+            measured.append(packed.trace_live_bounds(scene, state, seed, bounces, cfg.sort_rays))
     bounds = np.maximum.reduce([np.asarray(b, dtype=np.int64) for b in measured])
     divisors = []
     for b in range(bounces):

@@ -14,7 +14,7 @@ CUDA device. Every pass boundary can
 be checkpointed (``utils/checkpoint.py``) and reported to a progress
 callback and a ``utils/metrics.Metrics`` registry. The loops' spans
 (``rt.pass``, ``rt.block``, ``rt.accumulate``, ``rt.post`` here; the bounce
-loop's in ``render/wavefront.py``) and counters go to that registry, or to
+loop's in ``render/packed.py`` and ``render/wavefront.py``) and counters go to that registry, or to
 ``utils/metrics.PROFILED`` while a ``torch.profiler`` records.
 """
 
@@ -31,13 +31,13 @@ from cuda_raytracer_tpu_torch.models.scene import Scene
 from cuda_raytracer_tpu_torch.ops import bloom as bloom_ops
 from cuda_raytracer_tpu_torch.ops import tonemap as tonemap_ops
 from cuda_raytracer_tpu_torch.ops.kernels import shade
-from cuda_raytracer_tpu_torch.render import wavefront
+from cuda_raytracer_tpu_torch.render import packed, wavefront
 from cuda_raytracer_tpu_torch.utils import checkpoint as ckpt
 from cuda_raytracer_tpu_torch.utils import metrics as recording
 
 # Rays per traced block on the wavefront path. Matching wavefront.SORT_CHUNK
 # keeps every block in the whole-wavefront sort regime, where dead-ray
-# compaction (wavefront.bounce_on_live_prefix) is active; it also bounds the
+# compaction (wavefront.bounce_schedule) is active; it also bounds the
 # (rays × prims) intermediates of the brute intersector.
 RAY_BLOCK = 1 << 18
 # The multi-sample pass regime (_regime_scene): passes of at least this many
@@ -49,14 +49,16 @@ REGIME_TABLE_BYTES = 16 << 20
 
 def regime_backend(backend: str, rays_per_pixel: int, cull_split: int, table_bytes: int,
                    device_type: str) -> str:
-    """The packet backend a pass runs with: ``"auto"`` becomes ``"fused1"``
-    for a pass of at least REGIME_RAYS_PER_PIXEL rays per pixel, with one
-    box per cluster (``cull_split`` 1) and a cluster table of at most
-    REGIME_TABLE_BYTES, on a CUDA device; anything else is returned as it is
-    (an explicit backend is never overridden; the CPU keeps "auto", which
-    is the xla engine there). On an H100 (NVIDIA H100 80GB HBM3, 700 W) the
-    126,000-triangle torus at 1000×1000 × 100 spp renders in about half the
-    time through fused1 as through cull + fused (PERF.md)."""
+    """The packet backend a pass of the packet intersector runs with:
+    ``"auto"`` becomes ``"fused1"`` for a pass of at least
+    REGIME_RAYS_PER_PIXEL rays per pixel, with one box per cluster
+    (``cull_split`` 1) and a cluster table of at most REGIME_TABLE_BYTES, on
+    a CUDA device; anything else is returned as it is (an explicit backend is
+    never overridden; the CPU keeps "auto", which is the xla engine there).
+    The default mesh path on a CUDA device walks the BVH and reads no packet
+    backend; with ``intersector="packet"`` on an H100 (NVIDIA H100 80GB HBM3,
+    700 W) the 126,000-triangle torus at 1000×1000 × 100 spp renders in about
+    half the time through fused1 as through cull + fused (PERF.md)."""
     if (backend == "auto" and rays_per_pixel >= REGIME_RAYS_PER_PIXEL and cull_split == 1
             and table_bytes <= REGIME_TABLE_BYTES and device_type == "cuda"):
         return "fused1"
@@ -64,9 +66,12 @@ def regime_backend(backend: str, rays_per_pixel: int, cull_split: int, table_byt
 
 
 def _regime_scene(scene: Scene, rays_per_pixel: int) -> Scene:
-    """The scene a pass of ``rays_per_pixel`` samples is traced with: its
-    packet backend resolved per pass regime (``regime_backend``), as the
-    JAX package's ``render/pipeline._regime_scene`` resolves it on a TPU."""
+    """The scene a pass of ``rays_per_pixel`` samples is traced with: a
+    packet scene's backend resolved per pass regime (``regime_backend``), as
+    the JAX package's ``render/pipeline._regime_scene`` resolves it on a
+    TPU; any other scene as it is, since no other intersector reads it."""
+    if wavefront.resolved_intersector(scene) != "packet":
+        return scene
     cfg = scene.config
     blocks = scene.cluster_blocks
     backend = regime_backend(cfg.packet_backend, rays_per_pixel, cfg.cull_split,
@@ -88,7 +93,7 @@ def _render_block(
     """Trace rays [block_lo, block_lo + block_rays) and add their radiance
     into the framebuffer rows they cover (blocks are whole-pixel runs). On
     the wavefront path a forward trace starts from the camera kernel's
-    packed rows (``wavefront.trace_camera``)."""
+    packed rows (``packed.trace_camera``)."""
     block_pixels = block_rays // rays_per_pixel
     px_lo = block_lo // rays_per_pixel
     suspect = 0
@@ -100,14 +105,14 @@ def _render_block(
                 contribution = collected.reshape(block_pixels, rays_per_pixel, 3).sum(dim=1)
                 framebuffer[px_lo:px_lo + block_pixels] += contribution
         else:
-            state, suspect = wavefront.trace_camera(
+            state, suspect = packed.trace_camera(
                 scene, block_lo, block_rays, rays_per_pixel, pass_seed, bounces, sort_rays,
                 reparam=reparam
             )
             with recording.span("rt.accumulate"):
                 contribution = wavefront.accumulate_radiance(
                     state, rays_per_pixel, block_pixels,
-                    ordered=wavefront.wavefront_ordered(scene, sort_rays, bounces),
+                    ordered=wavefront.wavefront_ordered(scene, block_rays, bounces, sort_rays),
                 )
                 # In place: where the JAX version donates the framebuffer
                 # buffer to XLA between blocks, the port adds into the

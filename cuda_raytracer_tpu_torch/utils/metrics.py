@@ -30,7 +30,7 @@ point costs that check alone. The loops' records:
   ``launching``), ``hit.rows`` (rows handed to a triangle closest hit),
   ``hit.walk_rows`` (those of them the BVH walk took), ``bounces.packed``
   (bounces of the packed forward trace), ``bounces.graphed`` (those of them
-  run inside a CUDA graph's replay, ``render/graphs.py``) and
+  run inside a CUDA graph's replay, ``render/packed.py``) and
   ``graph.captures`` (graphs captured).
 
 Values that live on the device (the accumulators, the event pairs) are

@@ -33,6 +33,9 @@ import torch
 
 import jax.numpy as jnp
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.ops.kernels import bounce, build
 from cuda_raytracer_tpu_torch.render import wavefront

@@ -20,6 +20,8 @@ from pathlib import Path
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch import cli, default_device
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.models.scene import make_materials, precompute_camera

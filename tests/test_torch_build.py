@@ -1,5 +1,7 @@
 """The kernel build's cache key covers every local header a source includes."""
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.ops.kernels import build
 
 

@@ -20,6 +20,9 @@ import torch
 from cuda_raytracer_tpu.models import scene_dsl as jdsl
 from cuda_raytracer_tpu.utils import checkpoint as jckpt
 from cuda_raytracer_tpu.utils import metrics as jmetrics
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.render import pipeline
 from cuda_raytracer_tpu_torch.utils import checkpoint as ckpt

@@ -24,6 +24,9 @@ import pytest
 import torch
 
 from cuda_raytracer_tpu import cli as jcli
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch import cli
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.utils.png import read_png

@@ -13,6 +13,8 @@ which has no JAX, run them without the suite's JAX conftest:
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops.kernels import shade
 from cuda_raytracer_tpu_torch.render import pipeline, wavefront

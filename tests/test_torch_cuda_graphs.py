@@ -1,4 +1,4 @@
-"""The bounce loop's CUDA graphs (``render/graphs.py``) on the GPU, against the eager loop.
+"""The bounce loop's CUDA graphs (``render/packed.py``) on the GPU, against the eager loop.
 
 Marked ``cuda``: skipped on a machine without a GPU. On the GPU machine,
 which has no JAX, run them without the suite's JAX conftest:
@@ -8,7 +8,7 @@ which has no JAX, run them without the suite's JAX conftest:
 The small torus and glass torus (768 triangles: "auto" walks the BVH on the
 card) at 160×120 × 20 rays a pixel, 10 bounces: a pass of 384,000 rays is a
 full block of 262,140 rays and a last block of 121,860. The eager loop is
-the same trace with ``graphs.applies`` turned off. Held bit for bit:
+the same trace with ``packed.applies`` turned off. Held bit for bit:
 
 - ``trace_packed`` graphed (capturing on its first call, then replaying),
   at a full block, at the pass's last block and at a full block whose rows
@@ -25,10 +25,12 @@ the same trace with ``graphs.applies`` turned off. Held bit for bit:
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops.kernels import bounce, rays
 from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
-from cuda_raytracer_tpu_torch.render import graphs, pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
 
 pytestmark = pytest.mark.cuda
@@ -48,10 +50,10 @@ def cuda():
 @pytest.fixture
 def eager(monkeypatch):
     """``eager(True)`` turns the graphs off, ``eager(False)`` back on."""
-    applies = graphs.applies
+    applies = packed.applies
 
     def use(on: bool):
-        monkeypatch.setattr(graphs, "applies", (lambda *a, **k: False) if on else applies)
+        monkeypatch.setattr(packed, "applies", (lambda *a, **k: False) if on else applies)
     return use
 
 
@@ -59,7 +61,7 @@ def _scene(device, name="torus", **overrides):
     parsed = builtin_scenes.parse_mesh_scene(name, builtin_scenes.SMALL)
     cfg = dict(width=160, height=120, rays_per_pixel=20, bounces=10, **overrides)
     scene = scene_dsl.assemble_scene(parsed, config_overrides=cfg, device=device)
-    assert wavefront.resolved_intersector(scene) == "bvh" and graphs.applies(scene)
+    assert wavefront.resolved_intersector(scene) == "bvh" and packed.applies(scene)
     return scene
 
 
@@ -75,9 +77,9 @@ def _trace(scene, rows, seed):
     """``trace_packed`` of a copy of ``rows`` → (its rows, copied out of the
     block's buffers; suspect; entering bounds)."""
     bounds = []
-    out, suspect = wavefront.trace_packed(scene, rows.clone(), seed, 10, True, bounds=bounds)
-    packed = torch.cat(list(out[:4]) + [out.ray_id.view(torch.float32)[:, None]], dim=1)
-    return packed.view(torch.int32).clone(), int(suspect), bounds
+    out, suspect = packed.trace_packed(scene, rows.clone(), seed, 10, True, bounds=bounds)
+    rows = torch.cat(list(out[:4]) + [out.ray_id.view(torch.float32)[:, None]], dim=1)
+    return rows.view(torch.int32).clone(), int(suspect), bounds
 
 
 @pytest.mark.parametrize("name", ["torus", "glass_torus"])
@@ -142,8 +144,8 @@ def test_static_schedule_and_live_bounds(cuda, eager):
     ids = torch.arange(FULL, dtype=torch.int32, device=cuda)
     state = wavefront.make_initial_state(scene, ids, 20, 40)
     eager(True)
-    want = _trace(tight, rows, 40), wavefront.trace_live_bounds(scene, state, 40, 10, True)
+    want = _trace(tight, rows, 40), packed.trace_live_bounds(scene, state, 40, 10, True)
     eager(False)
-    got = _trace(tight, rows, 40), wavefront.trace_live_bounds(scene, state, 40, 10, True)
+    got = _trace(tight, rows, 40), packed.trace_live_bounds(scene, state, 40, 10, True)
     assert torch.equal(got[0][0], want[0][0]) and got[0][1:] == want[0][1:]
     assert got[1] == want[1] and want[0][1] > 0

@@ -58,12 +58,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import packet_intersect
 from cuda_raytracer_tpu_torch.ops import intersect, traverse
 from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1, rays, shade, sweep
 from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
-from cuda_raytracer_tpu_torch.render import diff, pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import diff, packed, pipeline, wavefront
 
 pytestmark = pytest.mark.cuda
 
@@ -743,9 +745,9 @@ def test_forward_render_launches_camera_rows_once_a_block(cuda, monkeypatch):
     def old_trace_camera(scene, ray_lo, n, rpp, pass_seed, *args, **kwargs):
         ids = ray_lo + torch.arange(n, dtype=torch.int32, device=scene.device)
         state = wavefront.make_initial_state(scene, ids, rpp, pass_seed)
-        return wavefront.trace_wavefront(scene, state, pass_seed, *args, **kwargs)
+        return packed.trace_wavefront(scene, state, pass_seed, *args, **kwargs)
 
-    monkeypatch.setattr(wavefront, "trace_camera", old_trace_camera)
+    monkeypatch.setattr(packed, "trace_camera", old_trace_camera)
     assert torch.equal(pipeline.render_framebuffer(scene), fb)
     assert rays.LAUNCHES_CAMERA == before[0] + 4 and rays.LAUNCHES_DRAWS > before[1]
 

@@ -42,6 +42,9 @@ import jax.numpy as jnp
 from cuda_raytracer_tpu.ops import morton as jmorton
 from cuda_raytracer_tpu.ops import rng as jrng
 from cuda_raytracer_tpu.ops import sort as jsort
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.ops import morton, rng, sort
 from cuda_raytracer_tpu_torch.ops.kernels import rays

@@ -29,8 +29,11 @@ import jax
 import jax.numpy as jnp
 from cuda_raytracer_tpu.render import diff as jdiff
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
-from cuda_raytracer_tpu_torch.render import diff, wavefront
+from cuda_raytracer_tpu_torch.render import diff, packed, wavefront
 
 from test_diff import CORNELL_MINI, GLASS_SPHERE, METAL_SPHERE, _smooth_env
 from test_torch_packet import build_mesh_both
@@ -217,7 +220,7 @@ def test_detached_trace_keeps_geometry_out_of_the_graph():
         scene = diff.merge_params(ts, params)
         ids = torch.arange(32, dtype=torch.int32)
         state = wavefront.make_initial_state(scene, ids, 2, 0)
-        state, _ = wavefront.trace_wavefront(scene, state, 0, 3, False, reparam=reparam)
+        state, _ = packed.trace_wavefront(scene, state, 0, 3, False, reparam=reparam)
         assert state.origin.requires_grad == reparam
         assert state.direction.requires_grad == reparam
         state.collected.sum().backward()

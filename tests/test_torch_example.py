@@ -13,6 +13,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.examples import inverse_render
 
 REPO = Path(__file__).resolve().parents[1]

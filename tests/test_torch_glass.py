@@ -24,8 +24,10 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
-from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
 from rtbench.core.spec import load_module
 from rtbench.reference import dsl as ref_dsl
@@ -47,16 +49,6 @@ SEEDS = (3, 2 ** 31 + 7)
 # radiance). The bfloat16 reference misses its worst pixel by more than its
 # own value.
 RTOL, ATOL = 1e-4, 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Tensors here hold a few hundred rays: one intra-op thread runs them
-    fastest, and does not fight the other test workers for the cores."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _scene_text(seed: int, tmp: Path) -> str:
@@ -141,7 +133,7 @@ def test_dielectric_and_tail_counters_match_the_plain_path(name):
     dielectric, tail = _plain_counts(scene, rays, seed)
     recorded = metrics.Metrics()
     with metrics.attached(recorded):
-        wavefront.trace_camera(scene, 0, rays, SPP, seed, BOUNCES, sort_rays=True)
+        packed.trace_camera(scene, 0, rays, SPP, seed, BOUNCES, sort_rays=True)
     counters = recorded.resolve().counters
     assert counters["shade.dielectric"] == dielectric
     assert counters["rays.live_tail"] == tail

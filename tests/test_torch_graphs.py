@@ -1,4 +1,4 @@
-"""The bounce loop's CUDA graphs (``render/graphs.py``), on the CPU.
+"""The bounce loop's CUDA graphs (``render/packed.py``), on the CPU.
 
 - ``segment_plan`` lists the segments a block can run, cut at the live-count
   reads: with the dynamic live prefix every prefix up to the last one after
@@ -25,20 +25,28 @@ import types
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene
 from cuda_raytracer_tpu_torch.models import scene_dsl
 from cuda_raytracer_tpu_torch.ops.kernels import rays
-from cuda_raytracer_tpu_torch.render import graphs, pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
 
 SORTED = [True] * 5 + [False] * 5  # the default schedule at 10 bounces
 
 
+def _schedule(R, sorted_bounces, compact, sizes, static_rows=None):
+    """A ``wavefront.BounceSchedule`` of R rows in one sort chunk."""
+    return wavefront.BounceSchedule(tuple(sorted_bounces), R, compact, tuple(sizes),
+                                    None if static_rows is None else tuple(static_rows))
+
+
 def test_segment_plan_on_the_dynamic_prefix():
     sizes = [256, 64, 16, 8]
-    plan = graphs.segment_plan(256, SORTED, True, sizes)
+    plan = packed.segment_plan(_schedule(256, SORTED, True, sizes))
     segments = set(plan.values())
-    assert plan[(0, 256, 256)] == graphs.Segment(0, (256,), 256, True)
+    assert plan[(0, 256, 256)] == packed.Segment(0, (256,), 256, True)
     assert {k for k in plan if k[0] == 1} == {(1, m, 256) for m in sizes}
     for b in (2, 3, 4):
         assert {k for k in plan if k[0] == b} == {
@@ -53,11 +61,11 @@ def test_segment_plan_on_the_dynamic_prefix():
 
 def test_segment_plan_on_a_static_schedule():
     rows = [256, 128, 64, 64, 32, 32, 16, 16, 16, 16]
-    plan = graphs.segment_plan(256, SORTED, True, [256, 64, 16, 8], rows)
+    plan = packed.segment_plan(_schedule(256, SORTED, True, [256, 64, 16, 8], rows))
     assert list(plan.values()) == [
-        graphs.Segment(0, (256,), 256, True), graphs.Segment(1, (128,), 256, True),
-        graphs.Segment(2, (64,), 128, True), graphs.Segment(3, (64,), 64, True),
-        graphs.Segment(4, (32,), 64, True), graphs.Segment(5, (32,) + (16,) * 4, 32, False)]
+        packed.Segment(0, (256,), 256, True), packed.Segment(1, (128,), 256, True),
+        packed.Segment(2, (64,), 128, True), packed.Segment(3, (64,), 64, True),
+        packed.Segment(4, (32,), 64, True), packed.Segment(5, (32,) + (16,) * 4, 32, False)]
     assert list(plan) == [(s.first, s.rows[0], prev) for s, prev in
                           zip(plan.values(), [256, 256, 128, 64, 64, 32])]
 
@@ -65,11 +73,11 @@ def test_segment_plan_on_a_static_schedule():
 @pytest.mark.parametrize("sorted_bounces,compact", [
     (SORTED, False), ([False] * 10, True), ([], True)])
 def test_segment_plan_without_reads_is_one_segment(sorted_bounces, compact):
-    plan = graphs.segment_plan(300, sorted_bounces, compact, [300, 76])
+    plan = packed.segment_plan(_schedule(300, sorted_bounces, compact, [300, 76]))
     if not sorted_bounces:
         assert plan == {}
     else:
-        assert plan == {(0, 300, 300): graphs.Segment(0, (300,) * 10, 300, False)}
+        assert plan == {(0, 300, 300): packed.Segment(0, (300,) * 10, 300, False)}
 
 
 def _stub(device, intersector, triangles=770):
@@ -83,7 +91,7 @@ def _stub(device, intersector, triangles=770):
     ("cuda", "bvh", 770, True, False), ("cuda", "packet", 770, False, False),
     ("cuda", "auto", 500, False, False), ("cpu", "bvh", 770, False, False)])
 def test_applies_to_the_walk_on_the_card(device, intersector, triangles, plain, want):
-    assert graphs.applies(_stub(device, intersector, triangles), plain) == want
+    assert packed.applies(_stub(device, intersector, triangles), plain) == want
 
 
 class _Stream:
@@ -122,22 +130,22 @@ def stand_in(monkeypatch):
                         ("graph_pool_handle", lambda: None), ("CUDAGraph", _Graph),
                         ("Event", _Event)):
         monkeypatch.setattr(torch.cuda, name, value)
-    capture = graphs.BlockGraphs._capture
+    capture = packed.BlockGraphs._capture
 
     def capture_and_stand_in(block, sc, segment, pool):
         captured = capture(block, sc, segment, pool)
 
         def replay():
             with metrics.attached(metrics.Metrics()):
-                live = block._enqueue(sc, segment)
+                live, _ = block._issue(sc, segment)
             if live is not None:
                 captured.live.copy_(live)
         return captured._replace(graph=types.SimpleNamespace(replay=replay))
 
-    monkeypatch.setattr(graphs.BlockGraphs, "_capture", capture_and_stand_in)
+    monkeypatch.setattr(packed.BlockGraphs, "_capture", capture_and_stand_in)
 
     def use(on: bool):
-        monkeypatch.setattr(graphs, "applies", lambda sc, plain=False: on and not plain and (
+        monkeypatch.setattr(packed, "applies", lambda sc, plain=False: on and not plain and (
             wavefront.resolved_intersector(sc) == "bvh"))
     yield use
     for key in [k for k in scene._DERIVED if k[0] == ("block_graphs",)]:
@@ -186,9 +194,9 @@ def test_stand_in_graphs_give_the_eager_live_bounds(stand_in):
     ids = torch.arange(16 * 16 * 4, dtype=torch.int32)
     state = wavefront.make_initial_state(sc, ids, 4, 3)
     stand_in(False)
-    want = wavefront.trace_live_bounds(sc, state, 3, 7, True)
+    want = packed.trace_live_bounds(sc, state, 3, 7, True)
     stand_in(True)
-    assert wavefront.trace_live_bounds(sc, state, 3, 7, True) == want
+    assert packed.trace_live_bounds(sc, state, 3, 7, True) == want
     assert want[0] == 1024 and want[-1] < want[1]
 
 

@@ -14,6 +14,9 @@ import types
 import pytest
 
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.render import pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics

@@ -20,9 +20,12 @@ import torch
 import jax.numpy as jnp
 from cuda_raytracer_tpu.render import pipeline as jpipeline
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.ops import packet_intersect
-from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
 
 from test_torch_packet import build_mesh_both
@@ -68,7 +71,7 @@ def test_trace_live_bounds_match_jax():
     jstate = jwavefront.make_initial_state(js, jnp.asarray(ids), 4, 2)
     tstate = wavefront.make_initial_state(ts, torch.from_numpy(ids), 4, 2)
     ref = np.asarray(jwavefront.trace_live_bounds(js, jstate, 2, 6, True)).tolist()
-    got = wavefront.trace_live_bounds(ts, tstate, 2, 6, True)
+    got = packed.trace_live_bounds(ts, tstate, 2, 6, True)
     assert got == ref and got[0] == rays and got[-1] < rays
 
 

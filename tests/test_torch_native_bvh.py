@@ -11,6 +11,9 @@ import numpy as np
 import pytest
 
 from cuda_raytracer_tpu.models import bvh as jbvh
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import bvh
 from cuda_raytracer_tpu_torch.native import bvh_native
 from cuda_raytracer_tpu_torch.ops.kernels import build

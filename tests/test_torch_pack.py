@@ -23,6 +23,9 @@ import torch
 
 import jax.numpy as jnp
 from cuda_raytracer_tpu.ops import packet_intersect as jpi
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.ops import packet_intersect
 from cuda_raytracer_tpu_torch.ops.kernels import cull, fused1

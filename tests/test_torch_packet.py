@@ -37,6 +37,9 @@ from cuda_raytracer_tpu.ops import packet_intersect as jpi
 from cuda_raytracer_tpu.ops import traverse as jtraverse
 from cuda_raytracer_tpu.ops.pallas import cull as jcull
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import morton, packet_intersect, traverse
 from cuda_raytracer_tpu_torch.ops.kernels import cull, fused, fused1

@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import packet_intersect
 from cuda_raytracer_tpu_torch.ops.intersect import MISS

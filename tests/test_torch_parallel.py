@@ -35,6 +35,9 @@ import jax
 import jax.numpy as jnp
 from cuda_raytracer_tpu.parallel import mesh as jmesh
 from cuda_raytracer_tpu.parallel import shard as jshard
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.parallel import mesh as mesh_mod
 from cuda_raytracer_tpu_torch.parallel import shard

@@ -21,6 +21,9 @@ from cuda_raytracer_tpu.ops import tonemap as jtonemap
 from cuda_raytracer_tpu.ops import vecmath as jvecmath
 from cuda_raytracer_tpu.render import wavefront as jwavefront
 from cuda_raytracer_tpu.utils import png as jpng
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.models import scene_dsl as tdsl
 from cuda_raytracer_tpu_torch.ops import bloom, camera, envmap, intersect, rng, tonemap, vecmath

@@ -40,11 +40,11 @@ the GPU build's ``-fmad=false``) and holds, on seeded inputs:
   NaN boxes and a box whose corners are out of order (torch's minimum leaves the sign of a ±0 tie unspecified, so the
   sign of a zero entry is held to the header's rule);
 
-and end to end, the packed forward trace (``wavefront.trace_packed``) gives
+and end to end, the packed forward trace (``packed.trace_packed``) gives
 the ``RayState`` trace's bits (``trace_rays``, the path every forward
 render took before) on the small torus (every packet engine, the live
 schedule) and on Cornell; the pass loop's blocks, traced from the camera
-rows (``wavefront.trace_camera``), give the framebuffer's bits of blocks
+rows (``packed.trace_camera``), give the framebuffer's bits of blocks
 traced from ``make_initial_state``; ``tests/test_torch_mesh_render.py``
 holds its renders, packed now, to the JAX package's.
 """
@@ -62,11 +62,14 @@ from cuda_raytracer_tpu.ops import camera as jcamera
 from cuda_raytracer_tpu.ops import morton as jmorton
 from cuda_raytracer_tpu.ops import rng as jrng
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
 from cuda_raytracer_tpu_torch.ops import camera, packet_intersect, rng
 from cuda_raytracer_tpu_torch.ops.kernels import bounce, build, cull, rays, shade
 from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
-from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 
 from test_torch_packet import build_mesh_both
 
@@ -521,18 +524,30 @@ def _traces(scene, n: int = 512, seed: int = 6, bounces: int = 5):
     (state, suspect) results."""
     ids = torch.arange(n, dtype=torch.int32)
     state = wavefront.make_initial_state(scene, ids, SIZE["rays_per_pixel"], seed)
-    return (wavefront.trace_packed(scene, state, seed, bounces, True),
+    return (packed.trace_packed(scene, state, seed, bounces, True),
             wavefront.trace_rays(scene, state, seed, bounces, True))
 
 
-@pytest.mark.parametrize("backend", ["auto", "fused", "fused1", "pallas"])
-def test_packed_trace_gives_the_ray_state_bits(torus, backend):
+@pytest.mark.parametrize("backend,chunks", [
+    pytest.param("auto", 1, id="auto"), pytest.param("fused", 1, id="fused"),
+    pytest.param("fused1", 1, id="fused1"), pytest.param("pallas", 1, id="pallas"),
+    pytest.param("auto", 2, id="auto-two-chunks")])
+def test_packed_trace_gives_the_ray_state_bits(torus, monkeypatch, backend, chunks):
     """Every packet engine: the set-up kernel's ray tiles for fused and fused1
     (fused with its skip test), triangle_hit for the xla ("auto" on the CPU)
-    and pallas engines."""
+    and pallas engines. With the wavefront two sort chunks (``SORT_CHUNK``
+    below it) neither trace compacts: every bounce runs all the rows, and
+    the reorder is chunk-local."""
     _, ts = torus
     scene = ts.with_config(packet_backend=backend, packet_skip=backend == "fused")
-    (got, got_suspect), (want, want_suspect) = _traces(scene)
+    n = 512
+    if chunks > 1:
+        monkeypatch.setattr(wavefront, "SORT_CHUNK", 4096)
+        n = 4096 * chunks
+        scene = scene.with_config(width=64, height=n // (64 * SIZE["rays_per_pixel"]))
+        schedule = wavefront.bounce_schedule(scene, n, 5, True)
+        assert schedule.chunk == 4096 and any(schedule.sorted) and not schedule.compact
+    (got, got_suspect), (want, want_suspect) = _traces(scene, n)
     _assert_bit_equal(got, want)
     assert got_suspect == want_suspect == 0
     assert not torch.equal(got.ray_id, want.ray_id.sort().values)  # it was sorted
@@ -540,13 +555,16 @@ def test_packed_trace_gives_the_ray_state_bits(torus, backend):
 
 def test_packed_render_gives_the_ray_state_framebuffer(torus, monkeypatch):
     """The pass loop's framebuffer, bit for bit, on the small torus and on
-    Cornell (brute intersector). tests/test_torch_mesh_render.py holds the
-    same renders, packed since they trace forward, to the JAX package."""
+    Cornell (brute intersector), against its blocks traced on the
+    ``RayState`` (``make_initial_state``, ``trace_rays``).
+    tests/test_torch_mesh_render.py holds the same renders, packed since
+    they trace forward, to the JAX package."""
     _, ts = torus
     cornell = build_mesh_both(builtin_scenes.CORNELL, dict(SIZE, width=8, height=8))[1]
     scenes = (ts.with_config(width=8, height=8), cornell)
     got = [pipeline.render_framebuffer(scene) for scene in scenes]
-    monkeypatch.setattr(wavefront, "trace_wavefront", wavefront.trace_rays)
+    monkeypatch.setattr(packed, "trace_camera", _old_trace_camera)
+    monkeypatch.setattr(packed, "trace_wavefront", wavefront.trace_rays)
     for fb, scene in zip(got, scenes):
         assert torch.equal(fb, pipeline.render_framebuffer(scene))
 
@@ -557,8 +575,8 @@ def _old_trace_camera(scene, ray_lo, n, rpp, pass_seed, bounces, sort_rays, repa
     the ids, ``make_initial_state`` and ``trace_wavefront``."""
     ids = ray_lo + torch.arange(n, dtype=torch.int32)
     state = wavefront.make_initial_state(scene, ids, rpp, pass_seed)
-    return wavefront.trace_wavefront(scene, state, pass_seed, bounces, sort_rays,
-                                     reparam=reparam, checkpoint_bounces=checkpoint_bounces)
+    return packed.trace_wavefront(scene, state, pass_seed, bounces, sort_rays,
+                                  reparam=reparam, checkpoint_bounces=checkpoint_bounces)
 
 
 @pytest.mark.parametrize("name", ["torus", "cornell"])
@@ -574,16 +592,16 @@ def test_blocks_from_camera_rows_give_the_framebuffer(torus, monkeypatch, name, 
     scene = scene.with_config(width=8, height=6, rays_per_pixel=6, bounces=3,
                               max_rays_per_pixel_per_pass=3, sort_rays=sort_rays)
     monkeypatch.setattr(pipeline, "RAY_BLOCK", 8 * 3 * 3)
-    calls, packed = [], []
-    camera_rows, trace_packed = rays.camera_rows, wavefront.trace_packed
+    calls, handed = [], []
+    camera_rows, trace_packed = rays.camera_rows, packed.trace_packed
     monkeypatch.setattr(rays, "camera_rows",
                         lambda *a: calls.append(a[1:]) or camera_rows(*a))
-    monkeypatch.setattr(wavefront, "trace_packed",
-                        lambda sc, state, *a, **k: packed.append(
+    monkeypatch.setattr(packed, "trace_packed",
+                        lambda sc, state, *a, **k: handed.append(
                             isinstance(state, torch.Tensor)) or trace_packed(sc, state, *a, **k))
     got = pipeline.render_framebuffer(scene)
-    assert [c[:2] for c in calls] == [(0, 72), (72, 72)] * 2 and all(packed)
-    monkeypatch.setattr(wavefront, "trace_camera", _old_trace_camera)
+    assert [c[:2] for c in calls] == [(0, 72), (72, 72)] * 2 and all(handed)
+    monkeypatch.setattr(packed, "trace_camera", _old_trace_camera)
     assert torch.equal(got, pipeline.render_framebuffer(scene))
     assert len(calls) == 4
 
@@ -597,7 +615,7 @@ def test_plain_trace_calls_no_kernel_wrapper(monkeypatch):
     rpp = SIZE["rays_per_pixel"]
     ids = torch.arange(8 * 8 * rpp, dtype=torch.int32)
     state = wavefront.make_initial_state(cornell, ids, rpp, 4)
-    want = wavefront.trace_wavefront(cornell, state, 4, 3, sort_rays=False)[0].collected
+    want = packed.trace_wavefront(cornell, state, 4, 3, sort_rays=False)[0].collected
 
     def refuse(*args, **kwargs):
         raise AssertionError("a kernel wrapper was called")

@@ -16,9 +16,12 @@ import jax.numpy as jnp
 from cuda_raytracer_tpu.ops.pallas import shade as jshade
 from cuda_raytracer_tpu.render import pipeline as jpipeline
 from cuda_raytracer_tpu.render import wavefront as jwavefront
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.ops.kernels import shade
-from cuda_raytracer_tpu_torch.render import pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 
 from test_torch_scene import build_both
 
@@ -66,7 +69,7 @@ def test_wavefront_collected_matches_jax(name):
     ray_id = np.arange(8 * 8 * rpp, dtype=np.int32)
     ref = _jax_collected(js, ray_id, rpp, bounces, seed)
     state = wavefront.make_initial_state(ts, torch.from_numpy(ray_id), rpp, seed)
-    state, suspect = wavefront.trace_wavefront(ts, state, seed, bounces, sort_rays=False)
+    state, suspect = packed.trace_wavefront(ts, state, seed, bounces, sort_rays=False)
     assert suspect == 0
     assert_agree(state.collected.numpy(), ref)
     np.testing.assert_array_equal(state.ray_id.numpy(), ray_id)
@@ -135,11 +138,11 @@ def test_unported_paths_raise():
     for sort_rays in (False, True):
         jstate = jwavefront.make_initial_state(js, jnp.arange(16, dtype=jnp.int32), 1, 0)
         jstate, _ = jwavefront.trace_wavefront(js, jstate, 0, 2, sort_rays=sort_rays)
-        traced, suspect = wavefront.trace_wavefront(ts_bvh, state, 0, 2, sort_rays=sort_rays)
+        traced, suspect = packed.trace_wavefront(ts_bvh, state, 0, 2, sort_rays=sort_rays)
         assert int(suspect) == 0
         got = traced.collected[torch.argsort(traced.ray_id)].numpy()
         assert_agree(got, np.asarray(jstate.collected)[np.argsort(np.asarray(jstate.ray_id))])
-    traced, suspect = wavefront.trace_wavefront(ts.with_config(intersector="packet"),
+    traced, suspect = packed.trace_wavefront(ts.with_config(intersector="packet"),
                                                 state, 0, 2, sort_rays=True)
     assert int(suspect) == 0 and sorted(traced.ray_id.tolist()) == list(range(16))
     # Reparameterised shading is ported (see test_torch_diff.py): it keeps

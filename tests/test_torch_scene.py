@@ -15,6 +15,9 @@ import torch
 from cuda_raytracer_tpu.models import bvh as jbvh
 from cuda_raytracer_tpu.models import cluster as jcluster
 from cuda_raytracer_tpu.models import scene_dsl as jdsl
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.models import bvh as tbvh
 from cuda_raytracer_tpu_torch.models import cluster as tcluster

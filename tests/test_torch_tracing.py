@@ -20,9 +20,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch import cli
 from cuda_raytracer_tpu_torch.models import builtin_scenes, scene_dsl
-from cuda_raytracer_tpu_torch.render import diff, pipeline, wavefront
+from cuda_raytracer_tpu_torch.render import diff, packed, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
 
 LOOP_SPANS = ("rt.pass", "rt.block", "rt.camera", "rt.bounce", "rt.tail", "rt.reorder",
@@ -142,27 +144,27 @@ def test_live_rays_per_bounce_match_an_independent_count(block):
     scene = _torus(rays_per_pixel=rpp, bounces=bounces)
     lo = block * rays
     want = _live_entering(scene, lo, rays, rpp, seed, bounces)
-    sorted_bounces = wavefront._sort_schedule(scene, True, bounces)
-    sizes = wavefront.live_prefix_sizes(scene, rays)
+    schedule = wavefront.bounce_schedule(scene, rays, bounces, True)
     totals = []
     for k in range(1, bounces + 1):
         m = metrics.Metrics()
         with metrics.attached(m):
-            wavefront.trace_camera(scene, lo, rays, rpp, seed, k, sort_rays=True)
+            packed.trace_camera(scene, lo, rays, rpp, seed, k, sort_rays=True)
         totals.append(m.resolve().counters)
-        assert m.counters.get("sync.host", 0) == sum(wavefront._sort_schedule(scene, True, k))
+        assert m.counters.get("sync.host", 0) == sum(
+            wavefront.bounce_schedule(scene, rays, k, True).sorted)
     live = [t["rays.live"] for t in totals]
     launched = [t["rays.launched"] for t in totals]
     per_bounce = [live[0]] + [b - a for a, b in zip(live, live[1:])]
     rows = [launched[0]] + [b - a for a, b in zip(launched, launched[1:])]
     assert per_bounce == want and want[-1] < want[0]
-    assert all(n in sizes and n >= w for n, w in zip(rows, want))
+    assert all(n in schedule.sizes and n >= w for n, w in zip(rows, want))
     ray_id = lo + torch.arange(rays, dtype=torch.int32)
-    bounds = wavefront.trace_live_bounds(
+    bounds = packed.trace_live_bounds(
         scene, wavefront.make_initial_state(scene, ray_id, rpp, seed), seed, bounces, True)
     assert bounds[0] == want[0] == rays
     for b in range(1, bounces):
-        if sorted_bounces[b - 1]:
+        if schedule.sorted[b - 1]:
             assert bounds[b] == want[b]
 
 

@@ -43,6 +43,9 @@ import jax.numpy as jnp
 from cuda_raytracer_tpu.ops import intersect as jintersect
 from cuda_raytracer_tpu.ops import traverse as jtraverse
 from cuda_raytracer_tpu.render import pipeline as jpipeline
+
+import torch_threads  # noqa: F401  (this process's share of the cores)
+
 from cuda_raytracer_tpu_torch.models import builtin_scenes
 from cuda_raytracer_tpu_torch.models.bvh import MAX_BVH_DEPTH
 from cuda_raytracer_tpu_torch.ops import intersect, traverse
