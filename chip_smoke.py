@@ -55,8 +55,10 @@ line each:
    (c) the forward trace's row kernels on that block traced as the packed
    trace traces it, bounces 0-9: the set-up kernel (alive bit, sphere hit,
    ray tiles), the sort keys and live count (both engines, and the sorted
-   permutation) and the PCG draws (a bounce's; the camera's at bounce 0)
-   bit-equal to their plain versions, the live counts of three
+   permutation), the PCG draws (a bounce's; the camera's at bounce 0) and
+   the reorder's row move (the block bounced and sorted, int64 and int32
+   permutations, with and without a settled suffix, the rows past it
+   untouched) bit-equal to their plain versions, the live counts of three
    back-to-back launches of each key kernel right, the packed bounce
    kernel against the torch shading at the shade gate; the camera kernel
    (a block's packed starting rows) bit-equal to its plain version on the
@@ -64,7 +66,9 @@ line each:
    block, at 20 and 8 rays a pixel, for pass seeds 80 and 2^31 + 80; then
    their times (each call on rows out of L2), plain times and bounds, the
    camera kernel's beside the sequence it replaced (its device operations,
-   device and host time) and torch.cat of the rows' columns;
+   device and host time) and torch.cat of the rows' columns; the row move
+   after bounce 0 (rows out of L2 and in it) beside torch.index_select
+   on the same rows, and the grid and block of each one's device kernel;
 7. mesh main path: the torus at 1000×1000 and 10 bounces after small
    warm-ups, timed as ``render_timed`` times it, in turns: 100 and then 8
    rays per pixel, each through fused1 and through cull + fused (fused1,
@@ -72,8 +76,8 @@ line each:
    card the BVH walk, ``wavefront.resolve_intersector``); launch
    counts per kernel (> 0 for the regime's kernels, the walk's in "auto",
    and the forward kernels: camera rows, set-up, bounce, sort
-   keys; 0 for the other closest-hit kernels and the PCG draws; the camera
-   kernel once a block), finite framebuffers, sane mean
+   keys, row move; 0 for the other closest-hit kernels and the PCG draws;
+   the camera kernel once a block), finite framebuffers, sane mean
    display values, every packet image of a spp identical, and the "auto"
    image within ±1 of them on at least WALK_IMAGE_SHARE of its bytes (the
    walk keeps the first of two tied triangles, the packet engines the
@@ -312,10 +316,11 @@ EXAMPLE_BAR = 0.15  # phase 10d: the example's own bar
 CLI_SPP = 8  # phase 9: one pass (9c renders it through cull + fused, the gated cull's path)
 CLI_GATE = 16  # --cull-hier: clusters per super box
 # The kernels every forward mesh render launches beside its closest hit: the
-# camera rows and the packed trace's set-up, bounce and sort-key kernels;
+# camera rows and the packed trace's set-up, bounce, sort-key and row-move
+# kernels;
 # and the one it must not: the PCG draws (a graph-building trace's camera,
 # the training shading).
-FORWARD_KERNELS = ("camera_rows", "rays_setup", "shade_rows", "ray_keys")
+FORWARD_KERNELS = ("camera_rows", "rays_setup", "shade_rows", "ray_keys", "reorder_rows")
 FORWARD_NOT = ("pcg_draws",)
 # The closest-hit kernels of packet_backend "auto" on the card
 # (packet_intersect.resolve_backend) in a pass of fewer than 10 rays per
@@ -1266,29 +1271,35 @@ def phase_row_kernels(full) -> dict:
     the torus's centre 2^18-ray block of a 20-spp pass, traced as the packed
     trace traces it, entering bounces 0-9: the set-up kernel (alive bit,
     sphere hit, ray tiles), the sort keys and live count (argsort and count
-    engines; the sorted permutation too) and the PCG draws (a bounce's, and
-    at bounce 0 the camera's) bit-equal (0 mismatched bits), the live count
+    engines; the sorted permutation too), the PCG draws (a bounce's, and
+    at bounce 0 the camera's) and the row move (``_reorder_checks``)
+    bit-equal (0 mismatched bits), the live count
     of three back-to-back launches of each key kernel (Morton and cullhit)
     right with no reset between them, the packed
     bounce kernel against the torch shading at the shade gate; the camera
     kernel against its plain version on blocks of passes (``_camera_checks``).
     Then their times at bounce 1 (the draws on the train step's 131,072 ray
-    ids; the camera kernel on the centre block), each beside its bound and
-    plain time."""
+    ids; the camera kernel on the centre block; the row move after bounce
+    0), each beside its bound and plain time."""
     import torch
     from cuda_raytracer_tpu_torch.ops import camera
     from cuda_raytracer_tpu_torch.ops.kernels import bounce, rays
+    from cuda_raytracer_tpu_torch.render import wavefront
 
     rpp, seed = 20, 80
     scene = full.with_config(rays_per_pixel=rpp, packet_backend="fused1")
     tile = scene.config.packet_tile
     block_lo, block = _centre_block(scene, rpp)
     ids = block_lo + torch.arange(block, dtype=torch.int32, device=scene.device)
-    worst, at1 = 0.0, None
-    errs = dict.fromkeys(("rays_setup", "ray_keys", "pcg_draws"), 0.0)
+    worst, at1, at0 = 0.0, None, None
+    errs = dict.fromkeys(("rays_setup", "ray_keys", "pcg_draws", "reorder_rows"), 0.0)
     for b, rows in _traced_rows(scene, ids, rpp, seed):
         n = rows.shape[0]
         checks = {"rays_setup": [], "ray_keys": [], "pcg_draws": []}
+        moved = rows.clone()
+        wavefront.bounce_rows(scene, moved, seed, b)
+        order, _ = wavefront.sort_order(scene, moved, n)
+        checks["reorder_rows"] = _reorder_checks(moved, order, rows)
         setup = rays.rays_setup(rows, scene.sphere_center, scene.sphere_radius, tile)
         checks["rays_setup"].append(_bit_mismatch(setup, rays.plain_rays_setup(
             rows, scene.sphere_center, scene.sphere_radius, tile)))
@@ -1315,8 +1326,8 @@ def phase_row_kernels(full) -> dict:
                                                      (rays.plain_pcg_draws(*seeding),)))
         for name, results in checks.items():
             errs[name] = max([errs[name]] + [err for _, err in results])
-        bad_setup, bad_keys, bad_draws = (sum(bad for bad, _ in checks[name])
-                                          for name in checks)
+        bad_setup, bad_keys, bad_draws, bad_moves = (sum(bad for bad, _ in checks[name])
+                                                     for name in checks)
         alive, t, index, _, t_tri, tri = _row_hits(scene, rows)
         got, want = rows.clone(), rows.clone()
         bounce.shade_rows(scene, got, t, index, seed, b, t_tri, tri)
@@ -1327,24 +1338,110 @@ def phase_row_kernels(full) -> dict:
         print(f"phase 6c row kernels: torus centre block lo={block_lo} bounce={b} rays={n} "
               f"live={int(alive.sum())} rays_setup_mismatched={bad_setup} "
               f"ray_keys_mismatched={bad_keys} pcg_draws_mismatched={bad_draws} "
+              f"reorder_rows_mismatched={bad_moves} "
               f"back_to_back_live_counts={json.dumps([int(x) for x in lives])} "
               f"max_abs_err={json.dumps({k: errs[k] for k in checks})} "
               f"bounce_agree={agree:.6f} bounce_max_abs_err={err:.3g} finite={finite} "
               f"id_columns_untouched={same_ids}")
-        if (bad_setup or bad_keys or bad_draws or bad_live or not (finite and same_ids)
-                or agree < AGREE_MIN):
+        if (bad_setup or bad_keys or bad_draws or bad_moves or bad_live
+                or not (finite and same_ids) or agree < AGREE_MIN):
             raise SystemExit(f"phase 6c failed: a row kernel differs from its plain version "
                              f"(bounce {b})")
         worst = max(worst, err)
+        if b == 0:
+            at0 = moved, order
         if b == 1:
             at1 = rows.clone()
     out = _row_timing(scene, at1)
+    out["reorder_rows"] = _reorder_timing(*at0)
     for name, err in errs.items():
         out[name]["max_abs_err"] = err
     out["bounce_max_abs_err"] = worst
     out["camera_rows"] = _camera_timing(scene, block_lo, block, rpp, seed)
     out["camera_rows"]["max_abs_err"] = _camera_checks(scene)
     return out
+
+
+def _reorder_checks(moved, order, other) -> list:
+    """6c: the row move against its plain version (index_select and the
+    slice copy) → [(mismatched elements, largest |Δ| among them)]: the
+    bounced prefix ``moved`` gathered by its sort ``order`` (int64 and
+    int32), with no settled suffix and with one of ``other``'s rows (all
+    but 3), into a buffer 5 rows longer whose rows past the settled ones
+    must keep their bits."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    n = moved.shape[0]
+    cur = torch.cat([moved, other.flip(0)])
+    results = []
+    for index in (order, order.to(torch.int32)):
+        for settled in (n, max(n, 2 * n - 3)):
+            spare = torch.full((2 * n + 5, rays.ROW_WORDS), -7.0, device=moved.device)
+            got = rays.reorder_rows(cur, index, n, settled, spare.clone())
+            want = rays.plain_reorder_rows(cur, index, n, settled, spare.clone())
+            results.append(_bit_mismatch((got,), (want,)))
+    return results
+
+
+def _kernel_shapes(fn) -> list:
+    """``fn()`` once under torch.profiler → [(device kernel name, grid,
+    block)] from the exported trace's kernel events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+    return [(e["name"], e.get("args", {}).get("grid"), e.get("args", {}).get("block"))
+            for e in events if e.get("cat") == "kernel"]
+
+
+def _reorder_timing(moved, order) -> dict:
+    """6c: the row move after bounce 0 of the centre block (every row
+    sorted, no suffix): its time on rows out of L2 (``_cold_copies``), as
+    ``ms``, and on rows in it (``warm_ms``: the bounce kernel has just
+    written them on the path), with an int32 permutation too; beside it
+    torch.index_select on the same rows (``library_ms``, also its plain
+    version's call) both ways; the bytes it needs (64 read and 64 written
+    a row, 8 of int64 permutation) and its bound; and the grid and block
+    of each one's device kernel under the profiler."""
+    import torch
+    from cuda_raytracer_tpu_torch.ops.kernels import rays
+
+    n = moved.shape[0]
+    cold = _cold_copies(moved)
+    order32 = order.to(torch.int32)
+    spare = torch.empty_like(moved)
+    kernel = lambda rows, index: rays.reorder_rows(rows, index, n, n, spare)
+    library = lambda rows: torch.index_select(rows, 0, order, out=spare)
+    ms = _cuda_ms(lambda: kernel(cold(), order))
+    warm_ms = _cuda_ms(lambda: kernel(moved, order))
+    int32_ms = _cuda_ms(lambda: kernel(cold(), order32))
+    library_ms = _cuda_ms(lambda: library(cold()))
+    library_warm_ms = _cuda_ms(lambda: library(moved))
+    plain_ms = _plain_ms(lambda: rays.plain_reorder_rows(moved, order, n, n, spare))
+    nbytes = n * (2 * rays.ROW_WORDS * 4 + 8)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    shapes = {"kernel": _kernel_shapes(lambda: kernel(moved, order)),
+              "library": _kernel_shapes(lambda: library(moved))}
+    print(f"phase 6c timing: reorder_rows rows={n} ms={ms:.4f} warm_ms={warm_ms:.4f} "
+          f"int32_ms={int32_ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
+          f"library_warm_ms={library_warm_ms:.4f} bytes={nbytes} bytes_bound_ms={bound_ms:.4f} "
+          f"bound_share={bound_ms / ms:.3f} warm_bound_share={bound_ms / warm_ms:.3f} "
+          f"library_bound_share={bound_ms / library_ms:.3f}")
+    for label, found in shapes.items():
+        for name, grid, block in found:
+            print(f"phase 6c reorder launch shape: {label} {name[:80]} grid={grid} "
+                  f"block={block}")
+    return dict(ms=ms, warm_ms=warm_ms, int32_ms=int32_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_warm_ms=library_warm_ms, bound_ms=bound_ms,
+                bound_by="bytes", launch_shapes=shapes)
 
 
 def _camera_checks(scene) -> float:
@@ -3343,6 +3440,10 @@ def main() -> int:
             # a block's starting rows; the 100-spp render's blocks.
             ("camera_rows", "cuda_raytracer_tpu/ops/camera.py:33",
              mesh_launches["camera_rows"]),
+            # JAX reorder_rays' gather of the packed state (packed[order]);
+            # the 100-spp "auto" render's sorted bounces.
+            ("reorder_rows", "cuda_raytracer_tpu/render/wavefront.py:754",
+             mesh_launches["reorder_rows"]),
             # The torch shading's five draws a bounce and a graph-building
             # trace's camera: the 5 timed "auto" train steps (checkpointed);
             # no forward render launches it.
@@ -3364,12 +3465,15 @@ def main() -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             # rays_setup: torch.stack of its ray tiles' rows; camera_rows:
-            # torch.cat of its rows' columns; the packing only.
+            # torch.cat of its rows' columns; the packing only. reorder_rows:
+            # torch.index_select of the rows.
             "library_ms": r["library_ms"],
             **({"render_launches": mesh_launches["pcg_draws"]} if name == "pcg_draws" else {}),
             **({k: r[k] for k in ("plain_torch_pcg_ms", "old_device_ops",
                                   "old_device_busy_ms", "old_host_enqueue_ms",
                                   "host_enqueue_ms")} if name == "camera_rows" else {}),
+            **({k: r[k] for k in ("warm_ms", "int32_ms", "library_warm_ms", "launch_shapes")}
+               if name == "reorder_rows" else {}),
         })
     kernels.append({
         "name": "cull_gated",

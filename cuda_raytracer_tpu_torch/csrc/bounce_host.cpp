@@ -1,10 +1,12 @@
 // Host build of bounce.cu and rays.cu, for the CPU tests: each grid as a
 // loop over rays, each ray run through the same bodies the card runs
 // (rt::shade_packed_row in shading.cuh; rt::setup_ray, rt::ray_key, the
-// cullhit key's rt::first2_*, rt::pcg_draws_ray and rt::camera_row in
-// rays.cuh).
+// cullhit key's rt::first2_*, rt::pcg_draws_ray, rt::camera_row and
+// rt::reorder_source in rays.cuh).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libbounce_host.so bounce_host.cpp
+
+#include <cstring>
 
 #include "rays.cuh"
 
@@ -135,6 +137,21 @@ int rt_host_camera_rows(const float* cam, int ray_lo, int n, int rays_per_pixel,
     rt::camera_row(cam, ray_lo + i, rays_per_pixel, width, pass_seed, q);
     for (int k = 0; k < 4; ++k)
       rt::store_row4(rows + rt::kRowWords * (size_t)i + 4 * k, q[k].x, q[k].y, q[k].z, q[k].w);
+  }
+  return 0;
+}
+
+// rt_reorder_rows's arguments, without the stream: each row moved whole,
+// as bytes.
+int rt_host_reorder_rows(const float* cur, const void* order, int index_bytes, int n,
+                         int settled, float* spare) {
+  if (index_bytes != 4 && index_bytes != 8) return 1;
+  for (int i = 0; i < settled; ++i) {
+    const long long src =
+        index_bytes == 8 ? rt::reorder_source(static_cast<const long long*>(order), n, i)
+                         : rt::reorder_source(static_cast<const int*>(order), n, i);
+    std::memcpy(spare + rt::kRowWords * (size_t)i, cur + rt::kRowWords * (size_t)src,
+                rt::kRowWords * sizeof(float));
   }
   return 0;
 }

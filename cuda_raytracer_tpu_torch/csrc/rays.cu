@@ -1,5 +1,5 @@
-// The mesh wavefront's per-ray set-up, sort-key and draw kernels: one CUDA
-// thread per ray each.
+// The mesh wavefront's per-ray set-up, sort-key and draw kernels (one CUDA
+// thread per ray each) and its row move (four lanes a row).
 //
 // Replace no TPU kernel. They are the torch ops the port's forward mesh
 // bounce issued around its closest-hit and shading kernels, each a kernel
@@ -27,7 +27,12 @@
 //     camera rays of a block (JAX cuda_raytracer_tpu/ops/camera.py::
 //     generate_rays and render/wavefront.py::make_initial_state; the port's
 //     pack_rows), with the jitter's two draws kept in registers where the
-//     pcg_draws kernel wrote them out and some 30 torch ops read them back.
+//     pcg_draws kernel wrote them out and some 30 torch ops read them back;
+//   - reorder_rows_kernel: the reorder's row move (JAX
+//     cuda_raytracer_tpu/render/wavefront.py::reorder_rays' packed[order],
+//     plain XLA there), the sorted prefix gathered by its permutation and
+//     the settled suffix copied in place, in one launch where the port ran
+//     torch.index_select and a slice copy.
 //
 // The arithmetic is in rays.cuh and shading.cuh, shared with the host build
 // the CPU tests run.
@@ -78,6 +83,18 @@
 // staged in steps holds the block together at a step. The plain version
 // tests every ray against every box and materialises (R, 256, 3)
 // intermediates.
+//
+// The row move: bytes, 64 B read and 64 B written a row and the
+// permutation's entry (8 B as int64, 4 as int32) for a prefix row. A row is
+// four 16-byte words, one a lane, so a warp moves 8 consecutive output rows
+// as one 512-byte store and 8 gathered 64-byte reads; each lane moves
+// kMoveRows rows kMoveStep apart, with every load before its first
+// store, so a full SM (2,048 lanes) keeps 128 KB of row reads in flight.
+// The sources go through the read-only path; the stores are plain, since the
+// next bounce reads the rows back out of L2. torch.index_select launches a
+// 32-thread block a row (grid [n, 1, 1], block [32, 1, 1] under the
+// profiler), 4 of its lanes working on a 64-byte row: about 2 KB in flight
+// an SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -245,6 +262,33 @@ camera_rows_kernel(const float* __restrict__ cam, int ray_lo, int n, int rays_pe
   }
 }
 
+constexpr int kMoveRows = 4;                     // rows a lane of reorder_rows_kernel moves
+constexpr int kMoveStep = kThreads / 4;          // rows a block moves in one step
+constexpr int kMoveBlock = kMoveStep * kMoveRows;  // rows a block moves
+
+// Row i < settled of spare takes row rt::reorder_source(order, n, i) of cur;
+// lane q of a row moves its 16-byte word q.
+template <class Index>
+__global__ void __launch_bounds__(kThreads)
+reorder_rows_kernel(const uint4* __restrict__ cur, const Index* __restrict__ order, int n,
+                    int settled, uint4* __restrict__ spare) {
+  const int q = threadIdx.x & 3;
+  const int first = blockIdx.x * kMoveBlock + (threadIdx.x >> 2);
+  long long src[kMoveRows];
+#pragma unroll
+  for (int k = 0; k < kMoveRows; ++k) {
+    const int i = first + k * kMoveStep;
+    src[k] = i < settled ? rt::reorder_source(order, n, i) : -1;
+  }
+  uint4 word[kMoveRows];
+#pragma unroll
+  for (int k = 0; k < kMoveRows; ++k)
+    if (src[k] >= 0) word[k] = __ldg(cur + 4 * src[k] + q);
+#pragma unroll
+  for (int k = 0; k < kMoveRows; ++k)
+    if (src[k] >= 0) spare[4 * (size_t)(first + k * kMoveStep) + q] = word[k];
+}
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 // The most dynamic shared memory a block of cullhit_keys_kernel takes: a step
@@ -374,6 +418,27 @@ int rt_camera_rows(const float* cam, int ray_lo, int n, int rays_per_pixel, int 
   if (n <= 0) return (int)cudaGetLastError();
   camera_rows_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       cam, ray_lo, n, rays_per_pixel, width, pass_seed, reinterpret_cast<float4*>(rows));
+  return (int)cudaGetLastError();
+}
+
+// cur, spare: (>= settled, 16) float32 rows, 16-byte aligned, not
+// overlapping; order: n int32 (index_bytes 4) or int64 (8) entries, a
+// permutation of [0, n) → spare[i] = cur[order[i]] for i < n and spare[i] =
+// cur[i] for n <= i < settled, bit for bit; other rows untouched. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for another index width.
+int rt_reorder_rows(const float* cur, const void* order, int index_bytes, int n, int settled,
+                    float* spare, void* stream) {
+  if (index_bytes != 4 && index_bytes != 8) return (int)cudaErrorInvalidValue;
+  if (settled <= 0) return (int)cudaGetLastError();
+  const int blocks = (settled + kMoveBlock - 1) / kMoveBlock;
+  const uint4* src = reinterpret_cast<const uint4*>(cur);
+  uint4* dst = reinterpret_cast<uint4*>(spare);
+  if (index_bytes == 8)
+    reorder_rows_kernel<long long><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        src, static_cast<const long long*>(order), n, settled, dst);
+  else
+    reorder_rows_kernel<int><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        src, static_cast<const int*>(order), n, settled, dst);
   return (int)cudaGetLastError();
 }
 

@@ -26,7 +26,11 @@
 //     (wavefront.bounce_seeds, five), rng.uniforms of those seeds;
 //   - camera_row: a block's packed starting row, pack_rows of
 //     make_initial_state (ops/camera.generate_rays at full throughput), the
-//     camera ray the brute megakernel computes (brute::camera_direction).
+//     camera ray the brute megakernel computes (brute::camera_direction);
+//   - reorder_source: the row of the current buffer that the reorder's row
+//     move copies to row i of the spare one: the sorted permutation's entry
+//     in the prefix, the row itself in the settled suffix (index_select of
+//     the prefix and the suffix's slice copy in render/wavefront.py).
 //
 // Numerics follow the plain PyTorch versions expression for expression
 // (nvcc -fmad=false, g++ -ffp-contract=off); the sphere test is the brute
@@ -338,6 +342,14 @@ RT_HD void camera_row(const float* cam, int rid, int rays_per_pixel, int width,
   q[1] = {d[1], d[2], 1.0f, 1.0f};
   q[2] = {1.0f, 0.0f, 0.0f, 0.0f};
   q[3] = {int_as_float(rid), 0.0f, 0.0f, 0.0f};
+}
+
+// The source of row i (i < settled) of the reorder's row move: order[i] for
+// a row of the sorted prefix (i < n; order a permutation of [0, n), int32 or
+// int64), i for a row of the settled suffix, which keeps its place.
+template <class Index>
+RT_HD long long reorder_source(const Index* order, int n, int i) {
+  return i < n ? (long long)order[i] : (long long)i;
 }
 
 }  // namespace rt

@@ -20,7 +20,8 @@ def _counters():
             "sweep_pairs": (sweep, "LAUNCHES"), "shade_rows": (bounce, "LAUNCHES"),
             "rays_setup": (rays, "LAUNCHES_SETUP"), "ray_keys": (rays, "LAUNCHES_KEYS"),
             "cullhit_keys": (rays, "LAUNCHES_CULLHIT"), "pcg_draws": (rays, "LAUNCHES_DRAWS"),
-            "camera_rows": (rays, "LAUNCHES_CAMERA"), "bvh_walk": (traverse, "LAUNCHES")}
+            "camera_rows": (rays, "LAUNCHES_CAMERA"), "reorder_rows": (rays, "LAUNCHES_REORDER"),
+            "bvh_walk": (traverse, "LAUNCHES")}
 
 
 def launch_counts() -> dict:

@@ -33,12 +33,17 @@ bounce; these kernels take their place (the cullhit key joins them for
   and ``render/wavefront.py`` ``make_initial_state``), the jitter's draws
   folded in. It reads the camera as 14 words on the device
   (``camera_words``, built once per camera).
+- ``reorder_rows``: the reorder's row move, ``spare[i] = cur[order[i]]`` on
+  the sorted prefix and ``spare[i] = cur[i]`` on the settled suffix after it
+  (``torch.index_select`` and a slice copy, its plain version), in one
+  launch; four lanes a row, while recording its rows count as
+  ``reorder.rows``.
 
-Each is one thread per ray and counts its launches (``LAUNCHES_SETUP``,
-``LAUNCHES_KEYS``, ``LAUNCHES_CULLHIT``, ``LAUNCHES_DRAWS``,
-``LAUNCHES_CAMERA``). On a CUDA tensor it launches its kernel or raises; on
-a CPU tensor it runs its plain PyTorch version, with the same outputs bit
-for bit.
+Each but the row move is one thread per ray, and each counts its launches
+(``LAUNCHES_SETUP``, ``LAUNCHES_KEYS``, ``LAUNCHES_CULLHIT``,
+``LAUNCHES_DRAWS``, ``LAUNCHES_CAMERA``, ``LAUNCHES_REORDER``). On a CUDA
+tensor it launches its kernel or raises; on a CPU tensor it runs its plain
+PyTorch version, with the same outputs bit for bit.
 
 The two key kernels write the live count themselves, through two words of
 scratch per device and stream (``live_scratch``) that every launch leaves
@@ -73,6 +78,7 @@ LAUNCHES_KEYS = 0
 LAUNCHES_CULLHIT = 0
 LAUNCHES_DRAWS = 0
 LAUNCHES_CAMERA = 0
+LAUNCHES_REORDER = 0
 
 
 def rows_alive(rows: torch.Tensor) -> torch.Tensor:
@@ -97,8 +103,9 @@ def library() -> build.Built:
     built.lib.rt_cullhit_keys.argtypes = [p, i, p, p, i, i, i, i, i, i, p, p, p, p, p]
     built.lib.rt_pcg_draws.argtypes = [p, i, u, u, i, p, p]
     built.lib.rt_camera_rows.argtypes = [p, i, i, i, i, u, p, p]
+    built.lib.rt_reorder_rows.argtypes = [p, p, i, i, i, p, p]
     for name in ("rt_rays_setup", "rt_ray_keys", "rt_cullhit_keys", "rt_pcg_draws",
-                 "rt_camera_rows"):
+                 "rt_camera_rows", "rt_reorder_rows"):
         getattr(built.lib, name).restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -535,3 +542,57 @@ def camera_rows(words: torch.Tensor, ray_lo: int, n: int, rays_per_pixel: int, w
     raise_on_error(lib, err, "camera_rows")
     LAUNCHES_CAMERA += 1
     return rows
+
+
+# ---- reorder_rows ------------------------------------------------------------
+
+
+def plain_reorder_rows(cur: torch.Tensor, order: torch.Tensor, n: int, settled: int,
+                       spare: torch.Tensor) -> torch.Tensor:
+    """The row move's plain PyTorch version: the settled suffix's slice copy
+    and ``torch.index_select`` of the prefix."""
+    if n < settled:
+        spare[n:settled] = cur[n:settled]
+    torch.index_select(cur[:n], 0, order, out=spare[:n])
+    return spare
+
+
+def reorder_args(cur, order, n, settled, spare) -> list:
+    """The arguments of ``rt_reorder_rows`` (and of its host build), without the stream."""
+    return [cur.data_ptr(), order.data_ptr(), order.element_size(), n, settled,
+            spare.data_ptr()]
+
+
+def reorder_rows(cur: torch.Tensor, order: torch.Tensor, n: int, settled: int,
+                 spare: torch.Tensor) -> torch.Tensor:
+    """The reorder's row move between a buffer pair of (R, 16) rows: ``spare[i]
+    = cur[order[i]]`` for ``i < n`` and ``spare[i] = cur[i]`` for ``n <= i <
+    settled``, bit for bit; the rows from ``settled`` on are untouched.
+    ``order``: a contiguous (n,) int64 or int32 permutation of ``[0, n)``.
+    Returns ``spare``."""
+    global LAUNCHES_REORDER
+    _check_rows(cur)
+    _check_rows(spare)
+    if order.dtype not in (torch.int64, torch.int32) or order.shape != (n,) or not (
+            order.is_contiguous()):
+        raise ValueError(f"order must be a contiguous ({n},) int64 or int32, got {order.dtype} "
+                         f"{tuple(order.shape)}")
+    if not 0 <= n <= settled <= min(cur.shape[0], spare.shape[0]):
+        raise ValueError(f"need 0 <= n <= settled <= the rows of both buffers, got n={n} "
+                         f"settled={settled} for {cur.shape[0]} and {spare.shape[0]} rows")
+    if not cur.device == order.device == spare.device:
+        raise ValueError(f"cur, order and spare must share a device, got {cur.device}, "
+                         f"{order.device} and {spare.device}")
+    row_bytes = ROW_WORDS * 4
+    if (cur.data_ptr() < spare.data_ptr() + settled * row_bytes
+            and spare.data_ptr() < cur.data_ptr() + settled * row_bytes):
+        raise ValueError("cur and spare overlap")
+    if device_kind(cur, "reorder_rows") == "cpu":
+        return plain_reorder_rows(cur, order, n, settled, spare)
+    lib = library().lib
+    with torch.cuda.device(cur.device):
+        err = lib.rt_reorder_rows(*reorder_args(cur, order, n, settled, spare), _stream(cur))
+    raise_on_error(lib, err, "reorder_rows")
+    LAUNCHES_REORDER += 1
+    recording.count("reorder.rows", settled)
+    return spare

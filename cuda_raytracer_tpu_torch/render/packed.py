@@ -35,7 +35,8 @@ The records (``utils/metrics``) read the same on both. Each bounce opens an
 it); a segment is issued inside the spans of its first bounce. A bounce
 counts itself (``bounces.packed``), its prefix's rows (``rays.launched``)
 and, on the device, its live rows (``rays.live``; ``rays.live_tail`` in the
-tail) and the rows scattered off a dielectric (``shade.dielectric``); a read
+tail) and the rows scattered off a dielectric (``shade.dielectric``); a
+sorted bounce's row move on the card counts its rows (``reorder.rows``); a read
 counts ``sync.host`` and the device idle until the next launch
 (``sync.device_idle_s``). A graph's host counters, counted once while
 capturing, are added at each replay, with ``bounces.graphed``; its device

@@ -801,14 +801,15 @@ def packed_bounce(scene: Scene, cur: torch.Tensor, spare: torch.Tensor, n: int, 
                   dielectric: torch.Tensor = None, copied=None):
     """One bounce of the packed forward trace on the first ``n`` rows of ``cur`` →
     (suspect, the live rows (1,) int32 on the device, or None unsorted):
-    ``bounce_rows`` in place; then, with ``do_sort``, the rows ``[n,
-    settled)`` copied into ``spare`` and the prefix gathered into it sorted
-    (``sort_order`` in ``chunk``-row chunks). What a CUDA graph of the bounce
-    holds (``render/packed.py``); ``pass_seed`` may be a seed word there.
+    ``bounce_rows`` in place; then, with ``do_sort``, the prefix gathered
+    into ``spare`` sorted (``sort_order`` in ``chunk``-row chunks) and the
+    rows ``[n, settled)`` copied into it, by ``rays.reorder_rows`` (its plain
+    version with ``plain``). What a CUDA graph of the bounce holds
+    (``render/packed.py``); ``pass_seed`` may be a seed word there.
     ``copied``, a pinned (1,) int32 and a CUDA event: the live rows are
     copied into it and the event recorded once the keys are written, so the
-    host can read the count while the sort and the gather run. The counters
-    as ``bounce_rows``'."""
+    host can read the count while the sort and the row move run. The
+    counters as ``bounce_rows``'."""
     recording.count("bounces.packed", 1)
     recording.count("rays.launched", n)
     suspect, count = 0, None
@@ -817,13 +818,12 @@ def packed_bounce(scene: Scene, cur: torch.Tensor, spare: torch.Tensor, n: int, 
                                         plain, live, tail, dielectric)
     if do_sort:
         with recording.span("rt.reorder"):
-            if n < settled:
-                spare[n:settled] = cur[n:settled]
             keys, count = sort_keys(scene, cur[:n], chunk)
             if copied is not None:
                 copied[0].copy_(count, non_blocking=True)
                 copied[1].record()
-            torch.index_select(cur[:n], 0, torch.argsort(keys, stable=True), out=spare[:n])
+            move = rays_kernel.plain_reorder_rows if plain else rays_kernel.reorder_rows
+            move(cur, torch.argsort(keys, stable=True), n, settled, spare)
     return suspect, count
 
 

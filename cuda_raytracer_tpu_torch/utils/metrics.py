@@ -30,8 +30,10 @@ point costs that check alone. The loops' records:
   ``launching``), ``hit.rows`` (rows handed to a triangle closest hit),
   ``hit.walk_rows`` (those of them the BVH walk took), ``bounces.packed``
   (bounces of the packed forward trace), ``bounces.graphed`` (those of them
-  run inside a CUDA graph's replay, ``render/packed.py``) and
-  ``graph.captures`` (graphs captured).
+  run inside a CUDA graph's replay, ``render/packed.py``),
+  ``graph.captures`` (graphs captured) and ``reorder.rows`` (rows the
+  reorder's row move kernel wrote, ``rays.reorder_rows``: the sorted prefix
+  and the settled suffix of each sorted bounce on the card).
 
 Values that live on the device (the accumulators, the event pairs) are
 kept as they are and folded into ``counters`` when the registry is read

@@ -19,7 +19,13 @@ the same trace with ``packed.applies`` turned off. Held bit for bit:
   shapes, so nothing captured): framebuffers, every counter of the loop's
   records, and the kernels' ``LAUNCHES`` counts over a render;
 - a static ``live_schedule`` (a tight one, whose suspect count is not 0)
-  and ``trace_live_bounds``.
+  and ``trace_live_bounds``;
+- the reorder's row move (``rays.reorder_rows``) bit-equal to its plain
+  version (``torch.index_select`` and the suffix's slice copy) on a full
+  block's rows, the rows past the settled ones untouched; and an 8-spp
+  torus and a glass block rendered through it, graphed, bit-identical to
+  the eager render with the plain version in its place, ``reorder.rows``
+  the settled rows of every sorted bounce.
 """
 
 import pytest
@@ -103,7 +109,7 @@ def test_trace_packed_graphed_is_the_eager_trace(cuda, eager, name, case):
 
 def _launches():
     return (rays.LAUNCHES_SETUP, rays.LAUNCHES_KEYS, rays.LAUNCHES_CAMERA,
-            traverse_kernel.LAUNCHES, bounce.LAUNCHES)
+            rays.LAUNCHES_REORDER, traverse_kernel.LAUNCHES, bounce.LAUNCHES)
 
 
 def _render(scene):
@@ -135,6 +141,64 @@ def test_render_graphed_is_the_eager_render(cuda, eager, name):
         if got is not first:
             assert "graph.captures" not in got[1] and got[2] == launched
     assert (want[scene][1]["shade.dielectric"] > 0) == (name == "glass_torus")
+
+
+def settled_rows(scene, R: int, bounces: int, bounds) -> int:
+    """The rows the row moves of an R-row trace write, given its entering
+    live bounds: at each sorted bounce the rows settled on entry, its prefix
+    and the suffix of earlier prefixes the buffer pair must share."""
+    schedule = wavefront.bounce_schedule(scene, R, bounces, True)
+    settled, total = R, 0
+    for b, do_sort in enumerate(schedule.sorted):
+        n, _ = schedule.rows(b, bounds[b])
+        total += settled if do_sort else 0
+        settled = n if do_sort else max(settled, n)
+    return total
+
+
+@pytest.mark.parametrize("index", [torch.int64, torch.int32])
+def test_reorder_rows_is_index_select(cuda, index):
+    """A full block's bounced rows sorted and moved: the prefix of all
+    262,140 rows, and a prefix of 100,001 with a suffix up to 200,003."""
+    scene = _scene(cuda)
+    rows = _block_rows(scene, "full", 60)
+    wavefront.bounce_rows(scene, rows, 60, 0)
+    order, _ = wavefront.sort_order(scene, rows, FULL)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for n, settled in ((FULL, FULL), (100_001, 200_003)):
+        perm = order if n == FULL else torch.randperm(n, generator=g, device=cuda)
+        spare = torch.full((FULL + 7, rays.ROW_WORDS), -7.0, device=cuda)
+        before = rays.LAUNCHES_REORDER
+        got = rays.reorder_rows(rows, perm.to(index), n, settled, spare.clone())
+        want = rays.plain_reorder_rows(rows, perm.to(index), n, settled, spare.clone())
+        torch.cuda.synchronize()
+        assert rays.LAUNCHES_REORDER == before + 1
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert (got[settled:] == -7.0).all() and not torch.equal(got[:n], rows[:n])
+
+
+@pytest.mark.parametrize("name", ["torus", "glass_torus"])
+def test_render_through_the_row_move_is_the_index_select_render(cuda, eager, monkeypatch,
+                                                                  name):
+    """One 153,600-ray block of 8 spp a pixel, graphed and eager with the
+    row move's plain version; then the block's trace on its own, the
+    counter against the live bounds."""
+    scene = _scene(cuda, name).with_config(rays_per_pixel=8)
+    R = 160 * 120 * 8
+    got = _render(scene)
+    kernel = rays.reorder_rows
+    monkeypatch.setattr(rays, "reorder_rows", rays.plain_reorder_rows)
+    eager(True)
+    want = _render(scene)
+    monkeypatch.setattr(rays, "reorder_rows", kernel)
+    assert torch.equal(got[0], want[0]) and "reorder.rows" not in want[1]
+    assert got[1]["reorder.rows"] > R
+    eager(False)
+    m, bounds = metrics.Metrics(), []
+    rows = rays.camera_rows(rays.camera_words(scene.camera), 0, R, 8, 160, 20)
+    with metrics.attached(m):
+        packed.trace_packed(scene, rows, 20, 10, True, bounds=bounds)
+    assert m.resolve().counters["reorder.rows"] == settled_rows(scene, R, 10, bounds)
 
 
 def test_static_schedule_and_live_bounds(cuda, eager):

@@ -30,6 +30,14 @@ the GPU build's ``-fmad=false``) and holds, on seeded inputs:
   and to JAX ``render/wavefront.py`` ``make_initial_state`` and
   ``ops/camera.py`` ``generate_rays`` (origin, weights and ids exact, the
   direction within 1e-6: JAX's CPU floats carry FMA contraction);
+- ``reorder_rows`` (the reorder's row move) BIT-EQUAL to its plain version,
+  ``torch.index_select`` of the prefix and the settled suffix's slice copy,
+  on rows of arbitrary bits (NaN patterns among them): random and identity
+  permutations, int64 and int32, prefixes of 0, 1, 7 and 4,097 rows with and
+  without a suffix, the rows past it untouched; its wrapper's input checks;
+  and, with its kernel path run through the host build, a packed trace's
+  bits equal to the plain path's, ``reorder.rows`` the settled rows of its
+  sorted bounces there and 0 on the plain path;
 - the packed bounce's fold of the packet kernel's raw hit BIT-EQUAL to the
   bounce on ``packet_intersect._finalize``'s hit (the body against the torch
   shading and JAX's ``process_rays`` is ``tests/test_torch_bounce.py``);
@@ -49,9 +57,12 @@ traced from ``make_initial_state``; ``tests/test_torch_mesh_render.py``
 holds its renders, packed now, to the JAX package's.
 """
 
+import contextlib
 import ctypes
+import re
 import shutil
 import subprocess
+import types
 
 import numpy as np
 import pytest
@@ -70,7 +81,9 @@ from cuda_raytracer_tpu_torch.ops import camera, packet_intersect, rng
 from cuda_raytracer_tpu_torch.ops.kernels import bounce, build, cull, rays, shade
 from cuda_raytracer_tpu_torch.ops.traverse import _safe_inv_dir
 from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
+from cuda_raytracer_tpu_torch.utils import metrics
 
+from test_torch_cuda_graphs import settled_rows
 from test_torch_packet import build_mesh_both
 
 SIZE = dict(width=16, height=16, rays_per_pixel=4, bounces=5)
@@ -98,6 +111,7 @@ def host(tmp_path_factory):
     lib.rt_host_ray_keys.argtypes = [p, i, p, p, i, i, p, p, p]
     lib.rt_host_pcg_draws.argtypes = [p, i, u, u, i, p]
     lib.rt_host_camera_rows.argtypes = [p, i, i, i, i, u, p]
+    lib.rt_host_reorder_rows.argtypes = [p, p, i, i, i, p]
     lib.rt_host_bounce_rows.argtypes = (
         [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p])
     return lib
@@ -374,6 +388,109 @@ def test_row_wrappers_run_plain_on_cpu_and_check_inputs(torus):
         rays.rays_setup(rows[:, :12], ts.sphere_center, ts.sphere_radius, 64)
     with pytest.raises(ValueError, match="rows"):
         rays.ray_keys(rows[::2], ts.min_coord, ts.inv_extent, True, 300)
+
+
+# ---- reorder_rows ---------------------------------------------------------------
+
+SENTINEL = -7.0  # the spare buffer's rows before a move
+
+
+def _move_case(n: int, extra: int, perm: str, index: torch.dtype, seed: int = 2):
+    """(cur, order, settled, spare) of a row move: ``cur`` holds arbitrary
+    32-bit patterns (NaNs among them) and 4 rows past the settled ones,
+    ``spare`` SENTINEL rows, 6 past them."""
+    g = torch.Generator().manual_seed(seed + n + extra)
+    settled = n + extra
+    cur = torch.randint(-2**31, 2**31 - 1, (settled + 4, rays.ROW_WORDS), generator=g,
+                        dtype=torch.int32).view(torch.float32)
+    order = torch.randperm(n, generator=g) if perm == "random" else torch.arange(n)
+    spare = torch.full((settled + 6, rays.ROW_WORDS), SENTINEL)
+    return cur, order.to(index), settled, spare
+
+
+@pytest.mark.parametrize("index", [torch.int64, torch.int32])
+@pytest.mark.parametrize("perm", ["random", "identity"])
+@pytest.mark.parametrize("n", [0, 1, 7, 4097])
+@pytest.mark.parametrize("extra", [0, 5])
+def test_reorder_rows_host_bit_equal_plain(host, index, perm, n, extra):
+    cur, order, settled, spare = _move_case(n, extra, perm, index)
+    want = rays.plain_reorder_rows(cur, order, n, settled, spare.clone())
+    got = spare.clone()
+    assert host.rt_host_reorder_rows(*rays.reorder_args(cur, order, n, settled, got)) == 0
+    assert torch.equal(_bits(got), _bits(want))
+    assert torch.equal(_bits(want[:n]), _bits(cur[order.long()]))
+    assert torch.equal(_bits(want[n:settled]), _bits(cur[n:settled]))
+    assert (want[settled:] == SENTINEL).all()
+    before = rays.LAUNCHES_REORDER
+    assert torch.equal(_bits(rays.reorder_rows(cur, order, n, settled, spare.clone())),
+                       _bits(want))
+    assert rays.LAUNCHES_REORDER == before
+
+
+def test_reorder_rows_checks_inputs(host):
+    cur, order, settled, spare = _move_case(7, 5, "random", torch.int64)
+    assert host.rt_host_reorder_rows(cur.data_ptr(), order.data_ptr(), 2, 7, settled,
+                                     spare.data_ptr()) != 0
+    bad = {
+        "rows": (cur[:, :12], order, 7, settled, spare),
+        "contiguous": (cur, order, 7, settled, spare[:, :].t().contiguous().t()),
+        "int64 or int32": (cur, order.to(torch.int16), 7, settled, spare),
+        "(7,)": (cur, order[:6], 7, settled, spare),
+        "contiguous (7,)": (cur, torch.arange(14)[::2], 7, settled, spare),
+        "settled": (cur, order, 7, 6, spare),
+        "the rows of both": (cur, order, 7, cur.shape[0] + 1, spare),
+        "overlap": (cur, order, 7, settled, cur),
+    }
+    for match, args in bad.items():
+        with pytest.raises(ValueError, match=re.escape(match)):
+            rays.reorder_rows(*args)
+    with pytest.raises(ValueError, match="overlap"):
+        rays.reorder_rows(spare[3:], order, 7, settled, spare)
+
+
+@pytest.fixture
+def host_move(host, monkeypatch):
+    """``rays.reorder_rows``' kernel path on CPU tensors, its launch run by
+    the host build: every other wrapper keeps its CPU path."""
+    kind = rays.device_kind
+
+    def launch(*args):
+        return host.rt_host_reorder_rows(*args[:-1])
+
+    monkeypatch.setattr(rays, "device_kind",
+                        lambda x, name: "cuda" if name == "reorder_rows" else kind(x, name))
+    monkeypatch.setattr(rays, "library",
+                        lambda: types.SimpleNamespace(lib=types.SimpleNamespace(
+                            rt_reorder_rows=launch)))
+    monkeypatch.setattr(rays, "_stream", lambda x: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+
+
+@pytest.mark.parametrize("schedule", [(), (1, 64)])
+def test_reorder_rows_kernel_path_in_a_trace(torus, host_move, schedule):
+    """A packed trace through the row move's kernel path (the host build)
+    gives the plain path's bits; ``reorder.rows`` counts the settled rows of
+    each sorted bounce there, one launch each, and nothing on the plain
+    path."""
+    _, ts = torus
+    scene = ts.with_config(packet_backend="fused1", live_schedule=schedule)
+    ids = torch.arange(512, dtype=torch.int32)
+    state = wavefront.make_initial_state(scene, ids, SIZE["rays_per_pixel"], 6)
+    traces = {}
+    for plain in (False, True):
+        m, bounds, before = metrics.Metrics(), [], rays.LAUNCHES_REORDER
+        with metrics.attached(m):
+            out, suspect = packed.trace_packed(scene, state, 6, 5, True, plain=plain,
+                                               bounds=bounds)
+        traces[plain] = (out, suspect, bounds, m.resolve().counters,
+                         rays.LAUNCHES_REORDER - before)
+    (got, got_suspect, bounds, counters, launches), want = traces[False], traces[True]
+    _assert_bit_equal(got, want[0])
+    assert got_suspect == want[1] and bounds == want[2]
+    sorted_bounces = sum(wavefront.bounce_schedule(scene, 512, 5, True).sorted)
+    assert launches == sorted_bounces > 0 and want[4] == 0
+    assert counters["reorder.rows"] == settled_rows(scene, 512, 5, bounds) > 0
+    assert "reorder.rows" not in want[3]
 
 
 # ---- the packed bounce's fold -----------------------------------------------
