@@ -13,8 +13,10 @@ bit-equal to the plain lockstep walk (a mismatch exits non-zero), each
 launch's device ms, the live count, the mean and largest pops a live ray.
 A summary line per launch lists its ms a bounce and their sum.
 
-``--glass`` adds the glass torus's bounces 0-3 and ``--lamp`` the
-lamp-scale torus (``chip_smoke.phase_lamp_walk``), both at the same lanes;
+``--glass`` adds the glass torus's bounces 0-3 and ``--lamp`` the desk
+lamp's bounces 0-9 (the benchmark's ``desk_lamp`` configuration, 619,350
+triangles of mixed scale: its set-up seconds, tree and walk tables first),
+both at the same lanes;
 ``--profile`` adds the block under torch.profiler (the walk's device ms a
 bounce, the block's busy and idle share); ``--sweep`` times the first n
 rays of bounce 1 (n = 4,096 to all) at 1-32 rays a warp.
@@ -32,6 +34,7 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 import chip_smoke
@@ -104,6 +107,36 @@ def block_walks(scene, name: str, bounces: int, lanes) -> None:
               f"tail_sum_ms={sum(ms[2:]):.4f}")
 
 
+def lamp_scene(device):
+    """The desk lamp as the benchmark's ``desk_lamp`` configuration holds it
+    (scene text from ``rtbench/scenes/desk_lamp.py``, 1000×1000, 10
+    bounces), walked through ``intersector="bvh"`` at RPP rays a pixel;
+    prints its set-up seconds, its tree and its walk tables' size."""
+    import numpy as np
+    from cuda_raytracer_tpu_torch.models import scene_dsl
+    from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
+    from rtbench.core.spec import load_module
+
+    root = Path(__file__).resolve().parent
+    cfg = json.loads((root / "rtbench" / "configs" / "desk_lamp.json").read_text())
+    generator = load_module(root / "rtbench" / "scenes" / f"{cfg['scene']}.py")
+    start = time.perf_counter()
+    text, _ = generator.generate(cfg["scene_params"], np.random.default_rng(SEED))
+    text += f"image {cfg['width']} {cfg['height']} {RPP} {cfg['bounces']} {cfg['exposure']}\n"
+    made = time.perf_counter() - start
+    scene = scene_dsl.assemble_scene(scene_dsl.parse_scene_text(text, filename="desk_lamp"),
+                                     config_overrides=dict(cfg["render"], intersector="bvh"),
+                                     device=device)
+    loaded = time.perf_counter() - start - made
+    tb = traverse_kernel.walk_tables(scene)
+    mb = [x.numel() * x.element_size() / 1e6 for x in (tb.records, tb.triangles)]
+    print(f"walk: desk_lamp triangles={scene.triangle_count} bvh_nodes={scene.bvh_node_count} "
+          f"depth={traverse_kernel.tree_depth(scene.bvh_child1, scene.bvh_child2)} "
+          f"max_leaf={scene.max_leaf_size} text_seconds={made:.1f} load_seconds={loaded:.1f} "
+          f"records_MB={mb[0]:.2f} triangles_MB={mb[1]:.2f}")
+    return scene
+
+
 def main() -> int:
     import torch
 
@@ -150,7 +183,7 @@ def main() -> int:
         rows = [r.clone() for b, r in chip_smoke._traced_rows(torus, ids, RPP, SEED) if b < 2]
         lanes_sweep(torus, rows[1])
     if args.lamp:
-        chip_smoke.phase_lamp_walk(device, lanes)
+        block_walks(lamp_scene(device), "desk_lamp", 10, lanes)
     print(json.dumps({"ok": True, "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -26,9 +26,10 @@
 // update is in place, so a dead ray costs its row's read and no write, and
 // nothing is allocated per bounce. Misses skip the PCG chain.
 //
-// Given a counter (utils/metrics' shade.dielectric), the counting instance
-// runs, and each warp adds the rows it scattered off a dielectric with one
-// atomic of its ballot's popcount. Null, the other instance runs, the body
+// Given a counter (utils/metrics' shade.dielectric, shade.emissive), the
+// counting instance runs, and each warp adds the rows it scattered off a
+// dielectric, and those whose hit material emits, with one atomic a counter
+// of its ballot's popcount. Both null, the other instance runs, the body
 // alone: the rows are the same either way.
 //
 // Given a seed word, the pass seed is read from it on the device, not taken
@@ -50,7 +51,8 @@ bounce_rows_kernel(rt::BounceTables tb, float* __restrict__ rows, int n,
                    const float* __restrict__ t_sph, const int* __restrict__ i_sph,
                    const float* __restrict__ t_tri, const int* __restrict__ tri,
                    uint32_t pass_seed, const uint32_t* __restrict__ seed_word,
-                   uint32_t bounce, unsigned long long* __restrict__ dielectric) {
+                   uint32_t bounce, unsigned long long* __restrict__ dielectric,
+                   unsigned long long* __restrict__ emissive) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (seed_word) pass_seed = *seed_word;
   if (!kCount) {
@@ -58,12 +60,15 @@ bounce_rows_kernel(rt::BounceTables tb, float* __restrict__ rows, int n,
     rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
     return;
   }
-  bool diel = false;
+  unsigned kinds = 0u;
   if (i < n)
-    diel = rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
-  const unsigned int ballot = __ballot_sync(0xffffffffu, diel);
-  if ((threadIdx.x & 31) == 0 && ballot)
-    atomicAdd(dielectric, (unsigned long long)__popc(ballot));
+    kinds = rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
+  const unsigned int diel = __ballot_sync(0xffffffffu, kinds & rt::kHitDielectric);
+  const unsigned int emit = __ballot_sync(0xffffffffu, kinds & rt::kHitEmitter);
+  if ((threadIdx.x & 31) == 0) {
+    if (dielectric && diel) atomicAdd(dielectric, (unsigned long long)__popc(diel));
+    if (emissive && emit) atomicAdd(emissive, (unsigned long long)__popc(emit));
+  }
 }
 
 }  // namespace
@@ -77,25 +82,28 @@ extern "C" {
 // both null when t_sph / i_sph already hold the closest hit. Tables as
 // rt::BounceTables. seed_word: null, or one uint32 on the device read in place
 // of pass_seed. dielectric: null, or a counter the rows scattered off a
-// dielectric are added to.
+// dielectric are added to; emissive: null, or one the rows whose hit
+// material emits are added to.
 int rt_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph,
                    const float* t_tri, const int* tri, const int* material_index,
                    int n_prims, const float* sphere_center, const float* sphere_radius,
                    int n_sphere_rows, int sphere_count, const float* tri_normal,
                    int n_tri_rows, const float* materials, const float* env, int env_h,
                    int env_w, unsigned int pass_seed, const unsigned int* seed_word,
-                   unsigned int bounce, unsigned long long* dielectric, void* stream) {
+                   unsigned int bounce, unsigned long long* dielectric,
+                   unsigned long long* emissive, void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
                             materials, env, env_h, env_w};
   const int blocks = (n + kThreads - 1) / kThreads;
-  if (dielectric)
+  if (dielectric || emissive)
     bounce_rows_kernel<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, seed_word, bounce, dielectric);
+        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, seed_word, bounce, dielectric,
+        emissive);
   else
     bounce_rows_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, seed_word, bounce, nullptr);
+        tb, rows, n, t_sph, i_sph, t_tri, tri, pass_seed, seed_word, bounce, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -19,15 +19,17 @@ int rt_host_bounce_rows(float* rows, int n, const float* t_sph, const int* i_sph
                         int n_sphere_rows, int sphere_count, const float* tri_normal,
                         int n_tri_rows, const float* materials, const float* env, int env_h,
                         int env_w, unsigned int pass_seed, const unsigned int* seed_word,
-                        unsigned int bounce, unsigned long long* dielectric) {
+                        unsigned int bounce, unsigned long long* dielectric,
+                        unsigned long long* emissive) {
   if (seed_word) pass_seed = *seed_word;
   const rt::BounceTables tb{material_index, n_prims, sphere_center, sphere_radius,
                             n_sphere_rows, sphere_count, tri_normal, n_tri_rows,
                             materials, env, env_h, env_w};
   for (int i = 0; i < n; ++i) {
-    const bool diel =
+    const unsigned kinds =
         rt::shade_packed_row(tb, rows, i, t_sph, i_sph, t_tri, tri, pass_seed, bounce);
-    if (dielectric && diel) ++*dielectric;
+    if (dielectric && (kinds & rt::kHitDielectric)) ++*dielectric;
+    if (emissive && (kinds & rt::kHitEmitter)) ++*emissive;
   }
   return 0;
 }

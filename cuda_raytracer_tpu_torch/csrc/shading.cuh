@@ -240,20 +240,26 @@ RT_HD void scatter_hit(const float* mt, float n[3], const float hp[3], const flo
   for (int a = 0; a < 3; ++a) no[a] = hp[a];
 }
 
+// What a live hit was, as shade_bounce_ray reports it: bit kHitDielectric,
+// the ray scattered off a dielectric (a material of ior > 0); bit
+// kHitEmitter, the material emits (an emitted component > 0).
+constexpr unsigned kHitDielectric = 1u;
+constexpr unsigned kHitEmitter = 2u;
+
 // One ray's bounce: state in (o, d, tr, co), closest hit (t_hit, hit; hit < 0
-// is a miss) → next state (no, nd, ntr, nco). Returns whether the ray
-// scattered off a dielectric (a live hit on a material of ior > 0).
-RT_HD bool shade_bounce_ray(const BounceTables& tb, const float o[3], const float d[3],
-                            const float tr[3], const float co[3], int ray_id, float t_hit,
-                            int hit, uint32_t pass_seed, uint32_t bounce, float no[3],
-                            float nd[3], float ntr[3], float nco[3]) {
+// is a miss) → next state (no, nd, ntr, nco). Returns the hit's kHit* bits,
+// 0 for a dead ray or a miss.
+RT_HD unsigned shade_bounce_ray(const BounceTables& tb, const float o[3], const float d[3],
+                                const float tr[3], const float co[3], int ray_id, float t_hit,
+                                int hit, uint32_t pass_seed, uint32_t bounce, float no[3],
+                                float nd[3], float ntr[3], float nco[3]) {
   for (int a = 0; a < 3; ++a) {
     no[a] = o[a];
     nd[a] = d[a];
     ntr[a] = tr[a];
     nco[a] = co[a];
   }
-  if (tr[0] == 0.0f && tr[1] == 0.0f && tr[2] == 0.0f) return false;  // dead: unchanged
+  if (tr[0] == 0.0f && tr[1] == 0.0f && tr[2] == 0.0f) return 0u;  // dead: unchanged
 
   if (hit < 0) {  // miss: environment radiance, the ray dies
     float sky[3];
@@ -262,7 +268,7 @@ RT_HD bool shade_bounce_ray(const BounceTables& tb, const float o[3], const floa
       nco[a] = co[a] + sky[a] * tr[a];
       ntr[a] = 0.0f;
     }
-    return false;
+    return 0u;
   }
 
   BounceDraws dr;
@@ -284,7 +290,8 @@ RT_HD bool shade_bounce_ray(const BounceTables& tb, const float o[3], const floa
   }
   const float* mt = tb.materials + kMatWords * (size_t)tb.material_index[hs];
   scatter_hit(mt, n, hp, d, tr, co, dr, no, nd, ntr, nco);
-  return mt[11] > 0.0f;
+  return (mt[11] > 0.0f ? kHitDielectric : 0u) |
+         (mt[6] > 0.0f || mt[7] > 0.0f || mt[8] > 0.0f ? kHitEmitter : 0u);
 }
 
 // A packed wavefront row: 16 float32 words [origin direction transmitted
@@ -346,15 +353,14 @@ RT_HD bool row_alive(const Row4& b, const Row4& c) {
 // kernel's raw triangle hit (t_tri, tri; tri < 0 on a miss), folded as
 // ops/packet_intersect._finalize folds it: the triangle wins when it is
 // strictly nearer, and its index follows the spheres'. A dead row is left
-// as it is, without reading its hit. Returns shade_bounce_ray's dielectric
-// bit.
-RT_HD bool shade_packed_row(const BounceTables& tb, float* rows, int i, const float* t_sph,
-                            const int* i_sph, const float* t_tri, const int* tri,
-                            uint32_t pass_seed, uint32_t bounce) {
+// as it is, without reading its hit. Returns shade_bounce_ray's kHit* bits.
+RT_HD unsigned shade_packed_row(const BounceTables& tb, float* rows, int i,
+                                const float* t_sph, const int* i_sph, const float* t_tri,
+                                const int* tri, uint32_t pass_seed, uint32_t bounce) {
   float* row = rows + kRowWords * (size_t)i;
   const Row4 b = load_row4(row + 4);
   const Row4 c = load_row4(row + 8);
-  if (!row_alive(b, c)) return false;
+  if (!row_alive(b, c)) return 0u;
   const Row4 a = load_row4(row);
   const Row4 e = load_row4(row + 12);
   float t = t_sph[i];
@@ -372,12 +378,12 @@ RT_HD bool shade_packed_row(const BounceTables& tb, float* rows, int i, const fl
   const float tr[3] = {b.z, b.w, c.x};
   const float co[3] = {c.y, c.z, c.w};
   float no[3], nd[3], ntr[3], nco[3];
-  const bool dielectric = shade_bounce_ray(tb, o, d, tr, co, float_as_int(e.x), t, hit,
-                                           pass_seed, bounce, no, nd, ntr, nco);
+  const unsigned kinds = shade_bounce_ray(tb, o, d, tr, co, float_as_int(e.x), t, hit,
+                                          pass_seed, bounce, no, nd, ntr, nco);
   store_row4(row, no[0], no[1], no[2], nd[0]);
   store_row4(row + 4, nd[1], nd[2], ntr[0], ntr[1]);
   store_row4(row + 8, ntr[2], nco[0], nco[1], nco[2]);
-  return dielectric;
+  return kinds;
 }
 
 }  // namespace rt

@@ -21,8 +21,10 @@ bounce. Training shades with torch (``wavefront.process_rays``).
 
 Given a ``dielectric`` counter (``utils/metrics``' ``shade.dielectric``),
 both add to it the rows they scattered off a dielectric (a live hit on a
-material of ior > 0), reflected or refracted; the rows are the same with
-and without it.
+material of ior > 0), reflected or refracted; given an ``emissive`` one
+(``shade.emissive``), the rows whose hit material emits (a live hit on a
+material with an emitted component > 0), the rows that add light. The rows
+are the same with and without them.
 """
 
 from __future__ import annotations
@@ -59,23 +61,29 @@ def material_table(scene: Scene) -> torch.Tensor:
 
 
 def plain_shade_bounce(scene: Scene, state, t: torch.Tensor, hit_index: torch.Tensor,
-                       pass_seed, bounce: int, dielectric: torch.Tensor = None):
+                       pass_seed, bounce: int, dielectric: torch.Tensor = None,
+                       emissive: torch.Tensor = None):
     """The kernel's plain PyTorch version on a ``RayState``: the hit record's
-    gathers, then ``wavefront.shade`` with the torch PCG; ``dielectric`` as
-    ``shade_rows``'."""
+    gathers, then ``wavefront.shade`` with the torch PCG; ``dielectric`` and
+    ``emissive`` as ``shade_rows``'."""
     from cuda_raytracer_tpu_torch.render import wavefront
 
     alive = torch.any(state.transmitted != 0.0, dim=-1)
     hit = wavefront.gather_hit(scene, state, alive, t, hit_index)
+    live_hit = alive & (hit_index >= 0)
     if dielectric is not None:
         ior = scene.materials.index_of_refraction.detach()[hit.mat_i]
-        dielectric += (alive & (hit_index >= 0) & (ior > 0)).sum()
+        dielectric += (live_hit & (ior > 0)).sum()
+    if emissive is not None:
+        emitted = scene.materials.emitted.detach()[hit.mat_i]
+        emissive += (live_hit & (emitted > 0).any(dim=-1)).sum()
     return wavefront.shade(scene, state, hit, pass_seed, bounce, plain_draws=True)
 
 
 def plain_shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
                      pass_seed, bounce: int, t_tri: torch.Tensor = None,
-                     tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> None:
+                     tri: torch.Tensor = None, dielectric: torch.Tensor = None,
+                     emissive: torch.Tensor = None) -> None:
     """The kernel's plain PyTorch version on packed rows, in place: the
     packet hit's fold (``packet_intersect._finalize``), then
     ``plain_shade_bounce``."""
@@ -85,13 +93,12 @@ def plain_shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: t
     if t_tri is not None:
         t, index, _ = packet_intersect._finalize(scene, t_tri, tri, None, t, index, n, 1)
     state = plain_shade_bounce(scene, wavefront.unpack_rows(rows), t, index, pass_seed, bounce,
-                               dielectric)
+                               dielectric, emissive)
     rows[:, 0:12] = torch.cat(list(state[:4]), dim=1)
 
 
 def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
-           t_tri: torch.Tensor, tri: torch.Tensor, dielectric: torch.Tensor,
-           pass_seed) -> None:
+           t_tri: torch.Tensor, tri: torch.Tensor, counters, pass_seed) -> None:
     if rows.dtype != torch.float32 or rows.dim() != 2 or rows.shape[1] != 16:
         raise ValueError(f"rows must be (n, 16) float32, got {rows.dtype} {tuple(rows.shape)}")
     if not rows.is_contiguous() or rows.data_ptr() % 16:
@@ -111,9 +118,10 @@ def _check(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tenso
                              f"{x.dtype} {tuple(x.shape)}")
         if x.device != scene.device:
             raise ValueError(f"{name} lies on {x.device}, the scene on {scene.device}")
-    if dielectric is not None and (dielectric.dtype != torch.int64 or dielectric.shape != (1,)
-                                   or dielectric.device != scene.device):
-        raise ValueError("dielectric must be a (1,) int64 tensor on the scene's device")
+    for name, counter in counters.items():
+        if counter is not None and (counter.dtype != torch.int64 or counter.shape != (1,)
+                                    or counter.device != scene.device):
+            raise ValueError(f"{name} must be a (1,) int64 tensor on the scene's device")
     if isinstance(pass_seed, torch.Tensor) and (
             pass_seed.dtype != torch.int32 or pass_seed.shape != (1,)
             or pass_seed.device != scene.device):
@@ -125,7 +133,7 @@ def library() -> build.Built:
     built = build.load("bounce")
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     fn = built.lib.rt_bounce_rows
-    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p, p]
+    fn.argtypes = [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p, p, p]
     fn.restype = ctypes.c_int
     built.lib.rt_error_string.argtypes = [ctypes.c_int]
     built.lib.rt_error_string.restype = ctypes.c_char_p
@@ -134,7 +142,8 @@ def library() -> build.Built:
 
 def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
                 pass_seed, bounce: int, t_tri: torch.Tensor = None,
-                tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> list:
+                tri: torch.Tensor = None, dielectric: torch.Tensor = None,
+                emissive: torch.Tensor = None) -> list:
     """The arguments of ``rt_bounce_rows`` (and of its host build) for one
     call, without the stream. ``pass_seed`` is a number, or a seed word: a
     (1,) int32 tensor on the rows' device holding its low 32 bits, which the
@@ -153,6 +162,7 @@ def kernel_args(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.
         0 if word is not None else int(pass_seed) & 0xFFFFFFFF,
         word.data_ptr() if word is not None else None, int(bounce),
         dielectric.data_ptr() if dielectric is not None else None,
+        emissive.data_ptr() if emissive is not None else None,
     ]
 
 
@@ -167,24 +177,29 @@ def _check_tables(scene: Scene) -> None:
 
 def shade_rows(scene: Scene, rows: torch.Tensor, t: torch.Tensor, index: torch.Tensor,
                pass_seed, bounce: int, t_tri: torch.Tensor = None,
-               tri: torch.Tensor = None, dielectric: torch.Tensor = None) -> None:
+               tri: torch.Tensor = None, dielectric: torch.Tensor = None,
+               emissive: torch.Tensor = None) -> None:
     """Shade the (n, 16) packed rows in place, given each row's sphere hit
     (``t``, -1 on a dead ray; ``index``, -1 on a miss) and, unless None, the
     packet kernel's per-ray triangle hit (``t_tri``, ``tri``: at least n
     values, (T, tile) as the kernel returns them). ``dielectric``, a (1,)
-    int64 tensor, gets the rows scattered off a dielectric added to it.
+    int64 tensor, gets the rows scattered off a dielectric added to it;
+    ``emissive``, another, the rows whose hit material emits.
     ``pass_seed`` may be a seed word on the card (``kernel_args``), as a
     launch captured into a CUDA graph takes it (``render/packed.py``)."""
     global LAUNCHES
-    _check(scene, rows, t, index, t_tri, tri, dielectric, pass_seed)
+    _check(scene, rows, t, index, t_tri, tri,
+           {"dielectric": dielectric, "emissive": emissive}, pass_seed)
     if device_kind(rows, "shade_rows") == "cpu":
-        plain_shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric)
+        plain_shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric,
+                         emissive)
         return
     _check_tables(scene)
     lib = library().lib
     with torch.cuda.device(rows.device):
         err = lib.rt_bounce_rows(
-            *kernel_args(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric),
+            *kernel_args(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric,
+                         emissive),
             torch.cuda.current_stream(rows.device).cuda_stream,
         )
     raise_on_error(lib, err, "bounce")

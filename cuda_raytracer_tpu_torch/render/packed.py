@@ -35,7 +35,8 @@ The records (``utils/metrics``) read the same on both. Each bounce opens an
 it); a segment is issued inside the spans of its first bounce. A bounce
 counts itself (``bounces.packed``), its prefix's rows (``rays.launched``)
 and, on the device, its live rows (``rays.live``; ``rays.live_tail`` in the
-tail) and the rows scattered off a dielectric (``shade.dielectric``); a
+tail), the rows scattered off a dielectric (``shade.dielectric``) and those
+whose hit material emits (``shade.emissive``); a
 sorted bounce's row move on the card counts its rows (``reorder.rows``); a read
 counts ``sync.host`` and the device idle until the next launch
 (``sync.device_idle_s``). A graph's host counters, counted once while
@@ -62,7 +63,7 @@ from cuda_raytracer_tpu_torch.utils import metrics as recording
 
 _NO_SPAN = contextlib.nullcontext()  # the head bounces' stand-in for the rt.tail span
 # The device counters a trace sums its bounces into, in order.
-COUNTED = ("rays.live", "rays.live_tail", "shade.dielectric")
+COUNTED = ("rays.live", "rays.live_tail", "shade.dielectric", "shade.emissive")
 # The kernel modules whose LAUNCHES counters a segment's launches raise.
 _LAUNCHING = (rays_kernel, traverse_kernel, bounce_kernel)
 
@@ -224,7 +225,7 @@ def run_segment(scene: Scene, schedule: BounceSchedule, segment: Segment, buffer
     unsorted; the suspect count over its bounces). ``counters``: those of
     ``COUNTED``, each a (1,) int64 or None; ``copied``: ``packed_bounce``'s,
     taken by the last bounce of a segment that reads."""
-    live, tail, dielectric = counters
+    live, tail, dielectric, emissive = counters
     bounces = len(schedule.sorted)
     settled, count, suspect = segment.settled, None, 0
     for b, n in enumerate(segment.rows, segment.first):
@@ -232,7 +233,7 @@ def run_segment(scene: Scene, schedule: BounceSchedule, segment: Segment, buffer
         do_sort = schedule.sorted[b]
         s, count = wavefront.packed_bounce(
             scene, cur, spare, n, settled, b, do_sort, min(schedule.chunk, n), pass_seed, plain,
-            live, tail if b >= bounces // 2 else None, dielectric,
+            live, tail if b >= bounces // 2 else None, dielectric, emissive,
             copied if segment.reads and b == segment.end - 1 else None)
         suspect = suspect + s
         settled = n if do_sort else max(settled, n)

@@ -766,7 +766,7 @@ def _row_engine(scene: Scene):
 
 def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
                 plain: bool = False, live: torch.Tensor = None, tail: torch.Tensor = None,
-                dielectric: torch.Tensor = None):
+                dielectric: torch.Tensor = None, emissive: torch.Tensor = None):
     """One forward bounce of packed rows, in place → suspect: the set-up
     kernel (alive bit, sphere hit, ray tiles), the closest hit over the
     triangles (the fused / fused1 kernels on the ray tiles, else
@@ -775,7 +775,8 @@ def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
     plain versions (torch) on any device; the closest hit is unchanged.
     ``live``, a (1,) int64 counter, gets the live rows added by the set-up,
     and ``tail``, another, the same; ``dielectric`` gets the rows the bounce
-    kernel scattered off a dielectric. While recording, the rows a packet
+    kernel scattered off a dielectric, ``emissive`` those whose hit material
+    emits. While recording, the rows a packet
     engine takes count as ``hit.rows`` (``triangle_hit`` counts its own)."""
     engine = _row_engine(scene)
     tile = scene.config.packet_tile if engine else 0
@@ -791,14 +792,15 @@ def bounce_rows(scene: Scene, rows: torch.Tensor, pass_seed, bounce: int,
     else:
         t, index, suspect = triangle_hit(scene, rows[:, 0:3], rows[:, 3:6], t, index,
                                          two_round=bounce in TWO_ROUND_BOUNCES)
-    shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric)
+    shade_rows(scene, rows, t, index, pass_seed, bounce, t_tri, tri, dielectric, emissive)
     return suspect
 
 
 def packed_bounce(scene: Scene, cur: torch.Tensor, spare: torch.Tensor, n: int, settled: int,
                   bounce: int, do_sort: bool, chunk: int, pass_seed, plain: bool = False,
                   live: torch.Tensor = None, tail: torch.Tensor = None,
-                  dielectric: torch.Tensor = None, copied=None):
+                  dielectric: torch.Tensor = None, emissive: torch.Tensor = None,
+                  copied=None):
     """One bounce of the packed forward trace on the first ``n`` rows of ``cur`` →
     (suspect, the live rows (1,) int32 on the device, or None unsorted):
     ``bounce_rows`` in place; then, with ``do_sort``, the prefix gathered
@@ -815,7 +817,7 @@ def packed_bounce(scene: Scene, cur: torch.Tensor, spare: torch.Tensor, n: int, 
     suspect, count = 0, None
     for lo in range(0, n, ROW_TILE):
         suspect = suspect + bounce_rows(scene, cur[lo:min(n, lo + ROW_TILE)], pass_seed, bounce,
-                                        plain, live, tail, dielectric)
+                                        plain, live, tail, dielectric, emissive)
     if do_sort:
         with recording.span("rt.reorder"):
             keys, count = sort_keys(scene, cur[:n], chunk)

@@ -24,7 +24,9 @@ point costs that check alone. The loops' records:
   ``device_counter``), ``rays.live_tail`` (those of them entering bounces
   ``bounces // 2`` on, summed the same way), ``shade.dielectric`` (rows the
   bounce kernel scattered off a dielectric, reflected or refracted, summed
-  on the device by that kernel), ``rays.launched`` (rows the bounce kernels
+  on the device by that kernel), ``shade.emissive`` (live rows whose hit
+  material emits, the rows the bounce kernel adds light from, summed the
+  same way), ``rays.launched`` (rows the bounce kernels
   ran over), ``sync.device_idle_s`` (device idle between the event recorded
   before each ``read_live`` and the one recorded at the next launch,
   ``launching``), ``hit.rows`` (rows handed to a triangle closest hit),

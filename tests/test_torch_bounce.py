@@ -66,7 +66,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     p, i, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
     lib.rt_host_bounce_rows.argtypes = (
-        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p])
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p, p])
     lib.rt_host_bounce_rows.restype = ctypes.c_int
     return lib
 

@@ -25,9 +25,16 @@ the same trace with ``packed.applies`` turned off. Held bit for bit:
   block's rows, the rows past the settled ones untouched; and an 8-spp
   torus and a glass block rendered through it, graphed, bit-identical to
   the eager render with the plain version in its place, ``reorder.rows``
-  the settled rows of every sorted bounce.
+  the settled rows of every sorted bounce;
+- the desk lamp (the benchmark's ``desk_lamp`` scene, small, seen from
+  close to its glass bulb) rendered graphed, eager while recording and
+  eager without a recorder, the same framebuffer each way, and its
+  ``shade.emissive`` count the same graphed and eager, equal to a recount
+  of the live rows whose hit material emits made from each eager bounce's
+  hits as the bounce kernel is handed them.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -38,6 +45,8 @@ from cuda_raytracer_tpu_torch.ops.kernels import bounce, rays
 from cuda_raytracer_tpu_torch.ops.kernels import traverse as traverse_kernel
 from cuda_raytracer_tpu_torch.render import packed, pipeline, wavefront
 from cuda_raytracer_tpu_torch.utils import metrics
+
+from test_torch_lamp import CAMERAS, CONFIG, DETAIL, LAMP
 
 pytestmark = pytest.mark.cuda
 
@@ -213,3 +222,39 @@ def test_static_schedule_and_live_bounds(cuda, eager):
     got = _trace(tight, rows, 40), packed.trace_live_bounds(scene, state, 40, 10, True)
     assert torch.equal(got[0][0], want[0][0]) and got[0][1:] == want[0][1:]
     assert got[1] == want[1] and want[0][1] > 0
+
+
+def _lamp(device):
+    """The lamp at detail 0.05 (4,730 triangles) at 160×120 × 20 rays a pixel
+    and 10 bounces, seen from close to its bulb, so paths reach the
+    filament through the glass; the configuration's render settings."""
+    params = dict(CONFIG["scene_params"], detail=DETAIL, camera=CAMERAS["bulb"])
+    text, _ = LAMP.generate(params, np.random.default_rng(3))
+    parsed = scene_dsl.parse_scene_text(text + "image 160 120 20 10 0.1\n", filename="lamp")
+    scene = scene_dsl.assemble_scene(parsed, config_overrides=CONFIG["render"], device=device)
+    assert wavefront.resolved_intersector(scene) == "bvh" and packed.applies(scene)
+    return scene
+
+
+def test_lamp_emissive_count_graphed_and_eager(cuda, eager, monkeypatch):
+    scene = _lamp(cuda)
+    emits = (scene.materials.emitted.detach() > 0).any(dim=1)
+    recount = torch.zeros(1, dtype=torch.int64, device=cuda)
+    kernel = bounce.shade_rows
+
+    def recounted(scene_, rows, t, index, *args, **kwargs):
+        alive = (rows[:, 6:9] != 0).any(dim=1)
+        material = scene_.material_index[index.clamp_min(0).long()].long()
+        recount.add_((alive & (index >= 0) & emits[material]).sum())
+        return kernel(scene_, rows, t, index, *args, **kwargs)
+
+    eager(True)
+    unrecorded = pipeline.render_framebuffer(scene)
+    monkeypatch.setattr(bounce, "shade_rows", recounted)
+    fb, counters, _ = _render(scene)
+    monkeypatch.setattr(bounce, "shade_rows", kernel)
+    eager(False)
+    graphed = _render(scene)
+    assert torch.equal(fb, unrecorded) and torch.equal(graphed[0], unrecorded)
+    assert counters["shade.emissive"] == graphed[1]["shade.emissive"] == int(recount)
+    assert 0 < int(recount) < counters["rays.live"]

@@ -113,7 +113,7 @@ def host(tmp_path_factory):
     lib.rt_host_camera_rows.argtypes = [p, i, i, i, i, u, p]
     lib.rt_host_reorder_rows.argtypes = [p, p, i, i, i, p]
     lib.rt_host_bounce_rows.argtypes = (
-        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p])
+        [p, i, p, p, p, p] + [p, i, p, p, i, i, p, i, p, p, i, i] + [u, p, u, p, p])
     return lib
 
 
