@@ -316,27 +316,30 @@ EXAMPLE_BAR = 0.15  # phase 10d: the example's own bar
 CLI_SPP = 8  # phase 9: one pass (9c renders it through cull + fused, the gated cull's path)
 CLI_GATE = 16  # --cull-hier: clusters per super box
 # The kernels every forward mesh render launches beside its closest hit: the
-# camera rows and the packed trace's set-up, bounce, sort-key and row-move
-# kernels;
+# camera rows and the packed trace's set-up and bounce kernels;
 # and the one it must not: the PCG draws (a graph-building trace's camera,
 # the training shading).
-FORWARD_KERNELS = ("camera_rows", "rays_setup", "shade_rows", "ray_keys", "reorder_rows")
+FORWARD_KERNELS = ("camera_rows", "rays_setup", "shade_rows")
 FORWARD_NOT = ("pcg_draws",)
+# A render that reorders its wavefront (wavefront.reorder_is_useful: the
+# packet engines; never the walk on the card) adds its Morton key kernel and
+# the row move (_reorder_kernels).
+REORDER_KERNELS = ("ray_keys", "reorder_rows")
 # The closest-hit kernels of packet_backend "auto" on the card
 # (packet_intersect.resolve_backend) in a pass of fewer than 10 rays per
 # pixel: cull + fused; a pass of 10 or more takes fused1 (the pass regime,
 # pipeline._regime_scene; _auto_kernels).
 AUTO_KERNELS = ("cull_tiles", "fused_closest_hit")
-FLAT_KERNELS = AUTO_KERNELS + FORWARD_KERNELS
+FLAT_KERNELS = AUTO_KERNELS + FORWARD_KERNELS + REORDER_KERNELS
 # Kernels the 8-spp CLI render must launch (phases 9a, 9b, 12a): "auto" walks
-# the BVH on the card, and no cull option changes that.
+# the BVH on the card, unsorted, and no cull option changes that.
 CLI_KERNELS = ("bvh_walk",) + FORWARD_KERNELS
 # Share of an "auto" (walk) image's bytes within ±1 of the packet images
 # (phase 7): they differ on tie rays alone.
 WALK_IMAGE_SHARE = 0.9999
 # ... and with --cull-hier 16 (cull_hier, phase 9c): the gated cull in one
 # launch a cull, no flat cull (not even of the super boxes).
-GATED_KERNELS = ("cull_gated", "fused_closest_hit") + FORWARD_KERNELS
+GATED_KERNELS = ("cull_gated", "fused_closest_hit") + FORWARD_KERNELS + REORDER_KERNELS
 CPU_GATE = 0.999  # phase 9e: share of image bytes within 1 of the CPU render
 # Phase 10a: a pair-range count of the sweep whose ranges cut tiles' runs of
 # pairs (the tile-major list has a few pairs a tile).
@@ -751,7 +754,7 @@ def _next_state(scene, state, seed: int, b: int):
 def _bounce_vs_plain(scene, state, seed: int, bounces: int, label: str) -> float:
     """The bounce kernel against its plain version on ``state`` entering
     bounces 0..bounces-1 (the same closest hit for both), the kernel's
-    output carried on and Morton-sorted as a render does; fails below the
+    output carried on and reordered where a render reorders; fails below the
     gate → the worst |Δ|."""
     import torch
     from cuda_raytracer_tpu_torch.ops.kernels import bounce
@@ -823,15 +826,32 @@ def _timed_framebuffer(scene):
     return framebuffer, pipeline.render_image(scene, framebuffer=framebuffer), seconds
 
 
+def _reorder_kernels(scene) -> tuple:
+    """The kernels a forward render of ``scene`` reorders its wavefront
+    with: its key kernel and the row move where its schedule sorts
+    (``wavefront.reorder_is_useful``), else none."""
+    from cuda_raytracer_tpu_torch.render import wavefront
+
+    if not (scene.config.sort_rays and wavefront.reorder_is_useful(scene)):
+        return ()
+    key = "cullhit_keys" if wavefront.sort_key_mode(scene) == "cullhit" else "ray_keys"
+    return (key, "reorder_rows")
+
+
 def _turns(turns, must: dict, must_not: dict, phase: str, tag: str) -> list:
     """Render each (label, scene) in order, launch counts set to 0 just
     before each and read just after → [(label, framebuffer, image, seconds,
-    counts)]. A render must launch the kernels of ``must[label]`` and none of
-    ``must_not[label]``, and give a finite framebuffer and a sane image."""
+    counts)]. A render must launch the kernels of ``must[label]`` and its
+    reorder's (``_reorder_kernels``), none of ``must_not[label]`` and no
+    reorder kernel besides, and give a finite framebuffer and a sane image."""
     import torch
 
     out = []
     for turn, (label, scene) in enumerate(turns):
+        reorder = _reorder_kernels(scene)
+        need = must[label] + reorder
+        banned = must_not[label] + tuple(
+            k for k in ("cullhit_keys",) + REORDER_KERNELS if k not in reorder)
         _zero_launch_counts()
         framebuffer, image, secs = _timed_framebuffer(scene)
         counts = _launch_counts()
@@ -842,8 +862,7 @@ def _turns(turns, must: dict, must_not: dict, phase: str, tag: str) -> list:
               f"spp={scene.config.rays_per_pixel} bounces={scene.config.bounces} turn={turn} "
               f"{label} seconds={secs:.4f} Mrays/s={rays / secs / 1e6:.2f} "
               f"launches={json.dumps(counts)} finite={finite} mean_display={mean:.2f}")
-        ok = all(counts[k] > 0 for k in must[label]) and all(
-            counts[k] == 0 for k in must_not[label])
+        ok = all(counts[k] > 0 for k in need) and all(counts[k] == 0 for k in banned)
         if not (ok and finite and 20.0 <= mean <= 235.0):
             raise SystemExit(f"phase {phase} failed: {label} render, turn {turn}")
         out.append((label, framebuffer, image, secs, counts))
@@ -918,8 +937,8 @@ def phase_mesh_main_path(full) -> tuple:
         # first fused1 turn for fused1, and the 8-spp cull + fused turn.
         if spp == MESH_FULL_SPP:
             reference = fbs[0]  # phase 11c's reference: the fused1 render
-            launches.update({k: counts[-1][k]
-                             for k in ("bvh_walk",) + FORWARD_KERNELS + FORWARD_NOT})
+            launches.update({k: counts[-1][k] for k in ("bvh_walk",) + FORWARD_KERNELS
+                             + REORDER_KERNELS + FORWARD_NOT})
             launches["fused1_closest_hit"] = counts[0]["fused1_closest_hit"]
         else:
             launches.update({k: counts[1][k] for k in AUTO_KERNELS})
@@ -3441,7 +3460,8 @@ def main() -> int:
             ("camera_rows", "cuda_raytracer_tpu/ops/camera.py:33",
              mesh_launches["camera_rows"]),
             # JAX reorder_rays' gather of the packed state (packed[order]);
-            # the 100-spp "auto" render's sorted bounces.
+            # the 100-spp "auto" render's sorted bounces (none: the walk on
+            # the card is not reordered).
             ("reorder_rows", "cuda_raytracer_tpu/render/wavefront.py:754",
              mesh_launches["reorder_rows"]),
             # The torch shading's five draws a bounce and a graph-building

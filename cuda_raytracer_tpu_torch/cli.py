@@ -43,7 +43,9 @@ def build_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("scene", help="scene description file (.scene DSL)")
     parser.add_argument("flags", nargs="*",
-                        help="reference-compatible flags: " + " ".join(FLAGS))
+                        help="reference-compatible flags: " + " ".join(FLAGS) + " (no_sort: "
+                        "no reorder between bounces; the BVH walk on a CUDA device never "
+                        "reorders, so it matters only to the packet engines and the CPU)")
     parser.add_argument("--out", default="raytracing.png", help="output PNG path")
     parser.add_argument("--width", type=int, help="override image width")
     parser.add_argument("--height", type=int, help="override image height")
@@ -59,10 +61,10 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--metrics", action="store_true",
                         help="emit a JSON metrics line to stderr: phases (the render "
                              "loops' rt.* spans among them, rt.tail too), counters "
-                             "(sync.host, rays.live, rays.live_tail, rays.launched, "
-                             "shade.dielectric, shade.emissive, sync.device_idle_s, "
-                             "bounces.packed, bounces.graphed, graph.captures, "
-                             "reorder.rows and the kernel launches) and series")
+                             "(sync.host, bounces.sorted, rays.live, rays.live_tail, "
+                             "rays.launched, shade.dielectric, shade.emissive, "
+                             "sync.device_idle_s, bounces.packed, bounces.graphed, "
+                             "graph.captures, reorder.rows and the kernel launches) and series")
     # The packet intersector's knobs. A mesh on a CUDA device walks the BVH
     # instead (wavefront.resolve_intersector), and there they do nothing.
     parser.add_argument("--packet-skip", action="store_true",

@@ -8,9 +8,12 @@ is ``wavefront.packed_bounce`` on its prefix of the rows, as the trace's
 trace that builds a graph, follows too, with the same bits.
 
 The live count is read back after each sorted bounce of a compact schedule,
-the host's one sync: the next bounce's prefix depends on it. The reads cut
-a trace into segments, and what a segment enqueues is fixed by host values
-known before the trace starts: the schedule, the segment's first bounce,
+the host's one sync: the next bounce's prefix depends on it. The walk on a
+CUDA device sorts nothing (``wavefront.reorder_is_useful``), so there a
+block is one segment and reads nothing; the CPU's walk and the packet
+engines keep the reorder and its reads. The reads cut a trace into
+segments, and what a segment enqueues is fixed by host values known before
+the trace starts: the schedule, the segment's first bounce,
 its prefix rows and the rows the buffer pair shares (``settled``).
 ``segment_plan`` lists every segment a schedule can need, whatever its live
 counts; ``run_segment`` issues one. Two executors run them, with one
@@ -33,8 +36,9 @@ interface (``start``, ``run``, ``finish``):
 The records (``utils/metrics``) read the same on both. Each bounce opens an
 ``rt.bounce`` span (and from ``bounces // 2`` on an ``rt.tail`` span inside
 it); a segment is issued inside the spans of its first bounce. A bounce
-counts itself (``bounces.packed``), its prefix's rows (``rays.launched``)
-and, on the device, its live rows (``rays.live``; ``rays.live_tail`` in the
+counts itself (``bounces.packed``; ``bounces.sorted`` too where the rows
+are reordered after it), its prefix's rows (``rays.launched``) and, on the
+device, its live rows (``rays.live``; ``rays.live_tail`` in the
 tail), the rows scattered off a dielectric (``shade.dielectric``) and those
 whose hit material emits (``shade.emissive``); a
 sorted bounce's row move on the card counts its rows (``reorder.rows``); a read

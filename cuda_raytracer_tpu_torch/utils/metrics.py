@@ -31,8 +31,9 @@ point costs that check alone. The loops' records:
   before each ``read_live`` and the one recorded at the next launch,
   ``launching``), ``hit.rows`` (rows handed to a triangle closest hit),
   ``hit.walk_rows`` (those of them the BVH walk took), ``bounces.packed``
-  (bounces of the packed forward trace), ``bounces.graphed`` (those of them
-  run inside a CUDA graph's replay, ``render/packed.py``),
+  (bounces of the packed forward trace), ``bounces.sorted`` (bounces after
+  which the wavefront was reordered, in either trace), ``bounces.graphed``
+  (those of them run inside a CUDA graph's replay, ``render/packed.py``),
   ``graph.captures`` (graphs captured) and ``reorder.rows`` (rows the
   reorder's row move kernel wrote, ``rays.reorder_rows``: the sorted prefix
   and the settled suffix of each sorted bounce on the card).

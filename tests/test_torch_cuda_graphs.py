@@ -8,8 +8,14 @@ which has no JAX, run them without the suite's JAX conftest:
 The small torus and glass torus (768 triangles: "auto" walks the BVH on the
 card) at 160×120 × 20 rays a pixel, 10 bounces: a pass of 384,000 rays is a
 full block of 262,140 rays and a last block of 121,860. The eager loop is
-the same trace with ``packed.applies`` turned off. Held bit for bit:
+the same trace with ``packed.applies`` turned off. The walk on the card
+reorders nothing by default, so a block is one segment with no read; the
+tests of the graphs' segments, reads and row moves give it the sorted
+schedule it has on the CPU (``sorted_walk``). Held bit for bit:
 
+- the default render of the torus (no reorder): one replay a block, no
+  read, no key or row-move launch, the framebuffer of the sorted schedule
+  and the eager loop's framebuffer and records;
 - ``trace_packed`` graphed (capturing on its first call, then replaying),
   at a full block, at the pass's last block and at a full block whose rows
   are all dead but one in 64 (its live prefix falls to R / 64), at two pass
@@ -63,6 +69,13 @@ def cuda():
 
 
 @pytest.fixture
+def sorted_walk(monkeypatch):
+    """The walk's schedules sorted as on the CPU: reordered after each of
+    the first five bounces, the live count read after each."""
+    monkeypatch.setattr(wavefront, "reorder_is_useful", lambda scene: True)
+
+
+@pytest.fixture
 def eager(monkeypatch):
     """``eager(True)`` turns the graphs off, ``eager(False)`` back on."""
     applies = packed.applies
@@ -99,7 +112,7 @@ def _trace(scene, rows, seed):
 
 @pytest.mark.parametrize("name", ["torus", "glass_torus"])
 @pytest.mark.parametrize("case", ["full", "last", "sparse"])
-def test_trace_packed_graphed_is_the_eager_trace(cuda, eager, name, case):
+def test_trace_packed_graphed_is_the_eager_trace(cuda, eager, sorted_walk, name, case):
     scene = _scene(cuda, name)
     for seed in (60, 2**31 + 5):
         rows = _block_rows(scene, case, seed)
@@ -131,7 +144,7 @@ def _render(scene):
 
 
 @pytest.mark.parametrize("name", ["torus", "glass_torus"])
-def test_render_graphed_is_the_eager_render(cuda, eager, name):
+def test_render_graphed_is_the_eager_render(cuda, eager, sorted_walk, name):
     scene = _scene(cuda, name)
     other = scene.with_config(rays_per_pixel=40)  # passes at seeds 20 and 0
     eager(True)
@@ -150,6 +163,39 @@ def test_render_graphed_is_the_eager_render(cuda, eager, name):
         if got is not first:
             assert "graph.captures" not in got[1] and got[2] == launched
     assert (want[scene][1]["shade.dielectric"] > 0) == (name == "glass_torus")
+
+
+def test_default_walk_replays_once_a_block_and_reads_nothing(cuda, eager, monkeypatch):
+    """The torus at 20 rays a pixel (blocks of 262,140 and 121,860 rays),
+    graphed, against the eager loop and against the sorted schedule."""
+    scene = _scene(cuda)
+    replays = []
+    run = packed.BlockGraphs.run
+
+    def counted(block, segment):
+        replays.append(segment)
+        return run(block, segment)
+
+    monkeypatch.setattr(packed.BlockGraphs, "run", counted)
+    fb, counters, launched = _render(scene)
+    assert [s.rows for s in replays] == [(FULL,) * 10, (LAST,) * 10]
+    assert counters.get("sync.host", 0) == 0 and counters["bounces.sorted"] == 0
+    assert counters["bounces.graphed"] == counters["bounces.packed"] == 20
+    assert counters["rays.launched"] == 10 * (FULL + LAST) and "reorder.rows" not in counters
+    assert launched[1] == launched[3] == 0  # no key kernel, no row move
+    eager(True)
+    eager_fb, eager_counters, _ = _render(scene)
+    eager(False)
+    assert torch.equal(eager_fb, fb)
+    assert ({k: v for k, v in eager_counters.items() if k not in GRAPH_ONLY}
+            == {k: v for k, v in counters.items() if k not in GRAPH_ONLY})
+    monkeypatch.setattr(wavefront, "reorder_is_useful", lambda sc: True)
+    sorted_fb, sorted_counters, sorted_launched = _render(scene)
+    assert torch.equal(sorted_fb, fb)
+    assert sorted_counters["bounces.sorted"] == sorted_counters["sync.host"] == 10
+    assert sorted_counters["rays.live"] == counters["rays.live"]
+    assert sorted_launched[1] == sorted_launched[3] == 10
+    assert len(replays) == 2 + 2 * 6  # a segment a read, and the tail
 
 
 def settled_rows(scene, R: int, bounces: int, bounds) -> int:
@@ -188,7 +234,7 @@ def test_reorder_rows_is_index_select(cuda, index):
 
 @pytest.mark.parametrize("name", ["torus", "glass_torus"])
 def test_render_through_the_row_move_is_the_index_select_render(cuda, eager, monkeypatch,
-                                                                  name):
+                                                                  sorted_walk, name):
     """One 153,600-ray block of 8 spp a pixel, graphed and eager with the
     row move's plain version; then the block's trace on its own, the
     counter against the live bounds."""
@@ -210,7 +256,7 @@ def test_render_through_the_row_move_is_the_index_select_render(cuda, eager, mon
     assert m.resolve().counters["reorder.rows"] == settled_rows(scene, R, 10, bounds)
 
 
-def test_static_schedule_and_live_bounds(cuda, eager):
+def test_static_schedule_and_live_bounds(cuda, eager, sorted_walk):
     scene = _scene(cuda, "glass_torus")
     rows = _block_rows(scene, "full", 40)
     tight = scene.with_config(live_schedule=(1, 4, 16, 64))

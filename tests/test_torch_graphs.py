@@ -80,10 +80,10 @@ def test_segment_plan_without_reads_is_one_segment(sorted_bounces, compact):
         assert plan == {(0, 300, 300): packed.Segment(0, (300,) * 10, 300, False)}
 
 
-def _stub(device, intersector, triangles=770):
+def _stub(device, intersector, triangles=770, **config):
     return types.SimpleNamespace(
         device=torch.device(device), triangle_count=triangles, bvh_node_count=9,
-        config=types.SimpleNamespace(intersector=intersector))
+        config=types.SimpleNamespace(intersector=intersector, **config))
 
 
 @pytest.mark.parametrize("device,intersector,triangles,plain,want", [
@@ -92,6 +92,25 @@ def _stub(device, intersector, triangles=770):
     ("cuda", "auto", 500, False, False), ("cpu", "bvh", 770, False, False)])
 def test_applies_to_the_walk_on_the_card(device, intersector, triangles, plain, want):
     assert packed.applies(_stub(device, intersector, triangles), plain) == want
+
+
+@pytest.mark.parametrize("triangles", [500, 770])
+@pytest.mark.parametrize("intersector", ["auto", "bvh", "packet"])
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+def test_the_walk_on_the_card_is_never_reordered(device, intersector, triangles):
+    """A 256-row trace of 10 bounces: the first 5 sorted and compacted
+    wherever the reorder was useful before, save the walk on the card."""
+    sc = _stub(device, intersector, triangles, sort_depth=5, packet_tile=8,
+               live_schedule=(1, 2, 4))
+    mode = wavefront.resolved_intersector(sc)
+    useful = mode != "brute" and not (mode == "bvh" and device == "cuda")
+    assert wavefront.reorder_is_useful(sc) == useful
+    assert useful == (mode == "packet" or (mode, device) == ("bvh", "cpu"))
+    schedule = wavefront.bounce_schedule(sc, 256, 10, True)
+    assert schedule.sorted == tuple(useful and b < 5 for b in range(10))
+    assert schedule.compact == useful and (schedule.static_rows is not None) == useful
+    assert wavefront.wavefront_ordered(sc, 256, 10, True) == (not useful)
+    assert not any(wavefront.bounce_schedule(sc, 256, 10, False).sorted)
 
 
 class _Stream:

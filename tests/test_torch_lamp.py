@@ -168,6 +168,27 @@ def test_emissive_counter_matches_the_plain_path(name):
     assert (want > 0) == (name == "desk_lamp") and want < counters["rays.live"]
 
 
+@pytest.mark.parametrize("name", ["glass_torus", "desk_lamp"])
+def test_walk_renders_the_same_bits_sorted_and_unsorted(name):
+    """The walk with and without the reorder (its sort, live-prefix
+    compaction and unsort), as the card runs it unsorted: the same
+    framebuffer, and the same live rows, dielectric and emissive rows."""
+    scene = _small(name).with_config(intersector="bvh")
+    got = {}
+    for sort_rays in (True, False):
+        recorded = metrics.Metrics()
+        fb = pipeline.render_framebuffer(scene.with_config(sort_rays=sort_rays),
+                                         metrics=recorded)
+        got[sort_rays] = fb, recorded.resolve().counters
+    (fb, counters), (unsorted_fb, unsorted) = got[True], got[False]
+    assert torch.equal(unsorted_fb, fb) and fb.abs().sum() > 0
+    assert counters["bounces.sorted"] == 5 and unsorted["bounces.sorted"] == 0
+    assert "sync.host" not in unsorted and counters["sync.host"] == 5
+    for name in ("rays.live", "shade.dielectric", "shade.emissive"):
+        assert unsorted[name] == counters[name]
+    assert unsorted["rays.launched"] == BOUNCES * W * H * SPP >= counters["rays.launched"]
+
+
 @pytest.fixture(scope="module")
 def host_lib(tmp_path_factory):
     cxx = shutil.which("g++") or shutil.which("c++")
