@@ -62,9 +62,10 @@ def build_parser() -> argparse.ArgumentParser:
                         help="emit a JSON metrics line to stderr: phases (the render "
                              "loops' rt.* spans among them, rt.tail too), counters "
                              "(sync.host, bounces.sorted, rays.live, rays.live_tail, "
-                             "rays.launched, shade.dielectric, shade.emissive, "
-                             "sync.device_idle_s, bounces.packed, bounces.graphed, "
-                             "graph.captures, reorder.rows and the kernel launches) and series")
+                             "rays.launched, hit.sphere_tests, shade.dielectric, "
+                             "shade.emissive, sync.device_idle_s, bounces.packed, "
+                             "bounces.graphed, graph.captures, reorder.rows and the kernel "
+                             "launches) and series")
     # The packet intersector's knobs. A mesh on a CUDA device walks the BVH
     # instead (wavefront.resolve_intersector), and there they do nothing.
     parser.add_argument("--packet-skip", action="store_true",

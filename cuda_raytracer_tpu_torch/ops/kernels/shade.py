@@ -51,7 +51,12 @@ def megakernel_eligible(scene: Scene, reparam: bool = False) -> bool:
     """True when shade_trace can trace this scene: brute triangle path,
     constant sky, table-sized counts, forward rendering. With
     ``shade_engine="auto"`` the kernel is used on a CUDA device only; on the
-    CPU the wavefront path runs."""
+    CPU the wavefront path runs. A brute scene it cannot take (more than
+    MAX_SPHERES spheres, MAX_TRIS triangles or MAX_MATS materials, or a sky
+    map) runs the wavefront's brute path on the card too: per bounce the
+    set-up kernel (``rays.rays_setup``), whose loop over every sphere row is
+    the closest hit, then the bounce kernel, every bounce on all the block's
+    rows."""
     engine = scene.config.shade_engine
     if engine not in SHADE_ENGINES:
         raise ValueError(

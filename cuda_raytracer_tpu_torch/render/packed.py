@@ -40,7 +40,9 @@ counts itself (``bounces.packed``; ``bounces.sorted`` too where the rows
 are reordered after it), its prefix's rows (``rays.launched``) and, on the
 device, its live rows (``rays.live``; ``rays.live_tail`` in the
 tail), the rows scattered off a dielectric (``shade.dielectric``) and those
-whose hit material emits (``shade.emissive``); a
+whose hit material emits (``shade.emissive``), into counts of the trace's
+own that its end folds into the recorder's with the live rows' tests of the
+scene's spheres (``hit.sphere_tests``, ``fold_counts``); a
 sorted bounce's row move on the card counts its rows (``reorder.rows``); a read
 counts ``sync.host`` and the device idle until the next launch
 (``sync.device_idle_s``). A graph's host counters, counted once while
@@ -244,9 +246,27 @@ def run_segment(scene: Scene, schedule: BounceSchedule, segment: Segment, buffer
     return count, suspect
 
 
+def fold_counts(counts: Optional[torch.Tensor], spheres: int) -> None:
+    """A trace's device counts (one int64 a name of ``COUNTED``) into the
+    recorder's, and its live rows times the scene's ``spheres`` into
+    ``hit.sphere_tests``: the ray-sphere tests its closest hit needs."""
+    rec = recording.recorder()
+    if rec is None or counts is None:
+        return
+    for i, name in enumerate(COUNTED):
+        rec.device_counter(name, counts).add_(counts[i:i + 1])
+    if spheres:
+        rec.device_counter("hit.sphere_tests", counts).add_(counts[0:1], alpha=spheres)
+
+
+def _counters(counts: Optional[torch.Tensor]) -> tuple:
+    """``run_segment``'s counters: views of ``counts``, or None each."""
+    return tuple(None if counts is None else counts[i:i + 1] for i in range(len(COUNTED)))
+
+
 class Eager:
-    """A trace's segments issued as they come, into the recorder's device
-    counters."""
+    """A trace's segments issued as they come; while recording, into device
+    counts of its own, which ``finish`` folds into the recorder's."""
 
     buffers = (None, None)  # the caller's rows and a buffer of its own, once started
     copied = None  # the live count is read from the device
@@ -258,14 +278,16 @@ class Eager:
     def start(self, rows: torch.Tensor, pass_seed) -> None:
         self.buffers = (rows, torch.empty_like(rows) if any(self.schedule.sorted) else None)
         self.seed = pass_seed
-        self.counters = tuple(recording.device_counter(name, rows) for name in COUNTED)
+        self.counts = (None if recording.recorder() is None else
+                       torch.zeros(len(COUNTED), dtype=torch.int64, device=rows.device))
+        self.counters = _counters(self.counts)
 
     def run(self, segment: Segment):
         return run_segment(self.scene, self.schedule, segment, self.buffers, self.seed,
                            self.counters, self.plain)
 
     def finish(self) -> None:
-        pass
+        fold_counts(self.counts, self.scene.sphere_count)
 
 
 def applies(scene: Scene, plain: bool = False) -> bool:
@@ -330,7 +352,8 @@ class BlockGraphs:
                                          dtype=torch.float32, device=device)
                              for _ in range(pair)) + (None,) * (2 - pair)
         self.counts = torch.zeros(len(COUNTED), dtype=torch.int64, device=device)
-        self.counters = tuple(self.counts[i:i + 1] for i in range(len(COUNTED)))
+        self.counters = _counters(self.counts)
+        self.spheres = scene.sphere_count
         self.seed = torch.zeros(1, dtype=torch.int32, device=device)
         self.seed_value = None
         # The live count's host copy and the event a segment records once it
@@ -410,7 +433,4 @@ class BlockGraphs:
 
     def finish(self) -> None:
         """After a block's last replay: its device counts into the recorder's."""
-        rec = recording.recorder()
-        if rec is not None:
-            for name, count in zip(COUNTED, self.counters):
-                rec.device_counter(name, count).add_(count)
+        fold_counts(self.counts, self.spheres)

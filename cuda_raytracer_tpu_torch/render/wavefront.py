@@ -539,7 +539,13 @@ def resolve_intersector(mode: str, triangle_count: int, bvh_node_count: int,
     both (at 100: 1.31–1.63 s against 1.88–3.41). BRUTE_MAX_TRIANGLES is the JAX
     package's cut-off; on the card it was timed against the walk only at 450
     triangles under a sky map (no megakernel: the wavefront's brute path),
-    where brute took 87.8 s and the walk 1.58 (PERF.md §7)."""
+    where brute took 87.8 s and the walk 1.58 (PERF.md §7). A brute scene
+    traces through the shade megakernel on the card where its tables hold it
+    (``shade.megakernel_eligible``: at most 32 spheres, 128 triangles and 16
+    materials, a constant sky); any other, such as a sphere scene beyond
+    those tables or under a sky map, runs the wavefront's brute path, whose
+    closest hit is the set-up kernel's loop over every sphere row
+    (``rays.rays_setup``) and, with triangles, the brute tile here."""
     if mode not in ("auto", "brute", "packet", "bvh"):
         raise ValueError(
             f"unknown intersector {mode!r}; expected auto | brute | packet | bvh"

@@ -27,7 +27,10 @@ point costs that check alone. The loops' records:
   on the device by that kernel), ``shade.emissive`` (live rows whose hit
   material emits, the rows the bounce kernel adds light from, summed the
   same way), ``rays.launched`` (rows the bounce kernels
-  ran over), ``sync.device_idle_s`` (device idle between the event recorded
+  ran over), ``hit.sphere_tests`` (ray-sphere tests the closest hit needs:
+  ``rays.live`` times the scene's spheres, folded in with it after each
+  packed trace; the set-up kernel tests dead rows and padding rows too),
+  ``sync.device_idle_s`` (device idle between the event recorded
   before each ``read_live`` and the one recorded at the next launch,
   ``launching``), ``hit.rows`` (rows handed to a triangle closest hit),
   ``hit.walk_rows`` (those of them the BVH walk took), ``bounces.packed``
